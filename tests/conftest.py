@@ -58,6 +58,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running suites (the recall-under-drift regression); "
         "deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); skips without "
+        "one; select with -m gpu")
     if SANITIZE:
         _install_sanitizer()
 
