@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # the full-size run, one card
-    python3 chip_smoke.py --n 100000 --grains 128   # a shorter rehearsal
+    python3 chip_smoke.py --n 100000 --grains 128 --kv-tokens 65536
+                                     # a shorter rehearsal
 
 What it does, in order (any failure exits non-zero before the last line):
 
@@ -16,7 +17,11 @@ What it does, in order (any failure exits non-zero before the last line):
    sketch on and off, tenants, ragged probes, ragged cap and width, Q=1,
    k=1, a fully pruned pool, a main-path-shaped input, and inputs that
    fill the kernel's candidate buffer again and again (width up to the
-   kernel's limit, every slot live, every slot entering the pool);
+   kernel's limit, every slot live, every slot entering the pool); then
+   ``hntl_scan`` and ``hntl_scan_single`` against theirs (``torch.equal``)
+   over the JAX package's kernel sweep, int32 extremes and wraparound,
+   all-invalid panels, the int8 sketch panels, caps off 128, and the
+   shapes of the gather plane and of HNTL-KV decode;
 4. main path: the paper's width (d=768, k=32, s=8, B=128) with G=1024
    grains over the 1M-vector ``anisotropic_manifold`` corpus: the build
    with seconds per phase, index bytes and peak device memory; then 1024
@@ -25,11 +30,30 @@ What it does, in order (any failure exits non-zero before the last line):
    and read just after; the ids must equal the "fused_ref" plane's on the
    same index; recall@10 against ``flat_search``; search time per batch
    and QPS on a host clock around work that ends in a synchronise;
-5. kernel time at the main path's shape (CUDA events, after warm-up)
-   beside its plain version's time and the bound computed from the inputs;
-6. a ``torch.profiler`` breakdown of one Mode A and one Mode B search:
+5. the "kernel" gather plane on the same index and queries: Mode A and
+   Mode B through ``hntl_scan_single`` (counters zeroed just before, read
+   just after), ids and dists ``torch.equal`` to the "ref" plane's,
+   recall@10 and search time;
+6. ``ops.scan_batched`` on the same index: 128 queries projected and
+   quantized into every grain's frame, an exhaustive [G, 128, cap] scan
+   through ``hntl_scan`` (coordinates and sketch), equal to its plain
+   version;
+7. kernel times at the main path's shapes (CUDA events, after warm-up)
+   beside the plain versions' times and the bounds computed from the
+   inputs;
+8. HNTL-KV decode at phi3-mini-3.8b's attention width (32 query and 32 KV
+   heads, head_dim 96, kt=16, cap=4096, nprobe=8, pool=128, tail=1024)
+   over a 524,288-token bf16 context of clustered keys made on the card:
+   the index build, then 8 ``retrieval_decode_attention`` steps, each held
+   against exact attention over the whole cache
+   (``reference_decode_attention``), against the same step through the
+   plain scan (``torch.equal``) and against exact attention over the
+   retrieved tokens in float64; step times, tokens touched and the
+   kernel's launches;
+9. ``torch.profiler`` breakdowns of one Mode A and one Mode B search, of
+   one search on the "kernel" gather plane and of one HNTL-KV step:
    device time by kernel and the device's busy share;
-7. the kernel table as one JSON line, then, as the last line,
+10. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -55,6 +79,13 @@ CUDA_CORE_OPS_PER_S = 67e12
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def sync(torch, dev):
+    """Wait for the device's queued work (nothing to wait for on the CPU,
+    where the phases can be rehearsed)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def check(cond, msg):
@@ -88,6 +119,28 @@ def device_phase(torch):
     return name, count, smi[0]
 
 
+#: Template arguments in the kernels' mangled names.
+_MANGLED_TYPES = {"IsE": "int16", "IaE": "int8"}
+
+
+def kernel_label(line):
+    """A readable name for a ptxas "Compiling entry function" line."""
+    for name in ("fused_scan_select_kernel", "hntl_scan_single_kernel",
+                 "hntl_scan_kernel"):
+        if name not in line:
+            continue
+        tail = line.split(name, 1)[1]
+        if name == "fused_scan_select_kernel":
+            # template flags of fused_scan_select_kernel<sketch, tenant>
+            flags = tail.split("ILb")[-1].split("EEEv")[0].split("ELb")
+            return name + " " + ", ".join(
+                f"{k}={v}" for k, v in zip(("sketch", "tenant"), flags))
+        coord = next((t for m, t in _MANGLED_TYPES.items()
+                      if tail.startswith(m)), "?")
+        return f"{name}<{coord}>"
+    return line
+
+
 def build_phase():
     from repro_torch.kernels import _build
 
@@ -101,10 +154,7 @@ def build_phase():
         for line in b.ptxas.splitlines():
             line = line.split("ptxas info    :")[-1].strip()
             if line.startswith("Compiling entry"):
-                # template flags of fused_scan_select_kernel<sketch, tenant>
-                flags = line.split("ILb")[-1].split("EEEv")[0].split("ELb")
-                log("    ptxas: kernel " + ", ".join(
-                    f"{k}={v}" for k, v in zip(("sketch", "tenant"), flags)))
+                log("    ptxas: kernel " + kernel_label(line))
             elif "registers" in line or "spill" in line:
                 log("    ptxas:", line)
     return built
@@ -180,6 +230,79 @@ def kernel_phase(torch, dev):
     log("kernels: fused_scan_select (held against fused_scan_select_ref, "
         f"torch.equal on dists and rows, {len(errs)} cases)")
     return max(errs)
+
+
+def scan_cases(sc, np):
+    """(label, form, inputs) of every case the scan kernels are held to."""
+    cases = []
+    for i, (p, q, k, cap) in enumerate(sc.SWEEP):
+        cases.append((f"sweep P={p} Q={q} k={k} cap={cap}", "batched",
+                      sc.panels(i, p=p, q=q, k=k, cap=cap)))
+        cases.append((f"sweep pairs P={p * q} k={k} cap={cap}", "single",
+                      sc.single(sc.panels(i, p=p * q, q=1, k=k, cap=cap))))
+    for i, (p, k, cap) in enumerate(sc.SINGLE_SWEEP):
+        cases.append((f"single sweep P={p} k={k} cap={cap}", "single",
+                      sc.single(sc.panels(10 + i, p=p, q=1, k=k, cap=cap))))
+    ext = sc.extremes(p=2, q=3, k=32, cap=200)
+    wrap = dict(p=3, q=5, k=16, cap=333, zq_range=2 ** 31 - 1)
+    int8 = dict(p=3, q=130, k=8, cap=333, coord_range=128,
+                coord_dtype=np.int8)
+    cases += [
+        ("int32 extremes k=32", "batched", ext),
+        ("int32 extremes k=32", "single", sc.single(sc.extremes(
+            p=4, q=1, k=32, cap=200))),
+        ("int32 wraparound", "batched", sc.panels(20, **wrap)),
+        ("int32 wraparound", "single", sc.single(sc.panels(
+            21, **{**wrap, "q": 1}))),
+        ("all invalid", "batched", sc.panels(22, p=2, q=9, k=16, cap=256,
+                                             valid_frac=0.0)),
+        ("all invalid", "single", sc.single(sc.panels(
+            23, p=5, q=1, k=16, cap=256, valid_frac=0.0))),
+        ("int8 sketch panels s=8", "batched", sc.panels(24, **int8)),
+        ("int8 sketch panels s=8", "single", sc.single(sc.panels(
+            25, **{**int8, "p": 4096, "q": 1, "cap": 1664}))),
+        ("HNTL-KV shape P=256 k=16 cap=4096", "single", sc.single(
+            sc.panels(26, p=256, q=1, k=16, cap=4096, valid_frac=1.0))),
+        ("gather-plane shape P=4096 k=32 cap=1664", "single", sc.single(
+            sc.panels(27, p=4096, q=1, k=32, cap=1664, coord_range=4000))),
+        ("main-path-like P=64 Q=128 k=32 cap=1664", "batched", sc.panels(
+            28, p=64, q=128, k=32, cap=1664, coord_range=4000)),
+    ]
+    return cases
+
+
+def scan_kernel_phase(torch, np, dev):
+    """Both scan kernels against their plain versions, torch.equal.
+    Returns the largest absolute difference seen per form."""
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scan_cases as sc
+
+    fns = {"batched": (hs.hntl_scan, ref.hntl_scan_ref),
+           "single": (hs.hntl_scan_single, ref.hntl_scan_single_ref)}
+    n = {"batched": 0, "single": 0}
+    err = {"batched": 0.0, "single": 0.0}
+    for label, form, a in scan_cases(sc, np):
+        args = sc.args(a, lambda v: torch.from_numpy(v).to(dev))
+        kern, plain = fns[form]
+        before = kern.launches
+        d = kern(*args)
+        rd = plain(*args)
+        sync(torch, dev)
+        if dev.type == "cuda":
+            check(kern.launches == before + 1, f"{form} {label}: not "
+                  "launched")
+        err[form] = max(err[form],
+                        float((d.double() - rd.double()).abs().max()))
+        check(torch.equal(d, rd), f"{form} {label}: kernel differs from "
+              f"the plain version in {int((d != rd).sum())} entries")
+        n[form] += 1
+        log(f"  kernel == plain: {kern.__name__} {label} ({args[2].dtype}) "
+            "ok")
+    log(f"kernels: hntl_scan ({n['batched']} cases) and hntl_scan_single "
+        f"({n['single']} cases) held against hntl_scan_ref / "
+        "hntl_scan_single_ref, torch.equal")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +394,7 @@ def main_path(torch, np, *, n, nq, grains, dev):
         log(f"search Mode {m}: {s * 1e3:.3f} ms for {nq} queries "
             f"({s * 1e3 / -(-nq // 256):.3f} ms per 256-query batch), "
             f"QPS {nq / s:.1f} (host clock, ends in a synchronise)")
-    return dict(index=index, cfg=cfg, q=qt, launches=launches,
+    return dict(index=index, cfg=cfg, q=qt, truth=truth, launches=launches,
                 recall=recall, search_s=timing, build_s=build_s,
                 build_phases=info.seconds, peak=peak,
                 index_bytes=tree_bytes(index))
@@ -313,6 +436,24 @@ def time_events(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, kernel, reps=20):
+    """Device time per launch of the kernels whose name holds ``kernel``,
+    from torch.profiler (CUPTI) over ``reps`` calls of ``fn``: unlike CUDA
+    events around back-to-back calls, it leaves out the host's launch
+    time when the kernel is shorter.  None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and kernel in e.key]
+    n = sum(e.count for e in evs)
+    return sum(e.self_device_time_total for e in evs) / n / 1e3 if n else None
+
+
 def kernel_time_phase(torch, mp):
     from repro_torch.core import int32_safe_qmax, planner, routing
     from repro_torch.kernels import fused_select as fsel
@@ -328,8 +469,10 @@ def kernel_time_phase(torch, mp):
     err = hold(torch, fsel, args, kw, width, "main path inputs")
     for _ in range(3):
         fsel.fused_scan_select(*args, width=width, **kw)
-    ms = time_events(torch, lambda: fsel.fused_scan_select(
+    events_ms = time_events(torch, lambda: fsel.fused_scan_select(
         *args, width=width, **kw), 20)
+    ms = device_ms(torch, lambda: fsel.fused_scan_select(
+        *args, width=width, **kw), "fused_scan_select_kernel") or events_ms
     fsel.fused_scan_select_ref(*args, width=width, **kw)
     plain_ms = time_events(torch, lambda: fsel.fused_scan_select_ref(
         *args, width=width, **kw), 3)
@@ -337,55 +480,446 @@ def kernel_time_phase(torch, mp):
     q_n, p_n, k = args[1].shape
     log(f"fused_scan_select at the main path's shape (Q={q_n} P={p_n} "
         f"G={args[4].shape[0]} k={k} cap={args[4].shape[2]} "
-        f"s={kw['sq'].shape[2]} width={width}): kernel {ms:.4f} ms, plain "
+        f"s={kw['sq'].shape[2]} width={width}): kernel {ms:.4f} ms "
+        f"(CUPTI; CUDA events {events_ms:.4f} ms), plain "
         f"version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by} ({nbytes} bytes, {ops} int ops); library: none (no "
         "single PyTorch call computes a masked scan with a running top-W)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=err)
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
-# 6: where a search's device time goes
+# 5-7: the "kernel" gather plane, ops.scan_batched, the scan kernels' times
 # ---------------------------------------------------------------------------
 
-def profile_phase(torch, mp, top=8):
-    """torch.profiler (CUPTI) over one Mode A and one Mode B search of the
-    main path's queries: device time by kernel, and device time over the
-    unprofiled search wall time (phase 4) as the busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
+def gather_plane_phase(torch, mp):
+    """Mode A and Mode B on the "kernel" gather plane (hntl_scan_single):
+    ids and dists equal to the "ref" plane's, recall, search time."""
     from repro_torch.core import search
+    from repro_torch.core.flat import recall_at_k
+    from repro_torch.kernels import hntl_scan as hs
 
     index, cfg, q = mp["index"], mp["cfg"], mp["q"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for m in "AB":
-            search(index, q, cfg, topk=10, mode=m)
+    dev, nq = index.device, q.shape[0]
+    hs.hntl_scan_single.launches = 0
+    res = {m: search(index, q, cfg, topk=10, mode=m, scan_impl="kernel")
+           for m in "AB"}
+    sync(torch, dev)
+    launches = hs.hntl_scan_single.launches
+    log(f"gather plane \"kernel\": hntl_scan_single launches {launches} "
+        f"(Mode A + Mode B, {nq} queries in batches of 256)")
+    if dev.type == "cuda":
+        check(launches > 0, "the kernel plane never launched "
+              "hntl_scan_single")
+    recall = {}
+    for m in "AB":
+        ref = search(index, q, cfg, topk=10, mode=m, scan_impl="ref")
+        check(torch.equal(res[m].ids, ref.ids),
+              f"kernel plane Mode {m}: ids differ from the ref plane "
+              f"({int((res[m].ids != ref.ids).sum())} entries)")
+        check(torch.equal(res[m].dists, ref.dists),
+              f"kernel plane Mode {m}: dists differ from the ref plane")
+        recall[m] = recall_at_k(res[m].ids, mp["truth"])
+    log(f"gather plane \"kernel\" == \"ref\" (ids and dists, torch.equal);"
+        f" recall@10 Mode A {recall['A']:.4f}, Mode B {recall['B']:.4f}")
+    timing = {}
+    for m in "AB":
+        search(index, q, cfg, topk=10, mode=m, scan_impl="kernel")
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            search(index, q, cfg, topk=10, mode=m, scan_impl="kernel")
+        sync(torch, dev)
+        timing[m] = (time.perf_counter() - t0) / 3
+        log(f"search Mode {m} on the \"kernel\" plane: "
+            f"{timing[m] * 1e3:.3f} ms for {nq} queries (QPS "
+            f"{nq / timing[m]:.1f}; the default \"fused\" plane: "
+            f"{mp['search_s'][m] * 1e3:.3f} ms)")
+    return dict(launches=launches, recall=recall, search_s=timing)
+
+
+def gather_scan_args(torch, mp, nq=256):
+    """The single-scan kernel's inputs of one gather-plane batch (the
+    coordinate launch and the sketch launch), as ``scan_probed`` makes
+    them."""
+    from repro_torch.core import int32_safe_qmax, planner, routing
+
+    index, cfg = mp["index"], mp["cfg"]
+    g = index.grains
+    q = mp["q"][:nq]
+    gids, _ = routing.route(index.routing, q, cfg.nprobe)
+    zq, rq, _, sq = planner._project_quantized(
+        index, q, gids, cfg.envelope_frac,
+        int32_safe_qmax(cfg.k, cfg.coord_bits))
+    gl = gids.reshape(-1).long()
+    pn, k, cap = gl.numel(), g.k, g.cap
+    coords = (zq.reshape(pn, k), rq.reshape(pn), g.coords[gl], g.res[gl],
+              g.valid[gl], g.scale[gl], g.res_scale[gl])
+    s = sq.shape[-1]
+    sketch = (sq.reshape(pn, s), torch.zeros_like(coords[1]), g.sketch[gl],
+              torch.zeros_like(coords[3]), torch.ones_like(coords[4]),
+              g.sketch_scale[gl], torch.ones_like(coords[5]))
+    return coords, sketch
+
+
+def scan_batched_phase(torch, mp, nq=128):
+    """ops.scan_batched over every grain of the main path's index for nq
+    of its queries, held against its plain version."""
+    from repro_torch.core import int32_safe_qmax, quantize
+    from repro_torch.core.types import BIG
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ops
+
+    index, cfg = mp["index"], mp["cfg"]
+    g = index.grains
+    q = mp["q"][:nq]
+    vc = q[None, :, :] - g.mu[:, None, :]                  # [G, Q, d]
+    z = torch.bmm(vc, g.basis)                             # [G, Q, k]
+    sq = torch.bmm(vc, g.sketch_basis)                     # [G, Q, s]
+    rq = torch.clamp(torch.sum(vc * vc, -1) - torch.sum(z * z, -1)
+                     - torch.sum(sq * sq, -1), min=0.0).contiguous()
+    del vc
+    qeff = int32_safe_qmax(cfg.k, cfg.coord_bits)
+    zq = quantize.quantize_coords(z, g.scale[:, None, None],
+                                  qmax=qeff).to(torch.int32)
+    sqq = quantize.quantize_coords(sq, g.sketch_scale[:, None, None],
+                                   qmax=127).to(torch.int32)
+    args = (zq, rq, g.coords, g.res, g.valid, g.scale, g.res_scale)
+    kw = dict(sq=sqq, sketch=g.sketch, sketch_scale=g.sketch_scale)
+    hs.hntl_scan.launches = 0
+    d = ops.scan_batched(*args, **kw)
+    sync(torch, index.device)
+    launches = hs.hntl_scan.launches
+    if index.device.type == "cuda":
+        check(launches > 0, "ops.scan_batched never launched hntl_scan")
+    dr = ops.scan_batched(*args, **kw, backend="ref")
+    check(torch.equal(d, dr), "ops.scan_batched differs from its plain "
+          f"version in {int((d != dr).sum())} entries")
+    del dr
+    gn, qn, cap = d.shape
+    dead = d >= BIG / 2
+    check(torch.equal(dead, (~g.valid)[:, None, :].expand_as(dead)),
+          "ops.scan_batched: BIG on other slots than the invalid ones")
+    check(bool(torch.isfinite(d).all()), "ops.scan_batched: non-finite")
+    log(f"ops.scan_batched on the main path's index: G={gn} grains x "
+        f"Q={qn} queries x cap={cap} (+ sketch s={sqq.shape[-1]}), "
+        f"{d.numel() * 4} bytes out; hntl_scan launches {launches}; equal "
+        "to its plain version (torch.equal), BIG exactly on invalid slots")
+    del d
+    return dict(args=args, sketch=(sqq, torch.zeros_like(rq), g.sketch,
+                                   torch.zeros_like(g.res),
+                                   torch.ones_like(g.valid), g.sketch_scale,
+                                   torch.ones_like(g.sketch_scale)),
+                launches=launches)
+
+
+def scan_bound(args, queries):
+    """Least time for one scan launch: each input read once and the
+    output written once; per (query, slot) k multiply-adds (2 ops each,
+    the cross-term form) plus the epilogue (6 ops)."""
+    zq, rq, coords, res, valid, scale, res_scale = args
+    p, k, cap = coords.shape
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + p * queries * cap * 4
+    ops = p * queries * cap * (2 * k + 6)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / CUDA_CORE_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def time_scan(torch, label, kern, plain, args, queries, reps=20):
+    """Kernel time (CUPTI device time per launch, and CUDA events over
+    back-to-back launches, after warm-up), plain-version time (CUDA
+    events) and the bound, at one launch's inputs."""
+    for _ in range(3):
+        kern(*args)
+    events_ms = time_events(torch, lambda: kern(*args), reps)
+    ms = device_ms(torch, lambda: kern(*args), kern.__name__ + "_kernel") \
+        or events_ms
+    plain(*args)
+    plain_ms = time_events(torch, lambda: plain(*args), 3)
+    bound_ms, bound_by, nbytes, ops = scan_bound(args, queries)
+    p, k, cap = args[2].shape
+    log(f"{kern.__name__} at {label} (P={p} Q={queries} k={k} cap={cap} "
+        f"{args[2].dtype}): kernel {ms:.4f} ms (CUPTI; CUDA events "
+        f"{events_ms:.4f} ms), plain version "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes, {ops} ops); library: none (no single PyTorch "
+        "call computes an exact-int32 masked Block-SoA scan)")
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def scan_time_phase(torch, mp, sb):
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ref
+
+    coords, sketch = gather_scan_args(torch, mp)
+    out = {}
+    out["gather_coords"] = time_scan(
+        torch, "a gather-plane batch, coordinates", hs.hntl_scan_single,
+        ref.hntl_scan_single_ref, coords, 1)
+    out["gather_sketch"] = time_scan(
+        torch, "a gather-plane batch, sketch", hs.hntl_scan_single,
+        ref.hntl_scan_single_ref, sketch, 1)
+    nq = sb["args"][0].shape[1]
+    out["batched_coords"] = time_scan(
+        torch, "ops.scan_batched over the index, coordinates", hs.hntl_scan,
+        ref.hntl_scan_ref, sb["args"], nq, reps=5)
+    out["batched_sketch"] = time_scan(
+        torch, "ops.scan_batched over the index, sketch", hs.hntl_scan,
+        ref.hntl_scan_ref, sb["sketch"], nq, reps=5)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8: HNTL-KV decode at phi3-mini-3.8b's attention width
+# ---------------------------------------------------------------------------
+
+#: Acceptance of retrieval against exact attention over the whole cache
+#: (max abs error, see PERF.md), and against exact attention over the
+#: retrieved tokens in float64: |out - oracle| <= 2^-8 |oracle| + 1e-5 per
+#: output (the bf16 output rounds by at most 2^-9 of its value; 1e-5
+#: covers the float32 sums near zero).
+KV_ERR_WHOLE_CACHE = 0.6
+KV_REL_ERR_RETRIEVED = 2.0 ** -8
+KV_ABS_ERR_RETRIEVED = 1e-5
+
+
+def clustered_cache(torch, dev, *, tokens, extra, kv, hd, cap, dtype, gen,
+                    chunk=32768):
+    """[1, tokens + extra, KV, hd] keys and values on the card: one centre
+    (N(0, 1) x 1.5) per cap-token grain, shared by the heads, plus
+    0.15 N(0, 1) noise per head (``benchmarks/hntl_kv_decode.py``'s
+    generator at these shapes); values N(0, 1).  The ``extra`` slots are
+    left for the decode steps.  Returns (k_all, v_all, centres)."""
+    centres = torch.randn(tokens // cap, hd, generator=gen, device=dev) * 1.5
+    k_all = torch.zeros((1, tokens + extra, kv, hd), dtype=dtype, device=dev)
+    v_all = torch.zeros_like(k_all)
+    for t0 in range(0, tokens, chunk):
+        n = min(chunk, tokens - t0)
+        cen = centres[torch.arange(t0, t0 + n, device=dev) // cap]
+        noise = torch.randn((n, kv, hd), generator=gen, device=dev)
+        k_all[0, t0:t0 + n] = (cen[:, None, :] + 0.15 * noise).to(dtype)
+        v_all[0, t0:t0 + n] = torch.randn((n, kv, hd), generator=gen,
+                                          device=dev).to(dtype)
+    return k_all, v_all, centres
+
+
+def retrieved_oracle(torch, H, q, idx, cfg, k_all, v_all, q_pos):
+    """Exact attention in float64 over the tokens the retrieval keeps (its
+    valid pool + the live tail), taken through the plain scan; and the
+    share of exact whole-cache softmax mass those tokens hold."""
+    b, _, hq, hd = q.shape
+    kv = idx.centroids.shape[1]
+    gq = hq // kv
+    s, t = idx.sealed_len, q_pos + 1
+    qh = q[:, 0].to(torch.float32).reshape(b, kv, gq, hd)
+    log_c, _, _, tpos = H._retrieve_pool(qh, idx, cfg, scan_backend="ref")
+    ok = log_c > H.NEG_INF / 2                             # [B,KV,gq,C]
+    tail = torch.arange(s, t, device=q.device)
+    toks = torch.cat([tpos, tail.expand(b, kv, gq, -1)], dim=-1)
+    keep = torch.cat([ok, torch.ones(b, kv, gq, tail.numel(),
+                                     dtype=torch.bool, device=q.device)], -1)
+    bi = torch.arange(b, device=q.device)[:, None, None, None]
+    ki = torch.arange(kv, device=q.device)[None, :, None, None]
+    kk = k_all[bi, toks, ki].double()
+    vv = v_all[bi, toks, ki].double()
+    lg = torch.einsum("bkgh,bkgth->bkgt", qh.double() * hd ** -0.5, kk)
+    lg = torch.where(keep, lg, -torch.inf)
+    out = torch.einsum("bkgt,bkgth->bkgh", torch.softmax(lg, -1), vv)
+    # exact softmax mass on those tokens (float32, the whole cache)
+    sc = torch.einsum("bkgh,btkh->bkgt", qh * hd ** -0.5,
+                      k_all[:, :t].to(torch.float32))
+    pm = torch.softmax(sc, dim=-1)
+    mass = torch.where(keep, torch.gather(pm, -1, toks), 0.0).sum(-1)
+    return out.reshape(b, 1, hq, hd), mass
+
+
+def hntl_kv_phase(torch, dev, *, tokens, steps=8, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree_bytes
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.models import hntl_attention as H
+
+    cfg = get_config("phi3-mini-3.8b")
+    dt = cfg.compute_dtype
+    kv, hq, hd, cap = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.kv_cap
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    k_all, v_all, centres = clustered_cache(
+        torch, dev, tokens=tokens, extra=steps, kv=kv, hd=hd, cap=cap,
+        dtype=dt, gen=gen)
+    sync(torch, dev)
+    log(f"HNTL-KV: {cfg.name} attention width (Hq={hq} KV={kv} hd={hd}; "
+        f"kt={cfg.kv_kt} cap={cap} nprobe={cfg.kv_nprobe} pool="
+        f"{cfg.kv_pool} tail={cfg.kv_tail}), B=1, sealed context {tokens} "
+        f"tokens ({tokens // cap} grains per KV head), {dt} cache made on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    idx = H.build_kv_index(k_all[:, :tokens], v_all[:, :tokens], cfg,
+                           device=dev)
+    sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    raw = tree_bytes(idx.k_raw) + tree_bytes(idx.v_raw)
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    log(f"HNTL-KV build: {build_s:.2f} s; index bytes {tree_bytes(idx)} "
+        f"(raw tier {raw}, grains {tree_bytes(idx) - raw}); peak device "
+        f"memory during the build {peak} bytes")
+
+    touched = cfg.kv_nprobe * cap + cfg.kv_pool + cfg.kv_tail
+    rows = []
+    hs.hntl_scan_single.launches = 0
+    for i in range(steps):
+        q_pos = tokens + i
+        q = (centres[centres.shape[0] // 2] + 0.05 * torch.randn(
+            (1, 1, hq, hd), generator=gen, device=dev)).to(dt)
+        k_new = torch.randn((1, 1, kv, hd), generator=gen, device=dev).to(dt)
+        v_new = torch.randn((1, 1, kv, hd), generator=gen, device=dev).to(dt)
+        k_all[:, q_pos] = k_new[:, 0]
+        v_all[:, q_pos] = v_new[:, 0]
+        pos = torch.full((1,), q_pos, dtype=torch.int64, device=dev)
+        before = hs.hntl_scan_single.launches
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out, new_idx = H.retrieval_decode_attention(q, k_new, v_new, idx,
+                                                    pos, cfg)
+        sync(torch, dev)
+        t_r = time.perf_counter() - t0
+        n_launch = hs.hntl_scan_single.launches - before
+        t0 = time.perf_counter()
+        exact = H.reference_decode_attention(
+            q, k_all[:, :q_pos + 1], v_all[:, :q_pos + 1], pos, cfg)
+        sync(torch, dev)
+        t_e = time.perf_counter() - t0
+        plain, _ = H.retrieval_decode_attention(q, k_new, v_new, idx, pos,
+                                                cfg, scan_backend="ref")
+        check(torch.equal(out, plain), f"HNTL-KV step {i}: the kernel path "
+              "differs from the plain scan's")
+        oracle, mass = retrieved_oracle(torch, H, q, idx, cfg, k_all, v_all,
+                                        q_pos)
+        err = float((out.float() - exact.float()).abs().max())
+        diff = (out.double() - oracle).abs()
+        err_ret = float(diff.max())
+        check(bool((diff <= KV_REL_ERR_RETRIEVED * oracle.abs()
+                    + KV_ABS_ERR_RETRIEVED).all()),
+              f"HNTL-KV step {i}: retrieval differs from exact attention "
+              "over its own tokens by more than the bf16 output's rounding")
+        check(bool(torch.isfinite(out.float()).all())
+              and out.shape == (1, 1, hq, hd), f"HNTL-KV step {i}: bad out")
+        rows.append(dict(err=err, err_retrieved=err_ret, retrieval_s=t_r,
+                         exact_s=t_e, launches=n_launch,
+                         mass=float(mass.mean())))
+        log(f"  step {i}: q_pos={q_pos} max|retrieval - exact| {err:.6f}, "
+            f"max|retrieval - exact over the retrieved tokens (f64)| "
+            f"{err_ret:.6f}, exact softmax mass on them "
+            f"{float(mass.mean()):.4f} (min {float(mass.min()):.4f}); "
+            f"retrieval {t_r * 1e3:.3f} ms, exact {t_e * 1e3:.3f} ms; "
+            f"tokens touched {touched} of {q_pos + 1}; hntl_scan_single "
+            f"launches {n_launch}")
+        idx = new_idx
+    launches = hs.hntl_scan_single.launches
+    if on_card:
+        check(launches > 0, "HNTL-KV decode never launched "
+              "hntl_scan_single")
+    check(torch.equal(idx.tail_k[0, :steps], k_all[0, tokens:tokens + steps]),
+          "HNTL-KV: the tail does not hold the appended keys")
+    worst = max(r["err"] for r in rows)
+    worst_ret = max(r["err_retrieved"] for r in rows)
+    check(worst <= KV_ERR_WHOLE_CACHE, f"HNTL-KV: retrieval is {worst} from "
+          f"exact attention (threshold {KV_ERR_WHOLE_CACHE})")
+    mid = sorted(r["retrieval_s"] for r in rows)[steps // 2]
+    mid_e = sorted(r["exact_s"] for r in rows)[steps // 2]
+    log(f"HNTL-KV decode: {steps} steps, max error {worst:.6f} against "
+        f"exact attention (threshold {KV_ERR_WHOLE_CACHE}), {worst_ret:.6f} "
+        f"against exact attention over the retrieved tokens (bound 2^-8 "
+        f"|x| + {KV_ABS_ERR_RETRIEVED}); median step retrieval "
+        f"{mid * 1e3:.3f} ms, "
+        f"exact {mid_e * 1e3:.3f} ms; tokens touched {touched} of "
+        f"{tokens} ({tokens / touched:.1f}x fewer); hntl_scan_single "
+        f"launches {launches}")
+    qh = q[:, 0].to(torch.float32).reshape(1, kv, hq // kv, hd)
+    _, _, scan_args = H._probe(qh, idx, cfg)
+    return dict(launches=launches, rows=rows, scan_args=scan_args, idx=idx,
+                cfg=cfg, step=(q, k_new, v_new, pos), build_s=build_s,
+                k_all=k_all, v_all=v_all)
+
+
+# ---------------------------------------------------------------------------
+# 9: where a search's device time goes
+# ---------------------------------------------------------------------------
+
+def profile(torch, label, fn, wall_s, top=8):
+    """torch.profiler (CUPTI) over ``fn``: device time by kernel, and
+    device time over the unprofiled wall time ``wall_s`` of the same work
+    as the busy share."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    wall_us = sum(mp["search_s"].values()) * 1e6
+    wall_us = wall_s * 1e6
     if not dev_us:
-        log("profile: the profiler saw no device time (not measured)")
+        log(f"profile ({label}): the profiler saw no device time "
+            "(not measured)")
         return
-    log(f"profile (Mode A + Mode B, {q.shape[0]} queries each): device "
-        f"{dev_us / 1e3:.3f} ms over {wall_us / 1e3:.3f} ms of unprofiled "
-        f"search wall, busy share {dev_us / wall_us:.3f}")
+    log(f"profile ({label}): device {dev_us / 1e3:.3f} ms over "
+        f"{wall_us / 1e3:.3f} ms of unprofiled wall, busy share "
+        f"{dev_us / wall_us:.3f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.self_device_time_total / dev_us:6.1%} x{e.count:<4d} "
             f"{e.key[:90]}")
 
 
+def profile_phase(torch, mp, gp, kvp):
+    """One Mode A and one Mode B search on the default plane; one Mode B
+    search on the "kernel" gather plane; one HNTL-KV decode step."""
+    from repro_torch.core import search
+    from repro_torch.models import hntl_attention as H
+
+    index, cfg, q = mp["index"], mp["cfg"], mp["q"]
+    profile(torch, f"Mode A + Mode B, {q.shape[0]} queries each",
+            lambda: [search(index, q, cfg, topk=10, mode=m) for m in "AB"],
+            sum(mp["search_s"].values()))
+    profile(torch, f"Mode B on the \"kernel\" plane, {q.shape[0]} queries",
+            lambda: search(index, q, cfg, topk=10, mode="B",
+                           scan_impl="kernel"), gp["search_s"]["B"])
+    step = kvp["step"]
+    wall = sorted(r["retrieval_s"] for r in kvp["rows"])[len(kvp["rows"]) // 2]
+    profile(torch, "one HNTL-KV decode step",
+            lambda: H.retrieval_decode_attention(*step[:3], kvp["idx"],
+                                                 step[3], kvp["cfg"]), wall)
+
+
 # ---------------------------------------------------------------------------
+
+def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"],
+            "events_ms": t["events_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "at": at}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--nq", type=int, default=1024)
     ap.add_argument("--grains", type=int, default=1024)
+    ap.add_argument("--kv-tokens", type=int, default=524_288,
+                    help="sealed HNTL-KV context (a multiple of 4096)")
     a = ap.parse_args(argv)
 
     import numpy as np
@@ -404,21 +938,46 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     name, count, smi = device_phase(torch)
     build_phase()
-    err_cases = kernel_phase(torch, torch.device("cuda"))
-    mp = main_path(torch, np, n=a.n, nq=a.nq, grains=a.grains,
-                   dev=torch.device("cuda"))
+    cuda = torch.device("cuda")
+    err_cases = kernel_phase(torch, cuda)
+    err_scan = scan_kernel_phase(torch, np, cuda)
+    mp = main_path(torch, np, n=a.n, nq=a.nq, grains=a.grains, dev=cuda)
+    gp = gather_plane_phase(torch, mp)
+    sb = scan_batched_phase(torch, mp)
     kt = kernel_time_phase(torch, mp)
-    profile_phase(torch, mp)
+    st = scan_time_phase(torch, mp, sb)
+    kvp = hntl_kv_phase(torch, cuda, tokens=a.kv_tokens)
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ref
+    st["kv"] = time_scan(torch, "an HNTL-KV decode step", hs.hntl_scan_single,
+                         ref.hntl_scan_single_ref, kvp["scan_args"], 1)
+    profile_phase(torch, mp, gp, kvp)
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [{
-        "name": "fused_scan_select", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_select.cu",
-        "replaces": "src/repro/kernels/fused_select.py:178",
-        "launches": mp["launches"]["fused_scan_select"],
-        "max_abs_err": max(err_cases, kt["max_abs_err"]),
-        "ms": kt["ms"], "plain_ms": kt["plain_ms"],
-        "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
-        "library_ms": None}]}))
+    src = "src/repro_torch/kernels/csrc/"
+    single_paths = {"gather plane (kernel)": gp["launches"],
+                    "HNTL-KV decode": kvp["launches"]}
+    log(json.dumps({"kernels": [
+        kernel_entry("fused_scan_select", src + "fused_select.cu",
+                     "src/repro/kernels/fused_select.py:178",
+                     mp["launches"]["fused_scan_select"],
+                     {"search (fused plane)":
+                      mp["launches"]["fused_scan_select"]},
+                     max(err_cases, kt["max_abs_err"]), kt,
+                     "Q=256 P=16 G=1024 k=32 cap=1664 s=8 width=64"),
+        kernel_entry("hntl_scan_single", src + "hntl_scan.cu",
+                     "src/repro/kernels/hntl_scan.py:166",
+                     sum(single_paths.values()), single_paths,
+                     err_scan["single"],
+                     st["kv"], "HNTL-KV decode step: P=256 k=16 cap=4096 "
+                     "int16"),
+        kernel_entry("hntl_scan", src + "hntl_scan.cu",
+                     "src/repro/kernels/hntl_scan.py:80", sb["launches"],
+                     {"ops.scan_batched": sb["launches"]},
+                     err_scan["batched"],
+                     st["batched_coords"], "P={} Q={} k={} cap={} int16 (the "
+                     "coordinate launch)".format(*sb["args"][0].shape[:2],
+                                                 *sb["args"][2].shape[1:]))
+    ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))
     return 0

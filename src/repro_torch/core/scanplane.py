@@ -11,13 +11,18 @@ Registered backends:
   name          kind     engine
   ------------  -------  --------------------------------------------------
   "ref"         gather   plain PyTorch Block-SoA scan (the CPU default)
+  "kernel"      gather   the hand-written CUDA single-query scan kernel
+                         (``kernels.ops.make_planner_scan_fn``; plain
+                         version for CPU tensors): the counterpart of the
+                         JAX package's "pallas" plane
   "fused"       select   the hand-written CUDA scan→select kernel
                          (plain version for CPU tensors)
   "fused_ref"   select   the kernel's plain PyTorch version
   "auto"/None   —        "fused" for an index on CUDA, "ref" on the CPU
 
-The JAX package's "pallas", "interpret", "cascade" and "cascade_ref"
-planes are not ported yet; naming one raises.
+The JAX package's "pallas" and "interpret" planes are "kernel" here (its
+engine follows the device, so there is no interpret mode); its "cascade"
+and "cascade_ref" planes are not ported yet.  Naming any of these raises.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from . import scan
+from ..kernels import ops
 from ..kernels.fused_select import fused_scan_select
 
 GATHER = "gather"
@@ -91,6 +97,11 @@ register_scan_plane(
     "ref", GATHER, scan.blocksoa_scan,
     "plain PyTorch Block-SoA scan over gathered panels (the CPU default and "
     "the semantics reference)")
+register_scan_plane(
+    "kernel", GATHER, ops.make_planner_scan_fn(),
+    "hand-written CUDA single-query Block-SoA scan over gathered panels, "
+    "one launch for the coordinates and one for the sketch (plain version "
+    "for CPU tensors)")
 register_scan_plane(
     "fused", SELECT, fused_scan_select,
     "hand-written CUDA scan→select kernel: gather-free panel streaming and "

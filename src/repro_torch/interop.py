@@ -1,4 +1,4 @@
-"""Carry an index built by the JAX package across to this one.
+"""Carry indexes and configurations built by the JAX package across.
 
 ``index_from_numpy`` takes the JAX ``HNTLIndex`` after its leaves were
 turned into numpy arrays (``jax.tree.map(np.asarray, index)``), or the same
@@ -8,6 +8,11 @@ package's ``HNTLIndex`` with every dtype and shape kept:
   coords i16, res i32, sketch i8, ids i32, valid bool, qmaxg i32, ts f32,
   basis/mu/scale/... f32, sizes i32; tags u32 -> int64 (value-preserving,
   see ``GrainStore.tags``).
+
+``kv_index_from_numpy`` does the same for an HNTL-KV ``KVIndex``
+(bf16 leaves stay bf16, ``None`` leaves stay ``None``);
+``config_from_dict`` and ``model_config_from_dict`` rebuild the two
+configuration dataclasses from ``dataclasses.asdict`` of the JAX ones.
 
 This module imports neither JAX nor the JAX package: it reads attributes
 or keys by name.
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 
 from .core.types import GrainStore, HNTLConfig, HNTLIndex, RoutingPlane
+from .models.config import LayerSpec, ModelConfig
+from .models.hntl_attention import KVIndex
 
 
 def _field(tree: Any, name: str):
@@ -36,6 +43,9 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
+    if a.dtype.name == "bfloat16":          # numpy's bf16 extension type
+        return torch.tensor(a.view(np.int16), device=device) \
+            .view(torch.bfloat16)
     return torch.tensor(a, device=device)   # a copy: leaves may be read-only
 
 
@@ -56,8 +66,32 @@ def index_from_numpy(tree: Any, device="cpu") -> HNTLIndex:
 def config_from_dict(d: Mapping) -> HNTLConfig:
     """An ``HNTLConfig`` from a mapping of its fields (for example
     ``dataclasses.asdict`` of the JAX config); unknown keys raise."""
-    names = {f.name for f in dataclasses.fields(HNTLConfig)}
+    return _from_dict(HNTLConfig, d)
+
+
+def kv_index_from_numpy(tree: Any, device="cpu") -> KVIndex:
+    """JAX ``KVIndex`` with numpy leaves -> this package's ``KVIndex``."""
+    return KVIndex(**{f.name: _tensor(_field(tree, f.name), device)
+                      for f in dataclasses.fields(KVIndex)})
+
+
+def _from_dict(cls, d: Mapping):
+    names = {f.name for f in dataclasses.fields(cls)}
     unknown = sorted(set(d) - names)
     if unknown:
-        raise ValueError(f"unknown HNTLConfig fields: {unknown}")
-    return HNTLConfig(**dict(d))
+        raise ValueError(f"unknown {cls.__name__} fields: {unknown}")
+    return cls(**dict(d))
+
+
+def model_config_from_dict(d: Mapping) -> ModelConfig:
+    """A ``ModelConfig`` from a mapping of its fields (for example
+    ``dataclasses.asdict`` of the JAX one, whose ``pattern`` holds
+    mappings); unknown keys raise."""
+    d = dict(d)
+    if "pattern" in d:
+        d["pattern"] = tuple(
+            p if isinstance(p, LayerSpec) else _from_dict(LayerSpec, p)
+            for p in d["pattern"])
+    if d.get("mrope_sections") is not None:
+        d["mrope_sections"] = tuple(d["mrope_sections"])
+    return _from_dict(ModelConfig, d)

@@ -1,0 +1,154 @@
+"""Block-SoA scan kernels: the single-query and the batched-query form.
+
+``hntl_scan_single`` scans P independent (query, panel) pairs;
+``hntl_scan`` scans P panels against Q queries each.  Both price every
+slot with the exact-int32 Eq. 6 distance and the residual epilogue, with
+``core.types.BIG`` on invalid slots.
+
+- CPU tensors run the plain PyTorch versions (``kernels.ref``).
+- CUDA tensors run the hand-written kernels of ``csrc/hntl_scan.cu``
+  (built at first use by ``_build``), or raise.  There is no fallback.
+
+The kernels equal their plain versions bit for bit: the same integer sums
+modulo 2^32 and the same float op order without FMA contraction.
+``hntl_scan.launches`` and ``hntl_scan_single.launches`` count kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.types import BIG
+from . import _build
+from .ref import hntl_scan_ref, hntl_scan_single_ref
+
+#: Largest k the single-query kernel takes (its zq lives in shared memory).
+MAX_K = 4096
+
+_SOURCE = "hntl_scan"
+_COORD_BYTES = {torch.int16: 2, torch.int8: 1}
+_PTRS = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library(_SOURCE)
+    if lib.hntl_scan_launch.argtypes is None:
+        lib.hntl_scan_single_launch.argtypes = _PTRS + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.hntl_scan_launch.argtypes = _PTRS + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.hntl_scan_single_launch.restype = ctypes.c_int
+        lib.hntl_scan_launch.restype = ctypes.c_int
+        lib.hntl_scan_error_string.argtypes = [ctypes.c_int]
+        lib.hntl_scan_error_string.restype = ctypes.c_char_p
+        lib.hntl_scan_max_k.restype = ctypes.c_int
+        if lib.hntl_scan_max_k() != MAX_K:
+            raise RuntimeError("hntl_scan.cu and hntl_scan.py disagree on "
+                               "the single-query kernel's largest k")
+    return lib
+
+
+def _check(fn, name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{fn}: {name} has dtype {t.dtype}, expected "
+                        f"{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _check_all(fn, zq, rq, coords, res, valid, scale, res_scale, lead):
+    """Contract checks common to both forms; ``lead`` is zq's leading
+    shape ([P] or [P, Q])."""
+    dev = zq.device
+    p, k, cap = lead[0], zq.shape[-1], coords.shape[-1]
+    _check(fn, "zq", zq, torch.int32, (*lead, k), dev)
+    _check(fn, "rq", rq, torch.float32, lead, dev)
+    _check(fn, "coords", coords, tuple(_COORD_BYTES), (p, k, cap), dev)
+    _check(fn, "res", res, torch.int32, (p, cap), dev)
+    _check(fn, "valid", valid, torch.bool, (p, cap), dev)
+    _check(fn, "scale", scale, torch.float32, (p,), dev)
+    _check(fn, "res_scale", res_scale, torch.float32, (p,), dev)
+    if p >= 2 ** 31:
+        raise ValueError(f"{fn}: P must be < 2^31")
+
+
+def _run(fn, launch, zq, rq, coords, res, valid, scale, res_scale, out,
+         dims):
+    lib = _lib()
+    dev = zq.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, launch)(
+            zq.data_ptr(), rq.data_ptr(), coords.data_ptr(),
+            _COORD_BYTES[coords.dtype], res.data_ptr(), valid.data_ptr(),
+            scale.data_ptr(), res_scale.data_ptr(), out.data_ptr(), *dims,
+            BIG, ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.hntl_scan_error_string(rc).decode()
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+def _device_kind(fn, t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {t.device}")
+    return t.device.type
+
+
+def hntl_scan_single(zq, rq, coords, res, valid, scale, res_scale):
+    """Single-query Block-SoA scan over P independent grain panels.
+
+    zq [P, k] i32, rq [P] f32, coords [P, k, cap] i16 or i8,
+    res [P, cap] i32, valid [P, cap] bool, scale/res_scale [P] f32.
+    Returns [P, cap] f32 (BIG on invalid slots).
+    """
+    if _device_kind("hntl_scan_single", zq) == "cpu":
+        return hntl_scan_single_ref(zq, rq, coords, res, valid, scale,
+                                    res_scale)
+    p = zq.shape[0]
+    _check_all("hntl_scan_single", zq, rq, coords, res, valid, scale,
+               res_scale, (p,))
+    k, cap = zq.shape[1], coords.shape[2]
+    if k > MAX_K:
+        raise ValueError(f"hntl_scan_single: k={k} exceeds the kernel's "
+                         f"limit {MAX_K}")
+    out = torch.empty((p, cap), dtype=torch.float32, device=zq.device)
+    if out.numel() == 0:
+        return out
+    _run("hntl_scan_single", "hntl_scan_single_launch", zq, rq, coords, res,
+         valid, scale, res_scale, out, (p, k, cap))
+    hntl_scan_single.launches += 1
+    return out
+
+
+def hntl_scan(zq, rq, coords, res, valid, scale, res_scale):
+    """Batched-query Block-SoA scan over P grain panels.
+
+    zq [P, Q, k] i32, rq [P, Q] f32, coords [P, k, cap] i16 or i8,
+    res [P, cap] i32, valid [P, cap] bool, scale/res_scale [P] f32.
+    Returns [P, Q, cap] f32 (BIG on invalid slots).
+    """
+    if _device_kind("hntl_scan", zq) == "cpu":
+        return hntl_scan_ref(zq, rq, coords, res, valid, scale, res_scale)
+    p, q = zq.shape[0], zq.shape[1]
+    _check_all("hntl_scan", zq, rq, coords, res, valid, scale, res_scale,
+               (p, q))
+    k, cap = zq.shape[2], coords.shape[2]
+    out = torch.empty((p, q, cap), dtype=torch.float32, device=zq.device)
+    if out.numel() == 0:
+        return out
+    _run("hntl_scan", "hntl_scan_launch", zq, rq, coords, res, valid, scale,
+         res_scale, out, (p, q, k, cap))
+    hntl_scan.launches += 1
+    return out
+
+
+hntl_scan_single.launches = 0
+hntl_scan.launches = 0

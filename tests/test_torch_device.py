@@ -4,8 +4,10 @@
   JAX package: checked on the sources' AST and in a fresh interpreter.
 - Entry points run on the card unless asked for the CPU: ``build`` with
   no ``device`` and no card raises.
-- ``gpu``-marked tests hold the CUDA kernel against its plain version on
-  the card; they skip (inside a fixture) where there is no card.
+- ``gpu``-marked tests hold the CUDA kernels against their plain
+  versions on the card, and the "kernel" gather plane and HNTL-KV decode
+  against their plain-scan runs; they skip (inside a fixture) where there
+  is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.
@@ -15,6 +17,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +26,9 @@ from repro_torch.core import index as port_index
 from repro_torch.data import synthetic
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_select as port_fused
-from repro_torch.kernels import select_cases
+from repro_torch.kernels import hntl_scan as port_scan
+from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels import scan_cases, select_cases
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
@@ -91,9 +96,20 @@ def test_kernel_wrapper_refuses_other_devices():
         port_fused.fused_scan_select(*args, width=8)
 
 
+def test_scan_wrappers_refuse_other_devices():
+    a = scan_cases.panels(0, p=2, q=3, k=4, cap=32)
+    args = scan_cases.args(a, lambda v: torch.from_numpy(v).to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        port_scan.hntl_scan(*args)
+    single = scan_cases.args(scan_cases.single(a),
+                             lambda v: torch.from_numpy(v).to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        port_scan.hntl_scan_single(*single)
+
+
 def test_build_recipe_targets_hopper():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert "fused_select" in _build.source_names()
+    assert {"fused_select", "hntl_scan"} <= set(_build.source_names())
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
 
 
@@ -160,3 +176,102 @@ def test_kernel_refuses_width_beyond_its_limit(cuda_device):
     args, _ = _select_inputs(1, cuda_device, q=1, p=1, g=2, k=4, cap=32)
     with pytest.raises(ValueError, match="width"):
         port_fused.fused_scan_select(*args, width=port_fused.MAX_WIDTH + 1)
+
+
+#: Scan-kernel cases: (form, inputs).  The JAX package's sweep, int32
+#: extremes and wraparound, all-invalid panels, int8 sketch panels and
+#: caps off 128.
+SCAN_GPU_CASES = {
+    **{f"batched_{p}x{q}x{k}x{cap}": (
+        "batched", lambda p=p, q=q, k=k, cap=cap: scan_cases.panels(
+            p + q + k + cap, p=p, q=q, k=k, cap=cap))
+       for p, q, k, cap in scan_cases.SWEEP},
+    **{f"single_{p}x{k}x{cap}": (
+        "single", lambda p=p, k=k, cap=cap: scan_cases.single(
+            scan_cases.panels(p + k + cap, p=p, q=1, k=k, cap=cap)))
+       for p, k, cap in scan_cases.SINGLE_SWEEP},
+    "batched_extremes": ("batched", lambda: scan_cases.extremes(
+        p=2, q=3, k=32, cap=200)),
+    "single_wraparound": ("single", lambda: scan_cases.single(
+        scan_cases.panels(1, p=5, q=1, k=16, cap=333,
+                          zq_range=2 ** 31 - 1))),
+    "batched_all_invalid": ("batched", lambda: scan_cases.panels(
+        2, p=2, q=9, k=16, cap=256, valid_frac=0.0)),
+    "batched_int8": ("batched", lambda: scan_cases.panels(
+        3, p=3, q=40, k=8, cap=333, coord_range=128, coord_dtype=np.int8)),
+    "single_int8": ("single", lambda: scan_cases.single(scan_cases.panels(
+        4, p=64, q=1, k=8, cap=1664, coord_range=128, coord_dtype=np.int8))),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SCAN_GPU_CASES))
+def test_scan_kernels_equal_plain_versions_on_card(cuda_device, case):
+    form, make = SCAN_GPU_CASES[case]
+    args = scan_cases.args(make(), lambda v: torch.from_numpy(v).to(
+        cuda_device))
+    kern, plain = {"batched": (port_scan.hntl_scan, port_ref.hntl_scan_ref),
+                   "single": (port_scan.hntl_scan_single,
+                              port_ref.hntl_scan_single_ref)}[form]
+    before = kern.launches
+    got = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_scan_kernel_refuses_a_wrong_dtype(cuda_device):
+    a = scan_cases.single(scan_cases.panels(5, p=2, q=1, k=4, cap=32))
+    a["coords"] = a["coords"].astype(np.int32)
+    args = scan_cases.args(a, lambda v: torch.from_numpy(v).to(cuda_device))
+    with pytest.raises(TypeError, match="coords"):
+        port_scan.hntl_scan_single(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_kernel_plane_equals_ref_plane_on_card(cuda_device, mode):
+    x = synthetic.anisotropic_manifold(n=4096, d=64, intrinsic=8, seed=1)
+    q = synthetic.queries_from(x, nq=40)
+    cfg = repro_torch.HNTLConfig(d=64, k=8, s=4, block=32, n_grains=16,
+                                 nprobe=4, pool=32)
+    idx, _ = repro_torch.build(x, cfg, device=cuda_device)
+    qt = torch.from_numpy(q).to(cuda_device)
+    before = port_scan.hntl_scan_single.launches
+    got = repro_torch.search(idx, qt, cfg, topk=5, mode=mode,
+                             scan_impl="kernel")
+    want = repro_torch.search(idx, qt, cfg, topk=5, mode=mode,
+                              scan_impl="ref")
+    torch.cuda.synchronize()
+    assert port_scan.hntl_scan_single.launches == before + 2  # coords, sketch
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.dists, want.dists)
+
+
+@pytest.mark.gpu
+def test_hntl_kv_decode_kernel_path_equals_plain_scan_on_card(cuda_device):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import hntl_attention as H
+
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    shape = (2, 8 * cfg.kv_cap, cfg.n_kv_heads, cfg.head_dim)
+    k = torch.randn(shape, generator=gen, device=cuda_device)
+    v = torch.randn(shape, generator=gen, device=cuda_device)
+    idx = H.build_kv_index(k, v, cfg, device=cuda_device)
+    q = torch.randn((2, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=cuda_device)
+    pos = torch.full((2,), idx.sealed_len, device=cuda_device)
+    before = port_scan.hntl_scan_single.launches
+    out, new = H.retrieval_decode_attention(q, k[:, :1], v[:, :1], idx, pos,
+                                            cfg)
+    plain, plain_new = H.retrieval_decode_attention(
+        q, k[:, :1], v[:, :1], idx, pos, cfg, scan_backend="ref")
+    torch.cuda.synchronize()
+    assert port_scan.hntl_scan_single.launches == before + 1
+    assert torch.equal(out, plain)
+    assert torch.equal(new.tail_k, plain_new.tail_k)
+    assert bool(torch.isfinite(out).all())

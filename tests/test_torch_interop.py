@@ -1,12 +1,15 @@
 """Carrying a JAX-built index across: every leaf keeps dtype, shape and
 values (tags: u32 values in int64), with the sketch on and off, with
-tags/ts, and with density bit allocation (qmaxg)."""
+tags/ts, and with density bit allocation (qmaxg).  The same for an
+HNTL-KV ``KVIndex`` (bf16 and int8 leaves, ``None`` leaves) and for the
+configuration dataclasses."""
 import pytest
 
 pytest.importorskip("jax")   # the JAX package is the reference
 
 import dataclasses
 
+import jax
 import numpy as np
 import torch
 
@@ -98,3 +101,78 @@ def test_config_round_trip():
     assert cfg.qmax == jcfg.qmax and cfg.block_bytes == jcfg.block_bytes
     with pytest.raises(ValueError, match="unknown"):
         config_from_dict({"d": 16, "bogus": 1})
+
+
+KV_CASES = {
+    "f32": (dict(), np.float32),
+    "bf16_cache": (dict(), "bfloat16"),
+    "sq8_bf16_meta": (dict(kv_sq8=True, kv_bf16_meta=True), np.float32),
+}
+
+
+def _as_numpy(t: torch.Tensor) -> np.ndarray:
+    """A port leaf as numpy; bf16 as its raw 16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def _raw_bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+@pytest.mark.parametrize("case", sorted(KV_CASES))
+def test_kv_index_round_trip(case):
+    """A JAX KVIndex from build_kv_index crosses over with every dtype,
+    shape and bit kept, and None leaves kept None."""
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config
+    from repro.models import hntl_attention as JH
+    from repro_torch.interop import kv_index_from_numpy
+    from repro_torch.models.hntl_attention import KVIndex
+
+    kw, dtype = KV_CASES[case]
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"), **kw)
+    rng = np.random.default_rng(4)
+    shape = (1, 4 * cfg.kv_cap, cfg.n_kv_heads, cfg.head_dim)
+    k = jnp.asarray(rng.standard_normal(shape), jnp.float32).astype(dtype)
+    v = jnp.asarray(rng.standard_normal(shape), jnp.float32).astype(dtype)
+    tree = jax.tree.map(np.asarray, JH.build_kv_index(k, v, cfg))
+    idx = kv_index_from_numpy(tree, "cpu")
+    assert isinstance(idx, KVIndex)
+    for f in dataclasses.fields(KVIndex):
+        want, got = getattr(tree, f.name), getattr(idx, f.name)
+        if want is None:
+            assert got is None, f.name
+            continue
+        back = _as_numpy(got)
+        assert back.shape == want.shape, f.name
+        assert str(got.dtype).split(".")[-1] == want.dtype.name, f.name
+        assert np.array_equal(back, _raw_bits(want)), f.name
+    assert idx.n_grains == 4 and idx.cap == cfg.kv_cap
+    if case == "sq8_bf16_meta":
+        assert idx.k_raw.dtype == torch.int8
+        assert idx.centroids.dtype == torch.bfloat16
+        assert idx.k_scale is not None
+    else:
+        assert idx.k_scale is None and idx.v_scale is None
+
+
+def test_model_config_round_trip():
+    from repro.configs import get_config
+    from repro.models.config import LayerSpec as JaxLayerSpec
+    from repro_torch.interop import model_config_from_dict
+    from repro_torch.models.config import LayerSpec
+
+    jcfg = dataclasses.replace(
+        get_config("phi3-mini-3.8b"),
+        pattern=(JaxLayerSpec("attn", window=512), JaxLayerSpec("rglru")),
+        mrope_sections=(16, 24, 24))
+    cfg = model_config_from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert cfg.pattern == (LayerSpec("attn", 512), LayerSpec("rglru"))
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="unknown"):
+        model_config_from_dict({**dataclasses.asdict(jcfg), "bogus": 1})
