@@ -15,9 +15,11 @@ What it does, in order (any failure exits non-zero before the last line):
 3. kernel phase: ``fused_scan_select`` on the card against its plain
    PyTorch version on the card, ``torch.equal`` on dists and rows, for the
    sketch on and off, tenants, ragged probes, ragged cap and width, Q=1,
-   k=1, a fully pruned pool, a main-path-shaped input, and inputs that
-   fill the kernel's candidate buffer again and again (width up to the
-   kernel's limit, every slot live, every slot entering the pool); then
+   k=1, a fully pruned pool, a main-path-shaped input, inputs where every
+   slot enters the running top-W (width up to the kernel's limit, every
+   slot live, every slot entering the pool), one hot grain probed by every
+   pair, exact ties across probes, cap below width, the scalar-load path
+   (cap % 4 != 0) and killed pairs inside the grains' runs; then
    ``hntl_scan`` and ``hntl_scan_single`` against theirs (``torch.equal``)
    over the JAX package's kernel sweep, int32 extremes and wraparound,
    all-invalid panels, the int8 sketch panels, caps off 128, and the
@@ -38,9 +40,10 @@ What it does, in order (any failure exits non-zero before the last line):
    quantized into every grain's frame, an exhaustive [G, 128, cap] scan
    through ``hntl_scan`` (coordinates and sketch), equal to its plain
    version;
-7. kernel times at the main path's shapes (CUDA events, after warm-up)
-   beside the plain versions' times and the bounds computed from the
-   inputs;
+7. kernel times at the main path's shapes (CUPTI device time per call
+   of every kernel the wrapper launches, each part beside it, and CUDA
+   events; after warm-up) beside the plain versions' times and the bounds
+   computed from the inputs;
 8. HNTL-KV decode at phi3-mini-3.8b's attention width (32 query and 32 KV
    heads, head_dim 96, kt=16, cap=4096, nprobe=8, pool=128, tail=1024)
    over a 524,288-token bf16 context of clustered keys made on the card:
@@ -125,16 +128,20 @@ _MANGLED_TYPES = {"IsE": "int16", "IaE": "int8"}
 
 def kernel_label(line):
     """A readable name for a ptxas "Compiling entry function" line."""
-    for name in ("fused_scan_select_kernel", "hntl_scan_single_kernel",
+    for name in ("fused_scan_select_probe_kernel",
+                 "fused_scan_select_merge_kernel", "hntl_scan_single_kernel",
                  "hntl_scan_kernel"):
         if name not in line:
             continue
         tail = line.split(name, 1)[1]
-        if name == "fused_scan_select_kernel":
-            # template flags of fused_scan_select_kernel<sketch, tenant>
+        if name == "fused_scan_select_merge_kernel":
+            return name
+        if name == "fused_scan_select_probe_kernel":
+            # template flags of the kernel's <sketch, tenant, vec>
             flags = tail.split("ILb")[-1].split("EEEv")[0].split("ELb")
             return name + " " + ", ".join(
-                f"{k}={v}" for k, v in zip(("sketch", "tenant"), flags))
+                f"{k}={v}" for k, v in zip(("sketch", "tenant", "vec"),
+                                           flags))
         coord = next((t for m, t in _MANGLED_TYPES.items()
                       if tail.startswith(m)), "?")
         return f"{name}<{coord}>"
@@ -188,6 +195,20 @@ KERNEL_CASES = {
                                        cap=2048, width=10),
     "descending_max_width": dict(descending=True, q=64, p=32, k=8, cap=2048,
                                  width=8192),
+    # the per-probe kernel's schedule and the per-query merge: every pair
+    # in one grain run; equal keys across probes (different grains and one
+    # grain probed twice); L = cap < width; the scalar path (cap % 4 != 0);
+    # killed pairs (ragged n_active, keep holes) inside the grains' runs
+    "hot_grain": dict(hot_grain=True, q=64, p=16, g=64, k=32, cap=1664,
+                      width=64, s=8),
+    "ties_across_probes": dict(ties=True, q=32, p=8, g=5, k=32, cap=1100,
+                               width=3000, s=8),
+    "cap_below_width": dict(q=32, p=8, g=64, k=32, cap=200, width=1000,
+                            s=8),
+    "scalar_path_cap_1662": dict(q=64, p=16, g=64, k=32, cap=1662, width=64,
+                                 s=8, tenants=3),
+    "ragged_keep_holes": dict(q=128, p=16, g=8, k=32, cap=512, width=64,
+                              s=8, ragged=True, keep_frac=0.5),
 }
 
 
@@ -217,6 +238,10 @@ def kernel_phase(torch, dev):
         width = c.pop("width")
         if c.pop("descending", False):
             a = select_cases.descending_inputs(**c)
+        elif c.pop("ties", False):
+            a = select_cases.tie_inputs(**c)
+        elif c.pop("hot_grain", False):
+            a = select_cases.hot_grain_inputs(i, **c)
         else:
             if c.pop("pruned", False):
                 c["keep_frac"] = 0.0
@@ -436,11 +461,15 @@ def time_events(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, kernel, reps=20):
-    """Device time per launch of the kernels whose name holds ``kernel``,
-    from torch.profiler (CUPTI) over ``reps`` calls of ``fn``: unlike CUDA
-    events around back-to-back calls, it leaves out the host's launch
-    time when the kernel is shorter.  None when the profiler saw none."""
+def device_ms(torch, fn, kernels, reps=20):
+    """Device time per call of ``fn``, from torch.profiler (CUPTI) over
+    ``reps`` calls: unlike CUDA events around back-to-back calls, it leaves
+    out the host's launch time when the device work is shorter.
+
+    Returns (ms, parts): ms is all device work of a call, whatever
+    launched it; parts maps each name in ``kernels`` to the device time
+    per call of the kernels whose name holds it, and "other" to the rest.
+    Fails the run when a named kernel ran fewer than ``reps`` times."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -448,10 +477,27 @@ def device_ms(torch, fn, kernel, reps=20):
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and kernel in e.key]
-    n = sum(e.count for e in evs)
-    return sum(e.self_device_time_total for e in evs) / n / 1e3 if n else None
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in evs) / reps / 1e3
+    parts = {}
+    for name in kernels:
+        mine = [e for e in evs if name in e.key]
+        n = sum(e.count for e in mine)
+        check(n >= reps, f"device_ms: the profiler saw {n} launches of "
+              f"{name} in {reps} calls")
+        parts[name] = sum(e.self_device_time_total for e in mine) / reps / 1e3
+    parts["other"] = total - sum(parts.values())
+    return total, parts
+
+
+#: The kernels one ``fused_scan_select`` call launches, and what each part
+#: of its device time is called in the log ("other": the schedule's
+#: torch.where and torch.sort).
+SELECT_KERNELS = ("fused_scan_select_probe_kernel",
+                  "fused_scan_select_merge_kernel")
+SELECT_PARTS = {"fused_scan_select_probe_kernel": "probe kernel",
+                "fused_scan_select_merge_kernel": "merge kernel",
+                "other": "schedule"}
 
 
 def kernel_time_phase(torch, mp):
@@ -471,8 +517,8 @@ def kernel_time_phase(torch, mp):
         fsel.fused_scan_select(*args, width=width, **kw)
     events_ms = time_events(torch, lambda: fsel.fused_scan_select(
         *args, width=width, **kw), 20)
-    ms = device_ms(torch, lambda: fsel.fused_scan_select(
-        *args, width=width, **kw), "fused_scan_select_kernel") or events_ms
+    ms, parts = device_ms(torch, lambda: fsel.fused_scan_select(
+        *args, width=width, **kw), SELECT_KERNELS)
     fsel.fused_scan_select_ref(*args, width=width, **kw)
     plain_ms = time_events(torch, lambda: fsel.fused_scan_select_ref(
         *args, width=width, **kw), 3)
@@ -480,13 +526,16 @@ def kernel_time_phase(torch, mp):
     q_n, p_n, k = args[1].shape
     log(f"fused_scan_select at the main path's shape (Q={q_n} P={p_n} "
         f"G={args[4].shape[0]} k={k} cap={args[4].shape[2]} "
-        f"s={kw['sq'].shape[2]} width={width}): kernel {ms:.4f} ms "
-        f"(CUPTI; CUDA events {events_ms:.4f} ms), plain "
+        f"s={kw['sq'].shape[2]} width={width}): {ms:.4f} ms per call "
+        f"(CUPTI, every kernel the wrapper launches: "
+        + ", ".join(f"{SELECT_PARTS[k]} {v:.4f}" for k, v in parts.items())
+        + f"; CUDA events {events_ms:.4f} ms), plain "
         f"version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by} ({nbytes} bytes, {ops} int ops); library: none (no "
         "single PyTorch call computes a masked scan with a running top-W)")
     return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                parts={SELECT_PARTS[k]: v for k, v in parts.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -636,8 +685,8 @@ def time_scan(torch, label, kern, plain, args, queries, reps=20):
     for _ in range(3):
         kern(*args)
     events_ms = time_events(torch, lambda: kern(*args), reps)
-    ms = device_ms(torch, lambda: kern(*args), kern.__name__ + "_kernel") \
-        or events_ms
+    ms, _ = device_ms(torch, lambda: kern(*args),
+                      (kern.__name__ + "_kernel",))
     plain(*args)
     plain_ms = time_events(torch, lambda: plain(*args), 3)
     bound_ms, bound_by, nbytes, ops = scan_bound(args, queries)
@@ -905,12 +954,15 @@ def profile_phase(torch, mp, gp, kvp):
 # ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"],
-            "events_ms": t["events_ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "at": at}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"],
+             "events_ms": t["events_ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": None, "at": at}
+    if "parts" in t:
+        entry["ms_parts"] = t["parts"]
+    return entry
 
 
 def main(argv=None) -> int:
@@ -958,7 +1010,7 @@ def main(argv=None) -> int:
                     "HNTL-KV decode": kvp["launches"]}
     log(json.dumps({"kernels": [
         kernel_entry("fused_scan_select", src + "fused_select.cu",
-                     "src/repro/kernels/fused_select.py:178",
+                     "src/repro/kernels/fused_select.py:179",
                      mp["launches"]["fused_scan_select"],
                      {"search (fused plane)":
                       mp["launches"]["fused_scan_select"]},

@@ -23,41 +23,72 @@
 // ever enters and positions beyond the live candidates read (BIG, -1).
 // Rows are -1 wherever dist >= BIG / 2.
 //
+// Every candidate is a 64-bit key: order-preserving bits of its f32
+// distance << 32 | (p * cap + c + 1).  Keys are unique within a query and
+// sort exactly as (dist, p, c); the carry's entries are all
+// big_key = bits(BIG) << 32 | 0, which sorts before every slot at BIG.
+//
 // What bounds it on this card: bytes.  Each probed slot costs 2k + s
 // bytes of panel plus 4 of residual and 1 of mask, against about 3(k + s)
 // integer operations: far below the ~20 operations per byte where the
-// SIMT integer units would become the limit.  Panels probed by several
-// queries are re-read per query (from L2 when they are still there).
+// SIMT integer units would become the limit.  The (query, probe) pairs
+// touch fewer distinct grains than pairs (at the main path's shape 4,096
+// pairs visit ~944 grains), so the bytes the card must move are the
+// distinct panels; the rest can come from the 50 MB L2 if the pairs that
+// share a grain run together.
 //
-// What the design does about it:
-//  * one CTA per query walks that query's probes and cap tiles in a loop
-//    (the TPU's sequential grid axes); panel offsets come from gids[q, p]
-//    in the kernel, so no per-query copy of a panel is ever made;
-//  * each thread owns one slot of a 256-slot tile, so a warp reads each
-//    dimension-major coordinate row as one contiguous run;
-//  * killed probes (p >= n_active[q]) and pruned probes (keep == 0) are
-//    skipped whole, and the ragged tail of cap is masked in the kernel;
-//  * the running top-W lives in shared memory as 64-bit keys
-//    (order-preserving bits of the f32 distance << 32 | visit index + 1).
-//    A slot only competes if its key beats the current W-th key; the few
-//    that do are appended to a buffer, and a full buffer is folded into
-//    the carry by one block-wide bitonic sort.  Only [Q, width] is ever
-//    written to device memory.  Every thread reads the append counter to
-//    decide whether to fold, and a barrier separates that read from the
-//    tile's appends: so all threads take the same decision, and either
-//    all reach the sort's barriers or none does.
+// What the design does about it: two kernels and a schedule.
+//  * Schedule (the wrapper, one stable torch.sort on the card, no host
+//    sync): the Q*P pairs ordered by grain id, killed pairs (keep == 0 or
+//    p >= n_active[q]) last.  The TPU kernel walks pairs in (q, p) order;
+//    the order of visits is a schedule, not part of what is computed.
+//  * fused_scan_select_probe_kernel: one CTA of one warp per pair, in the
+//    schedule's order (blockIdx.x -> order[blockIdx.x]), so the CTAs that
+//    read one panel run side by side and all but the first read it from
+//    L2.  A killed pair's CTA exits at once.  Each lane owns 4
+//    consecutive slots of a 128-slot chunk: one 8-byte load per
+//    coordinate row (the warp reads 256 B), 4 bytes of sketch, 16 of
+//    residual, 4 of mask; a scalar path (template kVec = false) takes caps
+//    that are not a multiple of 4 and misaligned panels.  The warp keeps
+//    the pair's own top-L, L = min(width, cap), as a sorted carry in
+//    shared memory.  Keys at or above the carry's L-th are dropped; a
+//    chunk with none left costs one warp scan.  Up to 32 survivors are
+//    compacted one per lane and sorted in registers (15 shuffle stages),
+//    more are sorted as the chunk's 128 (4 per lane), and the run is
+//    merged into the carry by merge path (a binary search per output).
+//    No block barrier anywhere: an SM holds 32 of these warps, each at
+//    its own phase, so one warp's loads overlap another's sort (a form
+//    with 256-thread CTAs sorting 1024-slot tiles block-wide took 1.7x
+//    as long on an H100, PERF.md).  The L sorted keys go to a scratch
+//    tensor [Q*P, L].
+//  * fused_scan_select_merge_kernel: one CTA per query folds the sorted
+//    lists of its live probes into a carry of `width` big_keys, probe by
+//    probe in visit order, each fold one merge path of two sorted runs
+//    (lists staged in shared memory, as many probes at once as fit), then
+//    maps the first `width` keys to (dist, row).  A query's top-width
+//    holds at most min(width, cap) slots of one probe, and keys are
+//    unique, so these are the first `width` of the global sort: bit for
+//    bit the plain version.
 //
-// Limits: width <= kMaxWidth (shared memory: next_pow2(width + 256) keys
-// of 8 bytes, 128 KB at the limit); P * cap < 2^32 - 1.
+// Limits: width <= kMaxWidth; P * cap < 2^32 - 1; Q * P < 2^31.  Shared
+// memory: probe kernel 2 L + 128 keys of 8 bytes (129 KB at L = 8192);
+// merge kernel 2 width keys plus a staging area, within kSmemBudget.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
-constexpr int kThreads = 256;
+typedef unsigned long long u64;
+
+constexpr int kThreads = 256;                       // merge kernel
+constexpr int kSlotsPerThread = 4;
+constexpr int kChunk = 32 * kSlotsPerThread;        // slots a warp prices
 constexpr int kMaxWidth = 8192;
+constexpr size_t kSmemBudget = 200 * 1024;
+constexpr u64 kEmpty = ~0ull;
 
 struct Params {
   const int32_t* gids;          // [Q, P]
@@ -76,9 +107,12 @@ struct Params {
   const uint8_t* tenant_mask;   // [T, G, cap] bool or null
   const int32_t* tenant_ix;     // [Q] or null
   const int32_t* n_active;      // [Q] or null (= all P probes)
+  const int64_t* order;         // [Q * P] pairs q * P + p, grain order
+  u64* lists;                   // [Q * P, L] per-pair sorted top-L keys
   float* out_d;                 // [Q, width]
   int32_t* out_r;               // [Q, width]
-  int P, k, s, G, cap, width, n_keys;
+  int P, k, s, G, cap, width, L, stage_probes;
+  u64 big_key;
   float big;
 };
 
@@ -91,145 +125,307 @@ __device__ __forceinline__ float float_of_order(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-// Ascending bitonic sort of n (a power of two) keys in shared memory.
-// Every thread of the block calls it; it ends synchronised.
-__device__ void block_sort(unsigned long long* a, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
+__device__ __forceinline__ bool pair_alive(const Params& p, int q, int pi) {
+  if (!p.keep[static_cast<int64_t>(q) * p.P + pi]) return false;
+  return p.n_active == nullptr || pi < p.n_active[q];
+}
+
+// Output i of the ascending merge of sorted runs a[0, la) and b[0, lb)
+// (ties: a first).  Merge path: the number of a's among the first i
+// outputs is found by binary search.
+__device__ __forceinline__ u64 merge_at(const u64* a, int la, const u64* b,
+                                        int lb, int i) {
+  int lo = max(0, i - lb), hi = min(i, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= b[i - 1 - mid]) lo = mid + 1;
+    else hi = mid;
+  }
+  const int j = i - lo;
+  if (lo < la && (j >= lb || a[lo] <= b[j])) return a[lo];
+  return b[j];
+}
+
+// Ascending bitonic sort of the warp's 32 * kPer keys, element
+// e = lane * kPer + r in v[r], in registers.
+template <int kPer>
+__device__ __forceinline__ void warp_sort(u64 (&v)[kPer]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32 * kPer; size <<= 1) {
+#pragma unroll
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const unsigned long long x = a[lo], y = a[hi];
-        if ((x > y) == up) {
-          a[lo] = y;
-          a[hi] = x;
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int e = lane * kPer + r;
+        const bool up = (e & size) == 0;
+        if (stride >= kPer) {
+          const u64 o = __shfl_xor_sync(0xffffffffu, v[r], stride / kPer);
+          const bool lower = (e & stride) == 0;
+          const u64 lo = v[r] < o ? v[r] : o;
+          const u64 hi = v[r] < o ? o : v[r];
+          v[r] = lower == up ? lo : hi;
+        } else if ((r & stride) == 0) {
+          const u64 a = v[r], b = v[r + stride];
+          if ((a > b) == up) {
+            v[r] = b;
+            v[r + stride] = a;
+          }
         }
       }
-      __syncthreads();
     }
   }
 }
 
-template <bool kSketch, bool kTenant>
-__global__ void __launch_bounds__(kThreads)
-fused_scan_select_kernel(const Params p) {
-  extern __shared__ unsigned long long keys[];   // [n_keys]: carry, buffer
-  int* zq_s = reinterpret_cast<int*>(keys + p.n_keys);
+// Loads 4 consecutive elements starting at element c0 of a row (kVec: one
+// aligned vector load; else one guarded load each, 0 beyond `cap`).
+template <bool kVec, typename T>
+__device__ __forceinline__ void load4(const T* row, int c0, int cap,
+                                      int (&x)[kSlotsPerThread]) {
+  if constexpr (kVec) {
+    if constexpr (sizeof(T) == 1) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(row + c0);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        x[r] = static_cast<int>(static_cast<T>((w >> (8 * r)) & 0xffu));
+    } else if constexpr (sizeof(T) == 2) {
+      const uint2 w = *reinterpret_cast<const uint2*>(row + c0);
+      x[0] = static_cast<int>(static_cast<T>(w.x & 0xffffu));
+      x[1] = static_cast<int>(static_cast<T>(w.x >> 16));
+      x[2] = static_cast<int>(static_cast<T>(w.y & 0xffffu));
+      x[3] = static_cast<int>(static_cast<T>(w.y >> 16));
+    } else {
+      const int4 w = *reinterpret_cast<const int4*>(row + c0);
+      x[0] = w.x;
+      x[1] = w.y;
+      x[2] = w.z;
+      x[3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      x[r] = c0 + r < cap ? static_cast<int>(row[c0 + r]) : 0;
+  }
+}
+
+// 32 resident CTAs of one warp fill an SM's 64K registers at 64 each.
+template <bool kSketch, bool kTenant, bool kVec>
+__global__ void __launch_bounds__(32, 32)
+fused_scan_select_probe_kernel(const Params p) {
+  extern __shared__ u64 smem[];
+  u64* carry = smem;                           // [L]
+  u64* spare = carry + p.L;                    // [L]
+  u64* run = spare + p.L;                      // [kChunk] a chunk's survivors
+  int* zq_s = reinterpret_cast<int*>(run + kChunk);
   int* sq_s = zq_s + p.k;
-  __shared__ int buf_n;
+  constexpr unsigned kAll = 0xffffffffu;
+
+  const int64_t pair = p.order[blockIdx.x];
+  const int q = static_cast<int>(pair / p.P);
+  const int pi = static_cast<int>(pair - static_cast<int64_t>(q) * p.P);
+  if (!pair_alive(p, q, pi)) return;           // warp-uniform
+  const int lane = threadIdx.x;
+  const int L = p.L;
+
+  for (int j = lane; j < p.k; j += 32) zq_s[j] = p.zq[pair * p.k + j];
+  if (kSketch)
+    for (int j = lane; j < p.s; j += 32) sq_s[j] = p.sq[pair * p.s + j];
+  for (int i = lane; i < L; i += 32) carry[i] = p.big_key;
+  __syncwarp();
+
+  const int g = p.gids[pair];
+  const float sc = p.scale[g];
+  const float sc2 = __fmul_rn(sc, sc);
+  const float rs = p.res_scale[g];
+  const float rqv = p.rq[pair];
+  float sk2 = 0.0f;
+  if (kSketch) {
+    const float ss = p.sketch_scale[g];
+    sk2 = __fmul_rn(ss, ss);
+  }
+  const int64_t gc = static_cast<int64_t>(g) * p.cap;
+  const int16_t* cg = p.coords + gc * p.k;
+  const int8_t* skg = kSketch ? p.sketch + gc * p.s : nullptr;
+  const uint8_t* tg = nullptr;
+  if (kTenant)
+    tg = p.tenant_mask +
+         (static_cast<int64_t>(p.tenant_ix[q]) * p.G + g) * p.cap;
+  const uint32_t visit0 = static_cast<uint32_t>(pi) * p.cap + 1u;
+  u64 thr = p.big_key;                         // the carry's L-th key
+
+  for (int base = 0; base < p.cap; base += kChunk) {
+    const int c0 = base + lane * kSlotsPerThread;
+    u64 v[kSlotsPerThread];
+    int cnt = 0;
+    if (c0 < p.cap) {
+      uint32_t acc[kSlotsPerThread] = {0u, 0u, 0u, 0u};   // int32, wraps
+#pragma unroll 8
+      for (int j = 0; j < p.k; ++j) {
+        int z[kSlotsPerThread];
+        load4<kVec>(cg + static_cast<int64_t>(j) * p.cap, c0, p.cap, z);
+        const int zj = zq_s[j];
+#pragma unroll
+        for (int r = 0; r < kSlotsPerThread; ++r) {
+          const uint32_t df =
+              static_cast<uint32_t>(zj) - static_cast<uint32_t>(z[r]);
+          acc[r] += df * df;
+        }
+      }
+      uint32_t sacc[kSlotsPerThread] = {0u, 0u, 0u, 0u};
+      if (kSketch) {
+#pragma unroll 8
+        for (int j = 0; j < p.s; ++j) {
+          int z[kSlotsPerThread];
+          load4<kVec>(skg + static_cast<int64_t>(j) * p.cap, c0, p.cap, z);
+          const int zj = sq_s[j];
+#pragma unroll
+          for (int r = 0; r < kSlotsPerThread; ++r) {
+            const uint32_t df =
+                static_cast<uint32_t>(zj) - static_cast<uint32_t>(z[r]);
+            sacc[r] += df * df;
+          }
+        }
+      }
+      int rv[kSlotsPerThread], mv[kSlotsPerThread], tv[kSlotsPerThread];
+      load4<kVec>(p.res + gc, c0, p.cap, rv);
+      load4<kVec>(p.mask + gc, c0, p.cap, mv);
+      if (kTenant) load4<kVec>(tg, c0, p.cap, tv);
+#pragma unroll
+      for (int r = 0; r < kSlotsPerThread; ++r) {
+        float d = __fmul_rn(static_cast<float>(static_cast<int32_t>(acc[r])),
+                            sc2);
+        d = __fadd_rn(__fadd_rn(d, __fmul_rn(static_cast<float>(rv[r]), rs)),
+                      rqv);
+        if (kSketch)
+          d = __fadd_rn(d, __fmul_rn(static_cast<float>(
+                                         static_cast<int32_t>(sacc[r])), sk2));
+        bool live = c0 + r < p.cap && mv[r] != 0;
+        if (kTenant) live = live && tv[r] != 0;
+        const u64 key = (static_cast<u64>(order_bits(d)) << 32) |
+                        (visit0 + static_cast<uint32_t>(c0 + r));
+        v[r] = live && key < thr ? key : kEmpty;
+        cnt += v[r] != kEmpty;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kSlotsPerThread; ++r) v[r] = kEmpty;
+    }
+    // survivors of the warp, each lane's count summed inclusively
+    int incl = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(kAll, incl, d);
+      if (lane >= d) incl += x;
+    }
+    const int n = __shfl_sync(kAll, incl, 31);
+    if (n == 0) continue;                      // warp-uniform
+
+    // The survivors as one sorted run in run[0, m): few of them (the
+    // common case once the carry holds L real keys) are compacted one per
+    // lane and sorted as 32; else the chunk's 128 keys are sorted whole.
+    int m;
+    if (n <= 32) {
+      int at = incl - cnt;
+#pragma unroll
+      for (int r = 0; r < kSlotsPerThread; ++r)
+        if (v[r] != kEmpty) run[at++] = v[r];
+      __syncwarp();
+      u64 x[1] = {lane < n ? run[lane] : kEmpty};
+      warp_sort(x);
+      __syncwarp();
+      run[lane] = x[0];
+      m = min(n, L);
+    } else {
+      warp_sort(v);
+#pragma unroll
+      for (int r = 0; r < kSlotsPerThread; ++r)
+        run[lane * kSlotsPerThread + r] = v[r];
+      m = min(n, L);
+    }
+    __syncwarp();
+    for (int i = lane; i < L; i += 32) spare[i] = merge_at(carry, L, run, m, i);
+    __syncwarp();
+    u64* tmp = carry;
+    carry = spare;
+    spare = tmp;
+    thr = carry[L - 1];
+  }
+
+  u64* out = p.lists + pair * L;
+  for (int i = lane; i < L; i += 32) out[i] = carry[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_scan_select_merge_kernel(const Params p) {
+  extern __shared__ u64 smem[];
+  u64* carry = smem;                           // [width]
+  u64* spare = carry + p.width;                // [width]
+  u64* stage = spare + p.width;                // [stage_probes * L]
 
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
-  const int carry_n = p.width;
-  const int buf_cap = p.n_keys - carry_n;
-  const unsigned long long empty = ~0ull;
-  const unsigned long long big_key =
-      static_cast<unsigned long long>(order_bits(p.big)) << 32;  // visit 0
-
-  for (int i = tid; i < p.n_keys; i += kThreads)
-    keys[i] = i < carry_n ? big_key : empty;
-  if (tid == 0) buf_n = 0;
-  __syncthreads();
-
-  unsigned long long thr = big_key;   // key of the carry's width-th entry
+  const int L = p.L, W = p.width;
+  for (int i = tid; i < W; i += kThreads) carry[i] = p.big_key;
   int n_probe = p.P;
   if (p.n_active != nullptr) n_probe = min(max(p.n_active[q], 0), p.P);
+  const int64_t qp = static_cast<int64_t>(q) * p.P;
 
-  for (int pi = 0; pi < n_probe; ++pi) {
-    const int64_t qp = static_cast<int64_t>(q) * p.P + pi;
-    if (!p.keep[qp]) continue;                    // block-uniform
-    const int g = p.gids[qp];
-    for (int j = tid; j < p.k; j += kThreads) zq_s[j] = p.zq[qp * p.k + j];
-    if (kSketch)
-      for (int j = tid; j < p.s; j += kThreads) sq_s[j] = p.sq[qp * p.s + j];
+  for (int p0 = 0; p0 < n_probe; p0 += p.stage_probes) {
+    const int n = min(p.stage_probes, n_probe - p0);
+    for (int t = tid; t < n * L; t += kThreads) {
+      const int j = t / L;
+      if (p.keep[qp + p0 + j]) stage[t] = p.lists[(qp + p0) * L + t];
+    }
     __syncthreads();
-
-    const float sc = p.scale[g];
-    const float sc2 = __fmul_rn(sc, sc);
-    const float rs = p.res_scale[g];
-    const float rqv = p.rq[qp];
-    float sk2 = 0.0f;
-    if (kSketch) {
-      const float ss = p.sketch_scale[g];
-      sk2 = __fmul_rn(ss, ss);
-    }
-    const int64_t gc = static_cast<int64_t>(g) * p.cap;
-    const int16_t* cg = p.coords + gc * p.k;
-    const int8_t* skg = kSketch ? p.sketch + gc * p.s : nullptr;
-    const uint8_t* tg = nullptr;
-    if (kTenant)
-      tg = p.tenant_mask +
-           (static_cast<int64_t>(p.tenant_ix[q]) * p.G + g) * p.cap;
-
-    for (int base = 0; base < p.cap; base += kThreads) {
-      // No thread appends before every thread has read the counter, so
-      // `full` is the same in all of them.
-      const bool full = buf_n > buf_cap - kThreads;
+    for (int j = 0; j < n; ++j) {
+      const u64* list = stage + j * L;
+      // block-uniform: skip a dead probe, or one whose best key cannot
+      // enter the carry
+      if (!p.keep[qp + p0 + j] || list[0] >= carry[W - 1]) continue;
+      for (int i = tid; i < W; i += kThreads)
+        spare[i] = merge_at(carry, W, list, L, i);
       __syncthreads();
-      if (full) {
-        block_sort(keys, p.n_keys);
-        for (int i = carry_n + tid; i < p.n_keys; i += kThreads)
-          keys[i] = empty;
-        if (tid == 0) buf_n = 0;
-        __syncthreads();
-        thr = keys[carry_n - 1];
-      }
-      const int c = base + tid;
-      bool live = c < p.cap && p.mask[gc + c] != 0;
-      if (kTenant) live = live && tg[c] != 0;
-      if (live) {
-        uint32_t acc = 0;                         // int32 arithmetic, wraps
-        for (int j = 0; j < p.k; ++j) {
-          const uint32_t df = static_cast<uint32_t>(
-              zq_s[j] - static_cast<int>(cg[static_cast<int64_t>(j) * p.cap + c]));
-          acc += df * df;
-        }
-        float d = __fmul_rn(static_cast<float>(static_cast<int32_t>(acc)), sc2);
-        d = __fadd_rn(__fadd_rn(d, __fmul_rn(static_cast<float>(p.res[gc + c]), rs)),
-                      rqv);
-        if (kSketch) {
-          uint32_t sacc = 0;
-          for (int j = 0; j < p.s; ++j) {
-            const uint32_t df = static_cast<uint32_t>(
-                sq_s[j] - static_cast<int>(skg[static_cast<int64_t>(j) * p.cap + c]));
-            sacc += df * df;
-          }
-          d = __fadd_rn(d, __fmul_rn(static_cast<float>(static_cast<int32_t>(sacc)), sk2));
-        }
-        const uint32_t visit = static_cast<uint32_t>(pi) * p.cap + c + 1u;
-        const unsigned long long key =
-            (static_cast<unsigned long long>(order_bits(d)) << 32) | visit;
-        if (key < thr) keys[carry_n + atomicAdd(&buf_n, 1)] = key;
-      }
-      __syncthreads();
+      u64* tmp = carry;
+      carry = spare;
+      spare = tmp;
     }
+    __syncthreads();                           // stage is reloaded
   }
 
-  if (buf_n > 0) block_sort(keys, p.n_keys);
-
   const float half_big = p.big * 0.5f;
-  for (int i = tid; i < p.width; i += kThreads) {
-    const unsigned long long key = keys[i];
+  for (int i = tid; i < W; i += kThreads) {
+    const u64 key = carry[i];
     const float d = float_of_order(static_cast<uint32_t>(key >> 32));
     int32_t row = -1;
     if (d < half_big) {
       const uint32_t v = static_cast<uint32_t>(key) - 1u;
       const int pi = static_cast<int>(v / static_cast<uint32_t>(p.cap));
       const int c = static_cast<int>(v % static_cast<uint32_t>(p.cap));
-      const int g = p.gids[static_cast<int64_t>(q) * p.P + pi];
+      const int g = p.gids[qp + pi];
       row = p.rows[static_cast<int64_t>(g) * p.cap + c];
     }
-    const int64_t o = static_cast<int64_t>(q) * p.width + i;
+    const int64_t o = static_cast<int64_t>(q) * W + i;
     p.out_d[o] = d;
     p.out_r[o] = row;
   }
 }
 
-int next_pow2(int v) {
-  int n = 1;
-  while (n < v) n <<= 1;
-  return n;
+typedef void (*Kernel)(const Params);
+
+template <bool kSketch, bool kTenant>
+Kernel probe_kernel(bool vec) {
+  return vec ? fused_scan_select_probe_kernel<kSketch, kTenant, true>
+             : fused_scan_select_probe_kernel<kSketch, kTenant, false>;
+}
+
+cudaError_t set_smem(Kernel kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+bool aligned16(const void* ptr) {
+  return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 }  // namespace
@@ -240,18 +436,28 @@ extern "C" const char* fused_scan_select_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  Null pointers mark absent optional inputs.
+// Launches the probe kernel over `n_pairs` = Q * P CTAs and the merge
+// kernel over Q on `stream`; returns cudaGetLastError() after the
+// launches (0 on success).  Null pointers mark absent optional inputs.
+// `order` is the schedule (int64 pair indices, killed pairs anywhere),
+// `lists` scratch of Q * P * min(width, cap) keys; `vec` selects the
+// vector loads (cap % 4 == 0 and 16-byte aligned panels, checked here).
 extern "C" int fused_scan_select_launch(
     const void* gids, const void* zq, const void* rq, const void* keep,
     const void* coords, const void* res, const void* mask, const void* rows,
     const void* scale, const void* res_scale, const void* sq,
     const void* sketch, const void* sketch_scale, const void* tenant_mask,
-    const void* tenant_ix, const void* n_active, void* out_d, void* out_r,
-    int n_queries, int n_probes, int k, int s, int n_grains, int cap,
-    int width, float big, void* stream) {
-  if (width < 1 || width > kMaxWidth || n_queries < 1)
+    const void* tenant_ix, const void* n_active, const void* order,
+    void* lists, void* out_d, void* out_r, int n_queries, int n_probes,
+    int k, int s, int n_grains, int cap, int width, int vec, float big,
+    void* stream) {
+  if (width < 1 || width > kMaxWidth || n_queries < 1 || n_probes < 1 ||
+      cap < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && (cap % kSlotsPerThread != 0 || !aligned16(coords) ||
+              !aligned16(res) || !aligned16(mask) || !aligned16(sketch) ||
+              !aligned16(tenant_mask)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const bool has_sketch = sketch != nullptr;
   const bool has_tenant = tenant_mask != nullptr;
   Params p;
@@ -271,6 +477,8 @@ extern "C" int fused_scan_select_launch(
   p.tenant_mask = static_cast<const uint8_t*>(tenant_mask);
   p.tenant_ix = static_cast<const int32_t*>(tenant_ix);
   p.n_active = static_cast<const int32_t*>(n_active);
+  p.order = static_cast<const int64_t*>(order);
+  p.lists = static_cast<u64*>(lists);
   p.out_d = static_cast<float*>(out_d);
   p.out_r = static_cast<int32_t*>(out_r);
   p.P = n_probes;
@@ -279,23 +487,40 @@ extern "C" int fused_scan_select_launch(
   p.G = n_grains;
   p.cap = cap;
   p.width = width;
-  p.n_keys = next_pow2(width + kThreads);
+  p.L = width < cap ? width : cap;
   p.big = big;
+  uint32_t big_bits;
+  memcpy(&big_bits, &big, sizeof(big_bits));
+  big_bits = (big_bits & 0x80000000u) ? ~big_bits : (big_bits | 0x80000000u);
+  p.big_key = static_cast<u64>(big_bits) << 32;
+  // merge kernel: carry + spare of `width` keys, then as many probes'
+  // lists as fit the budget (at least one)
+  const size_t fixed = 2 * static_cast<size_t>(width) * sizeof(u64);
+  const size_t per_list = static_cast<size_t>(p.L) * sizeof(u64);
+  const int fit = static_cast<int>((kSmemBudget - fixed) / per_list);
+  p.stage_probes = fit < 1 ? 1 : (fit > n_probes ? n_probes : fit);
 
-  const size_t smem = static_cast<size_t>(p.n_keys) * sizeof(unsigned long long) +
-                      static_cast<size_t>(p.k + p.s) * sizeof(int);
-  void (*kern)(const Params);
+  const size_t probe_smem =
+      (2 * static_cast<size_t>(p.L) + kChunk) * sizeof(u64) +
+      static_cast<size_t>(p.k + p.s) * sizeof(int);
+  const size_t merge_smem =
+      fixed + static_cast<size_t>(p.stage_probes) * per_list;
+  Kernel probe;
   if (has_sketch)
-    kern = has_tenant ? fused_scan_select_kernel<true, true>
-                      : fused_scan_select_kernel<true, false>;
+    probe = has_tenant ? probe_kernel<true, true>(vec)
+                       : probe_kernel<true, false>(vec);
   else
-    kern = has_tenant ? fused_scan_select_kernel<false, true>
-                      : fused_scan_select_kernel<false, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kern<<<n_queries, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    probe = has_tenant ? probe_kernel<false, true>(vec)
+                       : probe_kernel<false, false>(vec);
+  cudaError_t e = set_smem(probe, probe_smem);
+  if (e == cudaSuccess)
+    e = set_smem(fused_scan_select_merge_kernel, merge_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned n_pairs = static_cast<unsigned>(n_queries) * n_probes;
+  probe<<<n_pairs, 32, probe_smem, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_scan_select_merge_kernel<<<n_queries, kThreads, merge_smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,13 +7,18 @@ query: candidate state is [Q, width] instead of [Q, P*cap].
 
 - CPU tensors run the plain PyTorch version, ``fused_scan_select_ref``
   (``core.scan.blocksoa_select_ref``).
-- CUDA tensors run the hand-written kernel ``csrc/fused_select.cu``
+- CUDA tensors run the hand-written kernels of ``csrc/fused_select.cu``
   (built at first use by ``_build``), or raise.  There is no fallback.
+  One call is a schedule (``schedule``: the (query, probe) pairs in grain
+  order, one ``torch.sort`` on the card), the per-probe kernel (each pair's
+  own top-min(width, cap), in that order, so pairs that share a panel run
+  together) and the merge kernel (one per query, the probes' lists folded
+  into the top-``width``).
 
-The kernel equals the plain version bit for bit: the same exact integer
+The kernels equal the plain version bit for bit: the same exact integer
 sums, the same float op order without FMA contraction, and the same tie
 order (stable by probe, then slot).  ``fused_scan_select.launches`` counts
-kernel launches.
+calls that launched the kernels.
 """
 from __future__ import annotations
 
@@ -23,16 +28,17 @@ from typing import Optional
 import torch
 
 from ..core.scan import blocksoa_select_ref as fused_scan_select_ref
+from ..core.scan import probe_alive
 from ..core.types import BIG
 from . import _build
 
-#: Largest ``width`` the kernel takes: its carry and candidate buffer live
-#: in dynamic shared memory, next_pow2(width + 256) keys of 8 bytes each
-#: (128 KB at this limit, of the 227 KB a block may use).
+#: Largest ``width`` the kernels take: the merge kernel's carry lives in
+#: dynamic shared memory, two copies of ``width`` keys of 8 bytes (128 KB
+#: at this limit, of the 227 KB a block may use).
 MAX_WIDTH = 8192
 
 _SOURCE = "fused_select"
-_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                             ctypes.c_void_p]
 
 
@@ -63,6 +69,31 @@ def _check(name, t, dtype, shape, device):
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"fused_scan_select: {name} must be contiguous")
+
+
+def schedule(gids: torch.Tensor, keep: torch.Tensor, n_grains: int,
+             n_active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-probe kernel's order of the Q*P (query, probe) pairs.
+
+    int64 [Q*P] flat pair indices q * P + p: live pairs first, by grain id
+    (gids in [0, n_grains)), pairs of one grain in (q, p) order; killed
+    pairs (keep == 0 or p >= n_active[q]) last.  One stable sort on the
+    tensors' device, no host sync; int16 keys where the grain ids fit
+    (half the radix passes of int32).  It changes only when each pair
+    runs, never the result.
+    """
+    dtype = torch.int16 if n_grains < torch.iinfo(torch.int16).max \
+        else torch.int32
+    killed = torch.iinfo(dtype).max               # after every grain id
+    key = torch.where(probe_alive(keep, n_active), gids.to(dtype), killed)
+    return torch.sort(key.reshape(-1), stable=True).indices
+
+
+def vector_loads(cap: int, *panels: Optional[torch.Tensor]) -> bool:
+    """Whether the per-probe kernel may read 4 slots per load: cap a
+    multiple of 4 and every panel's base 16-byte aligned."""
+    return cap % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0
+                                for t in panels)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -115,15 +146,24 @@ def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
     out_r = torch.empty((q_n, width), dtype=torch.int32, device=dev)
     if q_n == 0:
         return out_d, out_r
+    if p_n == 0 or cap == 0:                      # nothing to visit
+        return out_d.fill_(BIG), out_r.fill_(-1)
+    if q_n * p_n >= 2 ** 31:
+        raise ValueError("fused_scan_select: Q * P must be < 2^31")
     lib = _lib()
     with torch.cuda.device(dev):
+        order = schedule(gids, keep, g_n, n_active)
+        lists = torch.empty((q_n * p_n, min(width, cap)), dtype=torch.int64,
+                            device=dev)
+        vec = vector_loads(cap, coords, res, mask, sketch, tenant_mask)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_scan_select_launch(
             _ptr(gids), _ptr(zq), _ptr(rq), _ptr(keep), _ptr(coords),
             _ptr(res), _ptr(mask), _ptr(rows), _ptr(scale), _ptr(res_scale),
             _ptr(sq), _ptr(sketch), _ptr(sketch_scale), _ptr(tenant_mask),
-            _ptr(tenant_ix), _ptr(n_active), _ptr(out_d), _ptr(out_r),
-            q_n, p_n, k, s, g_n, cap, width, BIG, ctypes.c_void_p(stream))
+            _ptr(tenant_ix), _ptr(n_active), _ptr(order), _ptr(lists),
+            _ptr(out_d), _ptr(out_r), q_n, p_n, k, s, g_n, cap, width,
+            int(vec), BIG, ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.fused_scan_select_error_string(rc).decode()
         raise RuntimeError(f"fused_scan_select kernel launch failed: CUDA "
@@ -149,7 +189,7 @@ def fused_scan_select(gids, zq, rq, keep, coords, res, mask, rows, scale,
     Returns (dists [Q, width] f32 ascending, rows [Q, width] i32), with
     (BIG, -1) beyond the live candidates; see ``blocksoa_select_ref`` for
     the exact order.  CPU tensors take the plain version; CUDA tensors take
-    the kernel (``width`` <= ``MAX_WIDTH``) or raise.
+    the kernels (``width`` <= ``MAX_WIDTH``) or raise.
     """
     if gids.device.type == "cpu":
         return fused_scan_select_ref(

@@ -71,6 +71,41 @@ def descending_inputs(*, q: int, p: int, k: int, cap: int) -> dict:
         res_scale=np.ones(g, np.float32))
 
 
+def hot_grain_inputs(seed: int, **shape) -> dict:
+    """``random_inputs`` with every query probing grain 0 at every probe:
+    every pair lands in one run of the kernel's grain-ordered schedule."""
+    a = random_inputs(seed, **shape)
+    a["gids"][:] = 0
+    return a
+
+
+def tie_inputs(*, q: int, p: int, g: int, k: int, cap: int,
+               s: int = 0) -> dict:
+    """Every slot live and at the same distance (zero coordinates and
+    sketch, a constant residual): the result is ordered by (probe, slot)
+    alone.  Query i probes grains (i + j) % g at probe j, and probe p - 1
+    repeats probe 0's grain, so equal keys meet across different grains
+    and across two probes of one grain."""
+    gids = (np.arange(q)[:, None] + np.arange(p)[None, :]) % g
+    gids[:, -1] = gids[:, 0]
+    a = dict(
+        gids=gids.astype(np.int32),
+        zq=np.zeros((q, p, k), np.int32),
+        rq=np.zeros((q, p), np.float32),
+        keep=np.ones((q, p), bool),
+        coords=np.zeros((g, k, cap), np.int16),
+        res=np.full((g, cap), 3, np.int32),
+        mask=np.ones((g, cap), bool),
+        rows=np.arange(g * cap, dtype=np.int32).reshape(g, cap),
+        scale=np.ones(g, np.float32),
+        res_scale=np.full(g, 0.5, np.float32))
+    if s:
+        a.update(sq=np.zeros((q, p, s), np.int32),
+                 sketch=np.zeros((g, s, cap), np.int8),
+                 sketch_scale=np.ones(g, np.float32))
+    return a
+
+
 def split(a: dict, convert=lambda v: v):
     """(args, kwargs) of the select runner, each array passed through
     ``convert`` (for example to a tensor on a device)."""

@@ -126,6 +126,12 @@ GPU_CASES = {
     "tenant_ragged": dict(q=9, p=5, g=12, k=8, cap=200, s=4, tenants=3,
                           ragged=True),
     "k1": dict(q=4, p=3, g=6, k=1, cap=130, s=2),
+    # L = cap < width (at width 300), the scalar-load path (cap % 4 != 0),
+    # killed pairs inside the grains' runs of the schedule
+    "cap_below_width": dict(q=8, p=4, g=12, k=32, cap=200, s=8),
+    "scalar_path_cap_1662": dict(q=8, p=4, g=12, k=16, cap=1662, s=8),
+    "ragged_keep_holes": dict(q=16, p=8, g=4, k=8, cap=256, s=4,
+                              ragged=True, keep_frac=0.5),
 }
 
 
@@ -154,6 +160,12 @@ FOLD_CASES = {
                            select_cases.random_inputs(
                                5, q=64, p=32, g=64, k=32, cap=2048, s=8,
                                keep_frac=1.0, mask_frac=1.0)),
+    # every pair in one grain run; equal keys across probes of different
+    # grains and of one grain probed twice, every slot entering the pool
+    "hot_grain": (64, lambda: select_cases.hot_grain_inputs(
+        7, q=32, p=16, g=16, k=32, cap=1664, s=8)),
+    "ties_across_probes": (3000, lambda: select_cases.tie_inputs(
+        q=8, p=8, g=5, k=8, cap=1100, s=4)),
 }
 
 
@@ -169,6 +181,21 @@ def test_kernel_equals_plain_version_when_the_buffer_keeps_filling(
         rd, rr = port_fused.fused_scan_select_ref(*args, width=width, **a)
         torch.cuda.synchronize()
         assert torch.equal(d, rd) and torch.equal(r, rr)
+
+
+@pytest.mark.gpu
+def test_launch_count_rises_by_one_per_call(cuda_device):
+    """One wrapper call is one count, though it runs a schedule sort and
+    two kernels."""
+    args, a = _select_inputs(2, cuda_device, q=16, p=8, g=12, k=32,
+                             cap=256, s=8, ragged=True)
+    before = port_fused.fused_scan_select.launches
+    for i in range(3):
+        port_fused.fused_scan_select(*args, width=32, **a)
+        assert port_fused.fused_scan_select.launches == before + i + 1
+    port_fused.fused_scan_select_ref(*args, width=32, **a)
+    torch.cuda.synchronize()
+    assert port_fused.fused_scan_select.launches == before + 3
 
 
 @pytest.mark.gpu

@@ -91,9 +91,9 @@ def test_every_slot_entering_the_pool_matches_jax(width):
     assert np.array_equal(d, np.tile(-last.astype(np.float32), (2, 1)))
 
 
-def test_exact_ties_break_by_probe_then_slot():
-    """Equal distances across two probes and within one tile: the earlier
-    (probe, slot) wins, as the JAX carry's lax.top_k does."""
+def _tie_inputs():
+    """Equal distances across two probes and within one tile; grain 2 is
+    probed twice (probes 0 and 2), grain 0 once (probe 1)."""
     q, p, g, k, cap = 1, 3, 4, 2, 64
     a = dict(gids=np.array([[2, 0, 2]], np.int32),
              zq=np.zeros((q, p, k), np.int32),
@@ -109,6 +109,14 @@ def test_exact_ties_break_by_probe_then_slot():
     # 2 elsewhere
     a["res"][:, [5, 9, 40]] = 1
     a["res"][0, 7] = 0
+    return a
+
+
+def test_exact_ties_break_by_probe_then_slot():
+    """Equal distances across two probes and within one tile: the earlier
+    (probe, slot) wins, as the JAX carry's lax.top_k does."""
+    cap = 64
+    a = _tie_inputs()
     out = _run_all(a, 8)
     _assert_agree(out)
     d, r = out["port"]
@@ -132,3 +140,185 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     d2, r2 = port_fused.fused_scan_select_ref(*args, width=8)
     assert torch.equal(d, d2) and torch.equal(r, r2)
     assert port_fused.fused_scan_select.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' design, checked where there is no card: the schedule,
+# and a model of the two-stage select (per-probe top-min(width, cap), then
+# a per-query merge) held equal to the plain version.
+# ---------------------------------------------------------------------------
+
+_EMPTY = 2 ** 64 - 1
+_CHUNK = 128                             # slots a warp prices at a time
+
+
+def _order_bits(d):
+    u = np.ascontiguousarray(d, np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+
+
+def _float_of_order(o):
+    o = np.uint32(o)
+    u = o & np.uint32(0x7fffffff) if o & 0x80000000 else ~o
+    return np.array([u], np.uint32).view(np.float32)[0]
+
+
+def _merge_at(a, b, i):
+    """Output i of the ascending merge of sorted runs a and b, ties to a:
+    the kernels' merge path (binary search for the a's among the first i
+    outputs)."""
+    lo, hi = max(0, i - len(b)), min(i, len(a))
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if a[mid] <= b[i - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    j = i - lo
+    return a[lo] if lo < len(a) and (j >= len(b) or a[lo] <= b[j]) else b[j]
+
+
+def _merge(a, b, n):
+    return [_merge_at(a, b, i) for i in range(n)]
+
+
+def _probe_top(keys, big_key, L):
+    """The per-probe kernel on one pair: keys [cap] (EMPTY where dead) in
+    128-slot chunks; per chunk, keys at or above the carry's L-th dropped,
+    the n survivors sorted and cut to min(n, L), and merged into the
+    sorted carry of L big_keys."""
+    carry, thr = [big_key] * L, big_key
+    for base in range(0, len(keys), _CHUNK):
+        run = sorted(k for k in keys[base:base + _CHUNK] if k < thr)
+        if run:
+            carry = _merge(carry, run[:L], L)
+            thr = carry[-1]
+    return carry
+
+
+def two_stage_select(a, width):
+    """numpy model of the CUDA kernels: per live (query, probe) pair its
+    top-min(width, cap) keys (order bits of the distance << 32 | visit
+    index + 1), then per query a carry of `width` big_keys folded with
+    each live probe's list in probe order, then keys -> (dist, row)."""
+    t = {n: torch.from_numpy(np.ascontiguousarray(v)) for n, v in a.items()}
+    gl = t["gids"].long()
+    sk = "sketch" in t
+    extra = (t["tenant_mask"][t["tenant_ix"].long()[:, None], gl]
+             if "tenant_mask" in t else None)
+    d = port_scan.blocksoa_scan(
+        t["zq"], t["rq"], t["coords"][gl], t["res"][gl], t["mask"][gl],
+        t["scale"][gl], t["res_scale"][gl], t.get("sq"),
+        t["sketch"][gl] if sk else None,
+        t["sketch_scale"][gl] if sk else None, extra_mask=extra).numpy()
+    live = a["mask"][a["gids"]]
+    if extra is not None:
+        live = live & extra.numpy()
+    q_n, p_n, cap = d.shape
+    big = np.float32(BIG)
+    big_key = int(_order_bits(big)[0]) << 32
+    L = min(width, cap)
+    alive = _alive(a)
+    visit = np.arange(p_n * cap, dtype=np.uint64).reshape(p_n, cap) + 1
+    keys = (_order_bits(d) << np.uint64(32)) | visit
+    out_d = np.empty((q_n, width), np.float32)
+    out_r = np.empty((q_n, width), np.int32)
+    for q in range(q_n):
+        carry = [big_key] * width
+        for p in range(p_n):
+            if not alive[q, p]:
+                continue
+            lst = _probe_top([int(k) if ok else _EMPTY for k, ok in
+                              zip(keys[q, p], live[q, p])], big_key, L)
+            if lst[0] < carry[-1]:
+                carry = _merge(carry, lst, width)
+        for i, key in enumerate(carry):
+            out_d[q, i] = _float_of_order(key >> 32)
+            v = (key & 0xffffffff) - 1
+            out_r[q, i] = (a["rows"][a["gids"][q, v // cap], v % cap]
+                           if out_d[q, i] < big * np.float32(0.5) else -1)
+    return out_d, out_r
+
+def _alive(a):
+    p = np.arange(a["keep"].shape[1])[None, :]
+    alive = a["keep"].copy()
+    if "n_active" in a:
+        alive &= p < a["n_active"][:, None]
+    return alive
+
+
+@pytest.mark.parametrize("case", ["random", "ragged_holes", "hot_grain",
+                                  "all_killed", "int32_keys"])
+def test_schedule_orders_live_pairs_by_grain_killed_last(case):
+    n_grains = 40000 if case == "int32_keys" else 4
+    if case == "hot_grain":
+        a = select_cases.hot_grain_inputs(0, q=6, p=5, g=9, k=2, cap=8)
+    else:
+        a = select_cases.random_inputs(1, q=7, p=6, g=4, k=2, cap=8,
+                                       keep_frac=0.5,
+                                       ragged=case == "ragged_holes")
+    if case == "int32_keys":                     # grain ids past int16
+        a["gids"] += 33000
+    if case == "all_killed":
+        a["keep"][:] = False
+    t = tp.to_torch(a)
+    order = port_fused.schedule(t["gids"], t["keep"], n_grains,
+                                t.get("n_active"))
+    q_n, p_n = a["gids"].shape
+    order = order.numpy()
+    assert order.dtype == np.int64
+    assert np.array_equal(np.sort(order), np.arange(q_n * p_n))
+    alive = _alive(a).reshape(-1)[order]
+    n_live = int(alive.sum())
+    assert alive[:n_live].all() and not alive[n_live:].any()
+    live = order[:n_live]
+    g = a["gids"].reshape(-1)[live]
+    assert np.all(np.diff(g) >= 0)                         # grain order
+    same = np.diff(g) == 0
+    assert np.all(np.diff(live)[same] > 0)                 # then (q, p)
+    assert np.all(np.diff(order[n_live:]) > 0)             # killed, in order
+
+
+def _model_inputs():
+    cases = {f"random_{name}": (tp.select_inputs(i, **{
+        k: v for k, v in c.items() if k != "width"}), c["width"])
+        for i, (name, c) in enumerate(sorted(CASES.items()))}
+    cases.update({
+        "random_multi_tile": (select_cases.random_inputs(
+            21, q=2, p=3, g=4, k=3, cap=2100, s=2, ragged=True), 150),
+        "random_width_1": (select_cases.random_inputs(
+            24, q=3, p=3, g=5, k=4, cap=200, s=2), 1),
+        "random_ragged_holes": (select_cases.random_inputs(
+            22, q=6, p=5, g=3, k=4, cap=64, keep_frac=0.5, ragged=True), 40),
+        "hot_grain": (select_cases.hot_grain_inputs(
+            23, q=3, p=4, g=5, k=4, cap=130, s=2), 50),
+        "descending_10": (select_cases.descending_inputs(
+            q=2, p=3, k=4, cap=128), 10),
+        "descending_300": (select_cases.descending_inputs(
+            q=2, p=3, k=4, cap=128), 300),
+        "ties_small": (_tie_inputs(), 8),
+        "ties_across_grains": (select_cases.tie_inputs(
+            q=3, p=4, g=3, k=2, cap=70, s=2), 150),
+    })
+    return cases
+
+
+MODEL_CASES = _model_inputs()
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_two_stage_select_model_equals_plain_version(case):
+    a, width = MODEL_CASES[case]
+    args, kw = select_cases.split(a, torch.from_numpy)
+    want_d, want_r = port_scan.blocksoa_select_ref(*args, width=width, **kw)
+    got_d, got_r = two_stage_select(a, width)
+    assert np.array_equal(got_r, want_r.numpy())
+    assert np.array_equal(got_d.view(np.uint32),
+                          want_d.numpy().view(np.uint32))
+
+
+def test_vector_loads_need_cap_multiple_of_4_and_aligned_panels():
+    x = torch.zeros(64, dtype=torch.int16)
+    assert port_fused.vector_loads(8, x, None)
+    assert not port_fused.vector_loads(6, x)
+    assert not port_fused.vector_loads(8, x[1:])          # 2-byte offset
