@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # the full-size run, one card
-    python3 chip_smoke.py --n 100000 --grains 128 --kv-tokens 65536
-                                     # a shorter rehearsal
+    python3 chip_smoke.py --n 100000 --grains 128 --kv-tokens 65536 \
+        --store-n 100000             # a shorter rehearsal
 
 What it does, in order (any failure exits non-zero before the last line):
 
@@ -56,7 +56,19 @@ What it does, in order (any failure exits non-zero before the last line):
 9. ``torch.profiler`` breakdowns of one Mode A and one Mode B search, of
    one search on the "kernel" gather plane and of one HNTL-KV step:
    device time by kernel and the device's busy share;
-10. the kernel table as one JSON line, then, as the last line,
+10. the vector store (``store_phase``): 1,000,000 rows added in 8 chunks
+   of 125,000 that each seal a 128-grain segment built on the card, a
+   4,096-row memtable tail, 10,000 deletes and 1,024 upserts (the
+   memtable then holds 5,120 rows); 1024 queries in Mode A, Mode B and
+   Mode B under a tag filter and a timestamp filter through
+   ``VectorStore.search`` (counters zeroed just before, read just after:
+   4 ``fused_scan_select`` calls per search), each held to the
+   "fused_ref" plane's ids, free of deleted gids, Mode B dists equal to
+   the live vectors' exact distances; recall@10 against exact search
+   over the live rows; seal, stack and search times, the select kernel
+   at the store's shape, profiles with and without the memtable, peak
+   memory; and 256 queries through the "kernel" plane held to "ref";
+11. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -64,6 +76,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -466,28 +479,37 @@ def device_ms(torch, fn, kernels, reps=20):
     ``reps`` calls: unlike CUDA events around back-to-back calls, it leaves
     out the host's launch time when the device work is shorter.
 
-    Returns (ms, parts): ms is all device work of a call, whatever
+    Returns (ms, parts, traces): ms is all device work of a call, whatever
     launched it; parts maps each name in ``kernels`` to the device time
     per call of the kernels whose name holds it, and "other" to the rest.
-    Fails the run when a named kernel ran fewer than ``reps`` times."""
+    A trace that holds fewer than ``reps`` launches of a named kernel is
+    incomplete (the profiler has dropped a record now and then): it is
+    taken again, the run fails after three such traces, and ``traces``
+    says how many were taken."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    attempts = 3
+    for attempt in range(1, attempts + 1):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {name: sum(e.count for e in evs if name in e.key)
+                for name in kernels}
+        short = {k: v for k, v in seen.items() if v < reps}
+        if not short:
+            break
+        msg = (f"device_ms: the profiler saw {short} launches in {reps} "
+               f"calls (trace {attempt} of {attempts})")
+        check(attempt < attempts, msg)
+        log(msg + "; tracing again")
     total = sum(e.self_device_time_total for e in evs) / reps / 1e3
-    parts = {}
-    for name in kernels:
-        mine = [e for e in evs if name in e.key]
-        n = sum(e.count for e in mine)
-        check(n >= reps, f"device_ms: the profiler saw {n} launches of "
-              f"{name} in {reps} calls")
-        parts[name] = sum(e.self_device_time_total for e in mine) / reps / 1e3
+    parts = {name: sum(e.self_device_time_total for e in evs
+                       if name in e.key) / reps / 1e3 for name in kernels}
     parts["other"] = total - sum(parts.values())
-    return total, parts
+    return total, parts, attempt
 
 
 #: The kernels one ``fused_scan_select`` call launches, and what each part
@@ -500,42 +522,55 @@ SELECT_PARTS = {"fused_scan_select_probe_kernel": "probe kernel",
                 "other": "schedule"}
 
 
-def kernel_time_phase(torch, mp):
+def time_select(torch, index, q, cfg, label, grain_mask=None,
+                extra_mask=None):
+    """fused_scan_select at one query batch of a search on ``index``:
+    held against its plain version, then its CUPTI device time (every
+    kernel the wrapper launches, each part beside it), CUDA events, the
+    plain version's time and the bound.  ``grain_mask``/``extra_mask``
+    are the routing pushdown and slot mask the search passes."""
     from repro_torch.core import int32_safe_qmax, planner, routing
     from repro_torch.kernels import fused_select as fsel
 
-    index, cfg = mp["index"], mp["cfg"]
-    q = mp["q"][:256]
-    gids, _ = routing.route(index.routing, q, cfg.nprobe)
+    gids, _ = routing.route(index.routing, q, cfg.nprobe,
+                            grain_mask=grain_mask)
     width = min(max(cfg.pool, 10), cfg.nprobe * index.grains.cap)
     args, kw = planner.select_args(
         index, q, gids, cfg.envelope_frac,
-        int32_safe_qmax(cfg.k, cfg.coord_bits), width=width)
+        int32_safe_qmax(cfg.k, cfg.coord_bits), width=width,
+        extra_mask=extra_mask)
     width = kw.pop("width")
-    err = hold(torch, fsel, args, kw, width, "main path inputs")
+    err = hold(torch, fsel, args, kw, width, label)
     for _ in range(3):
         fsel.fused_scan_select(*args, width=width, **kw)
     events_ms = time_events(torch, lambda: fsel.fused_scan_select(
         *args, width=width, **kw), 20)
-    ms, parts = device_ms(torch, lambda: fsel.fused_scan_select(
+    ms, parts, traces = device_ms(torch, lambda: fsel.fused_scan_select(
         *args, width=width, **kw), SELECT_KERNELS)
     fsel.fused_scan_select_ref(*args, width=width, **kw)
     plain_ms = time_events(torch, lambda: fsel.fused_scan_select_ref(
         *args, width=width, **kw), 3)
     bound_ms, bound_by, nbytes, ops = select_bound(torch, args, kw, width)
     q_n, p_n, k = args[1].shape
-    log(f"fused_scan_select at the main path's shape (Q={q_n} P={p_n} "
-        f"G={args[4].shape[0]} k={k} cap={args[4].shape[2]} "
-        f"s={kw['sq'].shape[2]} width={width}): {ms:.4f} ms per call "
+    at = (f"Q={q_n} P={p_n} G={args[4].shape[0]} k={k} "
+          f"cap={args[4].shape[2]} s={kw['sq'].shape[2]} width={width}")
+    log(f"fused_scan_select at {label} ({at}): {ms:.4f} ms per call "
         f"(CUPTI, every kernel the wrapper launches: "
         + ", ".join(f"{SELECT_PARTS[k]} {v:.4f}" for k, v in parts.items())
         + f"; CUDA events {events_ms:.4f} ms), plain "
         f"version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by} ({nbytes} bytes, {ops} int ops); library: none (no "
-        "single PyTorch call computes a masked scan with a running top-W)")
+        "single PyTorch call computes a masked scan with a running top-W); "
+        f"CUPTI traces taken {traces}")
     return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                parts={SELECT_PARTS[k]: v for k, v in parts.items()})
+                bound_ms=bound_ms, bound_by=bound_by, traces=traces,
+                max_abs_err=err,
+                parts={SELECT_PARTS[k]: v for k, v in parts.items()}, at=at)
+
+
+def kernel_time_phase(torch, mp):
+    return time_select(torch, mp["index"], mp["q"][:256], mp["cfg"],
+                       "the main path's shape")
 
 
 # ---------------------------------------------------------------------------
@@ -685,8 +720,8 @@ def time_scan(torch, label, kern, plain, args, queries, reps=20):
     for _ in range(3):
         kern(*args)
     events_ms = time_events(torch, lambda: kern(*args), reps)
-    ms, _ = device_ms(torch, lambda: kern(*args),
-                      (kern.__name__ + "_kernel",))
+    ms, _, traces = device_ms(torch, lambda: kern(*args),
+                              (kern.__name__ + "_kernel",))
     plain(*args)
     plain_ms = time_events(torch, lambda: plain(*args), 3)
     bound_ms, bound_by, nbytes, ops = scan_bound(args, queries)
@@ -696,9 +731,10 @@ def time_scan(torch, label, kern, plain, args, queries, reps=20):
         f"{events_ms:.4f} ms), plain version "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes} bytes, {ops} ops); library: none (no single PyTorch "
-        "call computes an exact-int32 masked Block-SoA scan)")
+        f"call computes an exact-int32 masked Block-SoA scan); CUPTI traces "
+        f"taken {traces}")
     return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, traces=traces)
 
 
 def scan_time_phase(torch, mp, sb):
@@ -921,7 +957,7 @@ def profile(torch, label, fn, wall_s, top=8):
     if not dev_us:
         log(f"profile ({label}): the profiler saw no device time "
             "(not measured)")
-        return
+        return None
     log(f"profile ({label}): device {dev_us / 1e3:.3f} ms over "
         f"{wall_us / 1e3:.3f} ms of unprofiled wall, busy share "
         f"{dev_us / wall_us:.3f}")
@@ -929,6 +965,7 @@ def profile(torch, label, fn, wall_s, top=8):
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.self_device_time_total / dev_us:6.1%} x{e.count:<4d} "
             f"{e.key[:90]}")
+    return dict(device_ms=dev_us / 1e3, busy=dev_us / wall_us)
 
 
 def profile_phase(torch, mp, gp, kvp):
@@ -952,6 +989,296 @@ def profile_phase(torch, mp, gp, kvp):
 
 
 # ---------------------------------------------------------------------------
+# 10: the vector store (VectorStore add/seal/delete/upsert/search)
+# ---------------------------------------------------------------------------
+
+#: The store phase's searches: the unfiltered modes, then Mode B under a
+#: tag filter and a timestamp filter.
+STORE_SEARCHES = {"A": dict(mode="A"), "B": dict(mode="B"),
+                  "B tag_mask=0b0101": dict(mode="B", tag_mask=0b0101),
+                  "B ts_range=(0.25, 0.75)": dict(mode="B",
+                                                  ts_range=(0.25, 0.75))}
+
+
+def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
+                grains=128):
+    """The store's read and mutation path at the main path's widths: all
+    but a tail of 4096 rows (fewer for a short run) added in ``segments``
+    chunks that each seal (one segment of ``grains`` grains per chunk), the
+    tail left in the memtable; 1% of the
+    sealed gids deleted and ~0.1% upserted with jittered copies; 1024
+    queries in Mode A, Mode B and Mode B under a tag and a timestamp
+    filter through ``VectorStore.search`` on the default plane.  Held to
+    the "fused_ref" plane's ids, to the live vectors' exact distances
+    and, on 256 queries, the "kernel" plane to the "ref" plane."""
+    from repro_torch.core import HNTLConfig, VectorStore, planner
+    from repro_torch.core import store as store_mod
+    from repro_torch.core.flat import flat_search, recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fused_select as fsel
+    from repro_torch.kernels import hntl_scan as hs
+
+    on_card = dev.type == "cuda"
+    tail = min(4096, n // segments // 4)
+    sealed = n - tail
+    per_seg = sealed // segments
+    t0 = time.perf_counter()
+    x = synthetic.anisotropic_manifold(n=n, d=768, intrinsic=24, seed=0)
+    q = synthetic.queries_from(x, nq=nq)
+    row = np.arange(n)
+    tags = (1 << (row % 4)).astype(np.uint32)
+    ts = (row / n).astype(np.float32)
+    log(f"store data: anisotropic_manifold n={n} d=768 intrinsic=24 seed=0, "
+        f"{nq} queries, {time.perf_counter() - t0:.2f} s on the host")
+    cfg = HNTLConfig(d=768, k=32, s=8, block=128, n_grains=grains,
+                     nprobe=16, pool=64)
+    if on_card:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    st = VectorStore(cfg, seal_threshold=per_seg, device=dev)
+    seal_s = []
+    for lo in range(0, segments * per_seg, per_seg):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        st.add(x[lo:lo + per_seg], tags=tags[lo:lo + per_seg],
+               ts=ts[lo:lo + per_seg])
+        sync(torch, dev)
+        seal_s.append(time.perf_counter() - t0)
+    st.add(x[segments * per_seg:], tags=tags[segments * per_seg:],
+           ts=ts[segments * per_seg:])
+    check(st.n_segments == segments, f"store: {st.n_segments} segments, "
+          f"expected {segments}")
+    rng = np.random.default_rng(1)
+    n_del, n_up = segments * per_seg // 100, segments * per_seg // 976
+    pick = rng.choice(segments * per_seg, n_del + n_up, replace=False)
+    dead, up = pick[:n_del], pick[n_del:]
+    x_up = x[up] + 0.01 * rng.standard_normal((n_up, 768)).astype(
+        np.float32)
+    check(st.delete(dead) == n_del, "store: delete count")
+    st.upsert(up, x_up, tags=tags[up], ts=ts[up])
+    mem_rows = len(st.snapshot().mem)
+    n_live = st.n_live()
+    check(n_live == n - n_del, f"store: n_live {n_live} != {n - n_del}")
+    log(f"store: {segments} segments of {per_seg} rows, G={grains} each "
+        f"(cap {[s.index.grains.cap for s in st._segments]}); seal seconds "
+        f"sum {sum(seal_s):.2f}, largest {max(seal_s):.2f} "
+        f"({' '.join(f'{v:.2f}' for v in seal_s)}); memtable {mem_rows} "
+        f"rows; deleted {n_del}, upserted {n_up}; n_live {n_live} of "
+        f"{st.n_vectors} physical rows")
+
+    qt = torch.from_numpy(q).to(dev)
+    # ---- the store's path: counters zeroed just before, read just after --
+    real_stack, stack_s = store_mod.stack_segments, []
+
+    def timed_stack(segs):
+        sync(torch, dev)
+        t = time.perf_counter()
+        out = real_stack(segs)
+        sync(torch, dev)
+        stack_s.append(time.perf_counter() - t)
+        return out
+
+    store_mod.stack_segments = timed_stack
+    fsel.fused_scan_select.launches = 0
+    hs.hntl_scan_single.launches = 0
+    res, per_search = {}, {}
+    try:
+        for label, kw in STORE_SEARCHES.items():
+            before = fsel.fused_scan_select.launches
+            res[label] = st.search(qt, topk=10, **kw)
+            sync(torch, dev)
+            per_search[label] = fsel.fused_scan_select.launches - before
+    finally:
+        store_mod.stack_segments = real_stack
+    launches = fsel.fused_scan_select.launches
+    log(f"store path launches: fused_scan_select {per_search} (total "
+        f"{launches}); first search's stack {stack_s[0]:.3f} s")
+    if on_card:
+        want = -(-nq // 256)
+        check(all(v == want for v in per_search.values()),
+              f"store: fused_scan_select launches per search {per_search}, "
+              f"expected {want} each (one per 256-query batch)")
+
+    # ---- held against the plain plane, the live vectors and brute force --
+    xl = torch.from_numpy(x).to(dev)
+    xl[torch.from_numpy(up).to(dev)] = torch.from_numpy(x_up).to(dev)
+    dead_t = torch.from_numpy(dead).to(dev)
+    for label, kw in STORE_SEARCHES.items():
+        ref = st.search(qt, topk=10, scan_impl="fused_ref", **kw)
+        ids, d = res[label].ids, res[label].dists
+        check(torch.equal(ids, ref.ids), f"store {label}: ids differ from "
+              f"the fused_ref plane ({int((ids != ref.ids).sum())} entries)")
+        check(ids.shape == (nq, 10) and bool(torch.isfinite(d).all()),
+              f"store {label}: bad result shape or non-finite dists")
+        check(not bool(torch.isin(ids.long(), dead_t).any()),
+              f"store {label}: a deleted gid was returned")
+        ok = ids >= 0
+        check(bool(ok[:, 0].all()), f"store {label}: a query found nothing")
+        if kw["mode"] == "B":
+            live_vec = xl[torch.clamp(ids, min=0).long()]
+            exact = (live_vec - qt[:, None, :]).square_().sum(-1)
+            check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
+                  f"store {label}: dists are not the live vectors' exact "
+                  "distances")
+        sel = torch.from_numpy(ts).to(dev)[torch.clamp(ids, min=0).long()]
+        if "ts_range" in kw:
+            check(bool(((sel >= 0.25) & (sel < 0.75))[ok].all()),
+                  f"store {label}: a row outside ts_range")
+        if "tag_mask" in kw:
+            tg = torch.from_numpy(tags.astype(np.int64)).to(dev)
+            check(bool((tg[torch.clamp(ids, min=0).long()] & 0b0101)
+                       [ok].all()), f"store {label}: a row outside tag_mask")
+    alive = np.ones(n, bool)
+    alive[dead] = False
+    alive_t = torch.from_numpy(np.nonzero(alive)[0]).to(dev)
+    truth = alive_t[flat_search(xl[alive_t], qt, topk=10).ids.long()]
+    recall = {m: recall_at_k(res[m].ids, truth) for m in "AB"}
+    check(recall["B"] >= recall["A"], "store: Mode B recall below Mode A's")
+    log(f"store == fused_ref plane (ids, 4 searches); no deleted gid; Mode B "
+        f"dists == the live vectors' exact distances (rtol 1e-5); recall@10 "
+        f"vs flat_search over the {n_live} live rows: Mode A "
+        f"{recall['A']:.4f}, Mode B {recall['B']:.4f}")
+    del xl
+
+    timing = {}
+    for label, kw in STORE_SEARCHES.items():
+        st.search(qt, topk=10, **kw)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st.search(qt, topk=10, **kw)
+        sync(torch, dev)
+        timing[label] = (time.perf_counter() - t0) / 3
+        log(f"store search {label}: {timing[label] * 1e3:.3f} ms for {nq} "
+            f"queries, QPS {nq / timing[label]:.1f} (host clock, ends in a "
+            "synchronise)")
+
+    # the same searches with the memtable left out of the manifest: the
+    # split of a search's time between the sealed plane and the memtable
+    sealed_only = dataclasses.replace(st.snapshot(), mem_n=0)
+    for m in "AB":
+        st.search(qt, topk=10, mode=m, manifest=sealed_only)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st.search(qt, topk=10, mode=m, manifest=sealed_only)
+        sync(torch, dev)
+        timing[f"{m} sealed only"] = (time.perf_counter() - t0) / 3
+        log(f"store search {m}, sealed segments only (memtable left out of "
+            f"the manifest): {timing[f'{m} sealed only'] * 1e3:.3f} ms for "
+            f"{nq} queries")
+
+    out = dict(launches=launches, per_search=per_search, recall=recall,
+               search_s=timing, seal_s=seal_s, stack_s=stack_s[0],
+               n_live=n_live, mem_rows=mem_rows)
+    if on_card:
+        entry = st._stacked_for(tuple(st._segments))
+        plane = st._live_plane(entry, st.snapshot(), time.time())
+        extra, grain_ok = planner._mixed_recall_mask(
+            plane.index.grains, None, None, live=plane.live)
+        out["select"] = time_select(torch, plane.index, qt[:256], cfg,
+                                    "the store's shape", grain_mask=grain_ok,
+                                    extra_mask=extra)
+        del entry, plane, extra, grain_ok
+        out["profile"] = profile(
+            torch, f"store search Mode A + Mode B, {nq} queries each",
+            lambda: [st.search(qt, topk=10, mode=m) for m in "AB"],
+            timing["A"] + timing["B"])
+        out["profile_sealed"] = profile(
+            torch, "store search Mode A + Mode B, sealed segments only",
+            lambda: [st.search(qt, topk=10, mode=m, manifest=sealed_only)
+                     for m in "AB"],
+            timing["A sealed only"] + timing["B sealed only"])
+
+    # ---- the "kernel" gather plane through the store ----------------------
+    q256 = qt[:256]
+    hs.hntl_scan_single.launches = 0
+    got = st.search(q256, topk=10, mode="B", scan_impl="kernel")
+    sync(torch, dev)
+    out["kernel_launches"] = hs.hntl_scan_single.launches
+    want = st.search(q256, topk=10, mode="B", scan_impl="ref")
+    check(torch.equal(got.ids, want.ids), "store: the kernel plane's ids "
+          f"differ from the ref plane's ({int((got.ids != want.ids).sum())} "
+          "entries)")
+    if on_card:
+        check(out["kernel_launches"] > 0, "store: the kernel plane never "
+              "launched hntl_scan_single")
+        peak = torch.cuda.max_memory_allocated(dev)
+        out["peak"], out["base"] = peak, base
+        log(f"store peak device memory (max_memory_allocated) {peak} bytes, "
+            f"{peak - base} above the {base} bytes held when the phase "
+            "began")
+    log(f"store \"kernel\" plane == \"ref\" plane (ids, {q256.shape[0]} "
+        f"queries, Mode B); hntl_scan_single launches "
+        f"{out['kernel_launches']}")
+    out["half"] = half_memtable(torch, np, st, qt, x, tags, ts, dead_t,
+                                per_seg, rng)
+    return out
+
+
+def half_memtable(torch, np, st, qt, x, tags, ts, dead_t, per_seg, rng):
+    """The store's searches at a memtable of half the seal threshold (the
+    average fill under steady ingest): jittered copies of sealed rows added
+    under new gids until the memtable holds ``per_seg // 2`` rows.  Mode B
+    held to the "fused_ref" plane's ids; times and a profile of Mode A + B.
+    """
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq, n_seg = qt.device, qt.shape[0], st.n_segments
+    fill = per_seg // 2 - len(st.snapshot().mem)
+    x_new = x[:fill] + 0.01 * rng.standard_normal(
+        (fill, x.shape[1])).astype(np.float32)
+    st.add(x_new, tags=tags[:fill], ts=ts[:fill])
+    mem_rows = len(st.snapshot().mem)
+    check(mem_rows == per_seg // 2 and st.n_segments == n_seg,
+          f"store half memtable: {mem_rows} rows in {st.n_segments} "
+          "segments")
+    res, launches = {}, {}
+    for m in "AB":
+        before = fsel.fused_scan_select.launches
+        res[m] = st.search(qt, topk=10, mode=m)
+        sync(torch, dev)
+        launches[m] = fsel.fused_scan_select.launches - before
+        ids = res[m].ids
+        check(ids.shape == (nq, 10) and bool(torch.isfinite(
+            res[m].dists).all()) and bool((ids[:, 0] >= 0).all()),
+            f"store half memtable {m}: bad result")
+        check(not bool(torch.isin(ids.long(), dead_t).any()),
+              f"store half memtable {m}: a deleted gid was returned")
+        check(dev.type != "cuda" or launches[m] == -(-nq // 256),
+              f"store half memtable {m}: {launches[m]} fused_scan_select "
+              "launches")
+    ref = st.search(qt, topk=10, mode="B", scan_impl="fused_ref")
+    check(torch.equal(res["B"].ids, ref.ids), "store half memtable: ids "
+          "differ from the fused_ref plane "
+          f"({int((res['B'].ids != ref.ids).sum())} entries)")
+    timing = {}
+    for m in "AB":
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st.search(qt, topk=10, mode=m)
+        sync(torch, dev)
+        timing[m] = (time.perf_counter() - t0) / 3
+        log(f"store search {m} at a memtable of {mem_rows} rows (half the "
+            f"seal threshold): {timing[m] * 1e3:.3f} ms for {nq} queries, "
+            f"QPS {nq / timing[m]:.1f} (host clock, ends in a synchronise); "
+            f"fused_scan_select launches {launches[m]}")
+    log(f"store half memtable: Mode B ids == fused_ref plane; no deleted "
+        f"gid")
+    out = dict(mem_rows=mem_rows, search_s=timing, launches=launches)
+    if dev.type == "cuda":
+        out["profile"] = profile(
+            torch, f"store search Mode A + Mode B at a memtable of "
+            f"{mem_rows} rows, {nq} queries each",
+            lambda: [st.search(qt, topk=10, mode=m) for m in "AB"],
+            timing["A"] + timing["B"])
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        log(f"store peak device memory after the half-memtable searches "
+            f"(max_memory_allocated) {out['peak']} bytes")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -959,7 +1286,7 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
              "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"],
              "events_ms": t["events_ms"], "plain_ms": t["plain_ms"],
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-             "library_ms": None, "at": at}
+             "library_ms": None, "traces": t["traces"], "at": at}
     if "parts" in t:
         entry["ms_parts"] = t["parts"]
     return entry
@@ -972,6 +1299,9 @@ def main(argv=None) -> int:
     ap.add_argument("--grains", type=int, default=1024)
     ap.add_argument("--kv-tokens", type=int, default=524_288,
                     help="sealed HNTL-KV context (a multiple of 4096)")
+    ap.add_argument("--store-n", type=int, default=1_004_096,
+                    help="rows of the store phase: 8 sealed segments and "
+                    "a memtable tail of min(4096, n / 32) rows")
     a = ap.parse_args(argv)
 
     import numpy as np
@@ -1004,18 +1334,29 @@ def main(argv=None) -> int:
     st["kv"] = time_scan(torch, "an HNTL-KV decode step", hs.hntl_scan_single,
                          ref.hntl_scan_single_ref, kvp["scan_args"], 1)
     profile_phase(torch, mp, gp, kvp)
+    batched_at = "P={} Q={} k={} cap={} int16 (the coordinate launch)".format(
+        *sb["args"][0].shape[:2], *sb["args"][2].shape[1:])
+    for big in ("k_all", "v_all", "idx", "scan_args", "step"):
+        del kvp[big]            # free the card for the store phase
+    del mp["index"], sb["args"], sb["sketch"]
+    stp = store_phase(torch, np, cuda, n=a.store_n)
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
+    select_paths = {"search (fused plane)":
+                    mp["launches"]["fused_scan_select"],
+                    "store search (VectorStore.search)": stp["launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
-                    "HNTL-KV decode": kvp["launches"]}
+                    "HNTL-KV decode": kvp["launches"],
+                    "store search, kernel plane": stp["kernel_launches"]}
+    select_entry = kernel_entry(
+        "fused_scan_select", src + "fused_select.cu",
+        "src/repro/kernels/fused_select.py:179", sum(select_paths.values()),
+        select_paths, max(err_cases, kt["max_abs_err"],
+                          stp["select"]["max_abs_err"]), kt, kt["at"])
+    select_entry["at_store"] = {k: v for k, v in stp["select"].items()
+                                if k != "max_abs_err"}
     log(json.dumps({"kernels": [
-        kernel_entry("fused_scan_select", src + "fused_select.cu",
-                     "src/repro/kernels/fused_select.py:179",
-                     mp["launches"]["fused_scan_select"],
-                     {"search (fused plane)":
-                      mp["launches"]["fused_scan_select"]},
-                     max(err_cases, kt["max_abs_err"]), kt,
-                     "Q=256 P=16 G=1024 k=32 cap=1664 s=8 width=64"),
+        select_entry,
         kernel_entry("hntl_scan_single", src + "hntl_scan.cu",
                      "src/repro/kernels/hntl_scan.py:166",
                      sum(single_paths.values()), single_paths,
@@ -1026,9 +1367,7 @@ def main(argv=None) -> int:
                      "src/repro/kernels/hntl_scan.py:80", sb["launches"],
                      {"ops.scan_batched": sb["launches"]},
                      err_scan["batched"],
-                     st["batched_coords"], "P={} Q={} k={} cap={} int16 (the "
-                     "coordinate launch)".format(*sb["args"][0].shape[:2],
-                                                 *sb["args"][2].shape[1:]))
+                     st["batched_coords"], batched_at)
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -14,16 +14,22 @@ P=16, d=768, k=32 would be 1.6 GB (plus 0.4 GB of sketch basis) at once.
 Every stage is row-wise in the queries, so batching changes no result.
 Every top-k is a stable sort: ties go to the lower position, as with
 ``jax.lax.top_k``.
+
+``search`` runs one index; ``search_stacked`` runs a store's sealed
+segments fused into one ``StackedSegments`` plane, with the tag/ts
+predicates and the store's liveness bitmap evaluated in the scan and
+pushed down into routing.  Both end in ``_candidate_epilogue``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import quantize, routing, scan, scanplane
 from .cascade import check_budgets
-from .types import BIG, HNTLIndex, SearchResult
+from .types import BIG, HNTLIndex, SearchResult, StackedSegments
 
 #: Queries per batch of ``search`` (bounds the [Q, P, d, k] basis gather).
 QUERY_BATCH = 256
@@ -191,6 +197,51 @@ def _smallest(d: torch.Tensor, n: int):
     return v[:, :n], pos[:, :n]
 
 
+def _candidate_epilogue(dists, rows, q, raw, *, pool: int, topk: int,
+                        mode: str, translate):
+    """The Mode A/B tail of every plane: candidate pool -> (Mode B) exact
+    f32 re-rank against ``raw`` -> top-k -> ``translate(rows, dists)``.
+
+    The single-index and stacked searches both end here, so the pooling
+    and re-rank arithmetic (and with it their parity) is one code path.
+    Returns (ids [Q, topk] i32, dists [Q, topk] f32).
+    """
+    if mode == "A":
+        d_k, pos = _smallest(dists, topk)
+        rows_k = torch.gather(rows, 1, pos)
+    else:
+        if raw is None:
+            raise ValueError("Mode B needs the raw tier (build keep_raw=True)")
+        d_c, pos = _smallest(dists, pool)                     # [Q, C]
+        cand_rows = torch.gather(rows, 1, pos)
+        cand = raw[torch.clamp(cand_rows, min=0).long()]      # [Q, C, d]
+        exact = torch.sum((cand - q[:, None, :]) ** 2, dim=-1)
+        exact = torch.where(d_c < BIG / 2, exact, BIG)
+        d_k, pos_e = _smallest(exact, topk)
+        rows_k = torch.gather(cand_rows, 1, pos_e)
+    return translate(rows_k, d_k), d_k
+
+
+def _pruned_to_minus_one(rows, dists):
+    """Single-index translation: ids are the index's own; a pruned slot
+    (filtered, padding, pool exhausted) is id -1."""
+    return torch.where(dists < BIG / 2, rows, -1).to(torch.int32)
+
+
+def _in_batches(run, q: torch.Tensor, topk: int,
+                device: torch.device) -> SearchResult:
+    """``run(q_batch) -> (ids, dists)`` over ``QUERY_BATCH``-query batches."""
+    ids, dists = [], []
+    for lo in range(0, q.shape[0], QUERY_BATCH):
+        i, d = run(q[lo:lo + QUERY_BATCH])
+        ids.append(i)
+        dists.append(d)
+    if not ids:
+        empty = torch.empty((0, topk), device=device)
+        return SearchResult(ids=empty.to(torch.int32), dists=empty)
+    return SearchResult(ids=torch.cat(ids), dists=torch.cat(dists))
+
+
 def _search_batch(index, q, *, nprobe, pool, topk, mode, envelope_frac,
                   qeff, scan_impl, extra_mask):
     gids, _ = routing.route(index.routing, q, nprobe)
@@ -198,22 +249,21 @@ def _search_batch(index, q, *, nprobe, pool, topk, mode, envelope_frac,
         index, q, gids, envelope_frac=envelope_frac, qeff=qeff,
         width=min(max(pool, topk), nprobe * index.grains.cap),
         scan_impl=scan_impl, extra_mask=extra_mask)
-    if mode == "A":
-        d_k, pos = _smallest(dists, topk)
-        ids_k = torch.gather(ids, 1, pos)
-    else:
-        # Mode B: candidate pool C -> exact f32 L2 re-rank against raw.
-        if index.raw is None:
-            raise ValueError("Mode B needs the raw tier (build keep_raw=True)")
-        d_c, pos = _smallest(dists, pool)                     # [Q, C]
-        cand_ids = torch.gather(ids, 1, pos)
-        cand = index.raw[torch.clamp(cand_ids, min=0).long()]  # [Q, C, d]
-        exact = torch.sum((cand - q[:, None, :]) ** 2, dim=-1)
-        exact = torch.where(d_c < BIG / 2, exact, BIG)
-        d_k, pos_e = _smallest(exact, topk)
-        ids_k = torch.gather(cand_ids, 1, pos_e)
-    ids_k = torch.where(d_k < BIG / 2, ids_k, -1).to(torch.int32)
-    return ids_k, d_k
+    return _candidate_epilogue(dists, ids, q, index.raw, pool=pool,
+                               topk=topk, mode=mode,
+                               translate=_pruned_to_minus_one)
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ("A", "B"):
+        raise ValueError(f"mode must be 'A' or 'B', got {mode!r}")
+
+
+def _refuse_budgets(budgets, topk: int) -> None:
+    check_budgets(budgets, topk)
+    if budgets is not None:
+        raise ValueError("budgets= needs the cascade scan plane (ROADMAP "
+                         "Queue A item 4), which is not ported yet")
 
 
 def search(index: HNTLIndex, q: torch.Tensor, *, nprobe: int, pool: int,
@@ -228,21 +278,108 @@ def search(index: HNTLIndex, q: torch.Tensor, *, nprobe: int, pool: int,
     budgets: refused until the cascade is ported (validated first).
     Pruned result slots (filtered, padding, pool exhausted) return id -1.
     """
-    check_budgets(budgets, topk)
-    if budgets is not None:
-        raise ValueError("budgets= needs the cascade scan plane, which is "
-                         "not ported yet")
-    if mode not in ("A", "B"):
-        raise ValueError(f"mode must be 'A' or 'B', got {mode!r}")
-    ids, dists = [], []
-    for lo in range(0, q.shape[0], QUERY_BATCH):
-        i, d = _search_batch(
-            index, q[lo:lo + QUERY_BATCH], nprobe=nprobe, pool=pool,
-            topk=topk, mode=mode, envelope_frac=envelope_frac, qeff=qeff,
-            scan_impl=scan_impl, extra_mask=extra_mask)
-        ids.append(i)
-        dists.append(d)
-    if not ids:
-        empty = torch.empty((0, topk), device=index.device)
-        return SearchResult(ids=empty.to(torch.int32), dists=empty)
-    return SearchResult(ids=torch.cat(ids), dists=torch.cat(dists))
+    _refuse_budgets(budgets, topk)
+    _check_mode(mode)
+    return _in_batches(
+        lambda qb: _search_batch(
+            index, qb, nprobe=nprobe, pool=pool, topk=topk, mode=mode,
+            envelope_frac=envelope_frac, qeff=qeff, scan_impl=scan_impl,
+            extra_mask=extra_mask), q, topk, index.device)
+
+
+# ---------------------------------------------------------------------------
+# Fused multi-segment search (the store's data plane)
+# ---------------------------------------------------------------------------
+
+
+def _mixed_recall_mask(grains, tag_mask, ts_range, live=None):
+    """[G, cap] in-scan predicate and [G] routing pushdown from the tag/ts
+    filters and the store's liveness bitmap.
+
+    Returns (extra_mask | None, grain_ok | None).  ``grain_ok`` keeps a
+    grain out of routing when none of its slots passes, so no probe is
+    spent on a grain the filters (or deletes) empty.  ``ts_range`` bounds
+    are compared in float32, as the JAX package compares them.
+    """
+    if tag_mask is None and ts_range is None and live is None:
+        return None, None
+    keep = grains.valid
+    if live is not None:
+        keep = torch.logical_and(keep, live)
+    if tag_mask is not None and grains.tags is not None:
+        keep = torch.logical_and(keep, (grains.tags & int(tag_mask)) != 0)
+    if ts_range is not None and grains.ts is not None:
+        lo, hi = (float(np.float32(v)) for v in ts_range)
+        keep = torch.logical_and(keep, (grains.ts >= lo) & (grains.ts < hi))
+    return keep, torch.any(keep, dim=1)
+
+
+def _translate_rows(stacked: StackedSegments, rows: torch.Tensor,
+                    dists: torch.Tensor) -> torch.Tensor:
+    """Flat raw rows -> global ids (-1 for padding and pruned slots)."""
+    ok = torch.logical_and(rows >= 0, dists < BIG / 2)
+    gid = stacked.gid_of_row[torch.clamp(rows, min=0).long()]
+    return torch.where(ok, gid, -1).to(torch.int32)
+
+
+def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
+                   nprobe: int, pool: int, topk: int, mode: str = "B",
+                   envelope_frac: float = 0.25, qeff: int = 8191,
+                   scan_impl: Optional[str] = None,
+                   budgets: Optional[tuple] = None,
+                   route_mode: str = "global",
+                   seg_shape: Optional[tuple] = None, translate: bool = True,
+                   tag_mask: Optional[int] = None,
+                   ts_range: Optional[tuple] = None,
+                   tenant_live=None, tenant_ix=None, probe_margin=None,
+                   hub_mask=None, probe_plan=None) -> SearchResult:
+    """HNTL search across all sealed segments of a store in one call.
+
+    One routing pass over the concatenated [S*G] routing plane, one
+    candidate stage on the stacked panels, one merged pool and one Mode B
+    re-rank over the concatenated raw tier, per ``QUERY_BATCH`` queries.
+
+    route_mode: "global" (top-P over every segment's grains, with the
+      filter pushdown) or "per_segment" (top-P within each segment, no
+      pushdown: the per-segment loop's probe set; needs seg_shape (S, G)).
+    translate: map flat rows to global ids (else return the flat rows).
+    tag_mask / ts_range: keep slots with (tag & tag_mask) != 0 and
+      lo <= ts < hi, in the scan and in routing; ``stacked.live`` joins
+      the same predicate.
+    budgets, tenant_live/tenant_ix, probe_margin, hub_mask and probe_plan
+      are refused until the ROADMAP items that bring them land.
+    """
+    _refuse_budgets(budgets, topk)
+    for name, value, item in (
+            ("tenant_live", tenant_live, 6), ("tenant_ix", tenant_ix, 6),
+            ("probe_margin", probe_margin, 5), ("hub_mask", hub_mask, 5),
+            ("probe_plan", probe_plan, 5)):
+        if value is not None:
+            raise ValueError(f"{name}= is not ported yet (ROADMAP Queue A "
+                             f"item {item})")
+    _check_mode(mode)
+    if route_mode not in ("global", "per_segment"):
+        raise ValueError(f"route_mode must be 'global' or 'per_segment', "
+                         f"got {route_mode!r}")
+    if route_mode == "per_segment" and seg_shape is None:
+        raise ValueError("route_mode='per_segment' needs seg_shape=(S, G)")
+    index = stacked.index
+    extra, grain_ok = _mixed_recall_mask(index.grains, tag_mask, ts_range,
+                                         live=stacked.live)
+    tr = ((lambda r, d: _translate_rows(stacked, r, d)) if translate
+          else (lambda r, d: r))
+
+    def run(qb):
+        if route_mode == "per_segment":
+            gids, _ = routing.route_per_segment(index.routing, qb, nprobe,
+                                                seg_shape)
+        else:
+            gids, _ = routing.route(index.routing, qb, nprobe,
+                                    grain_mask=grain_ok)
+        dists, rows = candidate_stage(
+            index, qb, gids, envelope_frac=envelope_frac, qeff=qeff,
+            width=max(pool, topk), scan_impl=scan_impl, extra_mask=extra)
+        return _candidate_epilogue(dists, rows, qb, index.raw, pool=pool,
+                                   topk=topk, mode=mode, translate=tr)
+
+    return _in_batches(run, q, topk, index.device)

@@ -4,9 +4,14 @@ For a query batch Q we compute ambient-space distances to all G grain
 centroids and keep the top-P (nprobe).  Empty grains are never selected.
 ``grain_mask`` is the mixed-recall filter pushdown: grains it rules out
 are excluded from routing.
+
+On a ``StackedSegments`` plane ``route`` takes the top-P over every
+segment's grains at once; ``route_per_segment`` takes the top-P within
+each segment (the per-segment loop's probe set) in one call.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -41,3 +46,42 @@ def route(plane: RoutingPlane, q: torch.Tensor, nprobe: int,
     d2 = _centroid_d2(plane, q, grain_mask)
     d, idx = torch.sort(d2, dim=1, stable=True)
     return idx[:, :nprobe].to(torch.int32), d[:, :nprobe]
+
+
+def route_per_segment(plane: RoutingPlane, q: torch.Tensor, nprobe: int,
+                      seg_shape: tuple):
+    """Top-P routing within each segment of a stacked routing plane.
+
+    ``plane`` holds S*G fused grains and ``seg_shape`` = (S, G).  Ties break
+    to the lower grain index within a segment (a stable sort).  Returns
+    (grain_ids [Q, S*P] i32, indices into the fused grain axis, and
+    grain_d2 [Q, S*P] f32).
+    """
+    s, g = seg_shape
+    d2 = _centroid_d2(plane, q, None).reshape(q.shape[0], s, g)
+    d, idx = torch.sort(d2, dim=2, stable=True)
+    p = min(nprobe, g)
+    idx = idx[:, :, :p] + (torch.arange(s, device=q.device) * g)[None, :,
+                                                                  None]
+    return (idx.reshape(q.shape[0], -1).to(torch.int32),
+            d[:, :, :p].reshape(q.shape[0], -1))
+
+
+def check_probe_args(adaptive: bool, probe_margin, min_probes=None) -> None:
+    """Host validation of the adaptive-probing knobs, run before a search
+    so a bad combination fails with one message."""
+    if probe_margin is not None:
+        if not adaptive:
+            raise ValueError(
+                "probe_margin= only applies to adaptive routing; pass "
+                "adaptive=True (or drop probe_margin)")
+        m = float(probe_margin)
+        if math.isnan(m) or m < 0.0:
+            raise ValueError(
+                f"probe_margin must be a float >= 0 (inf = exhaustive, "
+                f"i.e. static nprobe), got {probe_margin!r}")
+    if min_probes is not None and (isinstance(min_probes, bool)
+                                   or not isinstance(min_probes, int)
+                                   or min_probes < 1):
+        raise ValueError(
+            f"min_probes must be an int >= 1, got {min_probes!r}")

@@ -1,0 +1,736 @@
+"""The log-structured vector store (paper §1-§2): its read and mutation path.
+
+Grains are self-contained, so the index maps onto immutable segments:
+
+- **append**: new vectors go to a mutable memtable that is scanned
+  exactly; ``seal()`` freezes it into an immutable HNTL segment, built on
+  the store's device.  A sealed segment is never modified.
+- **one search over all segments**: the sealed segments are padded to a
+  common (G, cap) shape and stacked on the device into one
+  ``StackedSegments`` plane (cached until the segment set changes), so a
+  search over any number of segments is one ``planner.search_stacked``
+  call (global routing over the concatenated routing plane, one candidate
+  stage, one merged pool, one exact re-rank) plus the memtable scan.
+- **mutations**: ``delete`` tombstones gids, ``upsert`` appends a new
+  version that shadows every older one, and rows may carry a TTL.  None of
+  them touches a segment: liveness is a host (gid, seq) table per
+  manifest, placed on the device once per mutation epoch as the plane's
+  ``live`` bitmap, so a delete shows in the next search without a
+  re-stack.
+- **snapshots and branches**: a ``Manifest`` freezes the segment refs, the
+  memtable rows and the mutation table; ``branch`` forks a store that
+  shares every sealed segment and copies the rest, so mutations on one
+  side never reach the other.
+- **mixed recall**: tag bitmasks and timestamps are checked in the scan
+  and pushed down into routing (grains with no matching record are never
+  probed), not filtered afterwards.
+
+The JAX package's ``repro.core.store`` is the reference.  Compaction,
+maintenance, the cold raw tier, the cascade budgets, adaptive routing,
+tiered residency and the sharded plane are not ported yet; the arguments
+that would ask for them raise, naming the ROADMAP item that brings each.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+import uuid
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import index as index_mod
+from . import planner, routing
+from .types import (BIG, GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
+                    SearchResult, StackedSegments)
+
+#: Device bytes of the [queries, memtable rows, d] difference tensor of one
+#: chunk of the memtable scan (a 1024-query batch against 5k rows at
+#: d=768 would be 15 GB at once).
+MEMTABLE_CHUNK_BYTES = 1 << 30
+
+#: Stacked planes kept by a store's LRU plane cache.  Each one pins a device
+#: copy of the stacked raw tier (~3 GB at N=1M, d=768), so the cap is small.
+STACK_CACHE_ENTRIES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """An immutable sealed segment: an HNTL index on the store's device.
+
+    Local row r has global id ``id_base + r``, or ``id_map[r]`` when the
+    segment's gids are not one contiguous run (a memtable that held
+    upserts).  Host arrays: tags [n] u32, ts [n] f32, id_map/seq [n] i64,
+    expire [n] f64 absolute TTL deadlines (None = no TTL in the segment).
+    """
+
+    seg_id: int
+    index: HNTLIndex
+    n: int
+    id_base: int
+    tags: Optional[np.ndarray]
+    ts: Optional[np.ndarray]
+    id_map: Optional[np.ndarray] = None
+    seq: Optional[np.ndarray] = None
+    expire: Optional[np.ndarray] = None
+
+    def global_ids(self) -> np.ndarray:
+        """Global id of every local row, in build order.  [n] i64."""
+        if self.id_map is not None:
+            return self.id_map
+        return np.arange(self.id_base, self.id_base + self.n, dtype=np.int64)
+
+    def global_seqs(self) -> np.ndarray:
+        """Insert sequence of every local row (gid == seq for a segment
+        sealed before any upsert)."""
+        return self.seq if self.seq is not None else self.global_ids()
+
+    def map_local(self, local_ids: torch.Tensor) -> torch.Tensor:
+        """Local candidate ids -> global ids (-1 stays -1).  [Q, k] i64."""
+        local = local_ids.long()
+        if self.id_map is None:
+            return torch.where(local >= 0, local + self.id_base, -1)
+        id_map = torch.from_numpy(self.id_map).to(local.device)
+        return torch.where(local >= 0, id_map[torch.clamp(local, min=0)], -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Manifest:
+    """Immutable snapshot of a store: segment refs plus a frozen view of
+    the memtable rows and of the mutation table.
+
+    ``mut_gid``/``mut_seq`` are the sorted liveness overrides: gid g's live
+    version is mut_seq[i] where mut_gid[i] == g (-1 = deleted); a gid
+    absent from the table is live at its only version.
+    """
+
+    segments: tuple                  # tuple[Segment, ...]
+    mem_n: int                       # number of captured memtable rows
+    mem: tuple = ()                  # tuple[np.ndarray]: captured rows
+    mem_tags: tuple = ()             # tuple[int]
+    mem_ts: tuple = ()               # tuple[float]
+    mem_ids: tuple = ()              # tuple[int]: gid of each captured row
+    mem_seq: tuple = ()              # tuple[int]: insert seq of each row
+    mem_expire: tuple = ()           # tuple[float]: TTL deadline (inf=none)
+    mut_gid: Optional[np.ndarray] = None  # [M] i64 sorted mutated gids
+    mut_seq: Optional[np.ndarray] = None  # [M] i64 live seq (-1 = deleted)
+    writer: str = ""                 # identity of the capturing store
+    epoch: int = 0                   # mutation epoch at capture time
+
+
+def _finalize(ids: torch.Tensor, d: torch.Tensor, topk: int) -> SearchResult:
+    """Merge candidate pools into a [Q, topk] result on their device.
+
+    A stable sort by distance: a tie keeps the pools' order (sealed plane
+    first, then the memtable).  Slots at the pruned sentinel (filtered,
+    padding, fewer candidates than topk) come back as id -1.
+    """
+    d, order = torch.sort(d, dim=1, stable=True)
+    d = d[:, :topk]
+    ids = torch.gather(ids, 1, order[:, :topk])
+    ids = torch.where(d < BIG / 2, ids, -1)
+    pad = topk - ids.shape[1]
+    if pad > 0:
+        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        d = torch.nn.functional.pad(d, (0, pad), value=BIG)
+    return SearchResult(ids=ids.to(torch.int32), dists=d)
+
+
+def _live_rows(mut_gid: Optional[np.ndarray], mut_seq: Optional[np.ndarray],
+               gids: np.ndarray, seqs: np.ndarray) -> Optional[np.ndarray]:
+    """Tombstone/shadow verdict for physical rows.  None = all live.
+
+    A row (gid g, seq s) is dead iff g is in the mutation table with a
+    live seq != s: deleted (-1) or shadowed by a later upsert.
+    """
+    if mut_gid is None or len(mut_gid) == 0 or len(gids) == 0:
+        return None
+    pos = np.minimum(np.searchsorted(mut_gid, gids), len(mut_gid) - 1)
+    dead = (mut_gid[pos] == gids) & (mut_seq[pos] != seqs)
+    if not dead.any():
+        return None
+    return ~dead
+
+
+def _concat_expiry(segments: Sequence[Segment]) -> Optional[np.ndarray]:
+    """Per-row TTL deadlines across segments, or None when no segment
+    carries any."""
+    if all(s.expire is None for s in segments):
+        return None
+    return np.concatenate(
+        [s.expire if s.expire is not None else np.full(s.n, np.inf)
+         for s in segments])
+
+
+def _fuse(leaves: list, fill, gmax: int) -> torch.Tensor:
+    """[S*gmax, ...] stack of per-segment [g, ...] leaves on their device,
+    each padded with ``fill`` to the largest shape."""
+    ref = leaves[0]
+    rest = [max(a.shape[i] for a in leaves) for i in range(1, ref.dim())]
+    out = ref.new_full((len(leaves) * gmax, *rest), fill)
+    for si, a in enumerate(leaves):
+        out[(slice(si * gmax, si * gmax + a.shape[0]),)
+            + tuple(slice(0, n) for n in a.shape[1:])] = a
+    return out
+
+
+def stack_segments(segments: Sequence[Segment]) -> StackedSegments:
+    """Fuse sealed segments into one ``StackedSegments`` plane, on their
+    device.
+
+    Every GrainStore leaf is padded to the common (G_max, cap_max) shape
+    and stacked on a leading segment axis fused with the grain axis.
+    Padding: scale/res_scale/sketch_scale 1 (no divide by zero in the
+    envelope filter), sizes 0 (never routed), valid False, ids -1, tags and
+    ts 0, and qmaxg 1 on padding grains (``int32_safe_qmax(k)`` over a
+    fixed-width segment in a stack with mixed precision).  Grain ids
+    become flat rows of the concatenated raw tier; ``gid_of_row``
+    translates them back to global ids.
+    """
+    segs = list(segments)
+    if not segs:
+        raise ValueError("cannot stack an empty segment list")
+    grains = [s.index.grains for s in segs]
+    g0 = grains[0]
+    dev = g0.coords.device
+    gmax = max(g.n_grains for g in grains)
+    has_sketch = g0.sketch is not None
+    if any((g.sketch is not None) != has_sketch for g in grains):
+        raise ValueError("segments disagree on sketch presence (mixed cfg.s)")
+    any_qmax = any(g.qmaxg is not None for g in grains)
+    qeff_fb = index_mod.int32_safe_qmax(g0.k)
+    offsets = np.zeros(len(segs) + 1, np.int64)
+    np.cumsum([s.n for s in segs], out=offsets[1:])
+
+    def fuse(name, fill):
+        return _fuse([getattr(g, name) for g in grains], fill, gmax)
+
+    def flat_rows(g, off):
+        return torch.where(g.ids >= 0, g.ids + int(off), -1).to(torch.int32)
+
+    def or_full(g, name, dtype, value=0):
+        """A segment's optional leaf, or its stand-in filled with value."""
+        v = getattr(g, name)
+        shape = (g.n_grains,) if name == "qmaxg" else tuple(g.ids.shape)
+        return v if v is not None else torch.full(shape, value, dtype=dtype,
+                                                  device=dev)
+
+    fused = dict(
+        coords=fuse("coords", 0), res=fuse("res", 0),
+        ids=_fuse([flat_rows(g, o) for g, o in zip(grains, offsets)], -1,
+                  gmax),
+        valid=fuse("valid", False), basis=fuse("basis", 0.0),
+        mu=fuse("mu", 0.0), scale=fuse("scale", 1.0),
+        res_scale=fuse("res_scale", 1.0),
+        tags=_fuse([or_full(g, "tags", torch.int64) for g in grains], 0,
+                   gmax),
+        ts=_fuse([or_full(g, "ts", torch.float32) for g in grains], 0.0,
+                 gmax),
+        sketch=fuse("sketch", 0) if has_sketch else None,
+        sketch_basis=fuse("sketch_basis", 0.0) if has_sketch else None,
+        sketch_scale=fuse("sketch_scale", 1.0) if has_sketch else None,
+        qmaxg=_fuse([or_full(g, "qmaxg", torch.int32, qeff_fb)
+                     for g in grains], 1, gmax) if any_qmax else None)
+    g_st = GrainStore(**fused)
+    sizes = _fuse([s.index.routing.sizes for s in segs], 0, gmax)
+    warm = all(s.index.raw is not None for s in segs)
+    index = HNTLIndex(
+        routing=RoutingPlane(centroids=g_st.mu, sizes=sizes),
+        grains=g_st,
+        raw=torch.cat([s.index.raw for s in segs]) if warm else None)
+    gid_of_row = np.concatenate([s.global_ids() for s in segs])
+    return StackedSegments(
+        index=index,
+        gid_of_row=torch.from_numpy(gid_of_row.astype(np.int32)).to(dev),
+        row_offset=torch.from_numpy(offsets.astype(np.int32)).to(dev))
+
+
+def _unported(name: str, item: int, what: str) -> ValueError:
+    return ValueError(f"{name} needs {what}, which is not ported yet "
+                      f"(ROADMAP Queue A item {item})")
+
+
+class VectorStore:
+    """Log-structured vector memory with HNTL-indexed sealed segments.
+
+    ``device=None`` puts the segments and every search on the card (and
+    raises without one); ``device="cpu"`` runs the plain PyTorch path.
+    """
+
+    def __init__(self, cfg: HNTLConfig, *, seal_threshold: int = 8192,
+                 clock=time.time, device=None,
+                 cold_tier: bool = False, cold_dir: Optional[str] = None,
+                 device_budget: Optional[int] = None):
+        if cold_tier or cold_dir is not None:
+            raise _unported("cold_tier=/cold_dir=", 3, "the cold raw tier")
+        if device_budget is not None:
+            raise _unported("device_budget=", 8, "tiered residency")
+        self.cfg = cfg
+        self.seal_threshold = seal_threshold
+        self.device = index_mod.resolve_device(device)
+        self._segments: list[Segment] = []
+        self._mem: list[np.ndarray] = []
+        self._mem_tags: list[int] = []
+        self._mem_ts: list[float] = []
+        self._mem_ids: list[int] = []           # gid per memtable row
+        self._mem_seq: list[int] = []           # insert seq per memtable row
+        self._mem_expire: list[float] = []      # TTL deadline (inf = none)
+        self._next_id = 0
+        self._next_seq = 0
+        self._next_seg = 0
+        self._clock = clock
+        # Mutation table: gid -> live insert seq (-1 = deleted).  The epoch
+        # counts mutations; the per-plane liveness bitmaps are keyed on
+        # (writer, epoch), so a delete invalidates them without a re-stack.
+        self._live_seq: dict = {}
+        self._epoch = 0
+        self._mut_cache = (-1, None, None)      # (epoch, mut_gid, mut_seq)
+        self._writer = uuid.uuid4().hex[:8]
+        # LRU of stacked planes keyed by the segments' identities; every
+        # scan plane reads the same stacked leaves.  Entries keep their
+        # segment tuple alive so the id()-keys cannot be reused.
+        self._stack_cache: collections.OrderedDict = \
+            collections.OrderedDict()
+
+    # ------------------------------------------------------------ write path
+    def _expiry_of(self, ttl, n: int) -> list:
+        """Absolute TTL deadlines for n new rows (inf = never expires)."""
+        if ttl is None:
+            return [np.inf] * n
+        now = self._clock()
+        ttls = np.broadcast_to(np.asarray(ttl, np.float64), (n,))
+        return [now + float(t) for t in ttls]
+
+    def _append_rows(self, vecs, ids, tags, ts, ttl) -> None:
+        n = vecs.shape[0]
+        self._mem.extend(list(vecs))
+        self._mem_tags.extend(list(tags) if tags is not None else [0] * n)
+        self._mem_ts.extend(list(ts) if ts is not None else [0.0] * n)
+        self._mem_ids.extend(int(i) for i in ids)
+        self._mem_seq.extend(range(self._next_seq, self._next_seq + n))
+        self._next_seq += n
+        self._mem_expire.extend(self._expiry_of(ttl, n))
+        if len(self._mem) >= self.seal_threshold:
+            self.seal()
+
+    def add(self, vecs, tags: Optional[Sequence[int]] = None,
+            ts: Optional[Sequence[float]] = None, ttl=None) -> np.ndarray:
+        """Append vectors; returns their global ids.
+
+        ttl: optional per-record (scalar or [n]) time to live in seconds;
+        an expired record vanishes from every search.
+        """
+        vecs = np.asarray(vecs, np.float32)
+        n = vecs.shape[0]
+        ids = np.arange(self._next_id, self._next_id + n, dtype=np.int64)
+        self._next_id += n
+        self._append_rows(vecs, ids, tags, ts, ttl)
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone records by global id.  No segment is touched and no
+        plane re-stacked: the next search masks the rows in the scan.
+        Returns the number newly tombstoned (dead ids are no-ops, and gids
+        never assigned are ignored: a tombstone there would kill the
+        future insert that gets the gid)."""
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        newly = 0
+        for g in ids.tolist():
+            if not 0 <= g < self._next_id:
+                continue
+            if self._live_seq.get(g) != -1:
+                newly += 1
+            self._live_seq[g] = -1
+        if newly:
+            self._epoch += 1
+        return newly
+
+    def upsert(self, ids, vecs, tags: Optional[Sequence[int]] = None,
+               ts: Optional[Sequence[float]] = None, ttl=None) -> np.ndarray:
+        """Write new versions of records under their global ids.
+
+        The new version goes to the memtable under the same gid with a
+        fresh insert seq, and the mutation table makes every older row of
+        that gid dead.  Ids never seen before act as plain inserts.
+        """
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        vecs = np.asarray(vecs, np.float32)
+        if ids.shape[0] != vecs.shape[0]:
+            raise ValueError(f"upsert: {ids.shape[0]} ids for "
+                             f"{vecs.shape[0]} vectors")
+        if (ids < 0).any():
+            raise ValueError("upsert needs non-negative gids")
+        new_seq = range(self._next_seq, self._next_seq + len(ids))
+        for g, s in zip(ids.tolist(), new_seq):
+            self._live_seq[g] = s
+        self._next_id = max(self._next_id, int(ids.max()) + 1)
+        self._epoch += 1
+        self._append_rows(vecs, ids, tags, ts, ttl)
+        return ids
+
+    def _grain_count(self, n: int) -> int:
+        """Grains for a segment of n rows: the configured G per
+        seal_threshold rows, at least one block per grain."""
+        scale = max(1, -(-n // max(self.seal_threshold, 1)))
+        return max(1, min(self.cfg.n_grains * scale,
+                          n // max(self.cfg.block, 32)))
+
+    def seal(self) -> Optional[Segment]:
+        """Freeze the memtable into an immutable HNTL segment, built on the
+        store's device."""
+        if not self._mem:
+            return None
+        x = np.stack(self._mem)
+        tags = np.asarray(self._mem_tags, np.uint32)
+        ts = np.asarray(self._mem_ts, np.float32)
+        gids = np.asarray(self._mem_ids, np.int64)
+        seqs = np.asarray(self._mem_seq, np.int64)
+        expire = np.asarray(self._mem_expire, np.float64)
+        n = x.shape[0]
+        cfg = dataclasses.replace(self.cfg, n_grains=self._grain_count(n))
+        idx, _ = index_mod.build(x, cfg, tags=tags, ts=ts, keep_raw=True,
+                                 device=self.device)
+        # a pure-add memtable holds one contiguous gid run; upserts
+        # interleave re-used gids, which need the id_map
+        contiguous = bool(np.array_equal(gids,
+                                         np.arange(gids[0], gids[0] + n)))
+        seg = Segment(
+            seg_id=self._next_seg, index=idx, n=n,
+            id_base=int(gids[0]) if contiguous else 0, tags=tags, ts=ts,
+            id_map=None if contiguous else gids, seq=seqs,
+            expire=expire if np.isfinite(expire).any() else None)
+        self._segments.append(seg)
+        self._next_seg += 1
+        self._mem, self._mem_tags, self._mem_ts = [], [], []
+        self._mem_ids, self._mem_seq, self._mem_expire = [], [], []
+        return seg
+
+    # ---------------------------------------------------------- control plane
+    def _mut_arrays(self):
+        """The mutation table as sorted (gid, seq) arrays, cached per
+        epoch."""
+        if self._mut_cache[0] != self._epoch:
+            if self._live_seq:
+                mg = np.fromiter(self._live_seq.keys(), np.int64,
+                                 len(self._live_seq))
+                ms = np.fromiter(self._live_seq.values(), np.int64,
+                                 len(self._live_seq))
+                order = np.argsort(mg)
+                self._mut_cache = (self._epoch, mg[order], ms[order])
+            else:
+                self._mut_cache = (self._epoch, None, None)
+        return self._mut_cache[1], self._mut_cache[2]
+
+    def snapshot(self) -> Manifest:
+        mg, ms = self._mut_arrays()
+        return Manifest(segments=tuple(self._segments),
+                        mem_n=len(self._mem), mem=tuple(self._mem),
+                        mem_tags=tuple(self._mem_tags),
+                        mem_ts=tuple(self._mem_ts),
+                        mem_ids=tuple(self._mem_ids),
+                        mem_seq=tuple(self._mem_seq),
+                        mem_expire=tuple(self._mem_expire),
+                        mut_gid=mg, mut_seq=ms,
+                        writer=self._writer, epoch=self._epoch)
+
+    def branch(self, *,
+               seal_threshold: Optional[int] = None) -> "VectorStore":
+        """Zero-copy fork: a new store sharing every sealed segment.
+
+        The memtable and the mutation table are copied, so neither side's
+        later writes, deletes or upserts reach the other."""
+        child = VectorStore(self.cfg,
+                            seal_threshold=self.seal_threshold
+                            if seal_threshold is None else seal_threshold,
+                            clock=self._clock, device=self.device)
+        child._segments = list(self._segments)
+        child._mem = list(self._mem)
+        child._mem_tags = list(self._mem_tags)
+        child._mem_ts = list(self._mem_ts)
+        child._mem_ids = list(self._mem_ids)
+        child._mem_seq = list(self._mem_seq)
+        child._mem_expire = list(self._mem_expire)
+        child._next_id = self._next_id
+        child._next_seq = self._next_seq
+        child._next_seg = self._next_seg
+        child._live_seq = dict(self._live_seq)
+        child._epoch = self._epoch
+        return child
+
+    @property
+    def n_vectors(self) -> int:
+        """Physical rows (live and tombstoned)."""
+        return sum(s.n for s in self._segments) + len(self._mem)
+
+    def n_live(self, now: Optional[float] = None) -> int:
+        """Records a search can return: physical rows minus tombstoned,
+        shadowed and expired ones."""
+        now = self._clock() if now is None else now
+        mg, ms = self._mut_arrays()
+        total = 0
+        for gids, seqs, expire in [
+                (s.global_ids(), s.global_seqs(), s.expire)
+                for s in self._segments] + [
+                (np.asarray(self._mem_ids, np.int64),
+                 np.asarray(self._mem_seq, np.int64),
+                 np.asarray(self._mem_expire, np.float64))]:
+            keep = _live_rows(mg, ms, gids, seqs)
+            keep = np.ones(len(gids), bool) if keep is None else keep.copy()
+            if expire is not None and len(gids):
+                keep &= np.asarray(expire) > now
+            total += int(keep.sum())
+        return total
+
+    @property
+    def n_segments(self) -> int:
+        return len(self._segments)
+
+    # ------------------------------------------------------------- read path
+    def _cache_get(self, key):
+        hit = self._stack_cache.get(key)
+        if hit is not None:
+            self._stack_cache.move_to_end(key)
+            return hit[1]
+        return None
+
+    def _cache_put(self, key, segments: tuple, value):
+        self._stack_cache[key] = (tuple(segments), value)
+        while len(self._stack_cache) > STACK_CACHE_ENTRIES:
+            self._stack_cache.popitem(last=False)
+        return value
+
+    def _stacked_for(self, segments: tuple) -> dict:
+        """The stacked plane of a segment set, stacked on first use.
+
+        The entry also holds the host row tables (flat-row gid, seq and
+        TTL, and a host copy of the grain id panels) that the per-epoch
+        liveness bitmap is computed from."""
+        key = tuple(id(s) for s in segments)
+        hit = self._cache_get(key)
+        if hit is not None:
+            return hit
+        stacked = stack_segments(segments)
+        entry = {
+            "plane": stacked,
+            "ids_host": stacked.index.grains.ids.cpu().numpy(),
+            "row_gid": np.concatenate([s.global_ids() for s in segments]),
+            "row_seq": np.concatenate([s.global_seqs() for s in segments]),
+            "row_exp": _concat_expiry(segments),
+            "live": (None, None),      # (epoch key, plane with live)
+        }
+        return self._cache_put(key, segments, entry)
+
+    def _live_plane(self, entry: dict, man: Manifest, now: float):
+        """The entry's plane with the manifest epoch's liveness attached.
+
+        The [G, cap] bitmap is computed on the host from the cached row
+        tables, placed on the device and swapped in with
+        ``dataclasses.replace`` (no re-stack).  It is cached per (writer,
+        epoch), plus ``now`` when any row has a TTL."""
+        has_ttl = entry["row_exp"] is not None
+        key = (man.writer, man.epoch, now if has_ttl else None)
+        ck, cached = entry["live"]
+        if ck == key:
+            return cached
+        live_row = _live_rows(man.mut_gid, man.mut_seq,
+                              entry["row_gid"], entry["row_seq"])
+        if has_ttl:
+            alive_t = entry["row_exp"] > now
+            if not alive_t.all():
+                live_row = alive_t if live_row is None \
+                    else live_row & alive_t
+        plane = entry["plane"]
+        if live_row is not None:
+            ids = entry["ids_host"]
+            bitmap = (ids >= 0) & live_row[np.maximum(ids, 0)]
+            plane = dataclasses.replace(
+                plane, live=torch.from_numpy(bitmap).to(plane.index.device))
+        entry["live"] = (key, plane)
+        return plane
+
+    def search(self, q, *, topk: int = 10, mode: str = "B",
+               tag_mask: Optional[int] = None,
+               ts_range: Optional[tuple] = None,
+               manifest: Optional[Manifest] = None,
+               scan_impl: Optional[str] = None,
+               budgets: Optional[tuple] = None,
+               nprobe: Optional[int] = None, pool: Optional[int] = None,
+               fused: bool = True, route_mode: str = "global",
+               mesh=None, adaptive: bool = False,
+               probe_margin: Optional[float] = None,
+               min_probes: Optional[int] = None,
+               now: Optional[float] = None) -> SearchResult:
+        """Mixed-recall search over the sealed segments and the memtable,
+        on the store's device.
+
+        All sealed segments are searched by one ``planner.search_stacked``
+        call (``fused=True``); ``fused=False`` runs the per-segment loop,
+        the parity oracle.
+
+        tag_mask: keep records with (tag & tag_mask) != 0.
+        ts_range: (lo, hi), keep lo <= ts < hi.
+        scan_impl: ScanPlane backend (``core.scanplane``); None = "auto".
+        nprobe / pool: override cfg.nprobe / cfg.pool on the stacked plane.
+        route_mode: "global" (top-P over every segment's grains) or
+          "per_segment" (top-P within each segment, still one call).
+        now: TTL clock (default: the store's clock).
+        budgets, mesh and adaptive=True are refused until ported.
+        """
+        planner._refuse_budgets(budgets, topk)
+        routing.check_probe_args(adaptive, probe_margin, min_probes)
+        if adaptive:
+            raise _unported("adaptive=True", 5, "adaptive routing")
+        if mesh is not None:
+            raise _unported("mesh=", 10, "the sharded search plane")
+        man = manifest or self.snapshot()
+        now = self._clock() if now is None else now
+        q = torch.as_tensor(q, dtype=torch.float32)
+        if q.dim() == 1:
+            q = q[None]
+        q = q.to(self.device)
+        with index_mod.full_fp32_matmul():
+            if not fused:
+                return self._search_looped(
+                    q, man, topk=topk, mode=mode, tag_mask=tag_mask,
+                    ts_range=ts_range, scan_impl=scan_impl, now=now)
+            all_ids, all_d = [], []
+            if man.segments:
+                ids_s, d_s = self._search_segments_fused(
+                    q, man, topk=topk, mode=mode, tag_mask=tag_mask,
+                    ts_range=ts_range, scan_impl=scan_impl, nprobe=nprobe,
+                    pool=pool, route_mode=route_mode, now=now)
+                all_ids.append(ids_s)
+                all_d.append(d_s)
+            return self._merge_with_memtable(q, man, all_ids, all_d, topk,
+                                             tag_mask, ts_range, now)
+
+    def _merge_with_memtable(self, q, man: Manifest, all_ids, all_d, topk,
+                             tag_mask, ts_range, now) -> SearchResult:
+        """Result tail of the fused and looped paths: append the memtable
+        pool, handle the empty store, finalize to [Q, topk]."""
+        mem_ids, mem_d = self._search_memtable(q, man, topk, tag_mask,
+                                               ts_range, now)
+        if mem_ids is not None:
+            all_ids.append(mem_ids)
+            all_d.append(mem_d)
+        if not all_ids:
+            shape = (q.shape[0], topk)
+            return SearchResult(
+                ids=torch.full(shape, -1, dtype=torch.int32, device=q.device),
+                dists=torch.full(shape, BIG, device=q.device))
+        return _finalize(torch.cat([i.long() for i in all_ids], dim=1),
+                         torch.cat(all_d, dim=1), topk)
+
+    def _fused_statics(self, segments: tuple, stacked: StackedSegments,
+                       topk: int, nprobe: Optional[int],
+                       pool: Optional[int], route_mode: str):
+        """Clamp nprobe, pool and topk to the stacked plane's shape."""
+        s_n = len(segments)
+        gmax = stacked.index.grains.n_grains // s_n
+        capmax = stacked.index.grains.cap
+        want_probe = nprobe if nprobe is not None else self.cfg.nprobe
+        if route_mode == "per_segment":
+            probe = min(want_probe, gmax)
+            n_slots = s_n * probe * capmax
+        else:
+            probe = min(want_probe, s_n * gmax)
+            n_slots = probe * capmax
+        want_pool = pool if pool is not None else self.cfg.pool
+        pool_eff = min(max(want_pool, topk), n_slots)
+        return probe, pool_eff, min(topk, pool_eff), (s_n, gmax)
+
+    def _search_segments_fused(self, q, man, *, topk, mode, tag_mask,
+                               ts_range, scan_impl, nprobe, pool,
+                               route_mode, now):
+        """One ``planner.search_stacked`` call over the stacked plane.
+        Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device."""
+        segments = man.segments
+        entry = self._stacked_for(segments)
+        stacked = self._live_plane(entry, man, now)
+        probe, pool_eff, topk_eff, seg_shape = self._fused_statics(
+            segments, stacked, topk, nprobe, pool, route_mode)
+        res = planner.search_stacked(
+            stacked, q, nprobe=probe, pool=pool_eff, topk=topk_eff,
+            mode=mode, envelope_frac=self.cfg.envelope_frac,
+            qeff=index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits),
+            scan_impl=scan_impl, route_mode=route_mode, seg_shape=seg_shape,
+            tag_mask=tag_mask, ts_range=ts_range)
+        return res.ids, res.dists
+
+    def _search_memtable(self, q, man: Manifest, topk, tag_mask, ts_range,
+                         now):
+        """Exact scan of the manifest's captured memtable rows (never the
+        live memtable: a seal after the snapshot must not change what it
+        returns), with its mutation table, TTLs and filters applied.
+
+        Runs on the device in query chunks of at most
+        ``MEMTABLE_CHUNK_BYTES`` of differences; filtered rows are masked
+        before the top-k so they cannot shadow valid ones."""
+        if man.mem_n <= 0:
+            return None, None
+        keep = np.ones(man.mem_n, bool)
+        gids = np.asarray(man.mem_ids[:man.mem_n], np.int64)
+        seqs = np.asarray(man.mem_seq[:man.mem_n], np.int64)
+        lv = _live_rows(man.mut_gid, man.mut_seq, gids, seqs)
+        if lv is not None:
+            keep &= lv
+        if man.mem_expire:
+            keep &= np.asarray(man.mem_expire[:man.mem_n], np.float64) > now
+        if tag_mask is not None:
+            keep &= (np.asarray(man.mem_tags[:man.mem_n], np.uint32)
+                     & np.uint32(tag_mask)) != 0
+        if ts_range is not None:
+            tsv = np.asarray(man.mem_ts[:man.mem_n], np.float32)
+            lo, hi = (np.float32(v) for v in ts_range)
+            keep &= (tsv >= lo) & (tsv < hi)
+        dev = q.device
+        mem = torch.from_numpy(np.stack(man.mem[:man.mem_n])).to(dev)
+        keep_t = torch.from_numpy(keep).to(dev)
+        kk = min(topk, man.mem_n)
+        chunk = max(1, MEMTABLE_CHUNK_BYTES // (mem.numel() * 4))
+        pos, dists = [], []
+        for lo in range(0, q.shape[0], chunk):
+            d_all = (mem[None, :, :] - q[lo:lo + chunk, None, :]).square_() \
+                .sum(dim=-1)
+            d_all = torch.where(keep_t[None, :], d_all, BIG)
+            d_s, order = torch.sort(d_all, dim=1, stable=True)
+            dists.append(d_s[:, :kk])
+            pos.append(order[:, :kk])
+        gids_t = torch.from_numpy(gids).to(dev)
+        return gids_t[torch.cat(pos)], torch.cat(dists)
+
+    # --------------------------------------------------- per-segment loop
+    def _seg_live_mask(self, man: Manifest, seg: Segment,
+                       now) -> Optional[torch.Tensor]:
+        """[G, cap] liveness bitmap of one segment's grain panels (the
+        loop's counterpart of the stacked ``live`` leaf), or None."""
+        lv = _live_rows(man.mut_gid, man.mut_seq,
+                        seg.global_ids(), seg.global_seqs())
+        if seg.expire is not None:
+            alive_t = seg.expire > now
+            if not alive_t.all():
+                lv = alive_t if lv is None else lv & alive_t
+        if lv is None:
+            return None
+        ids = seg.index.grains.ids.cpu().numpy()   # local rows, -1 padding
+        return torch.from_numpy((ids >= 0) & lv[np.maximum(ids, 0)]).to(
+            seg.index.device)
+
+    def _search_looped(self, q, man: Manifest, *, topk, mode, tag_mask,
+                       ts_range, scan_impl, now) -> SearchResult:
+        """Per-segment loop: one ``index.search`` per segment, the pools
+        merged with the memtable's.  The parity oracle of ``search``."""
+        all_ids, all_d = [], []
+        for seg in man.segments:
+            extra, _ = planner._mixed_recall_mask(
+                seg.index.grains, tag_mask, ts_range,
+                live=self._seg_live_mask(man, seg, now))
+            res = index_mod.search(seg.index, q, self.cfg, topk=topk,
+                                   mode=mode, scan_impl=scan_impl,
+                                   extra_mask=extra)
+            all_ids.append(seg.map_local(res.ids))
+            all_d.append(res.dists)
+        return self._merge_with_memtable(q, man, all_ids, all_d, topk,
+                                         tag_mask, ts_range, now)

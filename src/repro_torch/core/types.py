@@ -134,6 +134,36 @@ class HNTLIndex:
 
 
 @dataclasses.dataclass(frozen=True)
+class StackedSegments:
+    """All sealed segments of a store fused into one searchable index.
+
+    Each segment's ``GrainStore`` is padded to a common ``(G_max, cap_max)``
+    shape and stacked on a leading segment axis, kept fused as
+    ``[S*G_max, ...]``, so the whole stack routes and scans like a single
+    ``HNTLIndex``: one planner call for any number of segments.
+
+    ``index.grains.ids`` holds flat rows of the concatenated raw tier
+    ``index.raw`` [N_total, d]; ``gid_of_row`` translates a flat row to the
+    store's global id.  Padding grains have ``routing.sizes == 0`` (never
+    routed) and ``valid == False`` (never scanned).
+
+    ``live`` [S*G_max, cap] bool is the mutation epoch's liveness (False =
+    tombstoned, shadowed by an upsert or expired), or None when all is
+    live.  The store swaps it in with ``dataclasses.replace``: a delete
+    never re-stacks the plane.
+    """
+
+    index: HNTLIndex           # fused view: [S*G_max] grains, ids = flat rows
+    gid_of_row: torch.Tensor   # [N_total] i32: flat raw row -> global id
+    row_offset: torch.Tensor   # [S+1] i32: raw-row range of each segment
+    live: Optional[torch.Tensor] = None
+
+    @property
+    def n_segments(self) -> int:
+        return self.row_offset.shape[0] - 1
+
+
+@dataclasses.dataclass(frozen=True)
 class SearchResult:
     """Top-k result of a (batched) query."""
 

@@ -11,8 +11,15 @@ package's ``HNTLIndex`` with every dtype and shape kept:
 
 ``kv_index_from_numpy`` does the same for an HNTL-KV ``KVIndex``
 (bf16 leaves stay bf16, ``None`` leaves stay ``None``);
-``config_from_dict`` and ``model_config_from_dict`` rebuild the two
-configuration dataclasses from ``dataclasses.asdict`` of the JAX ones.
+``segment_from_numpy`` and ``manifest_from_numpy`` carry a JAX store's
+sealed ``Segment`` (its index leaves numpy arrays) and ``Manifest``
+across, so ``VectorStore.search(q, manifest=...)`` searches exactly what
+the JAX store searched; ``config_from_dict`` and ``model_config_from_dict``
+rebuild the two configuration dataclasses from ``dataclasses.asdict`` of
+the JAX ones.
+
+Like every entry point, these put their tensors on the card unless
+``device="cpu"`` is passed, and raise when there is no card.
 
 This module imports neither JAX nor the JAX package: it reads attributes
 or keys by name.
@@ -26,6 +33,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .core.index import resolve_device
+from .core.store import Manifest, Segment
 from .core.types import GrainStore, HNTLConfig, HNTLIndex, RoutingPlane
 from .models.config import LayerSpec, ModelConfig
 from .models.hntl_attention import KVIndex
@@ -49,8 +58,9 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
     return torch.tensor(a, device=device)   # a copy: leaves may be read-only
 
 
-def index_from_numpy(tree: Any, device="cpu") -> HNTLIndex:
+def index_from_numpy(tree: Any, device=None) -> HNTLIndex:
     """JAX ``HNTLIndex`` with numpy leaves -> this package's ``HNTLIndex``."""
+    device = resolve_device(device)
     routing = _field(tree, "routing")
     grains = _field(tree, "grains")
     plane = RoutingPlane(
@@ -63,14 +73,51 @@ def index_from_numpy(tree: Any, device="cpu") -> HNTLIndex:
                      raw=_tensor(_field(tree, "raw"), device))
 
 
+def _host(tree: Any, name: str) -> Optional[np.ndarray]:
+    a = _field(tree, name)
+    return None if a is None else np.array(a)
+
+
+def segment_from_numpy(seg: Any, device=None) -> Segment:
+    """A JAX store's sealed ``Segment`` (its index leaves numpy arrays) ->
+    this package's ``Segment``; the per-row host arrays are copied as they
+    are."""
+    device = resolve_device(device)
+    return Segment(
+        seg_id=int(_field(seg, "seg_id")),
+        index=index_from_numpy(_field(seg, "index"), device),
+        n=int(_field(seg, "n")), id_base=int(_field(seg, "id_base")),
+        tags=_host(seg, "tags"), ts=_host(seg, "ts"),
+        id_map=_host(seg, "id_map"),
+        seq=_host(seg, "seq"), expire=_host(seg, "expire"))
+
+
+def manifest_from_numpy(man: Any, device=None) -> Manifest:
+    """A JAX store's ``Manifest`` -> this package's: every segment carried
+    across; the memtable rows, the mutation table, writer and epoch
+    unchanged."""
+    device = resolve_device(device)
+    return Manifest(
+        segments=tuple(segment_from_numpy(s, device)
+                       for s in _field(man, "segments")),
+        mem_n=int(_field(man, "mem_n")),
+        **{name: tuple(_field(man, name) or ())
+           for name in ("mem", "mem_tags", "mem_ts", "mem_ids", "mem_seq",
+                        "mem_expire")},
+        mut_gid=_host(man, "mut_gid"), mut_seq=_host(man, "mut_seq"),
+        writer=str(_field(man, "writer") or ""),
+        epoch=int(_field(man, "epoch") or 0))
+
+
 def config_from_dict(d: Mapping) -> HNTLConfig:
     """An ``HNTLConfig`` from a mapping of its fields (for example
     ``dataclasses.asdict`` of the JAX config); unknown keys raise."""
     return _from_dict(HNTLConfig, d)
 
 
-def kv_index_from_numpy(tree: Any, device="cpu") -> KVIndex:
+def kv_index_from_numpy(tree: Any, device=None) -> KVIndex:
     """JAX ``KVIndex`` with numpy leaves -> this package's ``KVIndex``."""
+    device = resolve_device(device)
     return KVIndex(**{f.name: _tensor(_field(tree, f.name), device)
                       for f in dataclasses.fields(KVIndex)})
 

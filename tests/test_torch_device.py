@@ -2,12 +2,14 @@
 
 - No module of ``repro_torch`` (nor ``chip_smoke.py``) imports JAX or the
   JAX package: checked on the sources' AST and in a fresh interpreter.
-- Entry points run on the card unless asked for the CPU: ``build`` with
-  no ``device`` and no card raises.
+- Entry points run on the card unless asked for the CPU: ``build``, the
+  ``interop`` carriers and ``VectorStore`` with no ``device`` and no card
+  raise.
 - ``gpu``-marked tests hold the CUDA kernels against their plain
-  versions on the card, and the "kernel" gather plane and HNTL-KV decode
-  against their plain-scan runs; they skip (inside a fixture) where there
-  is no card.
+  versions on the card, the "kernel" gather plane and HNTL-KV decode
+  against their plain-scan runs, and a store's search against its
+  "fused_ref" plane; they skip (inside a fixture) where there is no
+  card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.
@@ -88,6 +90,27 @@ def test_build_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.build(x, cfg)
     assert port_index.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["index_from_numpy", "kv_index_from_numpy",
+                                   "segment_from_numpy",
+                                   "manifest_from_numpy"])
+def test_interop_without_device_needs_a_card(monkeypatch, entry):
+    from repro_torch import interop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(interop, entry)({})
+
+
+def test_store_without_device_needs_a_card(monkeypatch):
+    from repro_torch.core import VectorStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = repro_torch.HNTLConfig(d=16, k=4, s=2, block=16, n_grains=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VectorStore(cfg)
+    assert VectorStore(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_wrapper_refuses_other_devices():
@@ -302,3 +325,34 @@ def test_hntl_kv_decode_kernel_path_equals_plain_scan_on_card(cuda_device):
     assert torch.equal(out, plain)
     assert torch.equal(new.tail_k, plain_new.tail_k)
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_store_search_equals_fused_ref_on_card(cuda_device, mode):
+    """A small store on the card, with deletes, an upsert and a memtable:
+    the "fused" plane returns the "fused_ref" plane's ids, through
+    ceil(Q/256) kernel calls per search."""
+    from repro_torch.core import VectorStore
+
+    x = synthetic.anisotropic_manifold(n=4 * 2048 + 100, d=64, intrinsic=8,
+                                       seed=2)
+    q = synthetic.queries_from(x, nq=300)
+    cfg = repro_torch.HNTLConfig(d=64, k=8, s=4, block=32, n_grains=8,
+                                 nprobe=6, pool=32)
+    st = VectorStore(cfg, seal_threshold=2048, device=cuda_device)
+    tags = 1 << (np.arange(len(x)) % 3)
+    for lo in range(0, len(x), 2048):             # one seal per chunk
+        st.add(x[lo:lo + 2048], tags=tags[lo:lo + 2048])
+    st.delete(np.arange(0, 4 * 2048, 7))
+    st.upsert([3], x[3:4] + 0.01)
+    assert st.n_segments == 4
+    for kw in ({}, {"tag_mask": 0b101}):
+        before = port_fused.fused_scan_select.launches
+        got = st.search(q, topk=10, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert port_fused.fused_scan_select.launches == before + 2
+        want = st.search(q, topk=10, mode=mode, scan_impl="fused_ref", **kw)
+        assert torch.equal(got.ids, want.ids)
+        assert not np.isin(got.ids.cpu().numpy(),
+                           np.arange(0, 4 * 2048, 7)).any()

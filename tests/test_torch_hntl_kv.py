@@ -55,7 +55,7 @@ def setup():
     rng = np.random.default_rng(0)
     centres, k, v = _clustered(rng, cfg)
     jidx = JH.build_kv_index(jnp.asarray(k), jnp.asarray(v), jcfg)
-    idx = kv_index_from_numpy(jax.tree.map(np.asarray, jidx))
+    idx = kv_index_from_numpy(jax.tree.map(np.asarray, jidx), "cpu")
     return jcfg, cfg, centres, k, v, jidx, idx
 
 
@@ -209,7 +209,7 @@ def test_sq8_retrieval_matches_jax():
     rng = np.random.default_rng(7)
     centres, k, v = _clustered(rng, cfg)
     jidx = JH.build_kv_index(jnp.asarray(k), jnp.asarray(v), jcfg)
-    idx = kv_index_from_numpy(jax.tree.map(np.asarray, jidx))
+    idx = kv_index_from_numpy(jax.tree.map(np.asarray, jidx), "cpu")
     assert idx.k_raw.dtype == torch.int8 and idx.k_scale is not None
     q, _, _ = _step_inputs(rng, cfg, centres)
     jo = JH.retrieval_cross_attention(jnp.asarray(q), jidx, jcfg)

@@ -88,8 +88,8 @@ def test_index_from_nested_mappings():
     tree = _build("sketch")
     as_dict = {"routing": _leaves(tree.routing, RoutingPlane),
                "grains": _leaves(tree.grains, GrainStore), "raw": tree.raw}
-    a = index_from_numpy(as_dict)
-    b = index_from_numpy(tree)
+    a = index_from_numpy(as_dict, "cpu")
+    b = index_from_numpy(tree, "cpu")
     assert torch.equal(a.grains.coords, b.grains.coords)
     assert torch.equal(a.routing.centroids, b.routing.centroids)
 
