@@ -68,7 +68,19 @@ What it does, in order (any failure exits non-zero before the last line):
    over the live rows; seal, stack and search times, the select kernel
    at the store's shape, profiles with and without the memtable, peak
    memory; and 256 queries through the "kernel" plane held to "ref";
-11. the kernel table as one JSON line, then, as the last line,
+11. the store's lifecycle (``lifecycle_phase``) on the same store, its
+   memtable at half the seal threshold: the searches first, then
+   ``compact()`` with its defaults (2 merges, 8 -> 2 segments of ~497k
+   rows and 512 grains, deleted and shadowed rows reclaimed, the
+   maintenance pass a no-op); Mode A, Mode B and Mode B under a tag
+   filter on the compacted plane (each held as in 10, recall@10, times
+   with and without the memtable, profiles); deletes that empty 8 grains of one merged segment, take
+   90% of 8 others and one side of 8 more, read back through
+   ``grain_health()``; ``maintain()`` (retires, merges, refits; untouched
+   grains bit-identical, the other segment by identity, the live set a
+   bijection onto the valid slots, one re-stack), the searches again and
+   256 queries through the "kernel" plane held to "ref";
+12. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -76,6 +88,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1213,6 +1226,9 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
         f"{out['kernel_launches']}")
     out["half"] = half_memtable(torch, np, st, qt, x, tags, ts, dead_t,
                                 per_seg, rng)
+    # what the lifecycle phase goes on with: the store and the live vectors
+    out["state"] = dict(st=st, qt=qt, x=x, tags=tags, up=up, x_up=x_up,
+                        dead=dead, cfg=cfg, recall=recall)
     return out
 
 
@@ -1228,7 +1244,7 @@ def half_memtable(torch, np, st, qt, x, tags, ts, dead_t, per_seg, rng):
     fill = per_seg // 2 - len(st.snapshot().mem)
     x_new = x[:fill] + 0.01 * rng.standard_normal(
         (fill, x.shape[1])).astype(np.float32)
-    st.add(x_new, tags=tags[:fill], ts=ts[:fill])
+    new_ids = st.add(x_new, tags=tags[:fill], ts=ts[:fill])
     mem_rows = len(st.snapshot().mem)
     check(mem_rows == per_seg // 2 and st.n_segments == n_seg,
           f"store half memtable: {mem_rows} rows in {st.n_segments} "
@@ -1265,7 +1281,8 @@ def half_memtable(torch, np, st, qt, x, tags, ts, dead_t, per_seg, rng):
             f"fused_scan_select launches {launches[m]}")
     log(f"store half memtable: Mode B ids == fused_ref plane; no deleted "
         f"gid")
-    out = dict(mem_rows=mem_rows, search_s=timing, launches=launches)
+    out = dict(mem_rows=mem_rows, search_s=timing, launches=launches,
+               new_ids=new_ids, x_new=x_new)
     if dev.type == "cuda":
         out["profile"] = profile(
             torch, f"store search Mode A + Mode B at a memtable of "
@@ -1275,6 +1292,410 @@ def half_memtable(torch, np, st, qt, x, tags, ts, dead_t, per_seg, rng):
         out["peak"] = torch.cuda.max_memory_allocated(dev)
         log(f"store peak device memory after the half-memtable searches "
             f"(max_memory_allocated) {out['peak']} bytes")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 11: the store's lifecycle (VectorStore.compact / grain_health / maintain)
+# ---------------------------------------------------------------------------
+
+#: The lifecycle phase's searches: the unfiltered modes and Mode B under a
+#: tag filter.
+LIFECYCLE_SEARCHES = {k: STORE_SEARCHES[k]
+                      for k in ("A", "B", "B tag_mask=0b0101")}
+
+#: maintain()'s drift threshold in the lifecycle phase.  On this corpus a
+#: grain spans ~24 latent dimensions of similar variance, so deleting the
+#: rows on one side of its mean moves the live mean by far less than the
+#: default 0.25 of the survivors' variance; the phase prints the ratio it
+#: reaches and repairs at this threshold.
+LIFECYCLE_DRIFT_RATIO = 0.01
+
+
+class _Timed:
+    """Wall time of every call of ``module.name`` while installed (the
+    device synchronised before and after each call)."""
+
+    def __init__(self, torch, dev, module, name):
+        self.torch, self.dev, self.module, self.name = torch, dev, module, name
+        self.real = getattr(module, name)
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        sync(self.torch, self.dev)
+        t0 = time.perf_counter()
+        out = self.real(*args, **kw)
+        sync(self.torch, self.dev)
+        self.calls.append(time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def lifecycle_searches(torch, np, st, qt, xl, alive, tg, label):
+    """The lifecycle phase's searches on the store as it stands: 1024
+    queries in Mode A, Mode B and Mode B under a tag filter (the select's
+    counter zeroed just before, read just after; stacks timed), each held
+    to the "fused_ref" plane's ids, free of dead gids, Mode B dists equal
+    to the live vectors' exact distances (rtol 1e-5), the tag filter obeyed
+    (``tg``: the tag of every gid); recall@10 against
+    exact search over the live rows; ms and QPS per mode; a profile of
+    Mode A + B on the card."""
+    from repro_torch.core import store as store_mod
+    from repro_torch.core.flat import flat_search, recall_at_k
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq = qt.device, qt.shape[0]
+    on_card = dev.type == "cuda"
+    mem_rows = len(st.snapshot().mem)
+    res, per_search = {}, {}
+    with _Timed(torch, dev, store_mod, "stack_segments") as stacks:
+        fsel.fused_scan_select.launches = 0
+        for name, kw in LIFECYCLE_SEARCHES.items():
+            before = fsel.fused_scan_select.launches
+            res[name] = st.search(qt, topk=10, **kw)
+            sync(torch, dev)
+            per_search[name] = fsel.fused_scan_select.launches - before
+        launches = fsel.fused_scan_select.launches
+    if on_card:
+        want = -(-nq // 256)
+        check(all(v == want for v in per_search.values()),
+              f"{label}: fused_scan_select launches per search "
+              f"{per_search}, expected {want} each")
+    dead = torch.nonzero(~alive).flatten()
+    for name, kw in LIFECYCLE_SEARCHES.items():
+        ref = st.search(qt, topk=10, scan_impl="fused_ref", **kw)
+        ids, d = res[name].ids, res[name].dists
+        check(torch.equal(ids, ref.ids), f"{label} {name}: ids differ from "
+              f"the fused_ref plane ({int((ids != ref.ids).sum())} entries)")
+        check(ids.shape == (nq, 10) and bool(torch.isfinite(d).all())
+              and bool((ids[:, 0] >= 0).all()),
+              f"{label} {name}: bad result")
+        check(not bool(torch.isin(ids.long(), dead).any()),
+              f"{label} {name}: a deleted gid was returned")
+        if kw["mode"] == "B":
+            ok = ids >= 0
+            exact = (xl[torch.clamp(ids, min=0).long()]
+                     - qt[:, None, :]).square_().sum(-1)
+            check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
+                  f"{label} {name}: dists are not the live vectors' exact "
+                  "distances")
+        if "tag_mask" in kw:
+            check(bool((tg[torch.clamp(ids, min=0).long()] & kw["tag_mask"])
+                       [ids >= 0].all()), f"{label} {name}: a row outside "
+                  "tag_mask")
+    live = torch.nonzero(alive).flatten()
+    truth = live[flat_search(xl[live], qt, topk=10).ids.long()]
+    recall = {m: recall_at_k(res[m].ids, truth) for m in "AB"}
+    timing = {}
+    for m in "AB":
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st.search(qt, topk=10, mode=m)
+        sync(torch, dev)
+        timing[m] = (time.perf_counter() - t0) / 3
+    log(f"{label}: {st.n_segments} segments, G "
+        f"{[s.index.grains.n_grains for s in st._segments]}, cap "
+        f"{[s.index.grains.cap for s in st._segments]}; ids == fused_ref "
+        f"plane ({len(res)} searches); no deleted gid; Mode B dists == the "
+        f"live vectors' exact distances (rtol 1e-5); fused_scan_select "
+        f"launches {per_search}; first search's stack "
+        f"{stacks.calls[0] if stacks.calls else 0.0:.3f} s "
+        f"({len(stacks.calls)} stacks); recall@10 vs flat_search over "
+        f"{int(alive.sum())} live rows: Mode A {recall['A']:.4f}, Mode B "
+        f"{recall['B']:.4f}; memtable {mem_rows} rows: Mode A "
+        f"{timing['A'] * 1e3:.3f} ms (QPS {nq / timing['A']:.1f}), Mode B "
+        f"{timing['B'] * 1e3:.3f} ms (QPS {nq / timing['B']:.1f}) per {nq} "
+        "queries (host clock, ends in a synchronise)")
+    # the sealed plane's share: the same searches without the memtable
+    sealed_only = dataclasses.replace(st.snapshot(), mem_n=0)
+    for m in "AB":
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st.search(qt, topk=10, mode=m, manifest=sealed_only)
+        sync(torch, dev)
+        timing[f"{m} sealed only"] = (time.perf_counter() - t0) / 3
+    log(f"{label}, sealed segments only (memtable left out of the "
+        f"manifest): Mode A {timing['A sealed only'] * 1e3:.3f} ms, Mode B "
+        f"{timing['B sealed only'] * 1e3:.3f} ms per {nq} queries")
+    out = dict(launches=launches, per_search=per_search, recall=recall,
+               search_s=timing, stacks=stacks.calls, mem_rows=mem_rows)
+    if on_card:
+        out["profile"] = profile(
+            torch, f"{label}: store search Mode A + Mode B, {nq} queries "
+            "each", lambda: [st.search(qt, topk=10, mode=m) for m in "AB"],
+            timing["A"] + timing["B"])
+        out["profile_sealed"] = profile(
+            torch, f"{label}: store search Mode A + Mode B, sealed segments "
+            "only", lambda: [st.search(qt, topk=10, mode=m,
+                                       manifest=sealed_only) for m in "AB"],
+            timing["A sealed only"] + timing["B sealed only"])
+    return out
+
+
+def design_repairs(torch, np, seg, rng, per=8):
+    """Gids to delete in one merged segment so that maintain() has each
+    repair to make: every live row of ``per`` grains (retire), 90% of the
+    rows of ``per`` others (underfull: merge), and for ``per`` more the
+    rows on the negative side of the grain's mean along its first basis
+    vector (drift: refit).  Grains are drawn from those of at least 64
+    rows.  Returns ({kind: grain indices}, gids to delete)."""
+    g = seg.index.grains
+    ids = g.ids.cpu().numpy()
+    valid = g.valid.cpu().numpy()
+    gid_of = seg.global_ids()
+    big = np.flatnonzero(valid.sum(axis=1) >= 64)
+    per = min(per, len(big) // 4)
+    pick = rng.choice(big, 3 * per, replace=False)
+    grains = dict(retire=np.sort(pick[:per]), merge=np.sort(pick[per:2 * per]),
+                  refit=np.sort(pick[2 * per:]))
+    kill = []
+    for gi in grains["retire"]:
+        kill.append(gid_of[ids[gi][valid[gi]]])
+    for gi in grains["merge"]:
+        rows = ids[gi][valid[gi]]
+        kill.append(gid_of[rng.choice(rows, int(0.9 * len(rows)),
+                                      replace=False)])
+    raw = seg.index.raw
+    for gi in grains["refit"]:
+        rows = ids[gi][valid[gi]]
+        p = ((raw[torch.from_numpy(rows.astype(np.int64)).to(raw.device)]
+              - g.mu[gi]) @ g.basis[gi][:, 0]).cpu().numpy()
+        kill.append(gid_of[rows[p < 0]])
+    return grains, np.concatenate(kill)
+
+
+def lifecycle_phase(torch, np, dev, st, *, qt, x, tags, up, x_up, dead,
+                    new_ids, x_new, recall_5120, seed=2):
+    """The store's lifecycle on the store the store phase built (8 sealed
+    segments, a memtable at half the seal threshold): ``compact()`` with
+    its defaults (8 -> 2 segments, dead rows reclaimed, the maintenance
+    pass a no-op); the searches on the compacted plane; deletes designed
+    to retire, merge and refit grains of one merged segment, read back
+    through ``grain_health()``; ``maintain()``; the searches again, and
+    256 queries through the "kernel" plane held to "ref"."""
+    from repro_torch.core import MaintenancePolicy
+    from repro_torch.core import index as index_mod
+    from repro_torch.core import maintenance
+    from repro_torch.core import store as store_mod
+    from repro_torch.kernels import hntl_scan as hs
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    n, d = x.shape
+    n_total = n + len(new_ids)
+    check(np.array_equal(new_ids, np.arange(n, n_total)),
+          "lifecycle: the half-memtable rows' gids are not n, n+1, ...")
+    # the live vector of every gid, on the card
+    xl = torch.empty((n_total, d), dtype=torch.float32, device=dev)
+    xl[:n] = torch.from_numpy(x).to(dev)
+    xl[torch.from_numpy(up).to(dev)] = torch.from_numpy(x_up).to(dev)
+    xl[n:] = torch.from_numpy(x_new).to(dev)
+    alive = torch.ones(n_total, dtype=torch.bool, device=dev)
+    alive[torch.from_numpy(dead).to(dev)] = False
+    tg = torch.from_numpy(np.concatenate(
+        [tags, tags[:n_total - n]]).astype(np.int64)).to(dev)
+    out = {}
+    n_live = st.n_live()
+    check(n_live == int(alive.sum()), f"lifecycle: n_live {n_live} != "
+          f"{int(alive.sum())}")
+
+    out["before_compact"] = lifecycle_searches(
+        torch, np, st, qt, xl, alive, tg, "store before compact")
+
+    # ---- 1: compact --------------------------------------------------------
+    seg_rows = [s.n for s in st._segments]
+    epochs = st.maintenance_epochs
+    maintain_calls = []
+    real_maintain = st.maintain
+
+    def timed_maintain(**kw):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        rep = real_maintain(**kw)
+        sync(torch, dev)
+        maintain_calls.append((time.perf_counter() - t0, rep))
+        return rep
+
+    st.maintain = timed_maintain
+    try:
+        with _Timed(torch, dev, index_mod, "build") as builds:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            merges = st.compact()
+            sync(torch, dev)
+            compact_s = time.perf_counter() - t0
+    finally:
+        del st.maintain
+    check(merges == 2 and st.n_segments == 2,
+          f"compact: {merges} merges to {st.n_segments} segments, expected "
+          "2 merges to 2 segments")
+    check(st.n_live() == n_live, f"compact: n_live {st.n_live()} != "
+          f"{n_live}")
+    sealed_rows = sum(s.n for s in st._segments)
+    sealed_live = n_live - len(st.snapshot().mem)
+    check(sealed_rows == sealed_live, f"compact: {sealed_rows} physical "
+          f"sealed rows, {sealed_live} live: dead rows were not reclaimed")
+    m_s, m_rep = maintain_calls[0]
+    check(not m_rep.changed and st.maintenance_epochs == epochs,
+          f"compact: the maintenance pass changed the merged segments "
+          f"({m_rep.summary()})")
+    out["compact"] = dict(merges=merges, seconds=compact_s,
+                          build_s=builds.calls, maintain_s=m_s,
+                          grains=[s.index.grains.n_grains
+                                  for s in st._segments],
+                          cap=[s.index.grains.cap for s in st._segments],
+                          rows=[s.n for s in st._segments])
+    log(f"compact: {merges} merges, {len(seg_rows)} -> {st.n_segments} "
+        f"segments ({sum(seg_rows)} -> {sealed_rows} physical sealed rows, "
+        f"all live), {compact_s:.2f} s in all; merge builds "
+        f"{' '.join(f'{v:.2f}' for v in builds.calls)} s; merged segments "
+        f"{out['compact']['rows']} rows, G {out['compact']['grains']}, cap "
+        f"{out['compact']['cap']}; maintenance pass {m_s:.3f} s "
+        f"({m_rep.summary()}, no change); n_live {n_live}")
+
+    # ---- 2: search the compacted store -------------------------------------
+    out["after_compact"] = lifecycle_searches(
+        torch, np, st, qt, xl, alive, tg, "store after compact")
+    log(f"recall@10 of the store phase (8 segments, memtable 5,120 rows): "
+        f"Mode A {recall_5120['A']:.4f}, Mode B {recall_5120['B']:.4f}")
+
+    # ---- 3: deletes designed to trip each repair ---------------------------
+    rng = np.random.default_rng(seed)
+    seg0, seg1 = st._segments
+    grains, kill = design_repairs(torch, np, seg0, rng)
+    check(st.delete(kill) == len(kill), "lifecycle: delete count")
+    alive[torch.from_numpy(kill).to(dev)] = False
+    policy = MaintenancePolicy(drift_ratio=LIFECYCLE_DRIFT_RATIO)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    health = st.grain_health()
+    sync(torch, dev)
+    health_s = time.perf_counter() - t0
+    h = health[0]
+    built = seg0.index.grains.valid.sum(dim=1).cpu().numpy()
+    ratio = h["drift2"] / np.maximum(h["var_live"], 1e-30)
+    flagged = dict(
+        retire=h["live_cnt"][grains["retire"]] == 0,
+        merge=(h["live_cnt"][grains["merge"]]
+               < policy.underfull_frac * built[grains["merge"]]),
+        refit=(h["drift2"][grains["refit"]]
+               > policy.drift_ratio * h["var_live"][grains["refit"]] + 1e-8))
+    check(all(v.all() for v in flagged.values()),
+          f"grain_health: designed grains not flagged {flagged}")
+    at_default = int((ratio[grains["refit"]] > 0.25).sum())
+    log(f"grain_health: {health_s:.2f} s for {len(health)} segments; "
+        f"{len(kill)} rows deleted in segment {seg0.seg_id}: retire "
+        f"{grains['retire'].tolist()} (live 0), merge "
+        f"{grains['merge'].tolist()} (live "
+        f"{h['live_cnt'][grains['merge']].tolist()} of built "
+        f"{built[grains['merge']].tolist()}), refit "
+        f"{grains['refit'].tolist()} (drift2 / var_live "
+        f"{' '.join(f'{v:.4f}' for v in ratio[grains['refit']])}; "
+        f"{at_default} above the default drift_ratio 0.25, all above "
+        f"{LIFECYCLE_DRIFT_RATIO}); every designed grain flagged")
+
+    # ---- 4: maintain -------------------------------------------------------
+    epochs = st.maintenance_epochs
+    with contextlib.ExitStack() as stack:
+        parts = {name: stack.enter_context(
+            _Timed(torch, dev, maintenance, name))
+            for name in ("grain_stats", "_plan_segment", "_encode_groups",
+                         "_assemble_segment")}
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        rep = st.maintain(policy=policy)
+        sync(torch, dev)
+        maintain_s = time.perf_counter() - t0
+    r0 = rep.segments[0]
+    per = len(grains["retire"])
+    copied = {a for a, _ in r0.unchanged}
+    kept = sorted(copied & set(np.concatenate(list(grains.values()))
+                               .tolist()))
+    # an underfull grain that became another's merge target is repacked
+    # rather than merged away, so merges may fall short of the design
+    check(rep.total("retires") >= per and rep.total("merges") >= 1
+          and rep.total("refits") >= per and not kept,
+          f"maintain: {rep.summary()}; designed grains left untouched "
+          f"{kept}; expected at least {per} retires and refits, merges, "
+          "and every designed grain repaired")
+    check(st.maintenance_epochs == epochs + 1, "maintain: epoch count")
+    check(st._segments[1] is seg1 and not rep.segments[1].changed,
+          "maintain: the healthy segment did not come back by identity")
+    new0 = st._segments[0]
+    og, ng = seg0.index.grains, new0.index.grains
+    oi = torch.tensor([a for a, _ in r0.unchanged], device=dev)
+    ni = torch.tensor([b for _, b in r0.unchanged], device=dev)
+    for f in ("coords", "res", "sketch", "ids", "valid", "basis", "mu",
+              "scale", "res_scale", "sketch_basis", "sketch_scale", "tags",
+              "ts", "qmaxg"):
+        a, b = getattr(og, f), getattr(ng, f)
+        check((a is None) == (b is None) and (a is None or torch.equal(
+            a[oi], b[ni])), f"maintain: untouched grains' {f} changed")
+    check(torch.equal(seg0.index.routing.sizes[oi],
+                      new0.index.routing.sizes[ni]),
+          "maintain: untouched grains' routing sizes changed")
+    # every live sealed gid sits in exactly one valid slot
+    slots = []
+    for s in st._segments:
+        ids = s.index.grains.ids.cpu().numpy()
+        valid = s.index.grains.valid.cpu().numpy()
+        slots.append(s.global_ids()[ids[valid]])
+    slots = np.concatenate(slots)
+    alive_h = alive.cpu().numpy()
+    live_slots = slots[alive_h[slots]]
+    sealed_live = np.concatenate([s.global_ids() for s in st._segments])
+    sealed_live = sealed_live[alive_h[sealed_live]]
+    check(len(np.unique(live_slots)) == len(live_slots)
+          and np.array_equal(np.sort(live_slots), np.sort(sealed_live)),
+          "maintain: the valid slots are not a bijection onto the live "
+          "sealed rows")
+    secs = {name: sum(p.calls) for name, p in parts.items()}
+    out["maintain"] = dict(seconds=maintain_s, parts=secs,
+                           health_s=health_s, report=rep.summary(),
+                           grains=[s.index.grains.n_grains
+                                   for s in st._segments],
+                           unchanged=len(r0.unchanged),
+                           drift_over_var=ratio[grains["refit"]].tolist())
+    log(f"maintain: {maintain_s:.2f} s ({rep.summary()}; segment "
+        f"{seg0.seg_id}: {r0.grains_before} -> {r0.grains_after} grains, "
+        f"{len(r0.unchanged)} copied bit-identical; segment {seg1.seg_id} "
+        f"by identity); stats {secs['grain_stats']:.3f} s, plan "
+        f"{secs['_plan_segment']:.3f} s, encode "
+        f"{secs['_encode_groups']:.3f} s, assemble "
+        f"{secs['_assemble_segment']:.3f} s; the live set is a bijection "
+        "onto the valid slots")
+    la = lifecycle_searches(torch, np, st, qt, xl, alive, tg,
+                            "store after maintain")
+    check(len(la["stacks"]) == 1, f"maintain: {len(la['stacks'])} re-stacks "
+          "at the next searches, expected 1")
+    out["after_maintain"] = la
+
+    q256 = qt[:256]
+    hs.hntl_scan_single.launches = 0
+    got = st.search(q256, topk=10, mode="B", scan_impl="kernel")
+    sync(torch, dev)
+    out["kernel_launches"] = hs.hntl_scan_single.launches
+    want = st.search(q256, topk=10, mode="B", scan_impl="ref")
+    check(torch.equal(got.ids, want.ids), "store after maintain: the "
+          "kernel plane's ids differ from the ref plane's "
+          f"({int((got.ids != want.ids).sum())} entries)")
+    check(not on_card or out["kernel_launches"] > 0, "store after maintain: "
+          "the kernel plane never launched hntl_scan_single")
+    log(f"store after maintain: \"kernel\" plane == \"ref\" plane (ids, "
+        f"{q256.shape[0]} queries, Mode B); hntl_scan_single launches "
+        f"{out['kernel_launches']}")
+    if on_card:
+        out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+        log(f"lifecycle peak device memory {out['peak']} bytes above the "
+            f"{base} bytes held when the phase began (max_memory_allocated)")
     return out
 
 
@@ -1340,14 +1761,29 @@ def main(argv=None) -> int:
         del kvp[big]            # free the card for the store phase
     del mp["index"], sb["args"], sb["sketch"]
     stp = store_phase(torch, np, cuda, n=a.store_n)
+    state = stp.pop("state")
+    lc = lifecycle_phase(
+        torch, np, cuda, state["st"], qt=state["qt"], x=state["x"],
+        tags=state["tags"], up=state["up"], x_up=state["x_up"],
+        dead=state["dead"], new_ids=stp["half"]["new_ids"],
+        x_new=stp["half"]["x_new"], recall_5120=state["recall"])
+    del state
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     select_paths = {"search (fused plane)":
                     mp["launches"]["fused_scan_select"],
-                    "store search (VectorStore.search)": stp["launches"]}
+                    "store search (VectorStore.search)": stp["launches"],
+                    "store search before compact":
+                    lc["before_compact"]["launches"],
+                    "store search after compact":
+                    lc["after_compact"]["launches"],
+                    "store search after maintain":
+                    lc["after_maintain"]["launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
-                    "store search, kernel plane": stp["kernel_launches"]}
+                    "store search, kernel plane": stp["kernel_launches"],
+                    "store search after maintain, kernel plane":
+                    lc["kernel_launches"]}
     select_entry = kernel_entry(
         "fused_scan_select", src + "fused_select.cu",
         "src/repro/kernels/fused_select.py:179", sum(select_paths.values()),

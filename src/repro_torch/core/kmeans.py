@@ -6,6 +6,10 @@ package's ``jax.random`` stream: parity with it goes through
 ``index.build(..., centroids=)``.  The cluster sums use ``index_add_``,
 whose float atomics on a GPU make the centroids vary in the last bits from
 run to run.
+
+``two_means`` and ``steal_rows`` are the maintenance plane's split
+primitives; they run on the host in numpy, with the JAX package's
+arithmetic, so the same members split the same way in both packages.
 """
 from __future__ import annotations
 
@@ -136,3 +140,36 @@ def balanced_assign(x: torch.Tensor, centers: torch.Tensor, cap: int,
         return torch.sort(d2, stable=True).indices.cpu().numpy()
 
     return greedy_assign(pref, gap, cap, centers.shape[0], row_order)
+
+
+def two_means(x, iters: int = 16):
+    """Deterministic host-side 2-means: the grain split primitive.
+
+    No RNG (the same split must come out of every process that maintains
+    the same store).  Farthest-point init: c0 is the member farthest from
+    the mean, c1 the member farthest from c0.  x [m, d] float32, m >= 2.
+    Returns (centers [2, d], assign [m] in {0, 1}); identical members leave
+    one side empty, and callers then split otherwise.
+    """
+    xn = np.asarray(x, np.float32)
+    c0 = xn[int(np.argmax(np.sum((xn - xn.mean(0)) ** 2, axis=1)))]
+    c1 = xn[int(np.argmax(np.sum((xn - c0) ** 2, axis=1)))]
+    centers = np.stack([c0, c1])
+    assign = np.zeros(len(xn), np.int64)
+    for it in range(iters):
+        d2 = (np.sum(xn * xn, axis=1, keepdims=True)
+              - 2.0 * xn @ centers.T + np.sum(centers * centers, axis=1))
+        new_assign = np.argmin(d2, axis=1)
+        if it > 0 and (new_assign == assign).all():
+            break
+        assign = new_assign
+        for c in range(2):
+            if (assign == c).any():
+                centers[c] = xn[assign == c].mean(0)
+    return centers, assign
+
+
+def steal_rows(d2_src, n_move: int) -> np.ndarray:
+    """The ``n_move`` rows farthest from the source centroid (the ones its
+    frame represents worst).  d2_src [m] -> indices of the rows to move."""
+    return np.argsort(np.asarray(d2_src))[::-1][:n_move]

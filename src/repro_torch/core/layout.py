@@ -46,3 +46,22 @@ def scatter_to_grains(values: torch.Tensor, assign: torch.Tensor,
                      dtype=values.dtype, device=values.device)
     out[assign, slot] = values
     return out
+
+
+def pack_members(members, cap: int):
+    """Lay explicit member lists out as Block-SoA id/valid panels: the
+    maintenance plane's group rewrite primitive (host numpy).
+
+    members: a sequence of [m_g] int arrays (local raw rows of each
+    group, m_g <= cap), packed densely from slot 0; the other slots are
+    -1/False padding.  Returns (ids [G, cap] i32, valid [G, cap] bool).
+    """
+    ids = np.full((len(members), cap), -1, np.int32)
+    valid = np.zeros((len(members), cap), bool)
+    for gi, rows in enumerate(members):
+        m = len(rows)
+        if m > cap:
+            raise ValueError(f"group {gi} overflows cap: {m} > {cap}")
+        ids[gi, :m] = np.asarray(rows, np.int32)
+        valid[gi, :m] = True
+    return ids, valid

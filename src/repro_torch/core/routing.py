@@ -8,12 +8,16 @@ are excluded from routing.
 On a ``StackedSegments`` plane ``route`` takes the top-P over every
 segment's grains at once; ``route_per_segment`` takes the top-P within
 each segment (the per-segment loop's probe set) in one call.
+
+``merge_target`` (host numpy) and ``rebuild_plane`` serve the maintenance
+plane.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .types import BIG, RoutingPlane
@@ -65,6 +69,41 @@ def route_per_segment(plane: RoutingPlane, q: torch.Tensor, nprobe: int,
                                                                   None]
     return (idx.reshape(q.shape[0], -1).to(torch.int32),
             d[:, :, :p].reshape(q.shape[0], -1))
+
+
+def merge_target(centroids, live_counts, cap: int, src: int,
+                 excluded=(), max_merged: Optional[int] = None) -> int:
+    """The grain an underfull grain ``src`` merges into: the nearest other
+    centroid whose group has room for src's live rows (combined count <=
+    cap, and <= ``max_merged`` when given, so a merge never makes the
+    overfull grain the next epoch would split).  Host numpy.
+
+    ``excluded``: grains that may not be targets.  Returns the target
+    grain, or -1 when none has room.
+    """
+    c = np.asarray(centroids, np.float32)
+    cnt = np.asarray(live_counts, np.int64)
+    d2 = np.sum((c - c[src]) ** 2, axis=1)
+    d2[src] = np.inf
+    for gi in excluded:
+        d2[gi] = np.inf
+    merged = cnt + cnt[src]
+    limit = cap if max_merged is None else min(cap, max_merged)
+    d2[(merged > limit) | (cnt == 0)] = np.inf
+    best = int(np.argmin(d2))
+    return best if np.isfinite(d2[best]) else -1
+
+
+def rebuild_plane(centroids: torch.Tensor,
+                  sizes: torch.Tensor) -> RoutingPlane:
+    """A routing plane from maintenance's final per-grain tables, on the
+    centroids' device.  Every rebuild goes through here, so the invariant
+    "routing rows == grain panels" has one owner."""
+    c = centroids.to(torch.float32)
+    s = sizes.to(device=c.device, dtype=torch.int32)
+    if c.shape[0] != s.shape[0]:
+        raise ValueError(f"{c.shape[0]} centroids for {s.shape[0]} sizes")
+    return RoutingPlane(centroids=c, sizes=s)
 
 
 def check_probe_args(adaptive: bool, probe_margin, min_probes=None) -> None:

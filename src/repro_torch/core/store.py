@@ -24,11 +24,17 @@ Grains are self-contained, so the index maps onto immutable segments:
 - **mixed recall**: tag bitmasks and timestamps are checked in the scan
   and pushed down into routing (grains with no matching record are never
   probed), not filtered afterwards.
+- **lifecycle**: ``compact`` merges size tiers of sealed segments into
+  rebuilt ones, dropping dead and expired rows; ``maintain`` repairs the
+  grains that deletes and upserts left unhealthy (``core.maintenance``),
+  and ``grain_health`` reports the signals it acts on.  Both run on the
+  store's device and replace the segment tuple once per call
+  (copy-on-write: snapshots and branches keep their segments).
 
-The JAX package's ``repro.core.store`` is the reference.  Compaction,
-maintenance, the cold raw tier, the cascade budgets, adaptive routing,
-tiered residency and the sharded plane are not ported yet; the arguments
-that would ask for them raise, naming the ROADMAP item that brings each.
+The JAX package's ``repro.core.store`` is the reference.  The cold raw
+tier, the cascade budgets, adaptive routing, tiered residency and the
+sharded plane are not ported yet; the arguments that would ask for them
+raise, naming the ROADMAP item that brings each.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ import numpy as np
 import torch
 
 from . import index as index_mod
-from . import planner, routing
+from . import maintenance, planner, routing
 from .types import (BIG, GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
                     SearchResult, StackedSegments)
 
@@ -118,6 +124,7 @@ class Manifest:
     mut_seq: Optional[np.ndarray] = None  # [M] i64 live seq (-1 = deleted)
     writer: str = ""                 # identity of the capturing store
     epoch: int = 0                   # mutation epoch at capture time
+    maint_epoch: int = 0             # maintenance epoch at capture time
 
 
 def _finalize(ids: torch.Tensor, d: torch.Tensor, topk: int) -> SearchResult:
@@ -287,6 +294,7 @@ class VectorStore:
         self._live_seq: dict = {}
         self._epoch = 0
         self._mut_cache = (-1, None, None)      # (epoch, mut_gid, mut_seq)
+        self._maint_epoch = 0                   # maintenance epochs applied
         self._writer = uuid.uuid4().hex[:8]
         # LRU of stacked planes keyed by the segments' identities; every
         # scan plane reads the same stacked leaves.  Entries keep their
@@ -407,6 +415,212 @@ class VectorStore:
         self._mem_ids, self._mem_seq, self._mem_expire = [], [], []
         return seg
 
+    # ----------------------------------------------------- grain maintenance
+    def _seg_live_rows(self, seg: Segment, mg, ms,
+                       now: float) -> Optional[np.ndarray]:
+        """[n] bool per raw row of one segment: the tombstone, shadow and
+        TTL verdict (None = all live), which every health signal reads."""
+        live = _live_rows(mg, ms, seg.global_ids(), seg.global_seqs())
+        if seg.expire is not None:
+            alive_t = seg.expire > now
+            if not alive_t.all():
+                live = alive_t if live is None else live & alive_t
+        return live
+
+    def grain_health(self, *, now: Optional[float] = None) -> list:
+        """Per-grain health of every sealed segment (read-only).
+
+        One dict per segment of host arrays: ``live_cnt`` [G], ``captured``
+        [G] (the existing frame over the live rows), ``best`` [G] (the refit
+        bound), ``drift2`` [G] (squared centroid walk-off) and ``var_live``
+        [G], the signals ``maintain()`` acts on, computed on the device;
+        and ``route_wins``/``touches`` [G], the probe-traffic counters of
+        adaptive routing, which stay zero here: adaptive routing is not
+        ported (ROADMAP Queue A item 5).
+        """
+        now = self._clock() if now is None else now
+        mg, ms = self._mut_arrays()
+        out = []
+        for seg in self._segments:
+            stats = maintenance.grain_stats(
+                seg, self._seg_live_rows(seg, mg, ms, now))
+            zeros = np.zeros(stats["live_cnt"].shape[0], np.int64)
+            out.append({k: stats[k] for k in
+                        ("live_cnt", "captured", "best", "drift2",
+                         "var_live")}
+                       | {"seg_id": seg.seg_id, "route_wins": zeros,
+                          "touches": zeros.copy()})
+        return out
+
+    def maintain(self, *, now: Optional[float] = None,
+                 policy: Optional[maintenance.MaintenancePolicy] = None
+                 ) -> maintenance.MaintenanceReport:
+        """Grain maintenance over all sealed segments, on the store's
+        device.
+
+        Finds unhealthy grains (overfull, underfull, stale; see
+        ``core.maintenance``) from the live set and repairs them: overfull
+        grains split by 2-means, underfull grains merge into their nearest
+        neighbour with room (all-dead grains retire, all-dead segments are
+        dropped), and every touched group is re-fit on its live rows.
+
+        Copy-on-write: raw tiers and id tables are shared with the old
+        segments, untouched grains are copied bit-identical, healthy
+        segments keep their identity, snapshots and branches keep their
+        segments, and one new segment tuple comes out per epoch, so the
+        plane cache re-stacks at most once.  ``compact()`` runs it by
+        default.
+        """
+        now = self._clock() if now is None else now
+        policy = policy if policy is not None \
+            else maintenance.MaintenancePolicy()
+        mg, ms = self._mut_arrays()
+        qeff = index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits)
+        reports, new_segs, changed = [], [], False
+        for seg in self._segments:
+            new_seg, rep = maintenance.maintain_segment(
+                seg, self._seg_live_rows(seg, mg, ms, now), self.cfg,
+                policy, qeff)
+            reports.append(rep)
+            changed |= new_seg is not seg
+            if new_seg is not None:        # None: every row dead, dropped
+                new_segs.append(new_seg)
+        if changed:
+            self._segments = new_segs
+            self._maint_epoch += 1
+            self._purge_tombstones()
+        return maintenance.MaintenanceReport(segments=tuple(reports))
+
+    # ------------------------------------------------------------ compaction
+    def compact(self, *, fanin: int = 4, tier_factor: int = 4,
+                max_rounds: int = 16, now: Optional[float] = None,
+                maintain: bool = True,
+                policy: Optional[maintenance.MaintenancePolicy]
+                = None) -> int:
+        """Size-tiered compaction of the sealed segments, on the store's
+        device.
+
+        Segments fall into size tiers (tier t holds segments of roughly
+        seal_threshold * tier_factor^t rows).  Whenever a tier holds
+        ``fanin`` segments, its ``fanin`` oldest are merged into one
+        rebuilt segment: raw rows concatenated on the device, grains
+        re-partitioned at the merged scale, global ids kept in ``id_map``.
+        Rounds repeat until no tier is full (a merge can cascade upward).
+
+        Compaction reclaims mutations: tombstoned rows, upsert-shadowed
+        versions and rows whose TTL passed (as of ``now``, default the
+        store clock) are dropped from the merged segment, and tombstones
+        whose gid no longer exists in this store are purged afterwards.
+        Older snapshots and branches keep the pre-merge segments and their
+        own liveness tables.
+
+        Unless ``maintain=False``, a ``maintain()`` pass follows: merged
+        segments are healthy by construction, so it repairs the segments
+        compaction did not touch.  Returns the number of merges.
+        """
+        if fanin < 2:
+            raise ValueError(f"fanin must be >= 2, got {fanin}")
+        if tier_factor < 2:
+            raise ValueError(f"tier_factor must be >= 2, got {tier_factor}")
+        now = self._clock() if now is None else now
+        merges = 0
+        for _ in range(max_rounds):
+            if not self._compact_once(fanin, tier_factor, now):
+                break
+            merges += 1
+        if merges:
+            self._purge_tombstones()
+        if maintain:
+            self.maintain(now=now, policy=policy)
+        return merges
+
+    def _tier_of(self, n: int, tier_factor: int) -> int:
+        t, size = 0, max(self.seal_threshold, 1)
+        while n >= size * tier_factor:
+            size *= tier_factor
+            t += 1
+        return t
+
+    def _compact_once(self, fanin: int, tier_factor: int, now: float) -> bool:
+        tiers: dict[int, list[Segment]] = collections.defaultdict(list)
+        for seg in self._segments:
+            tiers[self._tier_of(seg.n, tier_factor)].append(seg)
+        for t in sorted(tiers):
+            if len(tiers[t]) < fanin:
+                continue
+            group = sorted(tiers[t], key=lambda s: s.seg_id)[:fanin]
+            merged = self._merge_segments(group, now)
+            gone = {id(s) for s in group}
+            pos = min(i for i, s in enumerate(self._segments)
+                      if id(s) in gone)
+            kept = [s for s in self._segments if id(s) not in gone]
+            if merged is not None:             # None: every row was dead
+                kept.insert(pos, merged)
+            self._segments = kept
+            return True
+        return False
+
+    def _merge_segments(self, group: Sequence[Segment],
+                        now: float) -> Optional[Segment]:
+        """Rebuild ``group`` as one segment with remapped global ids,
+        dropping tombstoned, shadowed and expired rows.  The keep mask is
+        made on the host; the raw rows are selected and concatenated on
+        the device.  Returns None when nothing in the group survives."""
+        gids = np.concatenate([s.global_ids() for s in group])
+        seqs = np.concatenate([s.global_seqs() for s in group])
+        expire = _concat_expiry(group)
+        tags = np.concatenate(
+            [s.tags if s.tags is not None else np.zeros(s.n, np.uint32)
+             for s in group])
+        ts = np.concatenate(
+            [s.ts if s.ts is not None else np.zeros(s.n, np.float32)
+             for s in group])
+        mg, ms = self._mut_arrays()
+        keep = _live_rows(mg, ms, gids, seqs)
+        keep = np.ones(len(gids), bool) if keep is None else keep.copy()
+        if expire is not None:
+            keep &= expire > now
+        if keep.all():
+            x = torch.cat([s.index.raw for s in group])
+        else:
+            bounds = np.cumsum([0] + [s.n for s in group])
+            x = torch.cat([
+                s.index.raw[torch.from_numpy(np.flatnonzero(
+                    keep[lo:hi])).to(s.index.device)]
+                for s, lo, hi in zip(group, bounds[:-1], bounds[1:])])
+            gids, seqs, tags, ts = (a[keep] for a in (gids, seqs, tags, ts))
+            expire = expire[keep] if expire is not None else None
+        n = x.shape[0]
+        if n == 0:
+            return None
+        cfg = dataclasses.replace(self.cfg, n_grains=self._grain_count(n))
+        idx, _ = index_mod.build(x, cfg, tags=tags, ts=ts, keep_raw=True,
+                                 device=self.device)
+        seg = Segment(seg_id=self._next_seg, index=idx, n=n, id_base=0,
+                      tags=tags, ts=ts, id_map=gids.astype(np.int64),
+                      seq=seqs,
+                      expire=expire if expire is not None
+                      and np.isfinite(expire).any() else None)
+        self._next_seg += 1
+        return seg
+
+    def _purge_tombstones(self) -> None:
+        """Drop liveness entries whose gid no longer exists anywhere in this
+        store (compaction reclaimed every physical row).  Snapshots and
+        branches keep their own tables."""
+        if not self._live_seq:
+            return
+        present = [s.global_ids() for s in self._segments]
+        present.append(np.asarray(self._mem_ids, np.int64))
+        alive = np.unique(np.concatenate(present))
+        mg = np.fromiter(self._live_seq.keys(), np.int64,
+                         len(self._live_seq))
+        gone = mg[~np.isin(mg, alive)]
+        if len(gone):
+            for g in gone.tolist():
+                del self._live_seq[g]
+            self._epoch += 1
+
     # ---------------------------------------------------------- control plane
     def _mut_arrays(self):
         """The mutation table as sorted (gid, seq) arrays, cached per
@@ -433,7 +647,8 @@ class VectorStore:
                         mem_seq=tuple(self._mem_seq),
                         mem_expire=tuple(self._mem_expire),
                         mut_gid=mg, mut_seq=ms,
-                        writer=self._writer, epoch=self._epoch)
+                        writer=self._writer, epoch=self._epoch,
+                        maint_epoch=self._maint_epoch)
 
     def branch(self, *,
                seal_threshold: Optional[int] = None) -> "VectorStore":
@@ -457,6 +672,7 @@ class VectorStore:
         child._next_seg = self._next_seg
         child._live_seq = dict(self._live_seq)
         child._epoch = self._epoch
+        child._maint_epoch = self._maint_epoch     # the lineage continues
         return child
 
     @property
@@ -486,6 +702,14 @@ class VectorStore:
     @property
     def n_segments(self) -> int:
         return len(self._segments)
+
+    @property
+    def maintenance_epochs(self) -> int:
+        """Maintenance epochs that changed this store's lineage (branches
+        inherit the count; snapshots capture it as ``Manifest.maint_epoch``).
+        Each epoch advances it by exactly one, however many grains it
+        repaired, and costs at most one re-stack of the plane."""
+        return self._maint_epoch
 
     # ------------------------------------------------------------- read path
     def _cache_get(self, key):

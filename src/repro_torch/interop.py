@@ -14,7 +14,10 @@ package's ``HNTLIndex`` with every dtype and shape kept:
 ``segment_from_numpy`` and ``manifest_from_numpy`` carry a JAX store's
 sealed ``Segment`` (its index leaves numpy arrays) and ``Manifest``
 across, so ``VectorStore.search(q, manifest=...)`` searches exactly what
-the JAX store searched; ``config_from_dict`` and ``model_config_from_dict``
+the JAX store searched; ``store_from_numpy`` carries a whole JAX
+``VectorStore`` across (segments, memtable, mutation table, counters), so
+``compact()`` and ``maintain()`` run on the same state in both packages;
+``config_from_dict`` and ``model_config_from_dict``
 rebuild the two configuration dataclasses from ``dataclasses.asdict`` of
 the JAX ones.
 
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from .core.index import resolve_device
-from .core.store import Manifest, Segment
+from .core.store import Manifest, Segment, VectorStore
 from .core.types import GrainStore, HNTLConfig, HNTLIndex, RoutingPlane
 from .models.config import LayerSpec, ModelConfig
 from .models.hntl_attention import KVIndex
@@ -107,6 +110,35 @@ def manifest_from_numpy(man: Any, device=None) -> Manifest:
         mut_gid=_host(man, "mut_gid"), mut_seq=_host(man, "mut_seq"),
         writer=str(_field(man, "writer") or ""),
         epoch=int(_field(man, "epoch") or 0))
+
+
+#: The host state of a store that ``store_from_numpy`` copies as it is:
+#: the memtable rows and their tables, the mutation table and the counters.
+_STORE_STATE = ("_mem", "_mem_tags", "_mem_ts", "_mem_ids", "_mem_seq",
+                "_mem_expire", "_live_seq", "_epoch", "_next_id",
+                "_next_seq", "_next_seg", "_maint_epoch")
+
+
+def store_from_numpy(store: Any, device=None) -> VectorStore:
+    """A JAX ``VectorStore`` -> this package's, read by attribute: the same
+    config, seal threshold and clock, every sealed segment carried across
+    (``segment_from_numpy``), and copies of the memtable rows, the
+    mutation table and the epoch, id, seq, segment and maintenance
+    counters."""
+    device = resolve_device(device)
+    cfg = _field(store, "cfg")
+    out = VectorStore(
+        config_from_dict(cfg if isinstance(cfg, Mapping)
+                         else dataclasses.asdict(cfg)),
+        seal_threshold=int(_field(store, "seal_threshold")),
+        clock=_field(store, "_clock"), device=device)
+    out._segments = [segment_from_numpy(s, device)
+                     for s in _field(store, "_segments")]
+    for name in _STORE_STATE:
+        v = _field(store, name)
+        setattr(out, name, type(v)(v) if isinstance(v, (list, dict))
+                else int(v))
+    return out
 
 
 def config_from_dict(d: Mapping) -> HNTLConfig:

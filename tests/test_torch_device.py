@@ -8,8 +8,8 @@
 - ``gpu``-marked tests hold the CUDA kernels against their plain
   versions on the card, the "kernel" gather plane and HNTL-KV decode
   against their plain-scan runs, and a store's search against its
-  "fused_ref" plane; they skip (inside a fixture) where there is no
-  card.
+  "fused_ref" plane, also after compaction and maintenance; they skip
+  (inside a fixture) where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.
@@ -94,7 +94,8 @@ def test_build_without_device_needs_a_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["index_from_numpy", "kv_index_from_numpy",
                                    "segment_from_numpy",
-                                   "manifest_from_numpy"])
+                                   "manifest_from_numpy",
+                                   "store_from_numpy"])
 def test_interop_without_device_needs_a_card(monkeypatch, entry):
     from repro_torch import interop
 
@@ -356,3 +357,53 @@ def test_store_search_equals_fused_ref_on_card(cuda_device, mode):
         assert torch.equal(got.ids, want.ids)
         assert not np.isin(got.ids.cpu().numpy(),
                            np.arange(0, 4 * 2048, 7)).any()
+
+
+def _held_to_fused_ref(st, q, dead, mode):
+    """The "fused" plane returns the "fused_ref" plane's ids through
+    ceil(Q/256) kernel calls per search, and no deleted gid."""
+    for kw in ({}, {"tag_mask": 0b101}):
+        before = port_fused.fused_scan_select.launches
+        got = st.search(q, topk=10, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert port_fused.fused_scan_select.launches == before + 2
+        want = st.search(q, topk=10, mode=mode, scan_impl="fused_ref", **kw)
+        assert torch.equal(got.ids, want.ids)
+        assert not np.isin(got.ids.cpu().numpy(), dead).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_store_compact_and_maintain_on_card(cuda_device, mode):
+    """A small store on the card through compact() (8 -> 2 segments) and
+    maintain() (a grain emptied, another hollowed out): after each, the
+    "fused" plane equals the "fused_ref" plane."""
+    from repro_torch.core import VectorStore
+
+    x = synthetic.anisotropic_manifold(n=8 * 1024 + 100, d=64, intrinsic=8,
+                                       seed=3)
+    q = synthetic.queries_from(x, nq=300)
+    cfg = repro_torch.HNTLConfig(d=64, k=8, s=4, block=32, n_grains=8,
+                                 nprobe=6, pool=32)
+    st = VectorStore(cfg, seal_threshold=1024, device=cuda_device)
+    tags = 1 << (np.arange(len(x)) % 3)
+    for lo in range(0, len(x), 1024):             # one seal per full chunk
+        st.add(x[lo:lo + 1024], tags=tags[lo:lo + 1024])
+    dead = np.arange(0, 8 * 1024, 5)
+    st.delete(dead)
+    st.upsert([3], x[3:4] + 0.01)
+    assert st.n_segments == 8
+    assert st.compact() == 2 and st.n_segments == 2
+    assert sum(s.n for s in st._segments) == 8 * 1024 - len(dead) - 1
+    _held_to_fused_ref(st, q, dead, mode)
+
+    seg, other = st._segments
+    ids = seg.index.grains.ids.cpu().numpy()
+    valid = seg.index.grains.valid.cpu().numpy()
+    gid = seg.global_ids()
+    kill = np.concatenate([gid[ids[0][valid[0]]], gid[ids[1][valid[1]][2:]]])
+    st.delete(kill)
+    rep = st.maintain()
+    assert rep.total("retires") >= 1 and rep.total("merges") >= 1
+    assert st._segments[0] is not seg and st._segments[1] is other
+    _held_to_fused_ref(st, q, np.concatenate([dead, kill]), mode)

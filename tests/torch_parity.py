@@ -57,3 +57,22 @@ select_inputs = functools.partial(select_cases.random_inputs, coord_range=200,
 def to_torch(a: dict, device="cpu") -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in a.items()}
+
+
+def assert_clear_margins(jax_store, policy, now, seg_ids=None,
+                         margin=1e-3):
+    """Every grain of the JAX store's health statistics (of the segments
+    ``seg_ids``, default all) is at least ``margin`` (relative for the
+    drift test) from every threshold a maintenance plan compares it with,
+    so a plan made from statistics summed in another order cannot flip."""
+    for h in jax_store.grain_health(now=now):
+        if seg_ids is not None and h["seg_id"] not in seg_ids:
+            continue
+        judged = h["live_cnt"] >= policy.min_refit_rows
+        var = np.maximum(np.asarray(h["var_live"]), 1e-12)
+        gaps = [h["best"] - h["captured"] - policy.stale_margin,
+                h["captured"] - policy.stale_ratio * h["best"],
+                (h["drift2"] - policy.drift_ratio * h["var_live"] - 1e-8)
+                / var]
+        for gap in gaps:
+            assert (np.abs(np.asarray(gap)[judged]) > margin).all(), gaps
