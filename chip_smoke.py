@@ -283,6 +283,23 @@ def kernel_phase(torch, dev):
     return max(errs)
 
 
+def mixed_tile(sc, np, seed, coord_dtype):
+    """Three 16-query tiles, each with one query at a limb count's edge of
+    the batched kernel: -32768 and 32767 in tile 0 (2 limbs), one value of
+    32768 in tile 1 (4 limbs; its neighbours fit int16) and -2^31 in the
+    second panel, -128 and 127 in tile 2 (1 limb)."""
+    int8 = coord_dtype == np.int8
+    a = sc.panels(seed, p=2, q=40, k=32, cap=333,
+                  coord_range=128 if int8 else 32768, coord_dtype=coord_dtype)
+    z = a["zq"]
+    z[0, 3, :4] = [-32768, 32767, -32768, 32767]
+    z[0, 17, 5] = 32768
+    z[1, 20, :] = -2 ** 31
+    z[:, 32:, :] = np.clip(z[:, 32:, :], -128, 127)
+    z[:, 32, :2] = [-128, 127]
+    return a
+
+
 def scan_cases(sc, np):
     """(label, form, inputs) of every case the scan kernels are held to."""
     cases = []
@@ -318,6 +335,24 @@ def scan_cases(sc, np):
             sc.panels(27, p=4096, q=1, k=32, cap=1664, coord_range=4000))),
         ("main-path-like P=64 Q=128 k=32 cap=1664", "batched", sc.panels(
             28, p=64, q=128, k=32, cap=1664, coord_range=4000)),
+        ("int8 panels, int32 wraparound", "batched", sc.panels(
+            29, **{**int8, "q": 19, "zq_range": 2 ** 31 - 1})),
+        ("tiles of 1, 2 and 4 limbs, int16", "batched",
+         mixed_tile(sc, np, 30, np.int16)),
+        ("tiles of 1, 2 and 4 limbs, int8", "batched",
+         mixed_tile(sc, np, 31, np.int8)),
+        ("k=64", "batched", sc.panels(32, p=2, q=17, k=64, cap=200)),
+        ("k=192 (three staged chunks), wraparound", "batched", sc.panels(
+            33, p=2, q=20, k=192, cap=140, zq_range=2 ** 31 - 1,
+            coord_range=32768)),
+        ("Q=1", "batched", sc.panels(34, p=3, q=1, k=32, cap=257)),
+        ("Q=600 (five query groups)", "batched", sc.panels(
+            35, p=2, q=600, k=16, cap=64)),
+        ("k=12 int8 cap=131 (no vector access)", "batched", sc.panels(
+            36, p=2, q=21, k=12, cap=131, coord_range=128,
+            coord_dtype=np.int8)),
+        ("P=65537 (two launches)", "batched", sc.panels(
+            37, p=65537, q=1, k=8, cap=8)),
     ]
     return cases
 

@@ -229,9 +229,30 @@ def test_kernel_refuses_width_beyond_its_limit(cuda_device):
         port_fused.fused_scan_select(*args, width=port_fused.MAX_WIDTH + 1)
 
 
+def _mixed_tile(seed, coord_dtype=np.int16):
+    """Three 16-query tiles, each with one query at a limb count's edge:
+    -32768 and 32767 in tile 0 (2 limbs), one value of 32768 in tile 1 (4
+    limbs; its neighbours fit int16) and -2^31 in the second panel, -128
+    and 127 in tile 2 (1 limb)."""
+    int8 = coord_dtype == np.int8
+    a = scan_cases.panels(seed, p=2, q=40, k=32, cap=333,
+                          coord_range=128 if int8 else 32768,
+                          coord_dtype=coord_dtype)
+    z = a["zq"]
+    z[0, 3, :4] = [-32768, 32767, -32768, 32767]
+    z[0, 17, 5] = 32768
+    z[1, 20, :] = -2 ** 31
+    z[:, 32:, :] = np.clip(z[:, 32:, :], -128, 127)
+    z[:, 32, :2] = [-128, 127]
+    return a
+
+
 #: Scan-kernel cases: (form, inputs).  The JAX package's sweep, int32
 #: extremes and wraparound, all-invalid panels, int8 sketch panels and
-#: caps off 128.
+#: caps off 128; for the batched kernel's byte limbs, query tiles of 1, 2
+#: and 4 limbs on int16 and int8 panels, k of 64, of three staged chunks
+#: (192) and off 8 (12), one query, five query groups (600), and more
+#: panels than one launch takes (65537).
 SCAN_GPU_CASES = {
     **{f"batched_{p}x{q}x{k}x{cap}": (
         "batched", lambda p=p, q=q, k=k, cap=cap: scan_cases.panels(
@@ -252,6 +273,26 @@ SCAN_GPU_CASES = {
         3, p=3, q=40, k=8, cap=333, coord_range=128, coord_dtype=np.int8)),
     "single_int8": ("single", lambda: scan_cases.single(scan_cases.panels(
         4, p=64, q=1, k=8, cap=1664, coord_range=128, coord_dtype=np.int8))),
+    "batched_wraparound": ("batched", lambda: scan_cases.panels(
+        6, p=3, q=19, k=16, cap=333, zq_range=2 ** 31 - 1)),
+    "batched_int8_wide_zq": ("batched", lambda: scan_cases.panels(
+        7, p=3, q=19, k=8, cap=333, zq_range=2 ** 31 - 1, coord_range=128,
+        coord_dtype=np.int8)),
+    "batched_mixed_tile": ("batched", lambda: _mixed_tile(8)),
+    "batched_mixed_tile_int8": ("batched", lambda: _mixed_tile(9, np.int8)),
+    "batched_k64": ("batched", lambda: scan_cases.panels(
+        10, p=2, q=17, k=64, cap=200)),
+    "batched_k192": ("batched", lambda: scan_cases.panels(
+        11, p=2, q=20, k=192, cap=140, zq_range=2 ** 31 - 1,
+        coord_range=32768)),
+    "batched_q1": ("batched", lambda: scan_cases.panels(
+        12, p=3, q=1, k=32, cap=257)),
+    "batched_q600": ("batched", lambda: scan_cases.panels(
+        13, p=2, q=600, k=16, cap=64)),
+    "batched_k12": ("batched", lambda: scan_cases.panels(
+        14, p=2, q=21, k=12, cap=131, coord_range=128, coord_dtype=np.int8)),
+    "batched_p65537": ("batched", lambda: scan_cases.panels(
+        15, p=65537, q=1, k=8, cap=8)),
 }
 
 

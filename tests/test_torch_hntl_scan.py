@@ -7,9 +7,11 @@ against the JAX package's ``ops`` with ``backend="ref"`` (its oracle) and
 inputs.  Against the oracle the results are equal; against the Pallas
 body they agree to rtol 1e-6 (XLA on the CPU may contract a multiply-add
 that the port rounds in two steps, and the body forms the integer sum as
-zq^2 + z^2 - 2 zq.z).  Then the "kernel" gather plane (the counterpart of
-the JAX package's "pallas" plane) against the "ref" plane on a JAX-built
-index: ids and dists equal.
+zq^2 + z^2 - 2 zq.z).  An integer model of the batched CUDA kernel's
+arithmetic (byte limbs, shift classes, the cross term modulo 2^32) is
+held equal to both oracles.  Then the "kernel" gather plane (the
+counterpart of the JAX package's "pallas" plane) against the "ref" plane
+on a JAX-built index: ids and dists equal.
 """
 import pytest
 
@@ -186,6 +188,134 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
             port_kernels.hntl_scan_single.launches) == before
     with pytest.raises(ValueError, match="backend"):
         port_ops.scan_single(*_torch(s), backend="interpret")
+
+
+# ---------------------------------------------------------------------------
+# The batched CUDA kernel's integer arithmetic, modelled on the CPU
+# ---------------------------------------------------------------------------
+
+_M32 = (1 << 32) - 1
+
+
+def _limbs(v, n):
+    """The n byte limbs of int64 ``v``: u8 below, s8 on top (the bytes of
+    its two's complement, as the kernel cuts them)."""
+    out = [(v >> (8 * i)) & 0xFF for i in range(n)]
+    out[-1] = np.where(out[-1] >= 128, out[-1] - 256, out[-1])
+    return out
+
+
+def _limb_count(tile):
+    """1, 2 or 4: the kernel's vote over a 16-query tile."""
+    if np.all((tile >= -128) & (tile <= 127)):
+        return 1
+    if np.all((tile >= -32768) & (tile <= 32767)):
+        return 2
+    return 4
+
+
+def _kernel_model(zq, rq, coords, res, valid, scale, res_scale, seen=None):
+    """What ``csrc/hntl_scan.cu::hntl_scan_kernel`` computes, step by step:
+    per 16-query tile the limb count, per 32-deep step the byte-limb
+    products summed into shift classes (0, 8, 16, 24 bits; shifts of 32
+    or more dropped) and folded as sum_class (acc << shift) into the
+    uint32 cross term, then zq2 + c2 - 2 cross modulo 2^32 and the float
+    epilogue.  ``seen`` collects the (query limbs, coordinate limbs)
+    pairs used."""
+    p, q, k = zq.shape
+    cap = coords.shape[2]
+    nc = 2 if coords.dtype == np.int16 else 1
+    z = zq.astype(np.int64)
+    c = coords.astype(np.int64)
+    zq2 = ((z * z) & _M32).sum(-1) & _M32                     # [P, Q]
+    c2 = (c * c).sum(1) & _M32                                 # [P, cap]
+    d_int = np.zeros((p, q, cap), np.int64)
+    for pi in range(p):
+        cl = _limbs(c[pi], nc)
+        for q0 in range(0, q, 16):
+            tile = z[pi, q0:q0 + 16]
+            nl = _limb_count(tile)
+            if seen is not None:
+                seen.add((nl, nc))
+            zl = _limbs(tile, nl)
+            assert np.array_equal(sum(v << (8 * i) for i, v in enumerate(zl)),
+                                  tile)
+            cross = np.zeros((tile.shape[0], cap), np.int64)
+            for s0 in range(0, k, 32):
+                acc = np.zeros((4, tile.shape[0], cap), np.int64)
+                for li in range(nl):
+                    for mi in range(nc):
+                        if li + mi < 4:
+                            acc[li + mi] += (zl[li][:, s0:s0 + 32]
+                                             @ cl[mi][s0:s0 + 32])
+                # the kernel's s32 accumulators never overflow
+                assert np.abs(acc).max(initial=0) < 2 ** 22
+                for cls in range(4):
+                    cross = (cross + ((acc[cls] & _M32) << (8 * cls))) & _M32
+            d_int[pi, q0:q0 + 16] = (zq2[pi, q0:q0 + 16, None]
+                                     + c2[pi][None, :] - 2 * cross) & _M32
+    d = d_int.astype(np.uint32).view(np.int32).astype(np.float32)
+    d = d * (scale * scale)[:, None, None]
+    d = d + res.astype(np.float32)[:, None, :] * res_scale[:, None, None]
+    d = d + rq[:, :, None]
+    return np.where(valid[:, None, :], d, np.float32(BIG))
+
+
+def _mixed_tile(seed, coord_dtype):
+    """Three 16-query tiles of one query each at a limb count's edge:
+    tile 0 holds -32768 and 32767 (2 limbs), tile 1 one value of 32768
+    (4 limbs, its 15 neighbours in int16) and, in the second panel, a
+    query of -2^31; tile 2 holds -128 and 127 (1 limb)."""
+    int8 = coord_dtype == np.int8
+    a = sc.panels(seed, p=2, q=40, k=32, cap=333,
+                  coord_range=128 if int8 else 32768, coord_dtype=coord_dtype)
+    z = a["zq"]
+    z[0, 3, :4] = [-32768, 32767, -32768, 32767]
+    z[0, 17, 5] = 32768
+    z[1, 20, :] = -2 ** 31
+    z[:, 32:, :] = np.clip(z[:, 32:, :], -128, 127)
+    z[:, 32, :2] = [-128, 127]
+    return a
+
+
+#: The kernel model's cases: the JAX sweep, int32 extremes, wraparound on
+#: int16 and int8 panels, tiles at every limb count's edge, k off 32 and
+#: off 8, and a k of three 64-dimension chunks.
+MODEL_CASES = {
+    **{f"sweep_{p}x{q}x{k}x{cap}": lambda p=p, q=q, k=k, cap=cap: sc.panels(
+        p * 1000 + cap, p=p, q=q, k=k, cap=cap) for p, q, k, cap in sc.SWEEP},
+    "extremes": lambda: sc.extremes(p=2, q=3, k=32, cap=200),
+    "wraparound_int16": lambda: sc.panels(
+        11, p=2, q=19, k=16, cap=160, zq_range=2 ** 31 - 1),
+    "wraparound_int8": lambda: sc.panels(
+        12, p=2, q=19, k=8, cap=130, zq_range=2 ** 31 - 1, coord_range=128,
+        coord_dtype=np.int8),
+    "mixed_tile_int16": lambda: _mixed_tile(13, np.int16),
+    "mixed_tile_int8": lambda: _mixed_tile(14, np.int8),
+    **{f"k{k}": lambda k=k: sc.panels(15 + k, p=2, q=21, k=k, cap=200)
+       for k in (8, 12, 16, 64)},
+    "k192_wraparound": lambda: sc.panels(
+        16, p=1, q=20, k=192, cap=140, zq_range=2 ** 31 - 1,
+        coord_range=32768),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_batched_kernel_arithmetic_model_matches_references(case):
+    a = MODEL_CASES[case]()
+    got = _kernel_model(*sc.args(a, np.asarray))
+    assert torch.equal(torch.from_numpy(got),
+                       port_ref.hntl_scan_ref(*_torch(a)))
+    np.testing.assert_array_equal(got,
+                                  np.asarray(jax_ref.hntl_scan_ref(*_jax(a))))
+
+
+def test_kernel_model_cases_reach_every_limb_pair():
+    """Every (query limbs, coordinate limbs) pair the kernel can take."""
+    seen = set()
+    for make in MODEL_CASES.values():
+        _kernel_model(*sc.args(make(), np.asarray), seen=seen)
+    assert seen == {(nl, nc) for nl in (1, 2, 4) for nc in (1, 2)}
 
 
 # ---------------------------------------------------------------------------
