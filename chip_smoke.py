@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the full-size run, one card
     python3 chip_smoke.py --n 100000 --grains 128 --kv-tokens 65536 \
-        --store-n 100000             # a shorter rehearsal
+        --store-n 100000 --tier-n 100000   # a shorter rehearsal
 
 What it does, in order (any failure exits non-zero before the last line):
 
@@ -80,7 +80,20 @@ What it does, in order (any failure exits non-zero before the last line):
    grains bit-identical, the other segment by identity, the live set a
    bijection onto the valid slots, one re-stack), the searches again and
    256 queries through the "kernel" plane held to "ref";
-12. the kernel table as one JSON line, then, as the last line,
+12. serving beyond device memory (``tiered_phase``): a cold store
+   (``cold_tier=True``) of 1,000,000 rows in 8 sealed segments, 10,000
+   deletes, 1024 queries in a skewed mix (80% near rows of 128 grains);
+   its all-warm plane held as in 10, then the same store under
+   ``device_budget`` 0, 25% of the panel tier and twice the tier, every
+   paged search equal to the all-warm one (ids and dists,
+   ``torch.equal``); again after 10,000 more deletes, after
+   ``compact()`` (merged cold files written, the replaced ones gone from
+   disk) and after ``maintain()`` (the repaired child shares its
+   parent's cold file); seal (build, cold write), search, re-rank gather
+   and staging times, every select launch of a paged search held to its
+   plain version and timed, profiles, the device memory held; it checks
+   the free disk first and removes its directory at the end;
+13. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -90,10 +103,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -235,6 +251,11 @@ KERNEL_CASES = {
                                  s=8, tenants=3),
     "ragged_keep_holes": dict(q=128, p=16, g=8, k=32, cap=512, width=64,
                               s=8, ragged=True, keep_frac=0.5),
+    # a tiered residency pass: a cold chunk's mini-plane of 64 grains and
+    # the trailing all-invalid dummy grain, slack probes pointing at it
+    # behind n_active, a power-of-two query subset
+    "mini_plane_chunk": dict(mini_plane=True, q=128, p=8, g=65, k=32,
+                             cap=1664, width=64, s=8),
 }
 
 
@@ -268,6 +289,8 @@ def kernel_phase(torch, dev):
             a = select_cases.tie_inputs(**c)
         elif c.pop("hot_grain", False):
             a = select_cases.hot_grain_inputs(i, **c)
+        elif c.pop("mini_plane", False):
+            a = select_cases.mini_plane_inputs(i, **c)
         else:
             if c.pop("pruned", False):
                 c["keep_frac"] = 0.0
@@ -493,7 +516,10 @@ def main_path(torch, np, *, n, nq, grains, dev):
 def select_bound(torch, args, kw, width):
     """Least time for the work these inputs need: each probed panel byte
     read once, outputs written once; int32 ops of the slots scanned."""
+    from repro_torch.core.scan import probe_alive
+
     gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale = args
+    keep = probe_alive(keep, kw.get("n_active"))    # killed pairs read none
     q_n, p_n, k = zq.shape
     cap = coords.shape[2]
     s = kw["sq"].shape[2] if "sq" in kw else 0
@@ -1496,11 +1522,12 @@ def design_repairs(torch, np, seg, rng, per=8):
         rows = ids[gi][valid[gi]]
         kill.append(gid_of[rng.choice(rows, int(0.9 * len(rows)),
                                       replace=False)])
-    raw = seg.index.raw
+    from repro_torch.core.maintenance import raw_rows
+
+    raw = raw_rows(seg)                 # warm: the device tier; cold: file
     for gi in grains["refit"]:
         rows = ids[gi][valid[gi]]
-        p = ((raw[torch.from_numpy(rows.astype(np.int64)).to(raw.device)]
-              - g.mu[gi]) @ g.basis[gi][:, 0]).cpu().numpy()
+        p = ((raw(rows) - g.mu[gi]) @ g.basis[gi][:, 0]).cpu().numpy()
         kill.append(gid_of[rows[p < 0]])
     return grains, np.concatenate(kill)
 
@@ -1735,6 +1762,570 @@ def lifecycle_phase(torch, np, dev, st, *, qt, x, tags, up, x_up, dead,
 
 
 # ---------------------------------------------------------------------------
+# 12: serving beyond device memory: the cold raw tier, tiered residency
+# ---------------------------------------------------------------------------
+
+TIERED_SEARCHES = STORE_SEARCHES
+
+
+class _CaptureSelect:
+    """While installed, the "fused" scan plane's runner keeps a copy of
+    the inputs of every call (the registry's entry swapped, so every
+    plane that resolves to "fused" goes through it)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.core import scanplane
+
+        self.reg = scanplane._REGISTRY
+        self.plane = self.reg["fused"]
+        self.reg["fused"] = dataclasses.replace(self.plane, runner=self)
+        return self
+
+    def __call__(self, *args, **kw):
+        def copy(v):
+            return v.clone() if isinstance(v, self.torch.Tensor) else v
+
+        self.calls.append(([copy(a) for a in args],
+                           {k: copy(v) for k, v in kw.items()}))
+        return self.plane.runner(*args, **kw)
+
+    def __exit__(self, *exc):
+        self.reg["fused"] = self.plane
+
+
+def cold_searches(torch, np, st, qt, xl, alive, tg, tsv, label):
+    """The all-warm plane of the cold store (``device_budget=None``):
+    Mode A, B, B under a tag filter and B under a ts filter (the select's
+    counter zeroed just before, read just after), each held to the
+    "fused_ref" plane's ids, free of dead gids, Mode B dists equal to the
+    live vectors' exact distances (rtol 1e-5), the filters obeyed;
+    recall@10 against exact search over the live rows."""
+    from repro_torch.core.flat import flat_search, recall_at_k
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq = qt.device, qt.shape[0]
+    st.device_budget = None
+    res, per = {}, {}
+    fsel.fused_scan_select.launches = 0
+    for name, kw in TIERED_SEARCHES.items():
+        before = fsel.fused_scan_select.launches
+        res[name] = st.search(qt, topk=10, **kw)
+        sync(torch, dev)
+        per[name] = fsel.fused_scan_select.launches - before
+    launches = fsel.fused_scan_select.launches
+    if dev.type == "cuda":
+        check(all(v == -(-nq // 256) for v in per.values()),
+              f"{label}: fused_scan_select launches per search {per}")
+    dead = torch.nonzero(~alive).flatten()
+    for name, kw in TIERED_SEARCHES.items():
+        ref = st.search(qt, topk=10, scan_impl="fused_ref", **kw)
+        ids, d = res[name].ids, res[name].dists
+        check(torch.equal(ids, ref.ids), f"{label} {name}: ids differ from "
+              f"the fused_ref plane ({int((ids != ref.ids).sum())} entries)")
+        check(ids.shape == (nq, 10) and bool(torch.isfinite(d).all())
+              and bool((ids[:, 0] >= 0).all()), f"{label} {name}: bad "
+              "result")
+        check(not bool(torch.isin(ids.long(), dead).any()),
+              f"{label} {name}: a deleted gid was returned")
+        ok = ids >= 0
+        at = torch.clamp(ids, min=0).long()
+        if kw["mode"] == "B":
+            exact = (xl[at] - qt[:, None, :]).square_().sum(-1)
+            check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
+                  f"{label} {name}: dists are not the live vectors' exact "
+                  "distances")
+        if "tag_mask" in kw:
+            check(bool((tg[at] & kw["tag_mask"])[ok].all()),
+                  f"{label} {name}: a row outside tag_mask")
+        if "ts_range" in kw:
+            lo, hi = kw["ts_range"]
+            check(bool(((tsv[at] >= lo) & (tsv[at] < hi))[ok].all()),
+                  f"{label} {name}: a row outside ts_range")
+    live = torch.nonzero(alive).flatten()
+    truth = live[flat_search(xl[live], qt, topk=10).ids.long()]
+    recall = {m: recall_at_k(res[m].ids, truth) for m in "AB"}
+    ms = {}
+    for m in "AB":
+        t0 = time.perf_counter()
+        for _ in range(2):
+            st.search(qt, topk=10, mode=m)
+        sync(torch, dev)
+        ms[m] = (time.perf_counter() - t0) / 2 * 1e3
+    log(f"{label}, all-warm plane of the cold store: {st.n_segments} "
+        f"segments; ids == fused_ref plane ({len(res)} searches); no deleted "
+        f"gid; Mode B dists == the live vectors' exact distances (rtol "
+        f"1e-5); fused_scan_select launches {per}; recall@10 vs flat_search "
+        f"over {int(alive.sum())} live rows: Mode A {recall['A']:.4f}, Mode "
+        f"B {recall['B']:.4f}; Mode A {ms['A']:.3f} ms (QPS "
+        f"{nq / ms['A'] * 1e3:.1f}), Mode B {ms['B']:.3f} ms (QPS "
+        f"{nq / ms['B'] * 1e3:.1f}) per {nq} queries (host clock, ends in a "
+        "synchronise)")
+    return dict(res=res, launches=launches, per_search=per, recall=recall,
+                ms=ms)
+
+
+def paged_searches(torch, np, st, qt, warm, budget, label, *, all_hot=False):
+    """The same store under ``device_budget=budget``: two warm-up
+    searches, ``update_residency()``, then the four searches (the select's
+    counter zeroed just before, read just after), each equal to the
+    all-warm plane's ids and dists (``torch.equal``); times per mode."""
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq = qt.device, qt.shape[0]
+    st.device_budget = budget
+    for m in "BA":
+        st.search(qt, topk=10, mode=m)
+    st.update_residency()
+    sync(torch, dev)
+    before_stats = st.residency_stats()
+    per = {}
+    fsel.fused_scan_select.launches = 0
+    for name, kw in TIERED_SEARCHES.items():
+        before = fsel.fused_scan_select.launches
+        got = st.search(qt, topk=10, **kw)
+        sync(torch, dev)
+        per[name] = fsel.fused_scan_select.launches - before
+        want = warm["res"][name]
+        check(torch.equal(got.ids, want.ids), f"{label} {name}: paged ids "
+              f"differ from the all-warm plane's "
+              f"({int((got.ids != want.ids).sum())} entries)")
+        check(torch.equal(got.dists, want.dists), f"{label} {name}: paged "
+              "dists differ from the all-warm plane's")
+    launches = fsel.fused_scan_select.launches
+    stats = st.residency_stats()
+    if dev.type == "cuda":
+        check(all(v > 0 for v in per.values()),
+              f"{label}: a paged search launched no select ({per})")
+    if all_hot:
+        check(stats["hot_grains"] == stats["n_grains"]
+              and stats["chunk_dispatches"]
+              == before_stats["chunk_dispatches"],
+              f"{label}: the whole tier is hot, yet cold chunks were "
+              f"staged ({before_stats} -> {stats})")
+    ms = {}
+    for m in "AB":
+        t0 = time.perf_counter()
+        for _ in range(2):
+            st.search(qt, topk=10, mode=m)
+        sync(torch, dev)
+        ms[m] = (time.perf_counter() - t0) / 2 * 1e3
+    staged = stats["staged_bytes"] - before_stats["staged_bytes"]
+    chunks = stats["chunk_dispatches"] - before_stats["chunk_dispatches"]
+    log(f"{label}: device_budget {budget} bytes -> {stats['hot_grains']} of "
+        f"{stats['n_grains']} grains hot ({stats['hot_bytes']} bytes at "
+        f"{stats['panel_bytes_per_grain']} per grain, hot epoch "
+        f"{stats['hot_epochs']}); paged == all-warm (ids and dists, "
+        f"torch.equal, {len(per)} searches); fused_scan_select launches "
+        f"{per}; those searches staged {chunks} cold chunks, {staged} bytes; "
+        f"Mode A {ms['A']:.3f} ms (QPS {nq / ms['A'] * 1e3:.1f}), Mode B "
+        f"{ms['B']:.3f} ms (QPS {nq / ms['B'] * 1e3:.1f}) per {nq} queries "
+        "(host clock, ends in a synchronise)")
+    return dict(launches=launches, per_search=per, ms=ms, stats=stats,
+                staged=staged, chunks=chunks)
+
+
+def host_fill_ms(fn):
+    """Host time spent assembling staged chunks (``TieredPlane._fill``)
+    during ``fn()``: (ms, chunks)."""
+    from repro_torch.core import residency
+
+    real, spent = residency.TieredPlane._fill, []
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    residency.TieredPlane._fill = timed
+    try:
+        fn()
+    finally:
+        residency.TieredPlane._fill = real
+    return sum(spent) * 1e3, len(spent)
+
+
+def paged_select_times(torch, fsel, calls, reps=10):
+    """The select launches of one paged search (``calls``: the captured
+    inputs), each held to its plain version (``torch.equal``) and timed
+    with CUDA events beside its plain version's time and its bound; then
+    CUPTI device time per launch over ``reps`` replays of the whole
+    sequence (every kernel the wrapper launches, the schedule included,
+    over the launches the trace saw)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    runs, errs, events, plain, bounds, bytes_, ops = [], [], [], [], [], 0, 0
+    for i, (args, kw) in enumerate(calls):
+        kw = dict(kw)
+        width = kw.pop("width")
+        errs.append(hold(torch, fsel, args, kw, width, f"paged pass {i}"))
+
+        def run(args=args, kw=kw, width=width):
+            return fsel.fused_scan_select(*args, width=width, **kw)
+
+        run()
+        runs.append(run)
+        events.append(time_events(torch, run, reps))
+        plain.append(time_events(torch, lambda args=args, kw=kw, width=width:
+                                 fsel.fused_scan_select_ref(
+                                     *args, width=width, **kw), 1))
+        b, _, nb, no = select_bound(torch, args, kw, width)
+        bounds.append(b)
+        bytes_, ops = bytes_ + nb, ops + no
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for run in runs:
+                run()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {name: sum(e.count for e in evs if name in e.key)
+            for name in SELECT_KERNELS}
+    total = sum(e.self_device_time_total for e in evs) / 1e3
+    launches = min(seen.values())
+    check(launches > 0, "paged select: the profiler saw no select kernel")
+    n = len(calls)
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_ops = ops / CUDA_CORE_OPS_PER_S
+    out = dict(launches_per_search=n, ms=total / launches,
+               events_ms=sum(events) / n, plain_ms=sum(plain) / n,
+               bound_ms=sum(bounds) / n,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               traces=1, max_abs_err=max(errs),
+               at=f"{n} launches of one paged search: " + ", ".join(
+                   f"Q={a[1].shape[0]} P={a[1].shape[1]} G={a[4].shape[0]}"
+                   for a, _ in calls),
+               seen=seen, search_ms=total / reps,
+               search_bound_ms=sum(bounds))
+    log(f"fused_scan_select on the paged plane: {n} launches per search, "
+        f"each equal to its plain version (torch.equal); CUPTI "
+        f"{out['ms']:.4f} ms per launch ({out['search_ms']:.4f} ms per "
+        f"search, every kernel of the wrapper, {seen} launches seen in "
+        f"{reps} replays), CUDA events {out['events_ms']:.4f} ms, plain "
+        f"version {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"per launch by {out['bound_by']} ({out['search_bound_ms']:.4f} ms "
+        f"per search); launches: {out['at']}")
+    return out
+
+
+def tiered_round(torch, np, st, qt, xl, alive, tg, tsv, budgets, label):
+    """The all-warm plane of the cold store, then the paged plane at every
+    budget, each paged search equal to the all-warm one."""
+    warm = cold_searches(torch, np, st, qt, xl, alive, tg, tsv, label)
+    paged = {}
+    for name, b in budgets.items():
+        paged[name] = paged_searches(torch, np, st, qt, warm, b,
+                                     f"{label}, paged at {name}",
+                                     all_hot=name == "more than the tier")
+    return dict(warm=warm, paged=paged)
+
+
+def _raw_files(cold_dir):
+    return sorted(f for f in os.listdir(cold_dir) if f.endswith(".raw"))
+
+
+def skewed_queries(np, synthetic, segments, x, nq, hot_frac=0.8):
+    """The tiered phase's skewed mix: ``hot_frac`` of the queries are
+    jittered copies (``queries_from``) of rows in 128 of the store's grains
+    (one in 8 for a short run), chosen by ``default_rng(3)``; the rest
+    ``queries_from`` over the whole corpus.  Returns (queries, hot query
+    count, hot grains, grains)."""
+    grains = [(si, gi) for si, s in enumerate(segments)
+              for gi in range(s.index.grains.n_grains)]
+    pick = np.random.default_rng(3).choice(
+        len(grains), min(128, len(grains) // 8), replace=False)
+    rows = []
+    for i in pick:
+        si, gi = grains[i]
+        ids = segments[si].index.grains.ids[gi].cpu().numpy()
+        rows.append(segments[si].global_ids()[ids[ids >= 0]])
+    n_hot = int(round(hot_frac * nq))
+    q = np.concatenate([
+        synthetic.queries_from(x[np.concatenate(rows)], nq=n_hot, seed=3),
+        synthetic.queries_from(x, nq=nq - n_hot)])
+    return q, n_hot, len(pick), len(grains)
+
+
+def tiered_phase(torch, np, dev, *, n=1_000_000, nq=1024, segments=8,
+                 grains=128, seed=0):
+    """Serving beyond device memory at the main path's widths: a cold store
+    (``cold_tier=True``, ``residency_interval=8``, ``prefetch_grains=64``)
+    of ``n`` rows sealed in ``segments`` chunks, 1% of them deleted; 1024
+    queries in a skewed mix (80% jittered copies of rows in 128 of the
+    grains, 20% over the whole corpus).  The all-warm plane of the cold
+    store is held to "fused_ref", the live vectors and brute force; then
+    the same store under ``device_budget`` 0, 25% of the panel tier and
+    more than all of it must return the all-warm ids and dists exactly;
+    again after more deletes, after ``compact()`` (merged cold files
+    written, the replaced ones unlinked) and after ``maintain()`` (a
+    repaired child shares its parent's cold file, which outlives the
+    parent).  Its cold directory is removed at the end, on failure too."""
+    cold_dir = tempfile.mkdtemp(prefix="tiered_phase_")
+    try:
+        need = 2 * n * 768 * 4 + (1 << 30)
+        free = shutil.disk_usage(cold_dir).free
+        check(free >= need, f"tiered phase: {free} bytes free in {cold_dir}, "
+              f"needs {need} (the cold files twice while compaction writes "
+              "the merged ones, and the panel files)")
+        log(f"tiered phase: cold directory {cold_dir}, {free} bytes free "
+            f"({need} needed)")
+        return _tiered_phase(torch, np, dev, cold_dir, n=n, nq=nq,
+                             segments=segments, grains=grains, seed=seed)
+    finally:
+        shutil.rmtree(cold_dir, ignore_errors=True)
+
+
+def _tiered_phase(torch, np, dev, cold_dir, *, n, nq, segments, grains,
+                  seed):
+    from repro_torch.core import HNTLConfig, MaintenancePolicy, VectorStore
+    from repro_torch.core import store as store_mod
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fused_select as fsel
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    per_seg = n // segments
+    n = per_seg * segments
+    t0 = time.perf_counter()
+    x = synthetic.anisotropic_manifold(n=n, d=768, intrinsic=24, seed=seed)
+    row = np.arange(n)
+    tags = (1 << (row % 4)).astype(np.uint32)
+    ts = (row / n).astype(np.float32)
+    log(f"tiered data: anisotropic_manifold n={n} d=768 intrinsic=24 "
+        f"seed={seed}, {time.perf_counter() - t0:.2f} s on the host")
+    cfg = HNTLConfig(d=768, k=32, s=8, block=128, n_grains=grains,
+                     nprobe=16, pool=64)
+    if on_card:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    st = VectorStore(cfg, seal_threshold=per_seg, device=dev, cold_tier=True,
+                     cold_dir=cold_dir, residency_interval=8,
+                     prefetch_grains=64)
+    seal_s = []
+    with _Timed(torch, dev, store_mod.index_mod, "build") as builds, \
+            _Timed(torch, dev, store_mod, "_write_cold_file") as writes:
+        for lo in range(0, n, per_seg):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            st.add(x[lo:lo + per_seg], tags=tags[lo:lo + per_seg],
+                   ts=ts[lo:lo + per_seg])
+            sync(torch, dev)
+            seal_s.append(time.perf_counter() - t0)
+    check(st.n_segments == segments and not st.snapshot().mem,
+          f"tiered: {st.n_segments} segments, expected {segments} and an "
+          "empty memtable")
+    check(all(s.index.raw is None and os.path.exists(s.cold_path)
+              for s in st._segments), "tiered: a sealed segment is not cold")
+    log(f"tiered store: {segments} cold segments of {per_seg} rows, G "
+        f"{[s.index.grains.n_grains for s in st._segments]}, cap "
+        f"{[s.index.grains.cap for s in st._segments]}; seal seconds sum "
+        f"{sum(seal_s):.2f} ({' '.join(f'{v:.2f}' for v in seal_s)}): "
+        f"build {sum(builds.calls):.2f} "
+        f"({' '.join(f'{v:.2f}' for v in builds.calls)}), cold write "
+        f"{sum(writes.calls):.2f} "
+        f"({' '.join(f'{v:.2f}' for v in writes.calls)}); "
+        f"{len(_raw_files(cold_dir))} cold files, "
+        f"{sum(os.path.getsize(s.cold_path) for s in st._segments)} bytes")
+
+    memory = {}
+
+    def resident(label):
+        """Device bytes held now above the phase's start."""
+        if on_card:
+            sync(torch, dev)
+            memory[label] = torch.cuda.memory_allocated(dev) - base
+
+    resident("segments (cold: panels and frames)")
+    rng = np.random.default_rng(1)
+    n_del = n // 100
+    dead = rng.choice(n, n_del, replace=False)
+    check(st.delete(dead) == n_del, "tiered: delete count")
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[torch.from_numpy(dead).to(dev)] = False
+
+    q, n_hot_q, n_hot_g, n_g = skewed_queries(np, synthetic, st._segments, x,
+                                              nq)
+    qt = torch.from_numpy(q).to(dev)
+    xl = torch.from_numpy(x).to(dev)
+    tg = torch.from_numpy(tags.astype(np.int64)).to(dev)
+    tsv = torch.from_numpy(ts).to(dev)
+    log(f"tiered traffic: {nq} queries, {n_hot_q} jittered copies of rows "
+        f"in {n_hot_g} of {n_g} grains (default_rng(3)), "
+        f"{nq - n_hot_q} over the whole corpus; {n_del} rows deleted")
+    out = {}
+    resident("+ the check's live vectors, queries, tags and ts")
+
+    # ---- 1-2: the all-warm plane, then the budgets ------------------------
+    warm = cold_searches(torch, np, st, qt, xl, alive, tg, tsv,
+                         "tiered: cold store")
+    resident("+ the all-warm plane of the cold store (stacked panels, "
+             "frames, liveness)")
+    st._rerank_stats.update(store_mod._new_rerank_stats())
+    st.search(qt, topk=10, mode="B")
+    sync(torch, dev)
+    rr = st._rerank_stats
+    h2d_ms = sum(a.elapsed_time(b) for a, b in rr["h2d"])
+    log(f"cold Mode B re-rank, one all-warm search of {nq} queries: "
+        f"{rr['calls']} gathers of {rr['rows']} rows, {rr['bytes']} bytes; "
+        f"host gather {rr['host_s'] * 1e3:.3f} ms (memmaps -> pinned "
+        f"buffer), H2D {h2d_ms:.3f} ms (CUDA events)")
+    out["rerank"] = dict(rows=rr["rows"], bytes=rr["bytes"],
+                         host_ms=rr["host_s"] * 1e3, h2d_ms=h2d_ms)
+    zero = paged_searches(torch, np, st, qt, warm, 0,
+                          "tiered: paged at budget 0")
+    resident("+ the tiered plane at budget 0 (frames, routing, row maps, "
+             "staging buffers)")
+    per_grain = zero["stats"]["panel_bytes_per_grain"]
+    g_n = zero["stats"]["n_grains"]
+    budgets = {"budget 0": 0, "25% of the tier": g_n * per_grain // 4,
+               "more than the tier": 2 * g_n * per_grain}
+    first = dict(warm=warm, paged={"budget 0": zero})
+    for name in list(budgets)[1:]:
+        first["paged"][name] = paged_searches(
+            torch, np, st, qt, warm, budgets[name],
+            f"tiered: paged at {name}", all_hot=name == "more than the tier")
+        resident(f"+ the hot set at {name}")
+    out["memory"] = memory
+    if on_card:
+        log("tiered device memory held (memory_allocated above the phase's "
+            "start, after each step): " + "; ".join(
+                f"{k}: {v}" for k, v in memory.items()))
+    out["first"] = first
+    out["budgets"] = budgets
+
+    # the select at the paged plane's shapes, and one paged search profiled
+    st.device_budget = budgets["25% of the tier"]
+    st.update_residency()
+    st.search(qt, topk=10, mode="A")
+    sync(torch, dev)
+    with _CaptureSelect(torch) as cap:
+        st.search(qt, topk=10, mode="A")
+        sync(torch, dev)
+    out["select_calls"] = len(cap.calls)
+    shapes = [f"Q={a[1].shape[0]} P={a[1].shape[1]} G={a[4].shape[0]}"
+              for a, _ in cap.calls]
+    log(f"one paged search (Mode A, {nq} queries, 25% budget): "
+        f"{len(cap.calls)} select launches ({', '.join(shapes)})")
+    if on_card:
+        out["select"] = paged_select_times(torch, fsel, cap.calls)
+        del cap
+        wall = first["paged"]["25% of the tier"]["ms"]["B"] / 1e3
+        out["profile"] = profile(
+            torch, f"one paged search, Mode B, {nq} queries, 25% budget",
+            lambda: st.search(qt, topk=10, mode="B"), wall, top=10)
+        out["profile_a"] = profile(
+            torch, f"one paged search, Mode A, {nq} queries, 25% budget",
+            lambda: st.search(qt, topk=10, mode="A"),
+            first["paged"]["25% of the tier"]["ms"]["A"] / 1e3, top=10)
+        out["peak_first"] = torch.cuda.max_memory_allocated(dev) - base
+    out["fill"] = {}
+    for name in ("budget 0", "25% of the tier"):
+        st.device_budget = budgets[name]
+        st.update_residency()
+        st.search(qt, topk=10, mode="A")
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        fill_ms, fills = host_fill_ms(lambda: st.search(qt, topk=10,
+                                                        mode="A"))
+        sync(torch, dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        out["fill"][name] = dict(fill_ms=fill_ms, chunks=fills,
+                                 wall_ms=wall_ms)
+        log(f"paged search at {name}, Mode A: host assembly of {fills} "
+            f"staged chunks {fill_ms:.3f} ms (panel LRU or memmaps, and the "
+            f"mask, into pinned buffers) of {wall_ms:.3f} ms wall")
+
+    # ---- 3: more deletes ----------------------------------------------------
+    more = rng.choice(np.flatnonzero(alive.cpu().numpy()), n_del,
+                      replace=False)
+    check(st.delete(more) == n_del, "tiered: second delete count")
+    alive[torch.from_numpy(more).to(dev)] = False
+    out["after_deletes"] = tiered_round(torch, np, st, qt, xl, alive, tg,
+                                        tsv, budgets,
+                                        "tiered after more deletes")
+
+    # ---- 4: compact ---------------------------------------------------------
+    before = _raw_files(cold_dir)
+    old_paths = [s.cold_path for s in st._segments]
+    st.device_budget = None
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    merges = st.compact()
+    sync(torch, dev)
+    compact_s = time.perf_counter() - t0
+    check(merges == 2 and st.n_segments == 2, f"tiered compact: {merges} "
+          f"merges to {st.n_segments} segments, expected 2 and 2")
+    new_paths = [s.cold_path for s in st._segments]
+    check(all(p not in old_paths and os.path.exists(p) for p in new_paths),
+          "tiered compact: the merged segments' cold files were not written")
+    check(sum(s.n for s in st._segments) == int(alive.sum()),
+          "tiered compact: dead rows were not reclaimed")
+    out["after_compact"] = tiered_round(torch, np, st, qt, xl, alive, tg,
+                                        tsv, budgets, "tiered after compact")
+    gc.collect()
+    after = _raw_files(cold_dir)
+    check(sorted(os.path.basename(p) for p in new_paths) == after,
+          f"tiered compact: cold files on disk {after}, expected only the "
+          f"merged segments' {new_paths}")
+    log(f"tiered compact: {merges} merges in {compact_s:.2f} s, "
+        f"{len(before)} -> {len(after)} cold files on disk once the "
+        f"replaced segments were gone ({after})")
+    out["compact_s"] = compact_s
+
+    # ---- 5: maintain --------------------------------------------------------
+    seg0 = st._segments[0]
+    parent_path = seg0.cold_path
+    _, kill = design_repairs(torch, np, seg0, np.random.default_rng(2))
+    check(st.delete(kill) == len(kill), "tiered: designed delete count")
+    alive[torch.from_numpy(kill).to(dev)] = False
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    rep = st.maintain(policy=MaintenancePolicy(
+        drift_ratio=LIFECYCLE_DRIFT_RATIO))
+    sync(torch, dev)
+    maintain_s = time.perf_counter() - t0
+    repaired = sum(rep.total(f) for f in ("splits", "merges", "retires",
+                                          "refits"))
+    child = st._segments[0]
+    check(repaired >= 1 and child is not seg0, f"tiered maintain: nothing "
+          f"repaired ({rep.summary()})")
+    check(child.cold_path == parent_path, "tiered maintain: the repaired "
+          "segment does not share its parent's cold file")
+    del seg0
+    out["after_maintain"] = tiered_round(torch, np, st, qt, xl, alive, tg,
+                                         tsv, budgets,
+                                         "tiered after maintain")
+    gc.collect()
+    check(os.path.exists(parent_path) and child.cold_path == parent_path,
+          "tiered maintain: the shared cold file did not outlive its parent")
+    log(f"tiered maintain: {maintain_s:.2f} s ({rep.summary()}); the child "
+        f"shares {os.path.basename(parent_path)}, which outlived the parent "
+        "segment")
+    out["maintain_s"] = maintain_s
+    out["seal_s"], out["build_s"], out["write_s"] = (seal_s, builds.calls,
+                                                     writes.calls)
+    rounds = [out["first"], out["after_deletes"], out["after_compact"],
+              out["after_maintain"]]
+    out["launches"] = {
+        "cold store search (all-warm plane)":
+        sum(r["warm"]["launches"] for r in rounds),
+        "paged store search": sum(p["launches"] for r in rounds
+                                  for p in r["paged"].values())}
+    if on_card:
+        out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+        log(f"tiered peak device memory {out['peak']} bytes above the {base} "
+            f"held when the phase began (max_memory_allocated; "
+            f"{out['peak_first']} by the end of the first budget round)")
+    del st, xl
+    log(f"tiered phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -1758,6 +2349,9 @@ def main(argv=None) -> int:
     ap.add_argument("--store-n", type=int, default=1_004_096,
                     help="rows of the store phase: 8 sealed segments and "
                     "a memtable tail of min(4096, n / 32) rows")
+    ap.add_argument("--tier-n", type=int, default=1_000_000,
+                    help="rows of the tiered phase's cold store: 8 sealed "
+                    "segments, no memtable")
     a = ap.parse_args(argv)
 
     import numpy as np
@@ -1802,7 +2396,13 @@ def main(argv=None) -> int:
         tags=state["tags"], up=state["up"], x_up=state["x_up"],
         dead=state["dead"], new_ids=stp["half"]["new_ids"],
         x_new=stp["half"]["x_new"], recall_5120=state["recall"])
-    del state
+    del state, stp["half"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = tiered_phase(torch, np, cuda, n=a.tier_n)
+    log(f"peak device memory above each phase's start: warm store phase "
+        f"(8 warm segments and a memtable) {stp['peak'] - stp['base']} "
+        f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     select_paths = {"search (fused plane)":
@@ -1813,7 +2413,8 @@ def main(argv=None) -> int:
                     "store search after compact":
                     lc["after_compact"]["launches"],
                     "store search after maintain":
-                    lc["after_maintain"]["launches"]}
+                    lc["after_maintain"]["launches"],
+                    **tp["launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
                     "store search, kernel plane": stp["kernel_launches"],
@@ -1826,6 +2427,10 @@ def main(argv=None) -> int:
                           stp["select"]["max_abs_err"]), kt, kt["at"])
     select_entry["at_store"] = {k: v for k, v in stp["select"].items()
                                 if k != "max_abs_err"}
+    select_entry["at_paged"] = {k: v for k, v in tp["select"].items()
+                                if k != "max_abs_err"}
+    select_entry["max_abs_err"] = max(select_entry["max_abs_err"],
+                                      tp["select"]["max_abs_err"])
     log(json.dumps({"kernels": [
         select_entry,
         kernel_entry("hntl_scan_single", src + "hntl_scan.cu",

@@ -2,9 +2,14 @@
 
 The paper's physical layout (§2.4): per-grain data in blocks of B vectors,
 coordinates dimension-major, capacity padded so every grain is a whole
-number of blocks and all addressing is affine (pointerless).
+number of blocks and all addressing is affine (pointerless).  The panel
+file (``write_panel_file``/``open_panel_file``) is the same layout on
+disk: the tiered residency plane's cold tier.
 """
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -65,3 +70,37 @@ def pack_members(members, cap: int):
         ids[gi, :m] = np.asarray(rows, np.int32)
         valid[gi, :m] = True
     return ids, valid
+
+
+def write_panel_file(path: str, panels: dict) -> dict:
+    """Write a dict of grain-axis host panels to one Block-SoA file.
+
+    Field-major and C-ordered (all of ``coords``, then all of ``res``,
+    ...), so one grain's panel, or a contiguous range of grains, is one
+    sequential read.  Returns the meta ``{field: {"offset", "dtype",
+    "shape"}}`` that ``open_panel_file`` maps back; a JSON sidecar at
+    ``path + ".json"`` holds the same meta.  The file is fsynced before
+    the meta is returned: a written panel file is durable.
+    """
+    meta, off = {}, 0
+    with open(path, "wb") as f:
+        for name, arr in panels.items():
+            arr = np.ascontiguousarray(arr)
+            arr.tofile(f)
+            meta[name] = {"offset": off, "dtype": str(arr.dtype),
+                          "shape": list(arr.shape)}
+            off += arr.nbytes
+        f.flush()
+        os.fsync(f.fileno())
+    with open(path + ".json", "w") as f:
+        json.dump({"fields": meta, "nbytes": off}, f)
+    return meta
+
+
+def open_panel_file(path: str, meta: dict) -> dict:
+    """Map a ``write_panel_file`` file back as read-only memmaps,
+    ``{field: np.memmap}`` of the original dtypes and shapes.  Bytes are
+    read only when a grain slice is taken."""
+    return {name: np.memmap(path, dtype=np.dtype(m["dtype"]), mode="r",
+                            offset=int(m["offset"]), shape=tuple(m["shape"]))
+            for name, m in meta.items()}

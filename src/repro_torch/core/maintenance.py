@@ -32,7 +32,9 @@ segment tuple once, so the plane cache re-stacks at most once per epoch.
 
 The JAX package's ``repro.core.maintenance`` is the reference.  The
 health statistics and the re-encode run on the segment's device, in
-grain chunks of at most ``GATHER_CHUNK_BYTES`` of gathered rows; the plan
+grain chunks of at most ``GATHER_CHUNK_BYTES`` of gathered rows (a cold
+segment's rows are read from its memmap and copied over chunk by
+chunk, ``raw_rows``); the plan
 (``_plan_segment``), the 2-means split and the merge-target choice run on
 the host in numpy, fed the statistics copied back, so equal statistics
 give equal plans.
@@ -113,6 +115,25 @@ class MaintenanceReport:
                 f"{sum(s.dropped for s in self.segments)}")
 
 
+def raw_rows(seg):
+    """``rows`` (host int array, any shape) -> the raw vectors [..., d] f32
+    of those local rows on the segment's device: gathered on the device
+    from a warm segment's raw tier, or read from a cold segment's memmap
+    and copied over."""
+    dev = seg.index.device
+    if seg.index.raw is not None:
+        x = seg.index.raw
+        return lambda rows: x[torch.from_numpy(
+            np.asarray(rows, np.int64)).to(dev)]
+    mm = seg.raw_vectors()
+
+    def gather(rows):
+        r = np.asarray(rows, np.int64)
+        return torch.from_numpy(np.take(mm, r.reshape(-1), axis=0).reshape(
+            *r.shape, mm.shape[1])).to(dev)
+    return gather
+
+
 def _occupancy_stats(seg, live_rows: Optional[np.ndarray]) -> dict:
     """The cheap half of the health stats: panel occupancy only (host
     copies of the id and valid panels; no raw-tier read)."""
@@ -149,22 +170,22 @@ def grain_stats(seg, live_rows: Optional[np.ndarray]) -> dict:
     per raw row (None = all live).  Returns numpy ``live_panel`` [G, cap],
     ``live_cnt`` [G], ``captured`` [G] (existing frame, live-mean
     centred), ``best`` [G] (refit bound), ``live_mean`` [G, d],
-    ``drift2`` [G], ``var_live`` [G], and ``x``, the raw tier (the device
-    tensor, for reuse).
+    ``drift2`` [G], ``var_live`` [G], and ``raw``, the segment's
+    ``raw_rows`` (for reuse).
     """
     g = seg.index.grains
     occ = _occupancy_stats(seg, live_rows)
-    x = seg.index.raw
+    raw = raw_rows(seg)
     g_n, cap = occ["ids"].shape
-    rows = torch.clamp(g.ids.long(), min=0)
-    live = torch.from_numpy(occ["live_panel"]).to(x.device)
+    rows = np.maximum(occ["ids"], 0)
+    live = torch.from_numpy(occ["live_panel"]).to(g.mu.device)
     s = g.sketch_basis.shape[2] if g.sketch_basis is not None else 0
-    chunk = max(1, GATHER_CHUNK_BYTES // (cap * x.shape[1] * 4))
+    chunk = max(1, GATHER_CHUNK_BYTES // (cap * g.mu.shape[1] * 4))
     parts = []
     with index_mod.full_fp32_matmul():
         for lo in range(0, g_n, chunk):
             sl = slice(lo, lo + chunk)
-            xg, m = x[rows[sl]], live[sl]                  # [c, cap, d]
+            xg, m = raw(rows[sl]), live[sl]                # [c, cap, d]
             captured, mean = pca.captured_fraction(
                 xg, m, g.basis[sl], g.sketch_basis[sl] if s else None)
             best = pca.best_captured_fraction(xg, m, g.k, s)
@@ -179,7 +200,8 @@ def grain_stats(seg, live_rows: Optional[np.ndarray]) -> dict:
     # against the survivors' own spread (float64, as numpy's int divide)
     return occ | dict(captured=captured, best=best, live_mean=mean,
                       drift2=drift2,
-                      var_live=spread / np.maximum(occ["live_cnt"], 1), x=x)
+                      var_live=spread / np.maximum(occ["live_cnt"], 1),
+                      raw=raw)
 
 
 def _encode_groups(xm, valid, fit, *, k: int, s: int, qeff: int,
@@ -298,11 +320,11 @@ def _plan_segment(stats: dict, cfg: HNTLConfig, policy: MaintenancePolicy):
     return actions, merge_dst, target
 
 
-def _split(x: torch.Tensor, mem: np.ndarray) -> np.ndarray:
+def _split(raw, mem: np.ndarray) -> np.ndarray:
     """Which half (0/1) each member of an overfull grain goes to: 2-means
-    on the host over the members' raw rows; identical members hand their
-    farthest half over instead."""
-    xs = x[torch.from_numpy(mem).to(x.device)].cpu().numpy()
+    on the host over the members' raw rows (``raw``: ``raw_rows``);
+    identical members hand their farthest half over instead."""
+    xs = raw(mem).cpu().numpy()
     _, half = km.two_means(xs)
     if not (half == 0).any() or not (half == 1).any():
         d2 = np.sum((xs - xs.mean(0)) ** 2, axis=1)
@@ -340,7 +362,7 @@ def maintain_segment(seg, live_rows: Optional[np.ndarray], cfg: HNTLConfig,
     if (actions == "keep").all():
         rep.unchanged = tuple((gi, gi) for gi in range(g_n))
         return seg, rep                    # identity: no re-stack
-    if "x" not in stats:                   # the pristine plan wants repairs
+    if "raw" not in stats:                 # the pristine plan wants repairs
         stats = grain_stats(seg, live_rows)
         actions, merge_dst, _ = _plan_segment(stats, cfg, policy)
         if (actions == "keep").all():      # (only through fp margins)
@@ -348,7 +370,7 @@ def maintain_segment(seg, live_rows: Optional[np.ndarray], cfg: HNTLConfig,
             return seg, rep
 
     ids, valid, live_panel = stats["ids"], stats["valid"], stats["live_panel"]
-    x = stats["x"]
+    raw = stats["raw"]
     live_members = [ids[gi][live_panel[gi]].astype(np.int64)
                     for gi in range(g_n)]
     for src in np.flatnonzero(actions == "merge"):
@@ -375,7 +397,7 @@ def maintain_segment(seg, live_rows: Optional[np.ndarray], cfg: HNTLConfig,
             rep.refits += 1
         else:                              # split
             mem = live_members[gi]
-            half = _split(x, mem)
+            half = _split(raw, mem)
             entries.append(("pack", gi, mem[half == 0]))
             appends.append(("pack", gi, mem[half == 1]))
             rep.splits += 1
@@ -402,16 +424,16 @@ def maintain_segment(seg, live_rows: Optional[np.ndarray], cfg: HNTLConfig,
                 gi = e[1]
                 t_ids[i], t_valid[i], t_fit[i] = \
                     ids[gi], valid[gi], live_panel[gi]
-        dev = x.device
-        rows = torch.from_numpy(np.maximum(t_ids, 0).astype(np.int64)).to(dev)
+        dev = g.mu.device
+        rows = np.maximum(t_ids, 0)
         valid_t = torch.from_numpy(t_valid).to(dev)
         fit_t = torch.from_numpy(t_fit).to(dev)
-        chunk = max(1, GATHER_CHUNK_BYTES // (cap * x.shape[1] * 4))
+        chunk = max(1, GATHER_CHUNK_BYTES // (cap * g.mu.shape[1] * 4))
         encs = []
         with index_mod.full_fp32_matmul():
             for lo in range(0, len(touched), chunk):
                 sl = slice(lo, lo + chunk)
-                xm = torch.where(valid_t[sl, :, None], x[rows[sl]], 0.0)
+                xm = torch.where(valid_t[sl, :, None], raw(rows[sl]), 0.0)
                 encs.append(_encode_groups(
                     xm, valid_t[sl], fit_t[sl], k=cfg.k, s=cfg.s, qeff=qeff,
                     quantile=cfg.scale_quantile, mult=cfg.scale_mult,
@@ -500,5 +522,5 @@ def _assemble_segment(seg, entries, panels, rep: SegmentReport):
         routing=routing.rebuild_plane(
             grains.mu, assemble(seg.index.routing.sizes, 0, sizes_touched)),
         grains=grains,
-        raw=seg.index.raw)                 # the raw tier is never rewritten
+        raw=seg.index.raw)   # the raw tier (or cold file) is never rewritten
     return dataclasses.replace(seg, index=index)

@@ -19,6 +19,13 @@ Every top-k is a stable sort: ties go to the lower position, as with
 segments fused into one ``StackedSegments`` plane, with the tag/ts
 predicates and the store's liveness bitmap evaluated in the scan and
 pushed down into routing.  Both end in ``_candidate_epilogue``.
+
+``static_route`` and ``project_probes`` run the routing and projection
+stages of ``search_stacked`` alone, in the same batches, so a caller that
+scans the probed grains in passes of its own (the store's tiered
+residency plane) hands every pass bits equal to the ones the one-call
+plane computes: the float results of a matrix product or a reduction may
+change with its shape, so no stage is run over a different batch.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch
 
 from . import quantize, routing, scan, scanplane
 from .cascade import check_budgets
-from .types import BIG, HNTLIndex, SearchResult, StackedSegments
+from .types import (BIG, HNTLIndex, RoutingPlane, SearchResult,
+                    StackedSegments)
 
 #: Queries per batch of ``search`` (bounds the [Q, P, d, k] basis gather).
 QUERY_BATCH = 256
@@ -82,23 +90,32 @@ def _project_quantized(index: HNTLIndex, q: torch.Tensor,
     return zq_q, proj["rq"], keep, sq
 
 
+def _projected(index, q, gids, envelope_frac, qeff, proj):
+    """``proj`` (the output of ``_project_quantized`` for these queries and
+    probes, computed by the caller) or the projection computed here."""
+    if proj is not None:
+        return proj
+    return _project_quantized(index, q, gids, envelope_frac, qeff)
+
+
 def scan_probed(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                 envelope_frac: float, qeff: int, scan_fn=None,
                 extra_mask: Optional[torch.Tensor] = None,
                 tenant_mask: Optional[torch.Tensor] = None,
                 tenant_ix: Optional[torch.Tensor] = None,
-                n_active: Optional[torch.Tensor] = None):
+                n_active: Optional[torch.Tensor] = None, proj=None):
     """Gather-plane stages (2)+(3): project, envelope-filter, scan per-query
     copies of the probed panels.
 
     Returns (dists [Q, P*cap] f32, ids [Q, P*cap] i32).  extra_mask
     [G, cap], the tenant pair and n_active fold into the slot or probe
-    verdicts exactly as in the select planes.
+    verdicts exactly as in the select planes.  ``proj``: a precomputed
+    (zq, rq, keep, sq) for these probes (see ``project_probes``).
     """
     g = index.grains
     gl = gids.long()
-    zq_q, rq, keep, sq = _project_quantized(index, q, gids, envelope_frac,
-                                            qeff)
+    zq_q, rq, keep, sq = _projected(index, q, gids, envelope_frac, qeff,
+                                    proj)
     keep = scan.probe_alive(keep, n_active)
     kw = {}
     if g.sketch_basis is not None:
@@ -122,13 +139,13 @@ def select_args(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                 extra_mask: Optional[torch.Tensor] = None,
                 tenant_mask: Optional[torch.Tensor] = None,
                 tenant_ix: Optional[torch.Tensor] = None,
-                n_active: Optional[torch.Tensor] = None):
+                n_active: Optional[torch.Tensor] = None, proj=None):
     """The (args, kwargs) a select runner is called with: the projected
     and quantized queries plus the stacked panel tier, unchanged (no
     per-query gather).  ``width`` is clamped to P * cap."""
     g = index.grains
-    zq_q, rq, keep, sq = _project_quantized(index, q, gids, envelope_frac,
-                                            qeff)
+    zq_q, rq, keep, sq = _projected(index, q, gids, envelope_frac, qeff,
+                                    proj)
     mask = g.valid if extra_mask is None \
         else torch.logical_and(g.valid, extra_mask)           # [G, cap]
     args = (gids.to(torch.int32).contiguous(), zq_q.contiguous(),
@@ -150,7 +167,7 @@ def select_probed(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                   extra_mask: Optional[torch.Tensor] = None,
                   tenant_mask: Optional[torch.Tensor] = None,
                   tenant_ix: Optional[torch.Tensor] = None,
-                  n_active: Optional[torch.Tensor] = None):
+                  n_active: Optional[torch.Tensor] = None, proj=None):
     """Select-plane stages (2)+(3)+(first top-k): project, then hand the
     stacked panel tier to a streaming scan→select runner.
 
@@ -158,7 +175,7 @@ def select_probed(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
     """
     args, kw = select_args(index, q, gids, envelope_frac, qeff, width=width,
                            extra_mask=extra_mask, tenant_mask=tenant_mask,
-                           tenant_ix=tenant_ix, n_active=n_active)
+                           tenant_ix=tenant_ix, n_active=n_active, proj=proj)
     return runner(*args, **kw)
 
 
@@ -168,12 +185,13 @@ def candidate_stage(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                     extra_mask: Optional[torch.Tensor] = None,
                     tenant_mask: Optional[torch.Tensor] = None,
                     tenant_ix: Optional[torch.Tensor] = None,
-                    n_active: Optional[torch.Tensor] = None):
+                    n_active: Optional[torch.Tensor] = None, proj=None):
     """Dispatch the candidate stage to a ScanPlane backend.
 
     Gather backends return the full [Q, P*cap] slot matrix; select
     backends the [Q, min(width, P*cap)] pool.  Either feeds the Mode A/B
-    tail unchanged.
+    tail unchanged.  ``proj``: a precomputed projection of these probes
+    (``project_probes``), else it is computed here.
     """
     plane = scanplane.get_scan_plane(scan_impl, index.device)
     if plane.kind == scanplane.SELECT:
@@ -184,11 +202,12 @@ def candidate_stage(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
         return select_probed(index, q, gids, envelope_frac, qeff,
                              width=width, runner=plane.runner,
                              extra_mask=extra_mask, tenant_mask=tenant_mask,
-                             tenant_ix=tenant_ix, n_active=n_active)
+                             tenant_ix=tenant_ix, n_active=n_active,
+                             proj=proj)
     return scan_probed(index, q, gids, envelope_frac, qeff,
                        scan_fn=plane.runner, extra_mask=extra_mask,
                        tenant_mask=tenant_mask, tenant_ix=tenant_ix,
-                       n_active=n_active)
+                       n_active=n_active, proj=proj)
 
 
 def _smallest(d: torch.Tensor, n: int):
@@ -202,8 +221,12 @@ def _candidate_epilogue(dists, rows, q, raw, *, pool: int, topk: int,
     """The Mode A/B tail of every plane: candidate pool -> (Mode B) exact
     f32 re-rank against ``raw`` -> top-k -> ``translate(rows, dists)``.
 
-    The single-index and stacked searches both end here, so the pooling
-    and re-rank arithmetic (and with it their parity) is one code path.
+    The single-index and stacked searches both end here, and so does the
+    store's re-rank of a merged pool (a cold raw tier, the tiered plane),
+    so the pooling and re-rank arithmetic (and with it their parity) is
+    one code path.  ``raw``: the [N, d] raw tier, or a function
+    ``(rows [Q, C] i64 >= 0, ok [Q, C] bool) -> [Q, C, d]`` that fetches
+    the rows (only the ``ok`` ones need be right).
     Returns (ids [Q, topk] i32, dists [Q, topk] f32).
     """
     if mode == "A":
@@ -214,9 +237,11 @@ def _candidate_epilogue(dists, rows, q, raw, *, pool: int, topk: int,
             raise ValueError("Mode B needs the raw tier (build keep_raw=True)")
         d_c, pos = _smallest(dists, pool)                     # [Q, C]
         cand_rows = torch.gather(rows, 1, pos)
-        cand = raw[torch.clamp(cand_rows, min=0).long()]      # [Q, C, d]
+        safe = torch.clamp(cand_rows, min=0).long()
+        ok = d_c < BIG / 2
+        cand = raw(safe, ok) if callable(raw) else raw[safe]  # [Q, C, d]
         exact = torch.sum((cand - q[:, None, :]) ** 2, dim=-1)
-        exact = torch.where(d_c < BIG / 2, exact, BIG)
+        exact = torch.where(ok, exact, BIG)
         d_k, pos_e = _smallest(exact, topk)
         rows_k = torch.gather(cand_rows, 1, pos_e)
     return translate(rows_k, d_k), d_k
@@ -228,12 +253,13 @@ def _pruned_to_minus_one(rows, dists):
     return torch.where(dists < BIG / 2, rows, -1).to(torch.int32)
 
 
-def _in_batches(run, q: torch.Tensor, topk: int,
+def _in_batches(run, n: int, topk: int,
                 device: torch.device) -> SearchResult:
-    """``run(q_batch) -> (ids, dists)`` over ``QUERY_BATCH``-query batches."""
+    """``run(rows) -> (ids, dists)`` over ``QUERY_BATCH``-query slices
+    ``rows`` of ``n`` queries."""
     ids, dists = [], []
-    for lo in range(0, q.shape[0], QUERY_BATCH):
-        i, d = run(q[lo:lo + QUERY_BATCH])
+    for lo in range(0, n, QUERY_BATCH):
+        i, d = run(slice(lo, lo + QUERY_BATCH))
         ids.append(i)
         dists.append(d)
     if not ids:
@@ -281,10 +307,10 @@ def search(index: HNTLIndex, q: torch.Tensor, *, nprobe: int, pool: int,
     _refuse_budgets(budgets, topk)
     _check_mode(mode)
     return _in_batches(
-        lambda qb: _search_batch(
-            index, qb, nprobe=nprobe, pool=pool, topk=topk, mode=mode,
+        lambda sl: _search_batch(
+            index, q[sl], nprobe=nprobe, pool=pool, topk=topk, mode=mode,
             envelope_frac=envelope_frac, qeff=qeff, scan_impl=scan_impl,
-            extra_mask=extra_mask), q, topk, index.device)
+            extra_mask=extra_mask), q.shape[0], topk, index.device)
 
 
 # ---------------------------------------------------------------------------
@@ -346,14 +372,16 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
     tag_mask / ts_range: keep slots with (tag & tag_mask) != 0 and
       lo <= ts < hi, in the scan and in routing; ``stacked.live`` joins
       the same predicate.
-    budgets, tenant_live/tenant_ix, probe_margin, hub_mask and probe_plan
-      are refused until the ROADMAP items that bring them land.
+    probe_plan: a precomputed (gids [Q, P] i32, n_active [Q] i32 | None)
+      that replaces routing (``static_route``); probes p >= n_active[q]
+      are killed.  Needs global routing.
+    budgets, tenant_live/tenant_ix, probe_margin and hub_mask are refused
+      until the ROADMAP items that bring them land.
     """
     _refuse_budgets(budgets, topk)
     for name, value, item in (
             ("tenant_live", tenant_live, 6), ("tenant_ix", tenant_ix, 6),
-            ("probe_margin", probe_margin, 5), ("hub_mask", hub_mask, 5),
-            ("probe_plan", probe_plan, 5)):
+            ("probe_margin", probe_margin, 5), ("hub_mask", hub_mask, 5)):
         if value is not None:
             raise ValueError(f"{name}= is not ported yet (ROADMAP Queue A "
                              f"item {item})")
@@ -363,14 +391,21 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
                          f"got {route_mode!r}")
     if route_mode == "per_segment" and seg_shape is None:
         raise ValueError("route_mode='per_segment' needs seg_shape=(S, G)")
+    if probe_plan is not None and route_mode != "global":
+        raise ValueError("probe_plan needs global routing (one fused grain "
+                         "axis)")
     index = stacked.index
     extra, grain_ok = _mixed_recall_mask(index.grains, tag_mask, ts_range,
                                          live=stacked.live)
     tr = ((lambda r, d: _translate_rows(stacked, r, d)) if translate
           else (lambda r, d: r))
 
-    def run(qb):
-        if route_mode == "per_segment":
+    def run(sl):
+        qb, n_active = q[sl], None
+        if probe_plan is not None:
+            gids, n_active = probe_plan[0][sl], probe_plan[1]
+            n_active = None if n_active is None else n_active[sl]
+        elif route_mode == "per_segment":
             gids, _ = routing.route_per_segment(index.routing, qb, nprobe,
                                                 seg_shape)
         else:
@@ -378,8 +413,39 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
                                     grain_mask=grain_ok)
         dists, rows = candidate_stage(
             index, qb, gids, envelope_frac=envelope_frac, qeff=qeff,
-            width=max(pool, topk), scan_impl=scan_impl, extra_mask=extra)
+            width=max(pool, topk), scan_impl=scan_impl, extra_mask=extra,
+            n_active=n_active)
         return _candidate_epilogue(dists, rows, qb, index.raw, pool=pool,
                                    topk=topk, mode=mode, translate=tr)
 
-    return _in_batches(run, q, topk, index.device)
+    return _in_batches(run, q.shape[0], topk, index.device)
+
+
+def static_route(plane: RoutingPlane, q: torch.Tensor, *, nprobe: int,
+                 grain_mask: Optional[torch.Tensor] = None):
+    """The routing stage of ``search_stacked`` (global routing) alone:
+    ``routing.route`` over the same ``QUERY_BATCH``-query batches, so the
+    probe sets are bit-identical to the ones the one-call plane scans.
+    Returns (gids [Q, P] i32, d2 [Q, P] f32)."""
+    out = [routing.route(plane, q[lo:lo + QUERY_BATCH], nprobe,
+                         grain_mask=grain_mask)
+           for lo in range(0, q.shape[0], QUERY_BATCH)]
+    if not out:
+        return (torch.empty((0, nprobe), dtype=torch.int32, device=q.device),
+                torch.empty((0, nprobe), device=q.device))
+    return tuple(torch.cat(t) for t in zip(*out))
+
+
+def project_probes(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
+                   envelope_frac: float, qeff: int):
+    """The projection stage of ``search_stacked`` alone, over the same
+    ``QUERY_BATCH``-query batches of a [Q, P] probe plan: (zq [Q, P, k]
+    i32, rq [Q, P] f32, keep [Q, P] bool, sq [Q, P, s] i32 | None), bit
+    for bit what the one-call plane computes for each (query, probe).
+    Only the index's frames (mu, basis, scales, qmaxg) are read."""
+    parts = [_project_quantized(index, q[lo:lo + QUERY_BATCH],
+                                gids[lo:lo + QUERY_BATCH], envelope_frac,
+                                qeff)
+             for lo in range(0, q.shape[0], QUERY_BATCH)]
+    return tuple(None if t[0] is None else torch.cat(t)
+                 for t in zip(*parts))

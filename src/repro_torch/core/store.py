@@ -30,25 +30,44 @@ Grains are self-contained, so the index maps onto immutable segments:
   and ``grain_health`` reports the signals it acts on.  Both run on the
   store's device and replace the segment tuple once per call
   (copy-on-write: snapshots and branches keep their segments).
+- **cold raw tier** (``cold_tier=True``): a sealed segment's raw vectors
+  go to a memmap file in ``cold_dir`` (fsynced before the segment is
+  visible) instead of the device; a Mode B re-rank gathers its pool's
+  rows from the memmaps into a pinned host buffer, copies them over and
+  re-ranks on the device with the warm tier's arithmetic, so a cold store
+  returns a warm store's results bit for bit.  A cold file is refcounted
+  by the segments that address it (a maintenance child shares its
+  parent's) and unlinked when the last one dies.
+- **tiered residency** (``device_budget=``): the stacked plane's grain
+  panels go to one panel file and only a hot set of grains under the byte
+  budget stays on the device (``core.residency``); probed cold grains are
+  staged in chunks of ``prefetch_grains``, and the hot set is re-elected
+  from the probe traffic every ``residency_interval`` searches.  Searches
+  return the all-warm plane's ids and dists bit for bit.
 
-The JAX package's ``repro.core.store`` is the reference.  The cold raw
-tier, the cascade budgets, adaptive routing, tiered residency and the
-sharded plane are not ported yet; the arguments that would ask for them
-raise, naming the ROADMAP item that brings each.
+The JAX package's ``repro.core.store`` is the reference.  The cascade
+budgets, adaptive routing and the sharded plane are not ported yet; the
+arguments that would ask for them raise, naming the ROADMAP item that
+brings each.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import os
+import tempfile
+import threading
 import time
 import uuid
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import index as index_mod
-from . import maintenance, planner, routing
+from . import maintenance, planner, residency, routing, scanplane
 from .types import (BIG, GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
                     SearchResult, StackedSegments)
 
@@ -57,8 +76,9 @@ from .types import (BIG, GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
 #: d=768 would be 15 GB at once).
 MEMTABLE_CHUNK_BYTES = 1 << 30
 
-#: Stacked planes kept by a store's LRU plane cache.  Each one pins a device
-#: copy of the stacked raw tier (~3 GB at N=1M, d=768), so the cap is small.
+#: Planes kept by a store's LRU plane cache.  A warm store's stacked plane
+#: pins a device copy of the stacked raw tier (~3 GB at N=1M, d=768), so
+#: the cap is small.
 STACK_CACHE_ENTRIES = 2
 
 
@@ -70,6 +90,8 @@ class Segment:
     segment's gids are not one contiguous run (a memtable that held
     upserts).  Host arrays: tags [n] u32, ts [n] f32, id_map/seq [n] i64,
     expire [n] f64 absolute TTL deadlines (None = no TTL in the segment).
+    A cold segment has ``index.raw`` None and its [n, d] f32 raw vectors
+    in the memmap file ``cold_path``.
     """
 
     seg_id: int
@@ -81,6 +103,16 @@ class Segment:
     id_map: Optional[np.ndarray] = None
     seq: Optional[np.ndarray] = None
     expire: Optional[np.ndarray] = None
+    cold_path: Optional[str] = None
+    d: int = 0
+
+    def raw_vectors(self) -> np.ndarray:
+        """The raw tier [n, d] f32 on the host: a read-only memmap of a
+        cold segment's file, a copy of a warm segment's device tier."""
+        if self.index.raw is not None:
+            return self.index.raw.cpu().numpy()
+        return np.memmap(self.cold_path, dtype=np.float32, mode="r",
+                         shape=(self.n, self.d))
 
     def global_ids(self) -> np.ndarray:
         """Global id of every local row, in build order.  [n] i64."""
@@ -125,6 +157,174 @@ class Manifest:
     writer: str = ""                 # identity of the capturing store
     epoch: int = 0                   # mutation epoch at capture time
     maint_epoch: int = 0             # maintenance epoch at capture time
+
+
+def _unlink_quiet(path: str) -> None:
+    with contextlib.suppress(OSError):
+        os.unlink(path)
+
+
+# Cold files are refcounted per Segment object that addresses them: a
+# maintenance epoch derives a Segment that shares its parent's cold file,
+# so the file must outlive whichever of the two dies last.  Finalizers run
+# on whatever thread triggers a collection, so every change goes through
+# _COLD_LOCK, an RLock: a finalizer can fire inside a locked region on the
+# same thread.  The port keeps its own lock and counter: a file of the JAX
+# package is never adopted here (interop copies the rows instead).
+_COLD_LOCK = threading.RLock()
+_COLD_REFS: collections.Counter = collections.Counter()
+
+
+def _release_cold(path: str) -> None:
+    with _COLD_LOCK:
+        _COLD_REFS[path] -= 1
+        reclaim = _COLD_REFS[path] <= 0
+        if reclaim:
+            del _COLD_REFS[path]
+    if reclaim:
+        _unlink_quiet(path)
+
+
+def _reclaim_cold_on_gc(seg, path: str) -> None:
+    """Unlink a cold file when the last Segment addressing it dies.
+
+    Snapshots, branches and the plane cache hold the same Segment object,
+    so tying the file's life to the objects' is the copy-on-write
+    contract: a compacted-away segment's file lives as long as a manifest
+    can search it.  The count and the finalizer are taken in one locked
+    step; if the finalizer cannot be registered the count is rolled back.
+    (POSIX: a memmap still open keeps reading after the unlink.)
+    """
+    with _COLD_LOCK:
+        _COLD_REFS[path] += 1
+        try:
+            weakref.finalize(seg, _release_cold, path)
+        except BaseException:
+            _COLD_REFS[path] -= 1
+            raise
+
+
+@contextlib.contextmanager
+def _cold_construction(path: Optional[str]):
+    """The window between writing a cold file and handing it to a
+    Segment's finalizer.  The body calls ``adopt(seg)`` once the Segment
+    exists; an exception before that unlinks the file, unless a live
+    Segment already pins it (a maintenance child failing must not take
+    its parent's file).  ``path=None`` (warm tier) passes through."""
+    if path is None:
+        yield lambda seg: None
+        return
+    adopted = []
+
+    def adopt(seg) -> None:
+        _reclaim_cold_on_gc(seg, path)
+        adopted.append(True)
+
+    try:
+        yield adopt
+    except BaseException:
+        if not adopted:
+            with _COLD_LOCK:
+                orphan = _COLD_REFS[path] <= 0
+                if orphan:
+                    _COLD_REFS.pop(path, None)
+            if orphan:
+                _unlink_quiet(path)
+        raise
+
+
+def _write_cold_file(path: str, x: np.ndarray) -> str:
+    """Write raw rows [n, d] f32 to a memmap file and fsync it: a manifest
+    may reference the file the moment this returns, so its bytes must be
+    on stable storage first, not only in the page cache."""
+    mm = np.memmap(path, dtype=np.float32, mode="w+", shape=x.shape)
+    mm[:] = x
+    mm.flush()
+    del mm
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    return path
+
+
+class _RawRows:
+    """The raw tier of a segment tuple read by flat row, as the ``raw`` of
+    ``planner._candidate_epilogue``: warm segments gathered on their
+    device, cold ones from their memmaps into a pinned host buffer (one
+    block per segment) and copied over in one go.  ``stats`` (the
+    store's) counts the cold reads: calls, rows, bytes, host seconds, and
+    the copies' CUDA event pairs."""
+
+    def __init__(self, segments: Sequence[Segment], device: torch.device,
+                 stats: dict):
+        self.device = device
+        self.offsets = np.cumsum([0] + [s.n for s in segments])
+        self.offsets_dev = torch.from_numpy(self.offsets).to(device)
+        self.warm = [(si, s.index.raw) for si, s in enumerate(segments)
+                     if s.index.raw is not None]
+        self.cold = [(si, s.raw_vectors()) for si, s in enumerate(segments)
+                     if s.index.raw is None]
+        self.d = int(segments[0].index.grains.mu.shape[1])
+        self.stats = stats
+
+    def __call__(self, rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+        shape, dev = tuple(rows.shape), self.device
+        flat, okf = rows.reshape(-1), ok.reshape(-1)
+        out = torch.zeros((flat.numel(), self.d), device=dev)
+        seg = torch.searchsorted(self.offsets_dev, flat, right=True) - 1
+        for si, x in self.warm:
+            sel = torch.nonzero(torch.logical_and(seg == si, okf)).flatten()
+            out[sel] = x[flat[sel] - int(self.offsets[si])]
+        if self.cold:
+            t0 = time.perf_counter()
+            flat_h, ok_h, seg_h = (t.cpu().numpy() for t in (flat, okf, seg))
+            cold_si = np.array([si for si, _ in self.cold])
+            sel = np.flatnonzero(ok_h & np.isin(seg_h, cold_si))
+            sel = sel[np.argsort(seg_h[sel], kind="stable")]
+            buf = torch.empty((len(sel), self.d), dtype=torch.float32,
+                              pin_memory=dev.type == "cuda")
+            host = buf.numpy()
+            bounds = np.searchsorted(seg_h[sel], cold_si)
+            ends = np.searchsorted(seg_h[sel], cold_si, side="right")
+            for (si, mm), lo, hi in zip(self.cold, bounds, ends):
+                np.take(mm, flat_h[sel[lo:hi]] - self.offsets[si], axis=0,
+                        out=host[lo:hi], mode="clip")
+            self.stats["host_s"] += time.perf_counter() - t0
+            if dev.type == "cuda":
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                got = buf.to(dev, non_blocking=True)
+                ev[1].record()
+                self.stats["h2d"].append(ev)
+            else:
+                got = buf
+            out.index_copy_(0, torch.from_numpy(sel).to(dev), got)
+            self.stats["calls"] += 1
+            self.stats["rows"] += len(sel)
+            self.stats["bytes"] += buf.numel() * 4
+        return out.reshape(shape + (self.d,))
+
+
+def _new_rerank_stats() -> dict:
+    return {"calls": 0, "rows": 0, "bytes": 0, "host_s": 0.0, "h2d": []}
+
+
+def _rerank_pool(dists, rows, q, raw, *, pool: int, topk: int,
+                 translate) -> SearchResult:
+    """The Mode B tail on a candidate pool made elsewhere (a cold store's
+    Mode A pool, the tiered plane's merged pool): the all-warm plane's
+    ``planner._candidate_epilogue`` over the same ``QUERY_BATCH``
+    batches, so a re-rank here equals the all-warm plane's bit for bit.
+    ``raw``: the raw tier or a ``_RawRows``.  With a cold ``_RawRows``
+    this is the cold Mode B re-rank (the JAX package's ``_cold_rerank``,
+    which re-ranks on the host in numpy)."""
+    return planner._in_batches(
+        lambda sl: planner._candidate_epilogue(
+            dists[sl], rows[sl], q[sl], raw, pool=pool, topk=topk, mode="B",
+            translate=translate), q.shape[0], topk, q.device)
 
 
 def _finalize(ids: torch.Tensor, d: torch.Tensor, topk: int) -> SearchResult:
@@ -183,9 +383,15 @@ def _fuse(leaves: list, fill, gmax: int) -> torch.Tensor:
     return out
 
 
-def stack_segments(segments: Sequence[Segment]) -> StackedSegments:
-    """Fuse sealed segments into one ``StackedSegments`` plane, on their
-    device.
+def _on(grains: GrainStore, dev: torch.device) -> GrainStore:
+    return GrainStore(**{f.name: None if getattr(grains, f.name) is None
+                         else getattr(grains, f.name).to(dev)
+                         for f in dataclasses.fields(GrainStore)})
+
+
+def stack_segments(segments: Sequence[Segment], *, device=None,
+                   keep_raw: bool = True) -> StackedSegments:
+    """Fuse sealed segments into one ``StackedSegments`` plane.
 
     Every GrainStore leaf is padded to the common (G_max, cap_max) shape
     and stacked on a leading segment axis fused with the grain axis.
@@ -195,13 +401,19 @@ def stack_segments(segments: Sequence[Segment]) -> StackedSegments:
     fixed-width segment in a stack with mixed precision).  Grain ids
     become flat rows of the concatenated raw tier; ``gid_of_row``
     translates them back to global ids.
+
+    device: where the plane is built (default: the segments' device);
+    ``"cpu"`` is the host stack the tiered plane writes its panel file
+    from.  keep_raw=False leaves the raw tier out (``index.raw`` None),
+    as it is when any segment is cold.
     """
     segs = list(segments)
     if not segs:
         raise ValueError("cannot stack an empty segment list")
-    grains = [s.index.grains for s in segs]
+    dev = torch.device(device) if device is not None \
+        else segs[0].index.device
+    grains = [_on(s.index.grains, dev) for s in segs]
     g0 = grains[0]
-    dev = g0.coords.device
     gmax = max(g.n_grains for g in grains)
     has_sketch = g0.sketch is not None
     if any((g.sketch is not None) != has_sketch for g in grains):
@@ -241,17 +453,27 @@ def stack_segments(segments: Sequence[Segment]) -> StackedSegments:
         qmaxg=_fuse([or_full(g, "qmaxg", torch.int32, qeff_fb)
                      for g in grains], 1, gmax) if any_qmax else None)
     g_st = GrainStore(**fused)
-    sizes = _fuse([s.index.routing.sizes for s in segs], 0, gmax)
-    warm = all(s.index.raw is not None for s in segs)
+    sizes = _fuse([s.index.routing.sizes.to(dev) for s in segs], 0, gmax)
+    warm = keep_raw and all(s.index.raw is not None for s in segs)
     index = HNTLIndex(
         routing=RoutingPlane(centroids=g_st.mu, sizes=sizes),
         grains=g_st,
-        raw=torch.cat([s.index.raw for s in segs]) if warm else None)
+        raw=torch.cat([s.index.raw.to(dev) for s in segs]) if warm else None)
     gid_of_row = np.concatenate([s.global_ids() for s in segs])
     return StackedSegments(
         index=index,
         gid_of_row=torch.from_numpy(gid_of_row.astype(np.int32)).to(dev),
         row_offset=torch.from_numpy(offsets.astype(np.int32)).to(dev))
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without stalling the host: through pinned
+    memory and a copy queued on the current stream (PyTorch's pinned
+    allocator keeps the buffer until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def _unported(name: str, item: int, what: str) -> ValueError:
@@ -264,19 +486,37 @@ class VectorStore:
 
     ``device=None`` puts the segments and every search on the card (and
     raises without one); ``device="cpu"`` runs the plain PyTorch path.
+
+    cold_tier: keep sealed segments' raw vectors in memmap files in
+      ``cold_dir`` (default: a new temporary directory) instead of on the
+      device.
+    device_budget: device bytes for resident grain panels (None: the
+      all-warm stacked plane); ``residency_interval`` searches between hot
+      set elections; ``prefetch_grains`` grains per staged cold chunk
+      (rounded up to a power of two).
     """
 
     def __init__(self, cfg: HNTLConfig, *, seal_threshold: int = 8192,
                  clock=time.time, device=None,
                  cold_tier: bool = False, cold_dir: Optional[str] = None,
-                 device_budget: Optional[int] = None):
-        if cold_tier or cold_dir is not None:
-            raise _unported("cold_tier=/cold_dir=", 3, "the cold raw tier")
-        if device_budget is not None:
-            raise _unported("device_budget=", 8, "tiered residency")
+                 device_budget: Optional[int] = None,
+                 residency_interval: int = 64, prefetch_grains: int = 64):
+        if device_budget is not None and device_budget < 0:
+            raise ValueError("device_budget must be >= 0 bytes")
+        if residency_interval < 1:
+            raise ValueError("residency_interval must be >= 1")
+        if prefetch_grains < 1:
+            raise ValueError("prefetch_grains must be >= 1")
         self.cfg = cfg
         self.seal_threshold = seal_threshold
         self.device = index_mod.resolve_device(device)
+        self.cold_tier = cold_tier
+        self._cold_dir = cold_dir
+        if cold_tier or device_budget is not None:
+            self._cold_dir = self.cold_dir          # made now, not mid-seal
+        self.device_budget = device_budget
+        self.residency_interval = int(residency_interval)
+        self.prefetch_grains = residency.pow2ceil(prefetch_grains)
         self._segments: list[Segment] = []
         self._mem: list[np.ndarray] = []
         self._mem_tags: list[int] = []
@@ -295,12 +535,24 @@ class VectorStore:
         self._epoch = 0
         self._mut_cache = (-1, None, None)      # (epoch, mut_gid, mut_seq)
         self._maint_epoch = 0                   # maintenance epochs applied
-        self._writer = uuid.uuid4().hex[:8]
-        # LRU of stacked planes keyed by the segments' identities; every
-        # scan plane reads the same stacked leaves.  Entries keep their
-        # segment tuple alive so the id()-keys cannot be reused.
+        # the writer's identity: the manifests' ``writer`` and the suffix of
+        # its cold and panel files (branches share cold_dir and seg ids)
+        self._cold_tag = uuid.uuid4().hex[:8]
+        # LRU of planes keyed by kind ("stacked" or "tiered") and the
+        # segments' identities; every scan plane reads the same leaves.
+        # Entries keep their segment tuple alive so the id()-keys cannot be
+        # reused.
         self._stack_cache: collections.OrderedDict = \
             collections.OrderedDict()
+        self._rerank_stats = _new_rerank_stats()
+
+    @property
+    def cold_dir(self) -> str:
+        """Directory of the cold raw files and panel files (made on first
+        use when not given)."""
+        if self._cold_dir is None:
+            self._cold_dir = tempfile.mkdtemp(prefix="aperon_cold_")
+        return self._cold_dir
 
     # ------------------------------------------------------------ write path
     def _expiry_of(self, ttl, n: int) -> list:
@@ -385,9 +637,16 @@ class VectorStore:
         return max(1, min(self.cfg.n_grains * scale,
                           n // max(self.cfg.block, 32)))
 
+    def _write_cold(self, x: np.ndarray, seg_id: int) -> str:
+        # the writer's tag keeps writers apart: branches share cold_dir and
+        # the segment counter, so seg_id alone would let them collide
+        return _write_cold_file(os.path.join(
+            self.cold_dir, f"seg{seg_id:06d}_{self._cold_tag}.raw"), x)
+
     def seal(self) -> Optional[Segment]:
         """Freeze the memtable into an immutable HNTL segment, built on the
-        store's device."""
+        store's device (its raw tier written to a cold file first when the
+        store is cold)."""
         if not self._mem:
             return None
         x = np.stack(self._mem)
@@ -398,17 +657,23 @@ class VectorStore:
         expire = np.asarray(self._mem_expire, np.float64)
         n = x.shape[0]
         cfg = dataclasses.replace(self.cfg, n_grains=self._grain_count(n))
-        idx, _ = index_mod.build(x, cfg, tags=tags, ts=ts, keep_raw=True,
+        idx, _ = index_mod.build(x, cfg, tags=tags, ts=ts,
+                                 keep_raw=not self.cold_tier,
                                  device=self.device)
+        cold_path = (self._write_cold(x, self._next_seg)
+                     if self.cold_tier else None)
         # a pure-add memtable holds one contiguous gid run; upserts
         # interleave re-used gids, which need the id_map
         contiguous = bool(np.array_equal(gids,
                                          np.arange(gids[0], gids[0] + n)))
-        seg = Segment(
-            seg_id=self._next_seg, index=idx, n=n,
-            id_base=int(gids[0]) if contiguous else 0, tags=tags, ts=ts,
-            id_map=None if contiguous else gids, seq=seqs,
-            expire=expire if np.isfinite(expire).any() else None)
+        with _cold_construction(cold_path) as adopt:
+            seg = Segment(
+                seg_id=self._next_seg, index=idx, n=n,
+                id_base=int(gids[0]) if contiguous else 0, tags=tags, ts=ts,
+                id_map=None if contiguous else gids, seq=seqs,
+                expire=expire if np.isfinite(expire).any() else None,
+                cold_path=cold_path, d=x.shape[1])
+            adopt(seg)
         self._segments.append(seg)
         self._next_seg += 1
         self._mem, self._mem_tags, self._mem_ts = [], [], []
@@ -483,8 +748,12 @@ class VectorStore:
                 policy, qeff)
             reports.append(rep)
             changed |= new_seg is not seg
-            if new_seg is not None:        # None: every row dead, dropped
-                new_segs.append(new_seg)
+            if new_seg is None:            # every row dead: dropped
+                continue
+            if new_seg is not seg and new_seg.cold_path is not None:
+                # the repaired child shares its parent's cold file
+                _reclaim_cold_on_gc(new_seg, new_seg.cold_path)
+            new_segs.append(new_seg)
         if changed:
             self._segments = new_segs
             self._maint_epoch += 1
@@ -564,8 +833,10 @@ class VectorStore:
                         now: float) -> Optional[Segment]:
         """Rebuild ``group`` as one segment with remapped global ids,
         dropping tombstoned, shadowed and expired rows.  The keep mask is
-        made on the host; the raw rows are selected and concatenated on
-        the device.  Returns None when nothing in the group survives."""
+        made on the host; the live raw rows are selected on the device
+        (warm segments) or read from the memmaps (cold ones).  A cold
+        store builds without the raw tier and writes the merged rows to a
+        new cold file.  Returns None when nothing in the group survives."""
         gids = np.concatenate([s.global_ids() for s in group])
         seqs = np.concatenate([s.global_seqs() for s in group])
         expire = _concat_expiry(group)
@@ -580,27 +851,40 @@ class VectorStore:
         keep = np.ones(len(gids), bool) if keep is None else keep.copy()
         if expire is not None:
             keep &= expire > now
-        if keep.all():
-            x = torch.cat([s.index.raw for s in group])
-        else:
-            bounds = np.cumsum([0] + [s.n for s in group])
-            x = torch.cat([
-                s.index.raw[torch.from_numpy(np.flatnonzero(
-                    keep[lo:hi])).to(s.index.device)]
-                for s, lo, hi in zip(group, bounds[:-1], bounds[1:])])
+        bounds = np.cumsum([0] + [s.n for s in group])
+        parts = []
+        for s, lo, hi in zip(group, bounds[:-1], bounds[1:]):
+            sel = None if keep.all() else np.flatnonzero(keep[lo:hi])
+            if s.index.raw is not None:
+                part = s.index.raw if sel is None else s.index.raw[
+                    torch.from_numpy(sel).to(s.index.device)]
+                parts.append(part.cpu().numpy() if self.cold_tier else part)
+                continue
+            mm = s.raw_vectors()
+            part = np.array(mm) if sel is None else np.take(mm, sel, axis=0)
+            parts.append(part if self.cold_tier
+                         else torch.from_numpy(part).to(self.device))
+        x = np.concatenate(parts) if self.cold_tier else torch.cat(parts)
+        if not keep.all():
             gids, seqs, tags, ts = (a[keep] for a in (gids, seqs, tags, ts))
             expire = expire[keep] if expire is not None else None
-        n = x.shape[0]
+        n, d = x.shape
         if n == 0:
             return None
         cfg = dataclasses.replace(self.cfg, n_grains=self._grain_count(n))
-        idx, _ = index_mod.build(x, cfg, tags=tags, ts=ts, keep_raw=True,
+        idx, _ = index_mod.build(x, cfg, tags=tags, ts=ts,
+                                 keep_raw=not self.cold_tier,
                                  device=self.device)
-        seg = Segment(seg_id=self._next_seg, index=idx, n=n, id_base=0,
-                      tags=tags, ts=ts, id_map=gids.astype(np.int64),
-                      seq=seqs,
-                      expire=expire if expire is not None
-                      and np.isfinite(expire).any() else None)
+        cold_path = (self._write_cold(x, self._next_seg)
+                     if self.cold_tier else None)
+        with _cold_construction(cold_path) as adopt:
+            seg = Segment(seg_id=self._next_seg, index=idx, n=n, id_base=0,
+                          tags=tags, ts=ts, id_map=gids.astype(np.int64),
+                          seq=seqs,
+                          expire=expire if expire is not None
+                          and np.isfinite(expire).any() else None,
+                          cold_path=cold_path, d=d)
+            adopt(seg)
         self._next_seg += 1
         return seg
 
@@ -647,7 +931,7 @@ class VectorStore:
                         mem_seq=tuple(self._mem_seq),
                         mem_expire=tuple(self._mem_expire),
                         mut_gid=mg, mut_seq=ms,
-                        writer=self._writer, epoch=self._epoch,
+                        writer=self._cold_tag, epoch=self._epoch,
                         maint_epoch=self._maint_epoch)
 
     def branch(self, *,
@@ -655,11 +939,18 @@ class VectorStore:
         """Zero-copy fork: a new store sharing every sealed segment.
 
         The memtable and the mutation table are copied, so neither side's
-        later writes, deletes or upserts reach the other."""
+        later writes, deletes or upserts reach the other.  The child keeps
+        the cold tier, cold_dir and residency knobs, under a writer tag of
+        its own."""
         child = VectorStore(self.cfg,
                             seal_threshold=self.seal_threshold
                             if seal_threshold is None else seal_threshold,
-                            clock=self._clock, device=self.device)
+                            clock=self._clock, device=self.device,
+                            cold_tier=self.cold_tier,
+                            cold_dir=self._cold_dir,
+                            device_budget=self.device_budget,
+                            residency_interval=self.residency_interval,
+                            prefetch_grains=self.prefetch_grains)
         child._segments = list(self._segments)
         child._mem = list(self._mem)
         child._mem_tags = list(self._mem_tags)
@@ -731,7 +1022,7 @@ class VectorStore:
         The entry also holds the host row tables (flat-row gid, seq and
         TTL, and a host copy of the grain id panels) that the per-epoch
         liveness bitmap is computed from."""
-        key = tuple(id(s) for s in segments)
+        key = ("stacked", tuple(id(s) for s in segments))
         hit = self._cache_get(key)
         if hit is not None:
             return hit
@@ -743,8 +1034,159 @@ class VectorStore:
             "row_seq": np.concatenate([s.global_seqs() for s in segments]),
             "row_exp": _concat_expiry(segments),
             "live": (None, None),      # (epoch key, plane with live)
+            "raw_rows": None,          # _RawRows of a cold segment set
         }
         return self._cache_put(key, segments, entry)
+
+    def _raw_rows(self, entry: dict, segments: tuple) -> "_RawRows":
+        if entry["raw_rows"] is None:
+            entry["raw_rows"] = _RawRows(segments, self.device,
+                                         self._rerank_stats)
+        return entry["raw_rows"]
+
+    # ------------------------------------------------------ tiered residency
+    def _tiered_for(self, segments: tuple) -> dict:
+        """The tiered plane of a segment set: the grain panels written to
+        one panel file in ``cold_dir`` (``core.residency``), the frames and
+        routing plane on the device (the stub), the host row tables, and
+        the admission state (per-grain route_wins/touches counters and the
+        hot set they elect).  It shares the plane LRU with the stacked
+        planes; the panel file is unlinked when the plane dies."""
+        key = ("tiered", tuple(id(s) for s in segments))
+        hit = self._cache_get(key)
+        if hit is not None:
+            return hit
+        host = stack_segments(segments, device="cpu", keep_raw=False)
+        path = os.path.join(
+            self.cold_dir,
+            f"panels_{self._cold_tag}_{uuid.uuid4().hex[:8]}.soa")
+        tiered = residency.TieredPlane.from_stacked(host, path, self.device)
+        gids = host.gid_of_row.numpy().astype(np.int64)
+        ids = np.asarray(tiered.panels["ids"])
+        row_grain = np.full(len(gids), -1, np.int32)
+        row_grain[ids[ids >= 0]] = np.nonzero(ids >= 0)[0]
+        entry = {
+            "plane": tiered.routing_stub(),
+            "tiered": tiered,
+            "ids_host": tiered.panels["ids"],
+            "row_gid": gids,
+            "row_seq": np.concatenate([s.global_seqs() for s in segments]),
+            "row_exp": _concat_expiry(segments),
+            "gid_of_row": torch.from_numpy(gids.astype(np.int32)).to(
+                self.device),
+            "row_grain": torch.from_numpy(row_grain).to(self.device),
+            "live_host": (None, None),   # (epoch key, [G, cap] bitmap|None)
+            "keep": (None, None),        # (filter key, (keep, ok, ok_dev))
+            "raw_rows": None,
+            "searches": 0,
+            # admission counters: every tiered search feeds them
+            "r_wins": np.zeros(tiered.n_grains, np.int64),
+            "r_touches": np.zeros(tiered.n_grains, np.int64),
+        }
+        self._seed_hot(tiered)
+        return self._cache_put(key, segments, entry)
+
+    def _seed_hot(self, tiered) -> None:
+        """Admission before any traffic: the biggest grains first (ties to
+        the lower grain)."""
+        h = tiered.budget_slots(self.device_budget)
+        order = np.lexsort((np.arange(tiered.n_grains),
+                            -tiered.sizes.astype(np.int64)))
+        tiered.set_hot(order[:h])
+
+    def _update_residency_entry(self, entry: dict) -> bool:
+        """Re-elect the hot set: the top grains by route_wins + touches
+        under the byte budget (by size while there is no traffic).  A grain
+        that drops out is simply not copied into the next hot plane.
+        True when the hot set changed."""
+        tiered = entry["tiered"]
+        h = tiered.budget_slots(self.device_budget)
+        score = entry["r_wins"] + entry["r_touches"]
+        if score.max(initial=0) <= 0:
+            score = tiered.sizes.astype(np.int64)
+        order = np.lexsort((np.arange(tiered.n_grains), -score))
+        return tiered.set_hot(order[:h])
+
+    def _tiered_entries(self):
+        return [(segs, entry) for key, (segs, entry)
+                in self._stack_cache.items() if key[0] == "tiered"]
+
+    def update_residency(self) -> bool:
+        """Re-elect the hot set of every cached tiered plane now (the pass
+        that runs every ``residency_interval`` searches).  True when any
+        hot set changed; a no-op until a tiered search built a plane."""
+        changed = False
+        for _, entry in self._tiered_entries():
+            changed |= self._update_residency_entry(entry)
+        return changed
+
+    def residency_stats(self) -> dict:
+        """Residency counters (zeros until a tiered search built a plane).
+        The geometry (grains, hot set, budget unit) is the live segment
+        set's plane's, else the busiest cached one's; the traffic counters
+        (staged bytes, chunk dispatches, paged queries, searches) add up
+        over every cached tiered plane."""
+        out = {"n_grains": 0, "hot_grains": 0, "hot_bytes": 0,
+               "panel_bytes_per_grain": 0, "staged_bytes": 0,
+               "chunk_dispatches": 0, "paged_queries": 0,
+               "hot_epochs": 0, "searches": 0}
+        geom, geom_live, busiest = None, False, -1
+        for segs, entry in self._tiered_entries():
+            t = entry["tiered"]
+            out["staged_bytes"] += t.staged_bytes
+            out["chunk_dispatches"] += t.chunk_dispatches
+            out["paged_queries"] += t.paged_queries
+            out["searches"] += entry["searches"]
+            is_live = segs == tuple(self._segments)
+            if is_live and not geom_live or geom is None \
+                    or (not geom_live and entry["searches"] > busiest):
+                geom, geom_live = t, geom_live or is_live
+                busiest = entry["searches"]
+        if geom is not None:
+            per = geom.panel_bytes_per_grain()
+            out.update(n_grains=geom.n_grains, hot_grains=geom.n_hot,
+                       hot_bytes=geom.n_hot * per,
+                       panel_bytes_per_grain=per,
+                       hot_epochs=geom.hot_epochs)
+        return out
+
+    def _tiered_live(self, entry: dict, man: Manifest, now: float):
+        """Host [G, cap] liveness bitmap of a tiered plane (None: all live),
+        cached per (writer, epoch[, now]) like the stacked plane's ``live``
+        leaf, from the same row tables and id panels: the same bits."""
+        has_ttl = entry["row_exp"] is not None
+        key = (man.writer, man.epoch, now if has_ttl else None)
+        ck, cached = entry["live_host"]
+        if ck == key:
+            return key, cached
+        live_row = _live_rows(man.mut_gid, man.mut_seq,
+                              entry["row_gid"], entry["row_seq"])
+        if has_ttl:
+            alive_t = entry["row_exp"] > now
+            if not alive_t.all():
+                live_row = alive_t if live_row is None \
+                    else live_row & alive_t
+        bitmap = None
+        if live_row is not None:
+            ids = np.asarray(entry["ids_host"]).astype(np.int64)
+            bitmap = (ids >= 0) & live_row[np.maximum(ids, 0)]
+        entry["live_host"] = (key, bitmap)
+        return key, bitmap
+
+    def _tiered_keep(self, entry: dict, live_key, bitmap, tag_mask,
+                     ts_range):
+        """The host replica of the in-scan predicate over the panel file:
+        (keep [G, cap] | None, grain_ok [G] | None, grain_ok on the
+        device), cached per (liveness epoch, filters)."""
+        key = (live_key, tag_mask, ts_range)
+        ck, val = entry["keep"]
+        if ck != key:
+            keep, ok = residency.host_keep_mask(entry["tiered"].panels,
+                                                bitmap, tag_mask, ts_range)
+            val = (keep, ok, None if ok is None
+                   else torch.from_numpy(ok).to(self.device))
+            entry["keep"] = (key, val)
+        return val
 
     def _live_plane(self, entry: dict, man: Manifest, now: float):
         """The entry's plane with the manifest epoch's liveness attached.
@@ -800,12 +1242,28 @@ class VectorStore:
         route_mode: "global" (top-P over every segment's grains) or
           "per_segment" (top-P within each segment, still one call).
         now: TTL clock (default: the store's clock).
+        With ``device_budget`` set the sealed segments are searched on the
+        tiered plane (fused, global routing, one device only).
         budgets, mesh and adaptive=True are refused until ported.
         """
         planner._refuse_budgets(budgets, topk)
         routing.check_probe_args(adaptive, probe_margin, min_probes)
         if adaptive:
             raise _unported("adaptive=True", 5, "adaptive routing")
+        if self.device_budget is not None:
+            if not fused:
+                raise ValueError(
+                    "device_budget= (tiered residency) pages through the "
+                    "fused stacked plane; fused=False has no paged path")
+            if mesh is not None:
+                raise ValueError(
+                    "device_budget= (tiered residency) is single-device; "
+                    "the sharded plane (mesh=) keeps every shard resident: "
+                    "drop one of the two")
+            if route_mode != "global":
+                raise ValueError(
+                    "device_budget= (tiered residency) routes once "
+                    "globally; route_mode='per_segment' has no paged plan")
         if mesh is not None:
             raise _unported("mesh=", 10, "the sharded search plane")
         man = manifest or self.snapshot()
@@ -868,20 +1326,230 @@ class VectorStore:
     def _search_segments_fused(self, q, man, *, topk, mode, tag_mask,
                                ts_range, scan_impl, nprobe, pool,
                                route_mode, now):
-        """One ``planner.search_stacked`` call over the stacked plane.
-        Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device."""
+        """One ``planner.search_stacked`` call over the stacked plane (the
+        tiered plane under a ``device_budget``).  Returns (global ids
+        [Q, k] i32, dists [Q, k] f32) on the device.
+
+        A cold plane (no stacked raw tier) runs Mode A for the pool and
+        re-ranks it with the rows read from the cold files (``_RawRows``,
+        ``_rerank_pool``): the same pool, batches and epilogue as a warm
+        plane's Mode B, so the same bits."""
+        if self.device_budget is not None:
+            return self._search_segments_tiered(
+                q, man, topk=topk, mode=mode, tag_mask=tag_mask,
+                ts_range=ts_range, scan_impl=scan_impl, nprobe=nprobe,
+                pool=pool, now=now)
         segments = man.segments
         entry = self._stacked_for(segments)
         stacked = self._live_plane(entry, man, now)
         probe, pool_eff, topk_eff, seg_shape = self._fused_statics(
             segments, stacked, topk, nprobe, pool, route_mode)
+        cold = mode == "B" and stacked.index.raw is None
         res = planner.search_stacked(
-            stacked, q, nprobe=probe, pool=pool_eff, topk=topk_eff,
-            mode=mode, envelope_frac=self.cfg.envelope_frac,
+            stacked, q, nprobe=probe, pool=pool_eff,
+            topk=pool_eff if cold else topk_eff, mode="A" if cold else mode,
+            envelope_frac=self.cfg.envelope_frac,
             qeff=index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits),
             scan_impl=scan_impl, route_mode=route_mode, seg_shape=seg_shape,
-            tag_mask=tag_mask, ts_range=ts_range)
+            translate=not cold, tag_mask=tag_mask, ts_range=ts_range)
+        if cold:
+            res = _rerank_pool(
+                res.dists, res.ids, q, self._raw_rows(entry, segments),
+                pool=pool_eff, topk=topk_eff,
+                translate=lambda r, d: planner._translate_rows(stacked, r, d))
         return res.ids, res.dists
+
+    def _search_segments_tiered(self, q, man, *, topk, mode, tag_mask,
+                                ts_range, scan_impl, nprobe, pool, now):
+        """The fused search on the tiered plane under ``device_budget``.
+        Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device,
+        equal to the all-warm plane's bit for bit.
+
+        1. Routing and the projection run once, on the resident frames, in
+           the all-warm plane's batches (``planner.static_route``,
+           ``planner.project_probes``), with the routing pushdown from the
+           host replica of the filters and liveness.
+        2. The hot pass scans the resident hot mini-plane over the whole
+           plan (cold probes killed), queued before the host reads the
+           plan back; then the probed cold grains are staged in chunks of
+           ``prefetch_grains`` and each chunk's pass scans the compacted
+           plan of the queries that probe it (a power-of-two subset).
+        3. The passes' pools merge in the select's key order (distance,
+           plan position, slot) into the all-warm plane's pool, and the
+           Mode A cut or the Mode B re-rank (``_rerank_pool``) runs once.
+        """
+        segments = man.segments
+        entry = self._tiered_for(segments)
+        tiered = entry["tiered"]
+        cap, g_total = tiered.cap, tiered.n_grains
+        q_n, dev = q.shape[0], q.device
+        probe = min(nprobe if nprobe is not None else self.cfg.nprobe,
+                    g_total)
+        want_pool = pool if pool is not None else self.cfg.pool
+        pool_eff = min(max(want_pool, topk), probe * cap)
+        topk_eff = min(topk, pool_eff)
+        target = pool_eff if mode == "B" else topk_eff
+        qeff = index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits)
+        live_key, bitmap = self._tiered_live(entry, man, now)
+        keep, grain_ok, grain_ok_dev = self._tiered_keep(
+            entry, live_key, bitmap, tag_mask, ts_range)
+        mask_src = keep if keep is not None else tiered.panels["valid"]
+        mask_key = (live_key, tag_mask, ts_range)
+        pkw = dict(scan_impl=scan_impl, qeff=qeff)
+
+        # 1: the plan and the projection, once
+        stub = entry["plane"]
+        gids_d, _ = planner.static_route(stub.index.routing, q, nprobe=probe,
+                                         grain_mask=grain_ok_dev)
+        zq, rq, alive, sq = planner.project_probes(
+            stub.index, q, gids_d, self.cfg.envelope_frac, qeff)
+        gids_h = torch.empty(gids_d.shape, dtype=gids_d.dtype,
+                             pin_memory=dev.type == "cuda")
+        gids_h.copy_(gids_d, non_blocking=True)
+        plan_read = torch.cuda.Event() if dev.type == "cuda" else None
+        if plan_read is not None:
+            plan_read.record()
+
+        # 2a: the hot pass, queued before the host waits for the plan
+        passes = []
+        if tiered.n_hot > 0:
+            plane_h = tiered.hot_plane(mask_src, mask_key)
+            plan_h = residency.device_plan(tiered.hot_map_dev, gids_d,
+                                           dummy_slot=tiered.n_hot)
+            keep_h = torch.logical_and(alive, plan_h != tiered.n_hot)
+            passes.append(self._tiered_pass(
+                plane_h, q, plan_h, None, (zq, rq, keep_h, sq),
+                width=min(target, probe * cap), **pkw))
+        if plan_read is not None:
+            plan_read.synchronize()
+        gids_h = gids_h.numpy()
+        entry["r_wins"] += np.bincount(gids_h[:, 0], minlength=g_total)
+        entry["r_touches"] += np.bincount(gids_h.ravel(), minlength=g_total)
+        entry["searches"] += 1
+        tiered.paged_queries += q_n
+        # an election applies from the next search: this one's hot pass is
+        # queued on the current hot set, which the cold chunks complement
+        hot_map = tiered.hot_map
+        if entry["searches"] % self.residency_interval == 0:
+            self._update_residency_entry(entry)
+
+        # 2b: the cold chunks, staged double-buffered
+        need = (hot_map[gids_h] < 0) & (tiered.sizes[gids_h] > 0)
+        if grain_ok is not None:      # masked grains scan to BIG anyway
+            need &= grain_ok[gids_h]
+        na_h = np.full(q_n, probe, np.int32)
+        cold = np.unique(gids_h[need])
+        for ch in residency.chunk_cold(cold, self.prefetch_grains):
+            plane_c, member, release = tiered.chunk_plane(ch, mask_src)
+            plan = residency.compact_probes(gids_h, na_h, member, len(ch))
+            if plan is None:
+                release()
+                continue
+            plan_g, plan_na, w, act_q, pos = plan
+            n_act = int(act_q.sum())
+            qp = residency.pow2ceil(n_act)
+            qsel = None
+            if qp < q_n:              # only the queries that probe it
+                qidx = np.flatnonzero(act_q)
+                qsel = np.concatenate(
+                    [qidx, np.full(qp - n_act, qidx[0], qidx.dtype)])
+                plan_g, plan_na, pos = plan_g[qsel], plan_na[qsel], pos[qsel]
+            qsel_d = None if qsel is None else _to_device(qsel, dev)
+            pos_d = _to_device(pos, dev)
+
+            def part(t, qsel_d=qsel_d, pos_d=pos_d):
+                if t is None:
+                    return None
+                t = t if qsel_d is None else t[qsel_d]
+                idx = pos_d.reshape(pos_d.shape + (1,) * (t.dim() - 2))
+                return torch.gather(t, 1, idx.expand(
+                    pos_d.shape + t.shape[2:]))
+
+            d_c, r_c = self._tiered_pass(
+                plane_c, q if qsel_d is None else q[qsel_d],
+                _to_device(plan_g, dev), _to_device(plan_na, dev),
+                tuple(part(t) for t in (zq, rq, alive, sq)),
+                width=min(target, w * cap), **pkw)
+            release()
+            if qsel_d is not None:    # back to [Q] rows
+                rows_q = qsel_d[:n_act]
+                d_full = torch.full((q_n, d_c.shape[1]), BIG, device=dev)
+                r_full = torch.full((q_n, d_c.shape[1]), -1,
+                                    dtype=r_c.dtype, device=dev)
+                d_full[rows_q], r_full[rows_q] = d_c[:n_act], r_c[:n_act]
+                d_c, r_c = d_full, r_full
+            passes.append((d_c, r_c))
+
+        # 3: the all-warm plane's pool, then its tail
+        d_p, r_p = self._merge_passes(passes, gids_d, entry["row_grain"],
+                                      target, q_n, dev)
+        gid_of_row = entry["gid_of_row"]
+
+        def translate(r, d):
+            ok = torch.logical_and(r >= 0, d < BIG / 2)
+            return torch.where(ok, gid_of_row[torch.clamp(r, min=0).long()],
+                               -1).to(torch.int32)
+
+        if mode != "B":
+            return translate(r_p[:, :topk_eff], d_p[:, :topk_eff]), \
+                d_p[:, :topk_eff]
+        res = _rerank_pool(d_p, r_p, q, self._raw_rows(entry, segments),
+                           pool=target, topk=topk_eff, translate=translate)
+        return res.ids, res.dists
+
+    def _tiered_pass(self, plane, q, gids, n_active, proj, *, width: int,
+                     scan_impl, qeff):
+        """One residency pass (the hot mini-plane, or a staged cold chunk)
+        over its probe plan and the gathered projection ``proj``: the
+        candidate stage on the registered scan plane, cut to its top
+        ``width`` by (distance, plan position, slot).  A select plane runs
+        one call; a gather plane runs ``QUERY_BATCH``-query batches (it
+        copies every probed panel per query).  Returns (dists [Q, width],
+        rows [Q, width] with -1 at the pruned entries)."""
+        index = plane.index
+        select = scanplane.get_scan_plane(scan_impl, index.device).kind \
+            == scanplane.SELECT
+        step = q.shape[0] if select else planner.QUERY_BATCH
+        out_d, out_r = [], []
+        for lo in range(0, q.shape[0], max(step, 1)):
+            sl = slice(lo, lo + step)
+            d, r = planner.candidate_stage(
+                index, q[sl], gids[sl], envelope_frac=self.cfg.envelope_frac,
+                qeff=qeff, width=width, scan_impl=scan_impl,
+                n_active=None if n_active is None else n_active[sl],
+                proj=tuple(None if t is None else t[sl] for t in proj))
+            if not select:
+                d, pos = planner._smallest(d, width)
+                r = torch.gather(r, 1, pos)
+            out_d.append(d)
+            out_r.append(torch.where(d < BIG / 2, r, -1))
+        return torch.cat(out_d), torch.cat(out_r)
+
+    @staticmethod
+    def _merge_passes(passes, gids, row_grain, target: int, q_n: int, dev):
+        """The passes' pools merged into the all-warm select's pool: the
+        top ``target`` of their union in its key order (distance, plan
+        position, slot).  Within a pass candidates of one grain are in slot
+        order already, so a stable sort by plan position and then one by
+        distance gives that order.  Padded with (BIG, -1) to ``target``."""
+        if passes:
+            d = torch.cat([p[0] for p in passes], dim=1)
+            r = torch.cat([p[1] for p in passes], dim=1)
+        else:
+            d = torch.full((q_n, 0), BIG, device=dev)
+            r = torch.full((q_n, 0), -1, dtype=torch.int32, device=dev)
+        grain = row_grain[torch.clamp(r, min=0).long()]
+        at = (gids[:, :, None] == grain[:, None, :]).to(torch.uint8) \
+            .argmax(dim=1)                                       # [Q, M]
+        order = torch.sort(at, dim=1, stable=True).indices
+        d, r = torch.gather(d, 1, order), torch.gather(r, 1, order)
+        d, order = torch.sort(d, dim=1, stable=True)
+        d, r = d[:, :target], torch.gather(r, 1, order)[:, :target]
+        pad = target - d.shape[1]
+        if pad > 0:
+            d = torch.nn.functional.pad(d, (0, pad), value=BIG)
+            r = torch.nn.functional.pad(r, (0, pad), value=-1)
+        return d, r
 
     def _search_memtable(self, q, man: Manifest, topk, tag_mask, ts_range,
                          now):
@@ -951,9 +1619,24 @@ class VectorStore:
             extra, _ = planner._mixed_recall_mask(
                 seg.index.grains, tag_mask, ts_range,
                 live=self._seg_live_mask(man, seg, now))
-            res = index_mod.search(seg.index, q, self.cfg, topk=topk,
-                                   mode=mode, scan_impl=scan_impl,
-                                   extra_mask=extra)
+            if mode == "B" and seg.index.raw is None:
+                # a cold segment: the warm search's pool in Mode A, then
+                # the re-rank from its cold file (the same bits)
+                g = seg.index.grains
+                n_slots = min(self.cfg.nprobe, g.n_grains) * g.cap
+                pool_w = min(max(self.cfg.pool, topk), n_slots)
+                res = index_mod.search(seg.index, q, self.cfg, topk=pool_w,
+                                       mode="A", scan_impl=scan_impl,
+                                       extra_mask=extra)
+                res = _rerank_pool(
+                    res.dists, res.ids, q,
+                    _RawRows((seg,), self.device, self._rerank_stats),
+                    pool=pool_w, topk=min(topk, n_slots),
+                    translate=planner._pruned_to_minus_one)
+            else:
+                res = index_mod.search(seg.index, q, self.cfg, topk=topk,
+                                       mode=mode, scan_impl=scan_impl,
+                                       extra_mask=extra)
             all_ids.append(seg.map_local(res.ids))
             all_d.append(res.dists)
         return self._merge_with_memtable(q, man, all_ids, all_d, topk,

@@ -16,7 +16,11 @@ sealed ``Segment`` (its index leaves numpy arrays) and ``Manifest``
 across, so ``VectorStore.search(q, manifest=...)`` searches exactly what
 the JAX store searched; ``store_from_numpy`` carries a whole JAX
 ``VectorStore`` across (segments, memtable, mutation table, counters), so
-``compact()`` and ``maintain()`` run on the same state in both packages;
+``compact()`` and ``maintain()`` run on the same state in both packages.
+A cold segment's raw rows are copied into a cold file of this package's
+own (in ``cold_dir``, refcounted like a sealed one): the JAX package's
+file belongs to its store's refcount, which would unlink it under this
+package's segments (or this package's finalizer under the JAX store's);
 ``config_from_dict`` and ``model_config_from_dict``
 rebuild the two configuration dataclasses from ``dataclasses.asdict`` of
 the JAX ones.
@@ -30,6 +34,9 @@ or keys by name.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
+import uuid
 from collections.abc import Mapping
 from typing import Any, Optional
 
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from .core.index import resolve_device
+from .core import store as store_mod
 from .core.store import Manifest, Segment, VectorStore
 from .core.types import GrainStore, HNTLConfig, HNTLIndex, RoutingPlane
 from .models.config import LayerSpec, ModelConfig
@@ -81,27 +89,49 @@ def _host(tree: Any, name: str) -> Optional[np.ndarray]:
     return None if a is None else np.array(a)
 
 
-def segment_from_numpy(seg: Any, device=None) -> Segment:
+def segment_from_numpy(seg: Any, device=None, *,
+                       cold_dir: Optional[str] = None,
+                       cold_tag: Optional[str] = None) -> Segment:
     """A JAX store's sealed ``Segment`` (its index leaves numpy arrays) ->
     this package's ``Segment``; the per-row host arrays are copied as they
-    are."""
+    are.  A cold segment's rows are copied into a new cold file in
+    ``cold_dir`` (default: a new temporary directory), named with
+    ``cold_tag`` (default: a random one), which this package owns."""
     device = resolve_device(device)
-    return Segment(
-        seg_id=int(_field(seg, "seg_id")),
-        index=index_from_numpy(_field(seg, "index"), device),
-        n=int(_field(seg, "n")), id_base=int(_field(seg, "id_base")),
-        tags=_host(seg, "tags"), ts=_host(seg, "ts"),
-        id_map=_host(seg, "id_map"),
-        seq=_host(seg, "seq"), expire=_host(seg, "expire"))
+    n, d = int(_field(seg, "n")), int(_field(seg, "d") or 0)
+    src = _field(seg, "cold_path")
+    path = None
+    if src is not None:
+        path = os.path.join(
+            cold_dir or tempfile.mkdtemp(prefix="aperon_cold_"),
+            f"seg{int(_field(seg, 'seg_id')):06d}_"
+            f"{cold_tag or uuid.uuid4().hex[:8]}.raw")
+        store_mod._write_cold_file(path, np.memmap(
+            src, dtype=np.float32, mode="r", shape=(n, d)))
+    with store_mod._cold_construction(path) as adopt:
+        out = Segment(
+            seg_id=int(_field(seg, "seg_id")),
+            index=index_from_numpy(_field(seg, "index"), device),
+            n=n, id_base=int(_field(seg, "id_base")),
+            tags=_host(seg, "tags"), ts=_host(seg, "ts"),
+            id_map=_host(seg, "id_map"),
+            seq=_host(seg, "seq"), expire=_host(seg, "expire"),
+            cold_path=path, d=d)
+        adopt(out)
+    return out
 
 
-def manifest_from_numpy(man: Any, device=None) -> Manifest:
+def manifest_from_numpy(man: Any, device=None, *,
+                        cold_dir: Optional[str] = None) -> Manifest:
     """A JAX store's ``Manifest`` -> this package's: every segment carried
-    across; the memtable rows, the mutation table, writer and epoch
-    unchanged."""
+    across (cold ones into files of this package in ``cold_dir``); the
+    memtable rows, the mutation table, writer and epoch unchanged."""
     device = resolve_device(device)
+    if cold_dir is None and any(_field(s, "cold_path") is not None
+                                for s in _field(man, "segments")):
+        cold_dir = tempfile.mkdtemp(prefix="aperon_cold_")
     return Manifest(
-        segments=tuple(segment_from_numpy(s, device)
+        segments=tuple(segment_from_numpy(s, device, cold_dir=cold_dir)
                        for s in _field(man, "segments")),
         mem_n=int(_field(man, "mem_n")),
         **{name: tuple(_field(man, name) or ())
@@ -119,20 +149,27 @@ _STORE_STATE = ("_mem", "_mem_tags", "_mem_ts", "_mem_ids", "_mem_seq",
                 "_next_seq", "_next_seg", "_maint_epoch")
 
 
-def store_from_numpy(store: Any, device=None) -> VectorStore:
+def store_from_numpy(store: Any, device=None, *,
+                     cold_dir: Optional[str] = None) -> VectorStore:
     """A JAX ``VectorStore`` -> this package's, read by attribute: the same
-    config, seal threshold and clock, every sealed segment carried across
-    (``segment_from_numpy``), and copies of the memtable rows, the
-    mutation table and the epoch, id, seq, segment and maintenance
-    counters."""
+    config, seal threshold, clock, cold tier and residency knobs, every
+    sealed segment carried across (``segment_from_numpy``; cold files
+    copied into the new store's own ``cold_dir``), and copies of the
+    memtable rows, the mutation table and the epoch, id, seq, segment and
+    maintenance counters."""
     device = resolve_device(device)
     cfg = _field(store, "cfg")
     out = VectorStore(
         config_from_dict(cfg if isinstance(cfg, Mapping)
                          else dataclasses.asdict(cfg)),
         seal_threshold=int(_field(store, "seal_threshold")),
-        clock=_field(store, "_clock"), device=device)
-    out._segments = [segment_from_numpy(s, device)
+        clock=_field(store, "_clock"), device=device,
+        cold_tier=bool(_field(store, "cold_tier")), cold_dir=cold_dir,
+        device_budget=_field(store, "device_budget"),
+        residency_interval=int(_field(store, "residency_interval") or 64),
+        prefetch_grains=int(_field(store, "prefetch_grains") or 64))
+    out._segments = [segment_from_numpy(s, device, cold_dir=out._cold_dir,
+                                        cold_tag=out._cold_tag)
                      for s in _field(store, "_segments")]
     for name in _STORE_STATE:
         v = _field(store, name)

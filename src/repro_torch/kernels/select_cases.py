@@ -50,6 +50,28 @@ def random_inputs(seed: int, *, q: int, p: int, g: int, k: int, cap: int,
     return a
 
 
+def mini_plane_inputs(seed: int, *, q: int, p: int, g: int, k: int,
+                      cap: int, s: int = 0) -> dict:
+    """``random_inputs`` shaped like a tiered residency pass over a
+    mini-plane of ``g`` grains: the last grain is the all-invalid dummy
+    (mask False, rows -1, zero panels), each query has 1..p live probes
+    (``n_active``) on the other grains, and the slack probes after them
+    point at the dummy.  ``q`` should be a power of two, as the store's
+    passes are."""
+    a = random_inputs(seed, q=q, p=p, g=g, k=k, cap=cap, s=s, ragged=True)
+    rng = np.random.default_rng(seed + 1)
+    a["gids"] = rng.integers(0, g - 1, size=(q, p)).astype(np.int32)
+    slack = np.arange(p)[None, :] >= a["n_active"][:, None]
+    a["gids"][slack] = g - 1
+    a["coords"][-1] = 0
+    a["res"][-1] = 0
+    a["mask"][-1] = False
+    a["rows"][-1] = -1
+    if s:
+        a["sketch"][-1] = 0
+    return a
+
+
 def descending_inputs(*, q: int, p: int, k: int, cap: int) -> dict:
     """Every slot live and each nearer than every slot visited before it:
     probe i scans grain i, whose slot c lies at distance -(i * cap + c).

@@ -448,3 +448,87 @@ def test_store_compact_and_maintain_on_card(cuda_device, mode):
     assert rep.total("retires") >= 1 and rep.total("merges") >= 1
     assert st._segments[0] is not seg and st._segments[1] is other
     _held_to_fused_ref(st, q, np.concatenate([dead, kill]), mode)
+
+
+@pytest.mark.gpu
+def test_select_on_a_mini_plane_equals_plain_version_on_card(cuda_device):
+    """A tiered residency pass's shape: a 64-grain chunk plus the trailing
+    all-invalid dummy grain, slack probes on the dummy behind n_active,
+    a power-of-two query subset."""
+    a = select_cases.mini_plane_inputs(4, q=64, p=8, g=65, k=32, cap=384,
+                                       s=8)
+    args, kw = select_cases.split(
+        a, lambda v: torch.from_numpy(v).to(cuda_device))
+    for width in (10, 64, 300):
+        d, r = port_fused.fused_scan_select(*args, width=width, **kw)
+        rd, rr = port_fused.fused_scan_select_ref(*args, width=width, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(d, rd) and torch.equal(r, rr)
+
+
+def _cold_store(dev, cold_dir, **kw):
+    from repro_torch.core import VectorStore
+
+    x = synthetic.anisotropic_manifold(n=4 * 1024, d=64, intrinsic=8,
+                                       seed=4)
+    q = synthetic.queries_from(x, nq=300)
+    cfg = repro_torch.HNTLConfig(d=64, k=8, s=4, block=32, n_grains=8,
+                                 nprobe=6, pool=32)
+    st = VectorStore(cfg, seal_threshold=1024, device=dev, cold_tier=True,
+                     cold_dir=str(cold_dir), prefetch_grains=4,
+                     residency_interval=3, **kw)
+    tags = 1 << (np.arange(len(x)) % 3)
+    ts = (np.arange(len(x)) / len(x)).astype(np.float32)
+    for lo in range(0, len(x), 1024):              # one seal per chunk
+        st.add(x[lo:lo + 1024], tags=tags[lo:lo + 1024], ts=ts[lo:lo + 1024])
+    st.delete(np.arange(0, len(x), 9))
+    return st, x, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_paged_search_equals_all_warm_on_card(cuda_device, mode, tmp_path):
+    """A cold store on the card: under device_budget 0, a few grains and
+    more than the tier, every search returns the all-warm plane's ids and
+    dists (torch.equal), through the select kernel on every pass."""
+    st, _, q = _cold_store(cuda_device, tmp_path)
+    filters = ({}, {"tag_mask": 0b101}, {"ts_range": (0.2, 0.7)})
+    warm = [st.search(q, topk=10, mode=mode, **kw) for kw in filters]
+    for budget in (0, 40_000, 10 ** 12):
+        st.device_budget = budget
+        for _ in range(2):
+            for kw, want in zip(filters, warm):
+                before = port_fused.fused_scan_select.launches
+                got = st.search(q, topk=10, mode=mode, **kw)
+                torch.cuda.synchronize()
+                assert port_fused.fused_scan_select.launches > before
+                assert torch.equal(got.ids, want.ids)
+                assert torch.equal(got.dists, want.dists)
+        st.update_residency()
+    stats = st.residency_stats()
+    assert stats["chunk_dispatches"] > 0 and stats["staged_bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_cold_store_mode_b_equals_warm_store_on_card(cuda_device, tmp_path):
+    """The same segments with the raw tier on the card: a cold store's
+    Mode B (rows read from the memmaps, re-ranked on the card) equals the
+    warm store's bit for bit, on the fused plane and the per-segment
+    loop."""
+    import dataclasses
+
+    from repro_torch.core import VectorStore
+
+    st, _, q = _cold_store(cuda_device, tmp_path)
+    warm = VectorStore(st.cfg, seal_threshold=1024, device=cuda_device)
+    warm._segments = [dataclasses.replace(
+        s, index=dataclasses.replace(s.index, raw=torch.from_numpy(
+            np.array(s.raw_vectors())).to(cuda_device)), cold_path=None)
+        for s in st._segments]
+    warm._live_seq, warm._epoch = dict(st._live_seq), st._epoch
+    warm._next_id = st._next_id
+    for kw in ({}, {"fused": False}, {"tag_mask": 0b11}):
+        a = st.search(q, topk=10, mode="B", **kw)
+        b = warm.search(q, topk=10, mode="B", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)

@@ -552,17 +552,15 @@ def test_ttl_expiry_in_sealed_and_memtable_rows():
 
 
 @pytest.mark.parametrize("call, match", [
-    (lambda st: VectorStore(_cfg(), cold_tier=True, device="cpu"), "item 3"),
-    (lambda st: VectorStore(_cfg(), cold_dir="x", device="cpu"), "item 3"),
-    (lambda st: VectorStore(_cfg(), device_budget=1 << 20, device="cpu"),
-     "item 8"),
+    (lambda st: VectorStore(_cfg(), device_budget=-1, device="cpu"),
+     "device_budget must be >= 0"),
     (lambda st: st.search(np.zeros(D), budgets=(32, 16)), "item 4"),
     (lambda st: st.search(np.zeros(D), budgets=(8, 16)), "b1 >= b2"),
     (lambda st: st.search(np.zeros(D), adaptive=True), "item 5"),
     (lambda st: st.search(np.zeros(D), probe_margin=0.5), "adaptive=True"),
     (lambda st: st.search(np.zeros(D), mesh=object()), "item 10"),
     (lambda st: st.search(np.zeros(D), route_mode="nope"), "route_mode"),
-], ids=["cold_tier", "cold_dir", "device_budget", "budgets",
+], ids=["device_budget", "budgets",
         "budgets_invalid", "adaptive", "probe_margin", "mesh", "route_mode"])
 def test_unported_arguments_are_refused(call, match):
     st, _, _, _, _ = _port_store(tail=0)
@@ -572,7 +570,7 @@ def test_unported_arguments_are_refused(call, match):
 
 @pytest.mark.parametrize("name, item", [
     ("tenant_live", 6), ("tenant_ix", 6), ("probe_margin", 5),
-    ("hub_mask", 5), ("probe_plan", 5)])
+    ("hub_mask", 5)])
 def test_search_stacked_refuses_unported_arguments(name, item):
     st, _, _, q, _ = _port_store(tail=0)
     stacked = stack_segments(st._segments)
