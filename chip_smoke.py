@@ -19,7 +19,9 @@ What it does, in order (any failure exits non-zero before the last line):
    slot enters the running top-W (width up to the kernel's limit, every
    slot live, every slot entering the pool), one hot grain probed by every
    pair, exact ties across probes, cap below width, the scalar-load path
-   (cap % 4 != 0) and killed pairs inside the grains' runs; then
+   (cap % 4 != 0) and killed pairs inside the grains' runs, and widths
+   above the shared-memory carry (``select_cases.WIDE_CASES``: the tree
+   merge up to P * cap, the cascade's stage-1 form); then
    ``hntl_scan`` and ``hntl_scan_single`` against theirs (``torch.equal``)
    over the JAX package's kernel sweep, int32 extremes and wraparound,
    all-invalid panels, the int8 sketch panels, caps off 128, and the
@@ -56,6 +58,15 @@ What it does, in order (any failure exits non-zero before the last line):
 9. ``torch.profiler`` breakdowns of one Mode A and one Mode B search, of
    one search on the "kernel" gather plane and of one HNTL-KV step:
    device time by kernel and the device's busy share;
+9b. the mixed-precision cascade (``cascade_phase``): a density index
+   (``bit_alloc="density"``) over the main path's corpus, its coordinate
+   bytes at rest (``layout.pack_coords_blob``), 1024 queries in Mode A
+   and B through ``planner.search(scan_impl="cascade")`` at budgets
+   None, (4096, 64) and (nprobe * cap * 3 // 5, pool) (counters zeroed
+   just before each search, read just after), each equal to
+   "cascade_ref", at None to "fused" but for exact ties (counted);
+   recall@10, times, each stage-1 call held to its plain version and
+   timed beside its bound, stage 2 timed alone, a profile, peak memory;
 10. the vector store (``store_phase``): 1,000,000 rows added in 8 chunks
    of 125,000 that each seal a 128-grain segment built on the card, a
    4,096-row memtable tail, 10,000 deletes and 1,024 upserts (the
@@ -65,7 +76,9 @@ What it does, in order (any failure exits non-zero before the last line):
    4 ``fused_scan_select`` calls per search), each held to the
    "fused_ref" plane's ids, free of deleted gids, Mode B dists equal to
    the live vectors' exact distances; recall@10 against exact search
-   over the live rows; seal, stack and search times, the select kernel
+   over the live rows; the same four searches with
+   ``scan_impl="cascade", budgets=(4096, 64)`` held to "cascade_ref";
+   seal, stack and search times, the select kernel
    at the store's shape, profiles with and without the memtable, peak
    memory; and 256 queries through the "kernel" plane held to "ref";
 11. the store's lifecycle (``lifecycle_phase``) on the same store, its
@@ -86,7 +99,10 @@ What it does, in order (any failure exits non-zero before the last line):
    its all-warm plane held as in 10, then the same store under
    ``device_budget`` 0, 25% of the panel tier and twice the tier, every
    paged search equal to the all-warm one (ids and dists,
-   ``torch.equal``); again after 10,000 more deletes, after
+   ``torch.equal``); the cascade on the cold store (all-warm at (4096,
+   64) held to "cascade_ref"; paged at 25% of the tier: at budgets None
+   equal to the all-warm cascade but for exact ties, at (4096, 64), per
+   pass, to the paged "cascade_ref"); again after 10,000 more deletes, after
    ``compact()`` (merged cold files written, the replaced ones gone from
    disk) and after ``maintain()`` (the repaired child shares its
    parent's cold file); seal (build, cold write), search, re-rank gather
@@ -171,12 +187,13 @@ _MANGLED_TYPES = {"IsE": "int16", "IaE": "int8"}
 def kernel_label(line):
     """A readable name for a ptxas "Compiling entry function" line."""
     for name in ("fused_scan_select_probe_kernel",
-                 "fused_scan_select_merge_kernel", "hntl_scan_single_kernel",
-                 "hntl_scan_kernel"):
+                 "fused_scan_select_merge_kernel",
+                 "fused_scan_select_wide_merge_kernel",
+                 "hntl_scan_single_kernel", "hntl_scan_kernel"):
         if name not in line:
             continue
         tail = line.split(name, 1)[1]
-        if name == "fused_scan_select_merge_kernel":
+        if "merge_kernel" in name:
             return name
         if name == "fused_scan_select_probe_kernel":
             # template flags of the kernel's <sketch, tenant, vec>
@@ -301,8 +318,21 @@ def kernel_phase(torch, dev):
         log(f"  kernel == plain: {label} (Q={c['q']} P={c['p']} "
             f"G={a['coords'].shape[0]} k={c['k']} cap={c['cap']} "
             f"s={c.get('s', 0)} width={width}) ok")
+    # above the shared-memory carry: the tree merge in global scratch
+    for label, (width, make) in select_cases.WIDE_CASES.items():
+        a = make()
+        args, kw = select_cases.split(
+            a, lambda v: torch.from_numpy(v).to(dev))
+        errs.append(hold(torch, fsel, args, kw, width, label))
+        q_n, p_n, k = a["zq"].shape
+        g_n, _, cap = a["coords"].shape
+        log(f"  kernel == plain: {label} (Q={q_n} P={p_n} G={g_n} k={k} "
+            f"cap={cap} s={a['sq'].shape[2] if 'sq' in a else 0} "
+            f"width={width}, the wide merge) ok")
     log("kernels: fused_scan_select (held against fused_scan_select_ref, "
-        f"torch.equal on dists and rows, {len(errs)} cases)")
+        f"torch.equal on dists and rows, {len(errs)} cases, "
+        f"{len(select_cases.WIDE_CASES)} of them above the shared-memory "
+        f"carry of {fsel.SMEM_WIDTH} keys)")
     return max(errs)
 
 
@@ -506,7 +536,7 @@ def main_path(torch, np, *, n, nq, grains, dev):
     return dict(index=index, cfg=cfg, q=qt, truth=truth, launches=launches,
                 recall=recall, search_s=timing, build_s=build_s,
                 build_phases=info.seconds, peak=peak,
-                index_bytes=tree_bytes(index))
+                index_bytes=tree_bytes(index), x=x)
 
 
 # ---------------------------------------------------------------------------
@@ -588,12 +618,22 @@ def device_ms(torch, fn, kernels, reps=20):
 
 #: The kernels one ``fused_scan_select`` call launches, and what each part
 #: of its device time is called in the log ("other": the schedule's
-#: torch.where and torch.sort).
+#: torch.where and torch.sort).  Above the shared-memory carry the merge
+#: is the wide merge's ceil(log2 P) launches (``select_kernels``).
 SELECT_KERNELS = ("fused_scan_select_probe_kernel",
                   "fused_scan_select_merge_kernel")
+WIDE_SELECT_KERNELS = ("fused_scan_select_probe_kernel",
+                       "fused_scan_select_wide_merge_kernel")
 SELECT_PARTS = {"fused_scan_select_probe_kernel": "probe kernel",
                 "fused_scan_select_merge_kernel": "merge kernel",
+                "fused_scan_select_wide_merge_kernel": "wide merge kernels",
                 "other": "schedule"}
+
+
+def select_kernels(width):
+    from repro_torch.kernels import fused_select as fsel
+
+    return WIDE_SELECT_KERNELS if width > fsel.SMEM_WIDTH else SELECT_KERNELS
 
 
 def time_select(torch, index, q, cfg, label, grain_mask=None,
@@ -1063,6 +1103,293 @@ def profile_phase(torch, mp, gp, kvp):
 
 
 # ---------------------------------------------------------------------------
+# 9b: the mixed-precision cascade on a density index
+# ---------------------------------------------------------------------------
+
+
+def cascade_budgets(nprobe, cap, pool):
+    """The cascade phase's budget settings: lossless (b1 = P * cap), the
+    README's (4096, 64), and ``benchmarks/cascade.py``'s rule (3/5 of the
+    probed slots, b2 = pool)."""
+    rule = (nprobe * cap * 3 // 5, pool)
+    return {"None": None, "(4096, 64)": (4096, 64), str(rule): rule}
+
+
+class _CaptureCascade:
+    """While installed, the first call of the "cascade" plane's runner
+    keeps a copy of its inputs, and the first stage-1 select keeps its
+    inputs and output (the survivors ``fs`` stage 2 starts from)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.runner = self.stage1 = None
+
+    def _copy(self, v):
+        return v.clone() if isinstance(v, self.torch.Tensor) else v
+
+    def __enter__(self):
+        from repro_torch.core import cascade, scanplane
+
+        self.reg, self.mod = scanplane._REGISTRY, cascade
+        self.plane, self.fsel = self.reg["cascade"], cascade.fused_scan_select
+
+        def runner(*args, **kw):
+            if self.runner is None:
+                self.runner = ([self._copy(a) for a in args],
+                               {k: self._copy(v) for k, v in kw.items()})
+            return self.plane.runner(*args, **kw)
+
+        def stage1(*args, **kw):
+            out = self.fsel(*args, **kw)
+            if self.stage1 is None:
+                self.stage1 = ([self._copy(a) for a in args],
+                               {k: self._copy(v) for k, v in kw.items()},
+                               [self._copy(t) for t in out])
+            return out
+
+        self.reg["cascade"] = dataclasses.replace(self.plane, runner=runner)
+        cascade.fused_scan_select = stage1
+        return self
+
+    def __exit__(self, *exc):
+        self.reg["cascade"] = self.plane
+        self.mod.fused_scan_select = self.fsel
+
+
+def tie_aware_equal(torch, got, want, wide, label, *, pool=None):
+    """``got`` equals ``want`` (two searches of the same queries) except
+    where candidates tie exactly in approximate distance, which the two
+    order differently.  ``wide``: ``want``'s plane in Mode A with one
+    candidate more than compared (11 for a top 10, or ``pool`` + 1 in Mode
+    B).  Mode A (``pool`` None): dists ``torch.equal``; an id may differ
+    only where its distance occurs twice among the query's ``wide``
+    candidates.  Mode B: a query whose pool ends in a tie (its
+    ``pool``-th and next candidate at one distance) may re-rank other
+    candidates; every other query equals ``want`` bit for bit.  Returns
+    the number of positions (Mode A) or queries (Mode B) a tie excused."""
+    wd = wide.dists
+    if pool is None:
+        check(torch.equal(got.dists, want.dists), f"{label}: dists differ")
+        diff = got.ids != want.ids
+        hits = (got.dists[:, :, None] == wd[:, None, :]).sum(-1)   # [Q, k]
+        check(not bool((diff & (hits < 2)).any()), f"{label}: ids differ "
+              f"where no tie falls ({int((diff & (hits < 2)).sum())} "
+              "entries)")
+        return int(diff.sum())
+    tie = wd[:, pool - 1] == wd[:, pool]                             # [Q]
+    same = torch.logical_and(torch.all(got.ids == want.ids, dim=1),
+                             torch.all(got.dists == want.dists, dim=1))
+    check(bool((same | tie).all()), f"{label}: {int((~same & ~tie).sum())} "
+          "queries differ without a tie at their pool's end")
+    return int((~same).sum())
+
+
+def time_stage1(torch, fsel, args, kw, width, label):
+    """One stage-1 select, captured from a cascade search: held to its
+    plain version, then CUPTI, CUDA events, the plain version's time and
+    the bound."""
+    err = hold(torch, fsel, args, kw, width, label)
+    run = lambda: fsel.fused_scan_select(*args, width=width, **kw)  # noqa
+    for _ in range(3):
+        run()
+    events_ms = time_events(torch, run, 10)
+    ms, parts, traces = device_ms(torch, run, select_kernels(width), reps=10)
+    fsel.fused_scan_select_ref(*args, width=width, **kw)
+    plain_ms = time_events(torch, lambda: fsel.fused_scan_select_ref(
+        *args, width=width, **kw), 3)
+    bound_ms, bound_by, nbytes, ops = select_bound(torch, args, kw, width)
+    q_n, p_n, k = args[1].shape
+    at = (f"Q={q_n} P={p_n} G={args[4].shape[0]} k={k} "
+          f"cap={args[4].shape[2]} s={kw['sq'].shape[2]} width={width}")
+    log(f"  stage 1, fused_scan_select at {label} ({at}): {ms:.4f} ms per "
+        "call (CUPTI: " + ", ".join(f"{SELECT_PARTS[k]} {v:.4f}"
+                                    for k, v in parts.items())
+        + f"; CUDA events {events_ms:.4f} ms), plain version "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes, {ops} int ops); CUPTI traces {traces}")
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, traces=traces,
+                max_abs_err=err,
+                parts={SELECT_PARTS[k]: v for k, v in parts.items()}, at=at)
+
+
+def cascade_phase(torch, np, mp, dev):
+    """The mixed-precision cascade at the paper's width: a density index
+    (``bit_alloc="density"``: per-grain int4/int8 coordinates) over the
+    main path's corpus, 1024 queries in Mode A and B through
+    ``planner.search(scan_impl="cascade")`` at three budget settings (the
+    select's counter zeroed just before each search, read just after),
+    each held to "cascade_ref" (ids, and dists ``torch.equal``: stage 1 is
+    bit for bit); at ``budgets=None`` also to "fused" (equal but for exact
+    ties, counted); recall@10 against ``flat_search``; search times;
+    every stage-1 call shape held to its plain version and timed (CUPTI,
+    events, plain, bound), stage 2 timed alone; a profile; peak memory;
+    the coordinate bytes at rest from ``layout.pack_coords_blob``."""
+    from repro_torch.core import (HNTLConfig, build, int32_safe_qmax, layout,
+                                  planner, quantize)
+    from repro_torch.core import cascade
+    from repro_torch.core.flat import flat_search, recall_at_k
+    from repro_torch.kernels import fused_select as fsel
+
+    x, qt, n = mp["x"], mp["q"], mp["x"].shape[0]
+    nq = qt.shape[0]
+    cfg = dataclasses.replace(mp["cfg"], bit_alloc="density")
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    index, info = build(x, cfg, device=dev)
+    sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    g = index.grains
+    qm = g.qmaxg.cpu().numpy()
+    n4, n8 = int((qm == quantize.INT4_QMAX).sum()), int(
+        (qm == quantize.INT8_QMAX).sum())
+    blob, _, widths = layout.pack_coords_blob(g.coords, g.qmaxg)
+    fixed_blob, _, _ = layout.pack_coords_blob(g.coords, None)
+    main_blob, _, _ = layout.pack_coords_blob(mp["index"].grains.coords, None)
+    bpv = {"density": blob.size / n, "same panels at int16":
+           fixed_blob.size / n, "fixed index (main path)": main_blob.size / n}
+    log(f"cascade: density index over the main path's corpus (n={n}, "
+        f"d=768, k=32, s=8, G={cfg.n_grains}, cap={info.cap}), build "
+        f"{build_s:.2f} s; {n4} grains int4, {n8} int8; coordinate bytes "
+        "per vector at rest (layout.pack_coords_blob): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in bpv.items())
+        + " (density / fixed index "
+        f"{bpv['density'] / bpv['fixed index (main path)']:.4f})")
+    del fixed_blob, main_blob, blob
+
+    kw0 = dict(nprobe=cfg.nprobe, pool=cfg.pool, topk=10,
+               envelope_frac=cfg.envelope_frac,
+               qeff=int32_safe_qmax(cfg.k, cfg.coord_bits))
+    truth = flat_search(index.raw, qt, topk=10).ids
+    settings = cascade_budgets(cfg.nprobe, g.cap, cfg.pool)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = dict(build_s=build_s, bytes_per_vector=bpv, int4=n4, int8=n8,
+               settings={}, launches=0)
+    fused = {m: planner.search(index, qt, mode=m, scan_impl="fused", **kw0)
+             for m in "AB"}
+    for name, budgets in settings.items():
+        row = dict(budgets=budgets, launches={}, recall={}, ms={})
+        for m in "AB":
+            kw = dict(kw0, mode=m, budgets=budgets)
+            fsel.fused_scan_select.launches = 0
+            got = planner.search(index, qt, scan_impl="cascade", **kw)
+            sync(torch, dev)
+            row["launches"][m] = fsel.fused_scan_select.launches
+            out["launches"] += row["launches"][m]
+            if dev.type == "cuda":
+                check(row["launches"][m] == -(-nq // planner.QUERY_BATCH),
+                      f"cascade {name} Mode {m}: fused_scan_select launched "
+                      f"{row['launches'][m]} times")
+            ref = planner.search(index, qt, scan_impl="cascade_ref", **kw)
+            check(torch.equal(got.ids, ref.ids) and torch.equal(
+                got.dists, ref.dists), f"cascade {name} Mode {m}: differs "
+                  f"from cascade_ref ({int((got.ids != ref.ids).sum())} ids)")
+            check(got.ids.shape == (nq, 10)
+                  and bool(torch.isfinite(got.dists).all())
+                  and bool((got.ids[:, 0] >= 0).all()),
+                  f"cascade {name} Mode {m}: bad result")
+            row["recall"][m] = recall_at_k(got.ids, truth)
+            if budgets is None:
+                wide = planner.search(
+                    index, qt, scan_impl="fused",
+                    **dict(kw0, mode="A", topk=11 if m == "A"
+                           else cfg.pool + 1,
+                           pool=cfg.pool + (m == "B")))
+                row[f"ties {m}"] = tie_aware_equal(
+                    torch, got, fused[m], wide,
+                    f"cascade {name} Mode {m} vs fused",
+                    pool=None if m == "A" else cfg.pool)
+            planner.search(index, qt, scan_impl="cascade", **kw)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            for _ in range(2):
+                planner.search(index, qt, scan_impl="cascade", **kw)
+            sync(torch, dev)
+            row["ms"][m] = (time.perf_counter() - t0) / 2 * 1e3
+        log(f"cascade budgets={name}: == cascade_ref (ids, dists "
+            f"torch.equal), Mode A and B"
+            + (f"; == fused except exact ties (Mode A: {row['ties A']} "
+               f"positions, Mode B: {row['ties B']} queries)"
+               if budgets is None else "")
+            + f"; fused_scan_select launches {row['launches']}; recall@10 "
+            f"vs flat_search: Mode A {row['recall']['A']:.4f}, Mode B "
+            f"{row['recall']['B']:.4f}; Mode A {row['ms']['A']:.3f} ms (QPS "
+            f"{nq / row['ms']['A'] * 1e3:.1f}), Mode B {row['ms']['B']:.3f} "
+            f"ms (QPS {nq / row['ms']['B'] * 1e3:.1f}) per {nq} queries "
+            "(host clock, ends in a synchronise)")
+        out["settings"][name] = row
+    fused_ms = {}
+    for m in "AB":
+        t0 = time.perf_counter()
+        for _ in range(2):
+            planner.search(index, qt, mode=m, scan_impl="fused", **kw0)
+        sync(torch, dev)
+        fused_ms[m] = (time.perf_counter() - t0) / 2 * 1e3
+    out["fused"] = dict(ms=fused_ms, recall={
+        m: recall_at_k(fused[m].ids, truth) for m in "AB"})
+    log(f"fused plane on the same density index: recall@10 Mode A "
+        f"{out['fused']['recall']['A']:.4f}, Mode B "
+        f"{out['fused']['recall']['B']:.4f}; Mode A {fused_ms['A']:.3f} ms, "
+        f"Mode B {fused_ms['B']:.3f} ms per {nq} queries")
+    if dev.type == "cuda":
+        out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+        log(f"cascade peak device memory {out['peak']} bytes above the "
+            f"{base} held when the phase began (max_memory_allocated; the "
+            "density index included)")
+
+    # every stage-1 call shape: held to its plain version and timed; stage
+    # 2 alone on the captured survivors
+    out["stage1"], out["stage2"] = {}, {}
+    for name, budgets in settings.items():
+        with _CaptureCascade(torch) as cap:
+            planner.search(index, qt[:planner.QUERY_BATCH], mode="A",
+                           scan_impl="cascade", budgets=budgets,
+                           **dict(kw0, topk=10))
+        args, kw, (_, fs) = cap.stage1
+        kw = dict(kw)
+        width = kw.pop("width")
+        if dev.type != "cuda":
+            out["stage1"][name] = dict(max_abs_err=hold(
+                torch, fsel, args, kw, width, f"stage 1 at {name}"))
+            continue
+        out["stage1"][name] = time_stage1(torch, fsel, args, kw, width,
+                                          f"budgets={name}")
+        rargs, rkw = cap.runner
+        rkw = dict(rkw)
+        w, b = rkw.pop("width"), rkw.pop("budgets", None)
+        b2 = w if b is None else max(1, min(b[1], w, fs.shape[1]))
+        gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale = rargs
+
+        def stage2(fs=fs, rkw=rkw, w=w, b2=b2):
+            return cascade._stage2_select(
+                fs, gids, zq, rq, coords, res, rows, scale, res_scale,
+                rkw.get("sq"), rkw.get("sketch"), rkw.get("sketch_scale"),
+                width=w, b2=b2)
+
+        stage2()
+        s2_ms, _, _ = device_ms(torch, stage2, (), reps=5)
+        whole_ms, _, _ = device_ms(
+            torch, lambda: cap.plane.runner(*rargs, width=w, budgets=b,
+                                            **rkw), (), reps=5)
+        out["stage2"][name] = dict(ms=s2_ms, select_ms=whole_ms)
+        log(f"  stage 2 at budgets={name} (b1={fs.shape[1]}, b2={b2}, one "
+            f"{args[1].shape[0]}-query batch): {s2_ms:.4f} ms device time "
+            f"(CUPTI), of {whole_ms:.4f} ms for the whole cascade select "
+            "(stage 1, its inputs and stage 2)")
+        del cap, args, kw, fs, rargs, rkw
+    if dev.type == "cuda":
+        wall = out["settings"]["None"]["ms"]["A"] / 1e3
+        out["profile"] = profile(
+            torch, f"one cascade search, Mode A, budgets=None, {nq} queries",
+            lambda: planner.search(index, qt, mode="A", scan_impl="cascade",
+                                   **kw0), wall, top=10)
+    del index
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 10: the vector store (VectorStore add/seal/delete/upsert/search)
 # ---------------------------------------------------------------------------
 
@@ -1212,6 +1539,9 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
         f"dists == the live vectors' exact distances (rtol 1e-5); recall@10 "
         f"vs flat_search over the {n_live} live rows: Mode A "
         f"{recall['A']:.4f}, Mode B {recall['B']:.4f}")
+    cascade = store_cascade(
+        torch, st, qt, xl, dead_t, torch.from_numpy(tags.astype(np.int64))
+        .to(dev), torch.from_numpy(ts).to(dev), truth, "store cascade")
     del xl
 
     timing = {}
@@ -1244,7 +1574,7 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
 
     out = dict(launches=launches, per_search=per_search, recall=recall,
                search_s=timing, seal_s=seal_s, stack_s=stack_s[0],
-               n_live=n_live, mem_rows=mem_rows)
+               n_live=n_live, mem_rows=mem_rows, cascade=cascade)
     if on_card:
         entry = st._stacked_for(tuple(st._segments))
         plane = st._live_plane(entry, st.snapshot(), time.time())
@@ -1291,6 +1621,74 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
     out["state"] = dict(st=st, qt=qt, x=x, tags=tags, up=up, x_up=x_up,
                         dead=dead, cfg=cfg, recall=recall)
     return out
+
+
+#: The README's budget setting, used on the stores.
+STORE_CASCADE_BUDGETS = (4096, 64)
+
+
+def store_cascade(torch, st, qt, xl, dead, tg, tsv, truth, label):
+    """The cascade on a store at ``STORE_CASCADE_BUDGETS``: the store
+    phase's searches (counter zeroed just before each, read just after),
+    each equal to "cascade_ref" (ids and dists, ``torch.equal``), free of
+    deleted gids, the filters obeyed, Mode B dists the live vectors'
+    exact distances (rtol 1e-5); recall@10 and times."""
+    from repro_torch.core.flat import recall_at_k
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq = qt.device, qt.shape[0]
+    b = STORE_CASCADE_BUDGETS
+    per, res = {}, {}
+    for name, kw in STORE_SEARCHES.items():
+        fsel.fused_scan_select.launches = 0
+        got = st.search(qt, topk=10, scan_impl="cascade", budgets=b, **kw)
+        sync(torch, dev)
+        per[name] = fsel.fused_scan_select.launches
+        ref = st.search(qt, topk=10, scan_impl="cascade_ref", budgets=b,
+                        **kw)
+        ids, d = got.ids, got.dists
+        check(torch.equal(ids, ref.ids) and torch.equal(d, ref.dists),
+              f"{label} {name}: differs from cascade_ref "
+              f"({int((ids != ref.ids).sum())} ids)")
+        check(ids.shape == (nq, 10) and bool(torch.isfinite(d).all())
+              and bool((ids[:, 0] >= 0).all()), f"{label} {name}: bad result")
+        check(not bool(torch.isin(ids.long(), dead).any()),
+              f"{label} {name}: a deleted gid was returned")
+        ok = ids >= 0
+        at = torch.clamp(ids, min=0).long()
+        if kw["mode"] == "B":
+            exact = (xl[at] - qt[:, None, :]).square_().sum(-1)
+            check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
+                  f"{label} {name}: dists are not the live vectors' exact "
+                  "distances")
+        if "tag_mask" in kw:
+            check(bool((tg[at] & kw["tag_mask"])[ok].all()),
+                  f"{label} {name}: a row outside tag_mask")
+        if "ts_range" in kw:
+            lo, hi = kw["ts_range"]
+            check(bool(((tsv[at] >= lo) & (tsv[at] < hi))[ok].all()),
+                  f"{label} {name}: a row outside ts_range")
+        res[name] = got
+    if dev.type == "cuda":
+        check(all(v > 0 for v in per.values()),
+              f"{label}: a cascade search launched no select ({per})")
+    recall = {m: recall_at_k(res[m].ids, truth) for m in "AB"}
+    ms = {}
+    for m in "AB":
+        t0 = time.perf_counter()
+        for _ in range(2):
+            st.search(qt, topk=10, mode=m, scan_impl="cascade", budgets=b)
+        sync(torch, dev)
+        ms[m] = (time.perf_counter() - t0) / 2 * 1e3
+    log(f"{label}: scan_impl=\"cascade\", budgets={b}: == cascade_ref "
+        f"(ids, dists torch.equal, {len(per)} searches); no deleted gid; "
+        f"filters obeyed; Mode B dists == the live vectors' exact distances "
+        f"(rtol 1e-5); fused_scan_select launches {per}; recall@10 Mode A "
+        f"{recall['A']:.4f}, Mode B {recall['B']:.4f}; Mode A "
+        f"{ms['A']:.3f} ms, Mode B {ms['B']:.3f} ms per {nq} queries (host "
+        "clock, ends in a synchronise)")
+    return dict(launches=sum(per.values()), per_search=per, recall=recall,
+                ms=ms)
 
 
 def half_memtable(torch, np, st, qt, x, tags, ts, dead_t, per_seg, rng):
@@ -1928,6 +2326,77 @@ def paged_searches(torch, np, st, qt, warm, budget, label, *, all_hot=False):
                 staged=staged, chunks=chunks)
 
 
+def paged_cascade(torch, st, qt, xl, alive, tg, tsv, budget, label):
+    """The cascade on the cold store: on its all-warm plane at
+    ``STORE_CASCADE_BUDGETS`` (``store_cascade``; the cold Mode B re-ranks
+    min(pool, b2) rows), then paged under ``budget``: at ``budgets=None``
+    every paged search equals the all-warm cascade's but for exact ties
+    (``tie_aware_equal``), at ``STORE_CASCADE_BUDGETS``, which act on each
+    pass, it equals the paged "cascade_ref" (``torch.equal``)."""
+    from repro_torch.core.flat import flat_search
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq, pool = qt.device, qt.shape[0], st.cfg.pool
+    dead = torch.nonzero(~alive).flatten()
+    live = torch.nonzero(alive).flatten()
+    truth = live[flat_search(xl[live], qt, topk=10).ids.long()]
+    st.device_budget = None
+    out = dict(warm=store_cascade(torch, st, qt, xl, dead, tg, tsv, truth,
+                                  f"{label}, all-warm plane"))
+    warm = {m: st.search(qt, topk=10, mode=m, scan_impl="cascade")
+            for m in "AB"}
+    wide = {"A": st.search(qt, topk=11, mode="A", scan_impl="cascade"),
+            "B": st.search(qt, topk=pool + 1, pool=pool + 1, mode="A",
+                           scan_impl="cascade")}
+    st.device_budget = budget
+    for m in "BA":
+        st.search(qt, topk=10, mode=m, scan_impl="cascade")
+    sync(torch, dev)
+    b = STORE_CASCADE_BUDGETS
+    per, ties, ms = {}, {}, {}
+    for m in "AB":
+        for budgets in (None, b):
+            kw = dict(topk=10, mode=m, scan_impl="cascade", budgets=budgets)
+            key = f"{m} budgets={budgets}"
+            fsel.fused_scan_select.launches = 0
+            t0 = time.perf_counter()
+            got = st.search(qt, **kw)
+            sync(torch, dev)
+            ms[key] = (time.perf_counter() - t0) * 1e3
+            per[key] = fsel.fused_scan_select.launches
+            if budgets is None:
+                ties[m] = tie_aware_equal(
+                    torch, got, warm[m], wide[m],
+                    f"{label} paged budgets=None Mode {m} vs all-warm",
+                    pool=None if m == "A" else pool)
+            else:
+                ref = st.search(qt, **dict(kw, scan_impl="cascade_ref"))
+                check(torch.equal(got.ids, ref.ids)
+                      and torch.equal(got.dists, ref.dists),
+                      f"{label} paged {key}: differs from the paged "
+                      f"cascade_ref ({int((got.ids != ref.ids).sum())} ids)")
+            check(not bool(torch.isin(got.ids.long(), dead).any()),
+                  f"{label} paged {key}: a deleted gid was returned")
+            if m == "B":
+                ok = got.ids >= 0
+                exact = (xl[torch.clamp(got.ids, min=0).long()]
+                         - qt[:, None, :]).square_().sum(-1)
+                check(torch.allclose(got.dists[ok], exact[ok], rtol=1e-5,
+                                     atol=0.0), f"{label} paged {key}: "
+                      "dists are not the live vectors' exact distances")
+    if dev.type == "cuda":
+        check(all(v > 0 for v in per.values()),
+              f"{label}: a paged cascade search launched no select ({per})")
+    log(f"{label}, paged at {budget} bytes: budgets=None == the all-warm "
+        f"cascade but for exact ties (Mode A {ties['A']} positions, Mode B "
+        f"{ties['B']} queries); budgets={b} (per pass) == the paged "
+        f"cascade_ref (torch.equal); no deleted gid; Mode B dists exact; "
+        f"fused_scan_select launches {per}; first-call ms per {nq} queries "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    out.update(launches=sum(per.values()), per_search=per, ties=ties, ms=ms)
+    return out
+
+
 def host_fill_ms(fn):
     """Host time spent assembling staged chunks (``TieredPlane._fill``)
     during ``fn()``: (ms, chunks)."""
@@ -2196,6 +2665,9 @@ def _tiered_phase(torch, np, dev, cold_dir, *, n, nq, segments, grains,
                 f"{k}: {v}" for k, v in memory.items()))
     out["first"] = first
     out["budgets"] = budgets
+    out["cascade"] = paged_cascade(torch, st, qt, xl, alive, tg, tsv,
+                                   budgets["25% of the tier"],
+                                   "tiered cascade")
 
     # the select at the paged plane's shapes, and one paged search profiled
     st.device_budget = budgets["25% of the tier"]
@@ -2384,11 +2856,14 @@ def main(argv=None) -> int:
     st["kv"] = time_scan(torch, "an HNTL-KV decode step", hs.hntl_scan_single,
                          ref.hntl_scan_single_ref, kvp["scan_args"], 1)
     profile_phase(torch, mp, gp, kvp)
+    cp = cascade_phase(torch, np, mp, cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
     batched_at = "P={} Q={} k={} cap={} int16 (the coordinate launch)".format(
         *sb["args"][0].shape[:2], *sb["args"][2].shape[1:])
     for big in ("k_all", "v_all", "idx", "scan_args", "step"):
         del kvp[big]            # free the card for the store phase
-    del mp["index"], sb["args"], sb["sketch"]
+    del mp["index"], mp["x"], sb["args"], sb["sketch"]
     stp = store_phase(torch, np, cuda, n=a.store_n)
     state = stp.pop("state")
     lc = lifecycle_phase(
@@ -2414,7 +2889,13 @@ def main(argv=None) -> int:
                     lc["after_compact"]["launches"],
                     "store search after maintain":
                     lc["after_maintain"]["launches"],
-                    **tp["launches"]}
+                    **tp["launches"],
+                    "cascade search (one index, 3 budget settings)":
+                    cp["launches"],
+                    "store cascade search": stp["cascade"]["launches"],
+                    "cold store cascade search (all-warm plane)":
+                    tp["cascade"]["warm"]["launches"],
+                    "paged cascade search": tp["cascade"]["launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
                     "store search, kernel plane": stp["kernel_launches"],
@@ -2429,8 +2910,12 @@ def main(argv=None) -> int:
                                 if k != "max_abs_err"}
     select_entry["at_paged"] = {k: v for k, v in tp["select"].items()
                                 if k != "max_abs_err"}
-    select_entry["max_abs_err"] = max(select_entry["max_abs_err"],
-                                      tp["select"]["max_abs_err"])
+    select_entry["at_cascade_stage1"] = {
+        k: {f: v for f, v in t.items() if f != "max_abs_err"}
+        for k, t in cp["stage1"].items()}
+    select_entry["max_abs_err"] = max(
+        select_entry["max_abs_err"], tp["select"]["max_abs_err"],
+        *(t["max_abs_err"] for t in cp["stage1"].values()))
     log(json.dumps({"kernels": [
         select_entry,
         kernel_entry("hntl_scan_single", src + "hntl_scan.cu",

@@ -72,6 +72,69 @@ def pack_members(members, cap: int):
     return ids, valid
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def coord_width_bits(qmaxg, n_grains: int, full_bits: int = 16) -> np.ndarray:
+    """Stored bits per coordinate of each grain: 4, 8 or ``full_bits``.
+
+    ``qmaxg``: the per-grain quantization magnitude of a density-aware
+    build (None: every grain at the fixed ``full_bits``).
+    """
+    if qmaxg is None:
+        return np.full(n_grains, full_bits, np.uint8)
+    qm = _host(qmaxg)
+    return np.where(qm <= 7, 4, np.where(qm <= 127, 8, full_bits)) \
+        .astype(np.uint8)
+
+
+def pack_coords_blob(coords, qmaxg):
+    """Serialize [G, k, cap] int16 coordinate panels at each grain's
+    stored width: what the mixed-precision index costs at rest (host
+    numpy).  The device keeps the panels widened to int16; int4 grains
+    take two signed nibbles a byte (``quantize.pack_int4``), int8 grains
+    one byte a coordinate, full-width grains two.
+
+    Returns (blob [B] u8, offsets [G+1] i64, width_bits [G] u8).
+    """
+    from .quantize import pack_int4
+    coords = _host(coords)
+    g = coords.shape[0]
+    widths = coord_width_bits(qmaxg, g)
+    parts, offsets = [], [0]
+    for gi in range(g):
+        c = coords[gi].reshape(-1)
+        if widths[gi] == 4:
+            b = pack_int4(torch.from_numpy(c)).numpy()
+        elif widths[gi] == 8:
+            b = c.astype(np.int8).view(np.uint8)
+        else:
+            b = c.astype("<i2").view(np.uint8).reshape(-1)
+        parts.append(b)
+        offsets.append(offsets[-1] + b.size)
+    blob = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    return blob, np.asarray(offsets, np.int64), widths
+
+
+def unpack_coords_blob(blob, offsets, width_bits, k: int, cap: int):
+    """Inverse of :func:`pack_coords_blob`: blob -> [G, k, cap] int16."""
+    from .quantize import unpack_int4
+    g = len(width_bits)
+    out = np.zeros((g, k, cap), np.int16)
+    for gi in range(g):
+        raw = np.asarray(blob[offsets[gi]:offsets[gi + 1]], np.uint8)
+        if width_bits[gi] == 4:
+            vals = unpack_int4(torch.from_numpy(raw), k * cap).numpy() \
+                .astype(np.int16)
+        elif width_bits[gi] == 8:
+            vals = raw.view(np.int8).astype(np.int16)
+        else:
+            vals = raw.view("<i2").astype(np.int16)
+        out[gi] = vals.reshape(k, cap)
+    return out
+
+
 def write_panel_file(path: str, panels: dict) -> dict:
     """Write a dict of grain-axis host panels to one Block-SoA file.
 

@@ -136,13 +136,15 @@ def scan_probed(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
 
 def select_args(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                 envelope_frac: float, qeff: int, *, width: int,
+                budgets: Optional[tuple] = None,
                 extra_mask: Optional[torch.Tensor] = None,
                 tenant_mask: Optional[torch.Tensor] = None,
                 tenant_ix: Optional[torch.Tensor] = None,
                 n_active: Optional[torch.Tensor] = None, proj=None):
     """The (args, kwargs) a select runner is called with: the projected
     and quantized queries plus the stacked panel tier, unchanged (no
-    per-query gather).  ``width`` is clamped to P * cap."""
+    per-query gather).  ``width`` is clamped to P * cap; ``budgets`` (a
+    staged runner's) ride along."""
     g = index.grains
     zq_q, rq, keep, sq = _projected(index, q, gids, envelope_frac, qeff,
                                     proj)
@@ -157,6 +159,8 @@ def select_args(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                   sketch_scale=g.sketch_scale)
     if tenant_mask is not None:
         kw.update(tenant_mask=tenant_mask, tenant_ix=tenant_ix)
+    if budgets is not None:
+        kw["budgets"] = budgets
     if n_active is not None:
         kw["n_active"] = n_active
     return args, kw
@@ -164,6 +168,7 @@ def select_args(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
 
 def select_probed(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                   envelope_frac: float, qeff: int, *, width: int, runner,
+                  budgets: Optional[tuple] = None,
                   extra_mask: Optional[torch.Tensor] = None,
                   tenant_mask: Optional[torch.Tensor] = None,
                   tenant_ix: Optional[torch.Tensor] = None,
@@ -174,7 +179,8 @@ def select_probed(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
     Returns (dists [Q, width] f32 ascending, rows [Q, width] i32).
     """
     args, kw = select_args(index, q, gids, envelope_frac, qeff, width=width,
-                           extra_mask=extra_mask, tenant_mask=tenant_mask,
+                           budgets=budgets, extra_mask=extra_mask,
+                           tenant_mask=tenant_mask,
                            tenant_ix=tenant_ix, n_active=n_active, proj=proj)
     return runner(*args, **kw)
 
@@ -182,6 +188,7 @@ def select_probed(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
 def candidate_stage(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                     *, envelope_frac: float, qeff: int, width: int,
                     scan_impl: Optional[str] = None,
+                    budgets: Optional[tuple] = None,
                     extra_mask: Optional[torch.Tensor] = None,
                     tenant_mask: Optional[torch.Tensor] = None,
                     tenant_ix: Optional[torch.Tensor] = None,
@@ -190,10 +197,16 @@ def candidate_stage(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
 
     Gather backends return the full [Q, P*cap] slot matrix; select
     backends the [Q, min(width, P*cap)] pool.  Either feeds the Mode A/B
-    tail unchanged.  ``proj``: a precomputed projection of these probes
+    tail unchanged.  ``budgets``: per-stage survivor budgets (b1, b2) for
+    a staged backend (the cascade); any other backend refuses them.
+    ``proj``: a precomputed projection of these probes
     (``project_probes``), else it is computed here.
     """
     plane = scanplane.get_scan_plane(scan_impl, index.device)
+    if budgets is not None and not plane.staged:
+        raise ValueError(
+            f"scan plane {plane.name!r} is not staged; per-stage survivor "
+            "budgets need a cascade backend (scan_impl='cascade')")
     if plane.kind == scanplane.SELECT:
         if n_active is not None and not plane.adaptive:
             raise ValueError(
@@ -201,7 +214,8 @@ def candidate_stage(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,
                 "ragged-probe vector (n_active=)")
         return select_probed(index, q, gids, envelope_frac, qeff,
                              width=width, runner=plane.runner,
-                             extra_mask=extra_mask, tenant_mask=tenant_mask,
+                             budgets=budgets, extra_mask=extra_mask,
+                             tenant_mask=tenant_mask,
                              tenant_ix=tenant_ix, n_active=n_active,
                              proj=proj)
     return scan_probed(index, q, gids, envelope_frac, qeff,
@@ -269,12 +283,12 @@ def _in_batches(run, n: int, topk: int,
 
 
 def _search_batch(index, q, *, nprobe, pool, topk, mode, envelope_frac,
-                  qeff, scan_impl, extra_mask):
+                  qeff, scan_impl, budgets, extra_mask):
     gids, _ = routing.route(index.routing, q, nprobe)
     dists, ids = candidate_stage(
         index, q, gids, envelope_frac=envelope_frac, qeff=qeff,
         width=min(max(pool, topk), nprobe * index.grains.cap),
-        scan_impl=scan_impl, extra_mask=extra_mask)
+        scan_impl=scan_impl, budgets=budgets, extra_mask=extra_mask)
     return _candidate_epilogue(dists, ids, q, index.raw, pool=pool,
                                topk=topk, mode=mode,
                                translate=_pruned_to_minus_one)
@@ -283,13 +297,6 @@ def _search_batch(index, q, *, nprobe, pool, topk, mode, envelope_frac,
 def _check_mode(mode: str) -> None:
     if mode not in ("A", "B"):
         raise ValueError(f"mode must be 'A' or 'B', got {mode!r}")
-
-
-def _refuse_budgets(budgets, topk: int) -> None:
-    check_budgets(budgets, topk)
-    if budgets is not None:
-        raise ValueError("budgets= needs the cascade scan plane (ROADMAP "
-                         "Queue A item 4), which is not ported yet")
 
 
 def search(index: HNTLIndex, q: torch.Tensor, *, nprobe: int, pool: int,
@@ -301,16 +308,18 @@ def search(index: HNTLIndex, q: torch.Tensor, *, nprobe: int, pool: int,
     mode='B' tiered re-rank.
 
     scan_impl: ScanPlane backend name (``core.scanplane``); None = auto.
-    budgets: refused until the cascade is ported (validated first).
+    budgets: (b1, b2) per-stage survivor budgets for a staged (cascade)
+      backend.
     Pruned result slots (filtered, padding, pool exhausted) return id -1.
     """
-    _refuse_budgets(budgets, topk)
+    check_budgets(budgets, topk)
     _check_mode(mode)
     return _in_batches(
         lambda sl: _search_batch(
             index, q[sl], nprobe=nprobe, pool=pool, topk=topk, mode=mode,
             envelope_frac=envelope_frac, qeff=qeff, scan_impl=scan_impl,
-            extra_mask=extra_mask), q.shape[0], topk, index.device)
+            budgets=budgets, extra_mask=extra_mask), q.shape[0], topk,
+        index.device)
 
 
 # ---------------------------------------------------------------------------
@@ -375,10 +384,12 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
     probe_plan: a precomputed (gids [Q, P] i32, n_active [Q] i32 | None)
       that replaces routing (``static_route``); probes p >= n_active[q]
       are killed.  Needs global routing.
-    budgets, tenant_live/tenant_ix, probe_margin and hub_mask are refused
-      until the ROADMAP items that bring them land.
+    budgets: (b1, b2) per-stage survivor budgets for a staged (cascade)
+      backend.
+    tenant_live/tenant_ix, probe_margin and hub_mask are refused until the
+      ROADMAP items that bring them land.
     """
-    _refuse_budgets(budgets, topk)
+    check_budgets(budgets, topk)
     for name, value, item in (
             ("tenant_live", tenant_live, 6), ("tenant_ix", tenant_ix, 6),
             ("probe_margin", probe_margin, 5), ("hub_mask", hub_mask, 5)):
@@ -413,8 +424,8 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
                                     grain_mask=grain_ok)
         dists, rows = candidate_stage(
             index, qb, gids, envelope_frac=envelope_frac, qeff=qeff,
-            width=max(pool, topk), scan_impl=scan_impl, extra_mask=extra,
-            n_active=n_active)
+            width=max(pool, topk), scan_impl=scan_impl, budgets=budgets,
+            extra_mask=extra, n_active=n_active)
         return _candidate_epilogue(dists, rows, qb, index.raw, pool=pool,
                                    topk=topk, mode=mode, translate=tr)
 

@@ -101,3 +101,33 @@ def assign_grain_qmax(captured: torch.Tensor, live: torch.Tensor, *,
     least ``min_rows`` live rows, else ``hard_qmax``."""
     easy = torch.logical_and(captured >= captured_min, live >= min_rows)
     return torch.where(easy, INT4_QMAX, hard_qmax).to(torch.int32)
+
+
+def pack_int4(q) -> torch.Tensor:
+    """Pack values two signed nibbles per byte along the last axis.
+
+    Floats are rounded first and NaNs pack as 0; every value is clipped
+    to [-8, 7], so pack then unpack is the clip-to-[-8, 7] identity.  An
+    odd-length last axis is zero-padded.  Returns uint8 [..., ceil(n/2)].
+    """
+    q = torch.as_tensor(q)
+    if q.is_floating_point():
+        q = torch.round(torch.where(torch.isnan(q), 0.0, q))
+    q = torch.clamp(q, -8, 7).to(torch.int8)
+    if q.shape[-1] % 2:
+        q = torch.cat([q, q.new_zeros(q.shape[:-1] + (1,))], dim=-1)
+    lo = (q[..., 0::2] & 0x0F).to(torch.uint8)
+    hi = (q[..., 1::2] & 0x0F).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 [..., ceil(n/2)] -> int8
+    [..., n], the signed nibbles restored."""
+    p = torch.as_tensor(packed).to(torch.uint8)
+    lo = (p & 0x0F).to(torch.int8)
+    hi = ((p >> 4) & 0x0F).to(torch.int8)
+    lo = torch.where(lo > 7, lo - 16, lo)
+    hi = torch.where(hi > 7, hi - 16, hi)
+    out = torch.stack([lo, hi], dim=-1).reshape(p.shape[:-1] + (-1,))
+    return out[..., :n]

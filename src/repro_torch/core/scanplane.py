@@ -18,11 +18,16 @@ Registered backends:
   "fused"       select   the hand-written CUDA scan→select kernel
                          (plain version for CPU tensors)
   "fused_ref"   select   the kernel's plain PyTorch version
+  "cascade"     select   the mixed-precision cascade (``core.cascade``),
+                         stage 1 on the CUDA scan→select kernel (plain
+                         version for CPU tensors); staged
+  "cascade_ref" select   the cascade with stage 1 on the plain version;
+                         staged
   "auto"/None   —        "fused" for an index on CUDA, "ref" on the CPU
 
 The JAX package's "pallas" and "interpret" planes are "kernel" here (its
-engine follows the device, so there is no interpret mode); its "cascade"
-and "cascade_ref" planes are not ported yet.  Naming any of these raises.
+engine follows the device, so there is no interpret mode): naming either
+raises.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
-from . import scan
+from . import cascade, scan
 from ..kernels import ops
 from ..kernels.fused_select import fused_scan_select
 
@@ -50,13 +55,16 @@ class ScanPlane:
         res, mask, rows, scale, res_scale, [sq, sketch, sketch_scale], *,
         width) -> (dists [Q, width], rows [Q, width]).
 
-    ``adaptive`` select backends accept ``n_active=``.
+    ``staged`` backends also accept ``budgets=(b1, b2)``, per-stage
+    survivor budgets (the cascade); budgets on any other backend are
+    refused.  ``adaptive`` select backends accept ``n_active=``.
     """
 
     name: str
     kind: str
     runner: Callable
     doc: str = ""
+    staged: bool = False
     adaptive: bool = False
 
 
@@ -64,12 +72,13 @@ _REGISTRY: dict = {}
 
 
 def register_scan_plane(name: str, kind: str, runner: Callable,
-                        doc: str = "", adaptive: bool = False) -> ScanPlane:
+                        doc: str = "", staged: bool = False,
+                        adaptive: bool = False) -> ScanPlane:
     if kind not in (GATHER, SELECT):
         raise ValueError(f"scan plane kind must be {GATHER!r} or "
                          f"{SELECT!r}, got {kind!r}")
     plane = ScanPlane(name=name, kind=kind, runner=runner, doc=doc,
-                      adaptive=adaptive)
+                      staged=staged, adaptive=adaptive)
     _REGISTRY[name] = plane
     return plane
 
@@ -111,3 +120,14 @@ register_scan_plane(
     "fused_ref", SELECT, scan.blocksoa_select_ref,
     "plain PyTorch version of the fused kernel (the select contract's "
     "reference)", adaptive=True)
+register_scan_plane(
+    "cascade", SELECT, cascade.make_cascade_runner("kernel"),
+    "mixed-precision cascade: the residual/sketch filter (stage 1, the "
+    "CUDA scan→select kernel on a zero-k panel; plain version for CPU "
+    "tensors), the quantized re-price of the b1 survivors (stage 2), the "
+    "shared epilogue (stage 3); accepts budgets=(b1, b2)", staged=True,
+    adaptive=True)
+register_scan_plane(
+    "cascade_ref", SELECT, cascade.make_cascade_runner("ref"),
+    "the cascade with stage 1 on the kernel's plain version", staged=True,
+    adaptive=True)

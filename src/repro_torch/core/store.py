@@ -44,11 +44,14 @@ Grains are self-contained, so the index maps onto immutable segments:
   staged in chunks of ``prefetch_grains``, and the hot set is re-elected
   from the probe traffic every ``residency_interval`` searches.  Searches
   return the all-warm plane's ids and dists bit for bit.
+- **the cascade** (``scan_impl="cascade"``, ``budgets=(b1, b2)``): on
+  the stacked plane, the cold re-rank (which reads only the ``b2``
+  survivors) and the tiered plane, where the budgets act per pass, as in
+  the JAX package.
 
-The JAX package's ``repro.core.store`` is the reference.  The cascade
-budgets, adaptive routing and the sharded plane are not ported yet; the
-arguments that would ask for them raise, naming the ROADMAP item that
-brings each.
+The JAX package's ``repro.core.store`` is the reference.  Adaptive
+routing, tenancy and the sharded plane are not ported yet; the arguments
+that would ask for them raise, naming the ROADMAP item that brings each.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ import torch
 
 from . import index as index_mod
 from . import maintenance, planner, residency, routing, scanplane
+from .cascade import check_budgets
 from .types import (BIG, GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
                     SearchResult, StackedSegments)
 
@@ -1238,15 +1242,24 @@ class VectorStore:
         tag_mask: keep records with (tag & tag_mask) != 0.
         ts_range: (lo, hi), keep lo <= ts < hi.
         scan_impl: ScanPlane backend (``core.scanplane``); None = "auto".
+        budgets: (b1, b2) per-stage survivor budgets of a staged backend
+          (the cascade), validated here (b1 >= b2 >= topk); needs the
+          fused plane.  A cold Mode B re-ranks the first min(pool, b2)
+          candidates; under ``device_budget`` they act on each pass.
         nprobe / pool: override cfg.nprobe / cfg.pool on the stacked plane.
         route_mode: "global" (top-P over every segment's grains) or
           "per_segment" (top-P within each segment, still one call).
         now: TTL clock (default: the store's clock).
         With ``device_budget`` set the sealed segments are searched on the
         tiered plane (fused, global routing, one device only).
-        budgets, mesh and adaptive=True are refused until ported.
+        mesh and adaptive=True are refused until ported.
         """
-        planner._refuse_budgets(budgets, topk)
+        if budgets is not None:
+            check_budgets(budgets, topk)
+            if not fused:
+                raise ValueError(
+                    "budgets= needs the fused search plane; the per-segment "
+                    "loop (fused=False) has no staged candidate stage")
         routing.check_probe_args(adaptive, probe_margin, min_probes)
         if adaptive:
             raise _unported("adaptive=True", 5, "adaptive routing")
@@ -1281,8 +1294,8 @@ class VectorStore:
             if man.segments:
                 ids_s, d_s = self._search_segments_fused(
                     q, man, topk=topk, mode=mode, tag_mask=tag_mask,
-                    ts_range=ts_range, scan_impl=scan_impl, nprobe=nprobe,
-                    pool=pool, route_mode=route_mode, now=now)
+                    ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
+                    nprobe=nprobe, pool=pool, route_mode=route_mode, now=now)
                 all_ids.append(ids_s)
                 all_d.append(d_s)
             return self._merge_with_memtable(q, man, all_ids, all_d, topk,
@@ -1324,7 +1337,7 @@ class VectorStore:
         return probe, pool_eff, min(topk, pool_eff), (s_n, gmax)
 
     def _search_segments_fused(self, q, man, *, topk, mode, tag_mask,
-                               ts_range, scan_impl, nprobe, pool,
+                               ts_range, scan_impl, budgets, nprobe, pool,
                                route_mode, now):
         """One ``planner.search_stacked`` call over the stacked plane (the
         tiered plane under a ``device_budget``).  Returns (global ids
@@ -1333,34 +1346,38 @@ class VectorStore:
         A cold plane (no stacked raw tier) runs Mode A for the pool and
         re-ranks it with the rows read from the cold files (``_RawRows``,
         ``_rerank_pool``): the same pool, batches and epilogue as a warm
-        plane's Mode B, so the same bits."""
+        plane's Mode B, so the same bits.  Stage budgets cap the useful
+        pool at b2, so a cold re-rank reads only that many rows."""
         if self.device_budget is not None:
             return self._search_segments_tiered(
                 q, man, topk=topk, mode=mode, tag_mask=tag_mask,
-                ts_range=ts_range, scan_impl=scan_impl, nprobe=nprobe,
-                pool=pool, now=now)
+                ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
+                nprobe=nprobe, pool=pool, now=now)
         segments = man.segments
         entry = self._stacked_for(segments)
         stacked = self._live_plane(entry, man, now)
         probe, pool_eff, topk_eff, seg_shape = self._fused_statics(
             segments, stacked, topk, nprobe, pool, route_mode)
         cold = mode == "B" and stacked.index.raw is None
+        pe = pool_eff if budgets is None else min(pool_eff, int(budgets[1]))
         res = planner.search_stacked(
             stacked, q, nprobe=probe, pool=pool_eff,
-            topk=pool_eff if cold else topk_eff, mode="A" if cold else mode,
+            topk=pe if cold else topk_eff, mode="A" if cold else mode,
             envelope_frac=self.cfg.envelope_frac,
             qeff=index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits),
-            scan_impl=scan_impl, route_mode=route_mode, seg_shape=seg_shape,
-            translate=not cold, tag_mask=tag_mask, ts_range=ts_range)
+            scan_impl=scan_impl, budgets=budgets, route_mode=route_mode,
+            seg_shape=seg_shape, translate=not cold, tag_mask=tag_mask,
+            ts_range=ts_range)
         if cold:
             res = _rerank_pool(
                 res.dists, res.ids, q, self._raw_rows(entry, segments),
-                pool=pool_eff, topk=topk_eff,
+                pool=pe, topk=topk_eff,
                 translate=lambda r, d: planner._translate_rows(stacked, r, d))
         return res.ids, res.dists
 
     def _search_segments_tiered(self, q, man, *, topk, mode, tag_mask,
-                                ts_range, scan_impl, nprobe, pool, now):
+                                ts_range, scan_impl, budgets, nprobe, pool,
+                                now):
         """The fused search on the tiered plane under ``device_budget``.
         Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device,
         equal to the all-warm plane's bit for bit.
@@ -1377,6 +1394,12 @@ class VectorStore:
         3. The passes' pools merge in the select's key order (distance,
            plan position, slot) into the all-warm plane's pool, and the
            Mode A cut or the Mode B re-rank (``_rerank_pool``) runs once.
+
+        Stage budgets act on each pass, as in the JAX package: each pass
+        runs the cascade over its own probes, and Mode B merges and
+        re-ranks min(pool, b2) candidates.  At ``budgets=None`` the merged
+        pool holds the all-warm cascade's candidates at the same
+        distances, ordered alike except between equal distances.
         """
         segments = man.segments
         entry = self._tiered_for(segments)
@@ -1389,13 +1412,15 @@ class VectorStore:
         pool_eff = min(max(want_pool, topk), probe * cap)
         topk_eff = min(topk, pool_eff)
         target = pool_eff if mode == "B" else topk_eff
+        if mode == "B" and budgets is not None:
+            target = min(pool_eff, int(budgets[1]))
         qeff = index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits)
         live_key, bitmap = self._tiered_live(entry, man, now)
         keep, grain_ok, grain_ok_dev = self._tiered_keep(
             entry, live_key, bitmap, tag_mask, ts_range)
         mask_src = keep if keep is not None else tiered.panels["valid"]
         mask_key = (live_key, tag_mask, ts_range)
-        pkw = dict(scan_impl=scan_impl, qeff=qeff)
+        pkw = dict(scan_impl=scan_impl, budgets=budgets, qeff=qeff)
 
         # 1: the plan and the projection, once
         stub = entry["plane"]
@@ -1498,14 +1523,15 @@ class VectorStore:
         return res.ids, res.dists
 
     def _tiered_pass(self, plane, q, gids, n_active, proj, *, width: int,
-                     scan_impl, qeff):
+                     scan_impl, budgets, qeff):
         """One residency pass (the hot mini-plane, or a staged cold chunk)
         over its probe plan and the gathered projection ``proj``: the
         candidate stage on the registered scan plane, cut to its top
-        ``width`` by (distance, plan position, slot).  A select plane runs
-        one call; a gather plane runs ``QUERY_BATCH``-query batches (it
-        copies every probed panel per query).  Returns (dists [Q, width],
-        rows [Q, width] with -1 at the pruned entries)."""
+        ``width`` by (distance, plan position, slot), ``budgets`` applied
+        to this pass alone.  A select plane runs one call; a gather plane
+        runs ``QUERY_BATCH``-query batches (it copies every probed panel
+        per query).  Returns (dists [Q, width], rows [Q, width] with -1 at
+        the pruned entries)."""
         index = plane.index
         select = scanplane.get_scan_plane(scan_impl, index.device).kind \
             == scanplane.SELECT
@@ -1515,7 +1541,7 @@ class VectorStore:
             sl = slice(lo, lo + step)
             d, r = planner.candidate_stage(
                 index, q[sl], gids[sl], envelope_frac=self.cfg.envelope_frac,
-                qeff=qeff, width=width, scan_impl=scan_impl,
+                qeff=qeff, width=width, scan_impl=scan_impl, budgets=budgets,
                 n_active=None if n_active is None else n_active[sl],
                 proj=tuple(None if t is None else t[sl] for t in proj))
             if not select:

@@ -61,18 +61,37 @@
 //    with 256-thread CTAs sorting 1024-slot tiles block-wide took 1.7x
 //    as long on an H100, PERF.md).  The L sorted keys go to a scratch
 //    tensor [Q*P, L].
-//  * fused_scan_select_merge_kernel: one CTA per query folds the sorted
-//    lists of its live probes into a carry of `width` big_keys, probe by
-//    probe in visit order, each fold one merge path of two sorted runs
-//    (lists staged in shared memory, as many probes at once as fit), then
-//    maps the first `width` keys to (dist, row).  A query's top-width
-//    holds at most min(width, cap) slots of one probe, and keys are
-//    unique, so these are the first `width` of the global sort: bit for
-//    bit the plain version.
+//  * fused_scan_select_merge_kernel (width <= kSmemWidth): one CTA per
+//    query folds the sorted lists of its live probes into a carry of
+//    `width` big_keys, probe by probe in visit order, each fold one merge
+//    path of two sorted runs (lists staged in shared memory, as many
+//    probes at once as fit), then maps the first `width` keys to
+//    (dist, row).  A query's top-width holds at most min(width, cap) slots
+//    of one probe, and keys are unique, so these are the first `width` of
+//    the global sort: bit for bit the plain version.
+//  * fused_scan_select_wide_merge_kernel (width > kSmemWidth, the
+//    cascade's stage 1 at up to P * cap): the carry no longer fits shared
+//    memory, so the probes' lists are merged pairwise as a tree in global
+//    scratch, ceil(log2 P) launches.  Round r merges runs of 2^(r-1)
+//    probes two by two and cuts each output run to its first
+//    min(2^r * L, width) keys: the first `width` keys of a merge depend
+//    only on the first `width` keys of each run, so the cut loses nothing.
+//    A dead probe's list is an empty run (its CTA never wrote it), and
+//    every run is padded with big_keys past its live keys, which is what
+//    the carry's initial big_keys give.  Each CTA makes 1024 outputs of
+//    one run: two merge-path searches bound the slices of the two input
+//    runs that feed them, the slices are staged in shared memory, and
+//    each output is one binary search there.  The last round writes
+//    (dist, row) straight to the outputs.  A round reads and writes each
+//    key once: ceil(log2 P) passes over Q * P * L keys, where folding the
+//    probes one by one into a width-key carry would re-read it P times.
 //
-// Limits: width <= kMaxWidth; P * cap < 2^32 - 1; Q * P < 2^31.  Shared
-// memory: probe kernel 2 L + 128 keys of 8 bytes (129 KB at L = 8192);
-// merge kernel 2 width keys plus a staging area, within kSmemBudget.
+// Limits: 1 <= width, and width <= kSmemWidth or width <= P * cap;
+// L = min(width, cap) <= kSmemWidth; P * cap < 2^32 - 1; Q * P < 2^31.
+// Shared memory: probe kernel 2 L + 128 keys of 8 bytes (129 KB at
+// L = 8192); merge kernel 2 width keys plus a staging area, within
+// kSmemBudget; wide merge kernel kTile keys.  Global scratch of the wide
+// merge: fused_scan_select_scratch_keys() keys, allocated by the caller.
 
 #include <cuda_runtime.h>
 
@@ -86,7 +105,8 @@ typedef unsigned long long u64;
 constexpr int kThreads = 256;                       // merge kernel
 constexpr int kSlotsPerThread = 4;
 constexpr int kChunk = 32 * kSlotsPerThread;        // slots a warp prices
-constexpr int kMaxWidth = 8192;
+constexpr int kSmemWidth = 8192;                    // widest shared carry
+constexpr int kTile = 4 * kThreads;                 // wide merge outputs/CTA
 constexpr size_t kSmemBudget = 200 * 1024;
 constexpr u64 kEmpty = ~0ull;
 
@@ -130,20 +150,43 @@ __device__ __forceinline__ bool pair_alive(const Params& p, int q, int pi) {
   return p.n_active == nullptr || pi < p.n_active[q];
 }
 
-// Output i of the ascending merge of sorted runs a[0, la) and b[0, lb)
-// (ties: a first).  Merge path: the number of a's among the first i
-// outputs is found by binary search.
-__device__ __forceinline__ u64 merge_at(const u64* a, int la, const u64* b,
-                                        int lb, int i) {
+// The number of a's among the first i outputs of the ascending merge of
+// sorted runs a[0, la) and b[0, lb) (ties: a first), i <= la + lb: merge
+// path, by binary search.
+__device__ __forceinline__ int merge_split(const u64* a, int la, const u64* b,
+                                           int lb, int i) {
   int lo = max(0, i - lb), hi = min(i, la);
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (a[mid] <= b[i - 1 - mid]) lo = mid + 1;
     else hi = mid;
   }
-  const int j = i - lo;
-  if (lo < la && (j >= lb || a[lo] <= b[j])) return a[lo];
+  return lo;
+}
+
+// Output i of that merge.
+__device__ __forceinline__ u64 merge_at(const u64* a, int la, const u64* b,
+                                        int lb, int i) {
+  const int na = merge_split(a, la, b, lb, i);
+  const int j = i - na;
+  if (na < la && (j >= lb || a[na] <= b[j])) return a[na];
   return b[j];
+}
+
+// Output i of query q from its key: (dist, row), row -1 at dist >= BIG / 2.
+__device__ __forceinline__ void emit(const Params& p, int q, int i, u64 key) {
+  const float d = float_of_order(static_cast<uint32_t>(key >> 32));
+  int32_t row = -1;
+  if (d < p.big * 0.5f) {
+    const uint32_t v = static_cast<uint32_t>(key) - 1u;
+    const int pi = static_cast<int>(v / static_cast<uint32_t>(p.cap));
+    const int c = static_cast<int>(v % static_cast<uint32_t>(p.cap));
+    const int g = p.gids[static_cast<int64_t>(q) * p.P + pi];
+    row = p.rows[static_cast<int64_t>(g) * p.cap + c];
+  }
+  const int64_t o = static_cast<int64_t>(q) * p.width + i;
+  p.out_d[o] = d;
+  p.out_r[o] = row;
 }
 
 // Ascending bitonic sort of the warp's 32 * kPer keys, element
@@ -392,21 +435,62 @@ fused_scan_select_merge_kernel(const Params p) {
     __syncthreads();                           // stage is reloaded
   }
 
-  const float half_big = p.big * 0.5f;
-  for (int i = tid; i < W; i += kThreads) {
-    const u64 key = carry[i];
-    const float d = float_of_order(static_cast<uint32_t>(key >> 32));
-    int32_t row = -1;
-    if (d < half_big) {
-      const uint32_t v = static_cast<uint32_t>(key) - 1u;
-      const int pi = static_cast<int>(v / static_cast<uint32_t>(p.cap));
-      const int c = static_cast<int>(v % static_cast<uint32_t>(p.cap));
-      const int g = p.gids[qp + pi];
-      row = p.rows[static_cast<int64_t>(g) * p.cap + c];
-    }
-    const int64_t o = static_cast<int64_t>(q) * W + i;
-    p.out_d[o] = d;
-    p.out_r[o] = row;
+  for (int i = tid; i < W; i += kThreads) emit(p, q, i, carry[i]);
+}
+
+// One round of the wide merge.  Input run r of query q, the lists of
+// probes [r * span, min((r + 1) * span, P)) merged and cut to
+// min(count * L, width) keys, sits at src + (q * n_in + r) * in_stride;
+// output run j, the merge of input runs 2j and 2j + 1 cut the same way,
+// goes to dst + (q * n_out + j) * out_stride, or, at the last round (dst
+// null, one output run of `width` keys), to out_d / out_r.  At the first
+// round (span 1) src is `lists`, and a dead probe's run is empty.  Block
+// b makes outputs [t * kTile, (t + 1) * kTile) of run j of query q, with
+// b = (q * n_out + j) * n_tiles + t.
+__global__ void __launch_bounds__(kThreads)
+fused_scan_select_wide_merge_kernel(const Params p, const u64* src, u64* dst,
+                                    int span, int in_stride, int out_stride,
+                                    int n_tiles) {
+  __shared__ u64 stage[kTile];
+  __shared__ int cut[2];
+  const int n_in = (p.P + span - 1) / span;
+  const int n_out = (n_in + 1) / 2;
+  const int t = static_cast<int>(blockIdx.x % n_tiles);
+  const int j = static_cast<int>(blockIdx.x / n_tiles % n_out);
+  const int q = static_cast<int>(blockIdx.x / n_tiles / n_out);
+  const int64_t L = p.L, W = p.width;
+  const int p0 = 2 * j * span;                  // the first probe of run 2j
+  const int cnt_a = min(span, p.P - p0);
+  const int cnt_b = max(0, min(span, p.P - p0 - span));
+  const int out_len = static_cast<int>(min((cnt_a + cnt_b) * L, W));
+  const int i0 = t * kTile;
+  if (i0 >= out_len) return;                    // block-uniform
+  const int i1 = min(i0 + kTile, out_len);
+  int la = static_cast<int>(min(cnt_a * L, W));
+  int lb = static_cast<int>(min(cnt_b * L, W));
+  if (span == 1) {
+    if (!pair_alive(p, q, p0)) la = 0;
+    if (cnt_b == 0 || !pair_alive(p, q, p0 + 1)) lb = 0;
+  }
+  const u64* a = src + (static_cast<int64_t>(q) * n_in + 2 * j) * in_stride;
+  const u64* b = a + in_stride;
+  // outputs [e0, e1) come from the runs' live keys, the rest are big_keys;
+  // they are the merge of a[cut[0], cut[1]) and b[e0 - cut[0], e1 - cut[1])
+  const int e0 = min(i0, la + lb), e1 = min(i1, la + lb);
+  if (threadIdx.x < 2)
+    cut[threadIdx.x] = merge_split(a, la, b, lb, threadIdx.x ? e1 : e0);
+  __syncthreads();
+  const int na = cut[1] - cut[0];
+  const int b0 = e0 - cut[0], nb = e1 - cut[1] - b0;
+  for (int x = threadIdx.x; x < na; x += kThreads) stage[x] = a[cut[0] + x];
+  for (int x = threadIdx.x; x < nb; x += kThreads) stage[na + x] = b[b0 + x];
+  __syncthreads();
+  u64* out = dst + (static_cast<int64_t>(q) * n_out + j) * out_stride;
+  for (int i = i0 + threadIdx.x; i < i1; i += kThreads) {
+    const u64 key =
+        i < e1 ? merge_at(stage, na, stage + na, nb, i - e0) : p.big_key;
+    if (dst == nullptr) emit(p, q, i, key);
+    else out[i] = key;
   }
 }
 
@@ -428,31 +512,64 @@ bool aligned16(const void* ptr) {
   return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
+// The wide merge's rounds: round r (from 0) merges runs of 2^r probes two
+// by two into ceil(P / 2^(r+1)) runs of min(2^(r+1) L, width) keys.  All
+// but the last write to the global scratch, even rounds to its first
+// half, odd rounds to its second (each reads the other).  Returns the
+// scratch's keys and sets `second`, the second half's offset.
+int64_t wide_scratch(int64_t q, int64_t P, int64_t L, int64_t W,
+                     int64_t* second) {
+  int64_t half[2] = {0, 0};
+  int r = 0;
+  for (int64_t span = 1; span < P; span *= 2, ++r) {
+    const int64_t n_out = (P + 2 * span - 1) / (2 * span);
+    if (n_out == 1) break;                     // the last round
+    const int64_t stride = 2 * span * L < W ? 2 * span * L : W;
+    const int64_t keys = q * n_out * stride;
+    if (keys > half[r % 2]) half[r % 2] = keys;
+  }
+  if (second != nullptr) *second = half[0];
+  return half[0] + half[1];
+}
+
 }  // namespace
 
-extern "C" int fused_scan_select_max_width() { return kMaxWidth; }
+extern "C" int fused_scan_select_smem_width() { return kSmemWidth; }
+
+// Keys of global scratch the launch needs (0 when width <= kSmemWidth).
+extern "C" long long fused_scan_select_scratch_keys(int n_queries,
+                                                    int n_probes, int cap,
+                                                    int width) {
+  if (width <= kSmemWidth) return 0;
+  const int L = width < cap ? width : cap;
+  return wide_scratch(n_queries, n_probes, L, width, nullptr);
+}
 
 extern "C" const char* fused_scan_select_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the probe kernel over `n_pairs` = Q * P CTAs and the merge
-// kernel over Q on `stream`; returns cudaGetLastError() after the
-// launches (0 on success).  Null pointers mark absent optional inputs.
-// `order` is the schedule (int64 pair indices, killed pairs anywhere),
-// `lists` scratch of Q * P * min(width, cap) keys; `vec` selects the
-// vector loads (cap % 4 == 0 and 16-byte aligned panels, checked here).
+// Launches the probe kernel over `n_pairs` = Q * P CTAs, then the merge
+// kernel over Q (width <= kSmemWidth) or the wide merge's rounds, on
+// `stream`; returns cudaGetLastError() after the launches (0 on
+// success).  Null pointers mark absent optional inputs.  `order` is the
+// schedule (int64 pair indices, killed pairs anywhere), `lists` scratch
+// of Q * P * min(width, cap) keys, `scratch` that of
+// fused_scan_select_scratch_keys(); `vec` selects the vector loads
+// (cap % 4 == 0 and 16-byte aligned panels, checked here).
 extern "C" int fused_scan_select_launch(
     const void* gids, const void* zq, const void* rq, const void* keep,
     const void* coords, const void* res, const void* mask, const void* rows,
     const void* scale, const void* res_scale, const void* sq,
     const void* sketch, const void* sketch_scale, const void* tenant_mask,
     const void* tenant_ix, const void* n_active, const void* order,
-    void* lists, void* out_d, void* out_r, int n_queries, int n_probes,
-    int k, int s, int n_grains, int cap, int width, int vec, float big,
-    void* stream) {
-  if (width < 1 || width > kMaxWidth || n_queries < 1 || n_probes < 1 ||
-      cap < 1)
+    void* lists, void* scratch, void* out_d, void* out_r, int n_queries,
+    int n_probes, int k, int s, int n_grains, int cap, int width, int vec,
+    float big, void* stream) {
+  const bool wide = width > kSmemWidth;
+  if (width < 1 || n_queries < 1 || n_probes < 1 || cap < 1 ||
+      (width < cap ? width : cap) > kSmemWidth ||
+      (wide && width > static_cast<int64_t>(n_probes) * cap))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec && (cap % kSlotsPerThread != 0 || !aligned16(coords) ||
               !aligned16(res) || !aligned16(mask) || !aligned16(sketch) ||
@@ -497,8 +614,19 @@ extern "C" int fused_scan_select_launch(
   // lists as fit the budget (at least one)
   const size_t fixed = 2 * static_cast<size_t>(width) * sizeof(u64);
   const size_t per_list = static_cast<size_t>(p.L) * sizeof(u64);
-  const int fit = static_cast<int>((kSmemBudget - fixed) / per_list);
+  const int fit =
+      wide ? 1 : static_cast<int>((kSmemBudget - fixed) / per_list);
   p.stage_probes = fit < 1 ? 1 : (fit > n_probes ? n_probes : fit);
+  // the wide merge: every round's grid must fit a launch
+  int64_t second = 0;
+  if (wide) {
+    if (wide_scratch(n_queries, n_probes, p.L, width, &second) > 0 &&
+        scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t tiles = (static_cast<int64_t>(width) + kTile - 1) / kTile;
+    if (static_cast<int64_t>(n_queries) * n_probes * tiles >= (1ll << 31))
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
 
   const size_t probe_smem =
       (2 * static_cast<size_t>(p.L) + kChunk) * sizeof(u64) +
@@ -513,7 +641,7 @@ extern "C" int fused_scan_select_launch(
     probe = has_tenant ? probe_kernel<false, true>(vec)
                        : probe_kernel<false, false>(vec);
   cudaError_t e = set_smem(probe, probe_smem);
-  if (e == cudaSuccess)
+  if (e == cudaSuccess && !wide)
     e = set_smem(fused_scan_select_merge_kernel, merge_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -521,6 +649,27 @@ extern "C" int fused_scan_select_launch(
   probe<<<n_pairs, 32, probe_smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_scan_select_merge_kernel<<<n_queries, kThreads, merge_smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (!wide) {
+    fused_scan_select_merge_kernel<<<n_queries, kThreads, merge_smem, st>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const u64* src = p.lists;
+  int in_stride = p.L;
+  int r = 0;
+  for (int64_t span = 1; span < n_probes; span *= 2, ++r) {
+    const int64_t n_out = (n_probes + 2 * span - 1) / (2 * span);
+    const int out_stride = static_cast<int>(
+        2 * span * p.L < width ? 2 * span * p.L : width);
+    u64* dst = n_out == 1 ? nullptr
+                          : static_cast<u64*>(scratch) + (r % 2 ? second : 0);
+    const int n_tiles = (out_stride + kTile - 1) / kTile;
+    const unsigned blocks = static_cast<unsigned>(n_queries * n_out * n_tiles);
+    fused_scan_select_wide_merge_kernel<<<blocks, kThreads, 0, st>>>(
+        p, src, dst, static_cast<int>(span), in_stride, out_stride, n_tiles);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    src = dst;
+    in_stride = out_stride;
+  }
+  return static_cast<int>(cudaSuccess);
 }

@@ -12,8 +12,10 @@ query: candidate state is [Q, width] instead of [Q, P*cap].
   One call is a schedule (``schedule``: the (query, probe) pairs in grain
   order, one ``torch.sort`` on the card), the per-probe kernel (each pair's
   own top-min(width, cap), in that order, so pairs that share a panel run
-  together) and the merge kernel (one per query, the probes' lists folded
-  into the top-``width``).
+  together) and the merge: up to ``SMEM_WIDTH`` one kernel per query that
+  folds the probes' lists into a top-``width`` carry in shared memory;
+  above it (the cascade's stage 1, up to P * cap) a pairwise tree merge of
+  the lists in global scratch, ceil(log2 P) launches.
 
 The kernels equal the plain version bit for bit: the same exact integer
 sums, the same float op order without FMA contraction, and the same tie
@@ -32,13 +34,15 @@ from ..core.scan import probe_alive
 from ..core.types import BIG
 from . import _build
 
-#: Largest ``width`` the kernels take: the merge kernel's carry lives in
-#: dynamic shared memory, two copies of ``width`` keys of 8 bytes (128 KB
-#: at this limit, of the 227 KB a block may use).
-MAX_WIDTH = 8192
+#: Widest ``width`` merged in shared memory (two copies of ``width`` keys
+#: of 8 bytes, 128 KB at this limit, of the 227 KB a block may use), and
+#: the widest per-probe list min(width, cap) the probe kernel keeps there.
+#: A wider ``width`` takes the tree merge in global scratch and must be at
+#: most P * cap.
+SMEM_WIDTH = 8192
 
 _SOURCE = "fused_select"
-_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                             ctypes.c_void_p]
 
 
@@ -50,10 +54,12 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.fused_scan_select_error_string.argtypes = [ctypes.c_int]
         lib.fused_scan_select_error_string.restype = ctypes.c_char_p
-        lib.fused_scan_select_max_width.restype = ctypes.c_int
-        if lib.fused_scan_select_max_width() != MAX_WIDTH:
+        lib.fused_scan_select_scratch_keys.argtypes = [ctypes.c_int] * 4
+        lib.fused_scan_select_scratch_keys.restype = ctypes.c_longlong
+        lib.fused_scan_select_smem_width.restype = ctypes.c_int
+        if lib.fused_scan_select_smem_width() != SMEM_WIDTH:
             raise RuntimeError("fused_select.cu and fused_select.py disagree "
-                               "on the kernel's largest width")
+                               "on the widest shared-memory merge")
     return lib
 
 
@@ -106,10 +112,14 @@ def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
     dev = gids.device
     q_n, p_n, k = zq.shape
     g_n, _, cap = coords.shape
-    if not 1 <= width <= MAX_WIDTH:
+    if not 1 <= width <= min(max(SMEM_WIDTH, p_n * cap), 2 ** 31 - 1):
         raise ValueError(
             f"fused_scan_select: width={width} is outside the kernel's range "
-            f"1..{MAX_WIDTH} (its top-W carry lives in shared memory)")
+            f"1..max({SMEM_WIDTH}, P * cap = {p_n * cap}) (below 2^31)")
+    if min(width, cap) > SMEM_WIDTH:
+        raise ValueError(
+            f"fused_scan_select: min(width, cap) = {min(width, cap)} is above "
+            f"{SMEM_WIDTH} (each probe's list lives in shared memory)")
     if p_n * cap >= 2 ** 32 - 1:
         raise ValueError("fused_scan_select: P * cap must be < 2^32 - 1")
     if (sketch is None) != (sq is None) or (sketch is None) != \
@@ -155,6 +165,9 @@ def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
         order = schedule(gids, keep, g_n, n_active)
         lists = torch.empty((q_n * p_n, min(width, cap)), dtype=torch.int64,
                             device=dev)
+        n_scratch = lib.fused_scan_select_scratch_keys(q_n, p_n, cap, width)
+        scratch = (torch.empty(n_scratch, dtype=torch.int64, device=dev)
+                   if n_scratch else None)
         vec = vector_loads(cap, coords, res, mask, sketch, tenant_mask)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_scan_select_launch(
@@ -162,8 +175,8 @@ def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
             _ptr(res), _ptr(mask), _ptr(rows), _ptr(scale), _ptr(res_scale),
             _ptr(sq), _ptr(sketch), _ptr(sketch_scale), _ptr(tenant_mask),
             _ptr(tenant_ix), _ptr(n_active), _ptr(order), _ptr(lists),
-            _ptr(out_d), _ptr(out_r), q_n, p_n, k, s, g_n, cap, width,
-            int(vec), BIG, ctypes.c_void_p(stream))
+            _ptr(scratch), _ptr(out_d), _ptr(out_r), q_n, p_n, k, s, g_n,
+            cap, width, int(vec), BIG, ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.fused_scan_select_error_string(rc).decode()
         raise RuntimeError(f"fused_scan_select kernel launch failed: CUDA "
@@ -189,7 +202,8 @@ def fused_scan_select(gids, zq, rq, keep, coords, res, mask, rows, scale,
     Returns (dists [Q, width] f32 ascending, rows [Q, width] i32), with
     (BIG, -1) beyond the live candidates; see ``blocksoa_select_ref`` for
     the exact order.  CPU tensors take the plain version; CUDA tensors take
-    the kernels (``width`` <= ``MAX_WIDTH``) or raise.
+    the kernels (``width`` <= max(``SMEM_WIDTH``, P * cap), min(``width``,
+    cap) <= ``SMEM_WIDTH``) or raise.
     """
     if gids.device.type == "cpu":
         return fused_scan_select_ref(

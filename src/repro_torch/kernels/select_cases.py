@@ -128,6 +128,42 @@ def tie_inputs(*, q: int, p: int, g: int, k: int, cap: int,
     return a
 
 
+def stage1_inputs(seed: int, *, q: int, p: int, g: int, cap: int,
+                  **kw) -> dict:
+    """``random_inputs`` in the form the cascade's stage 1 gives the
+    select: a k=1 zero coordinate panel, zero query coordinates, and flat
+    slot ids g * cap + c as rows, so each slot is priced at its residual,
+    query-residual and sketch terms alone."""
+    a = random_inputs(seed, q=q, p=p, g=g, k=1, cap=cap, **kw)
+    a["zq"][:] = 0
+    a["coords"][:] = 0
+    a["rows"] = np.arange(g * cap, dtype=np.int32).reshape(g, cap)
+    return a
+
+
+#: Inputs of the merge above the kernels' shared-memory carry (widths
+#: above 8,192, up to P * cap): name -> (width, maker).  Every slot live at
+#: width = P * cap; descending keys, where every slot enters the pool, at
+#: a width just above 8,192; equal keys across probes; ragged n_active;
+#: the cascade's stage-1 form at the paper's probe shape (P=16,
+#: cap=1664: width 26,624) and with an odd probe count.
+WIDE_CASES = {
+    "all_live_width_p_cap": (16 * 1664, lambda: random_inputs(
+        11, q=32, p=16, g=64, k=32, cap=1664, s=8, keep_frac=1.0,
+        mask_frac=1.0)),
+    "descending_width_8193": (8193, lambda: descending_inputs(
+        q=16, p=8, k=8, cap=2048)),
+    "ties_across_probes_wide": (9000, lambda: tie_inputs(
+        q=8, p=8, g=5, k=8, cap=1200, s=4)),
+    "ragged_n_active_wide": (12000, lambda: random_inputs(
+        12, q=64, p=16, g=64, k=32, cap=1000, s=8, ragged=True)),
+    "stage1_form_p16_cap1664": (16 * 1664, lambda: stage1_inputs(
+        13, q=64, p=16, g=256, cap=1664, s=8)),
+    "stage1_form_odd_p": (8999, lambda: stage1_inputs(
+        14, q=16, p=9, g=40, cap=1000, s=8, keep_frac=0.7)),
+}
+
+
 def split(a: dict, convert=lambda v: v):
     """(args, kwargs) of the select runner, each array passed through
     ``convert`` (for example to a tensor on a device)."""

@@ -208,15 +208,33 @@ def test_adaptive_routing_stays_refused_on_the_paged_plane(tmp_path):
 
 def test_tenants_and_budgets_stay_refused_on_the_paged_plane(tmp_path):
     """Tenancy (item 6) has no store path yet and ``search_stacked``
-    refuses its masks; the cascade budgets (item 4) are refused on the
-    paged store too."""
+    refuses its masks.  (The cascade's budgets are ported, on the paged
+    store too: ``test_paged_cascade_budgets_act_per_pass``.)"""
     _, tiered, qs = _pair(BUDGETS["mid"], tmp_path)
-    with pytest.raises(ValueError, match="item 4"):
-        tiered.search(qs, topk=5, budgets=(64, 16))
     stub = tiered._tiered_for(tuple(tiered._segments))["plane"]
     with pytest.raises(ValueError, match="item 6"):
         planner.search_stacked(stub, torch.from_numpy(qs), nprobe=4,
                                pool=16, topk=5, tenant_live=torch.ones(1))
+
+
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_paged_cascade_budgets_act_per_pass(mode, tmp_path):
+    """budgets= on the paged store: each pass runs the cascade over its
+    own probes (a pass's pool is its top min(pool, b2) after stage 2), and
+    the merged pool is cut to min(pool, b2), as in the JAX package."""
+    oracle, tiered, qs = _pair(BUDGETS["mid"], tmp_path)
+    got = tiered.search(qs, topk=5, mode=mode, scan_impl="cascade",
+                        budgets=(64, 16))
+    ref = tiered.search(qs, topk=5, mode=mode, scan_impl="cascade_ref",
+                        budgets=(64, 16))
+    _assert_same(ref, got, "cascade vs cascade_ref")
+    assert (got.ids >= 0).all()
+    # budgets covering every probed slot prune nothing
+    wide = tiered.search(qs, topk=5, mode=mode, scan_impl="cascade",
+                         budgets=(10 ** 6, 32))
+    _assert_same(oracle.search(qs, topk=5, mode=mode), wide, "exhaustive")
+    with pytest.raises(ValueError, match="not staged"):
+        tiered.search(qs, topk=5, scan_impl="fused_ref", budgets=(64, 16))
 
 
 # --------------------------------------------------- residency lifecycle

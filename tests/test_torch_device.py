@@ -173,14 +173,17 @@ def test_kernel_equals_plain_version_on_card(cuda_device, case, width):
 
 
 #: Inputs that fill the kernel's candidate buffer again and again: every
-#: slot live, and (descending) every slot entering the running top-W.
+#: slot live, and (descending) every slot entering the running top-W; at
+#: the widest shared-memory merge and, through ``select_cases.WIDE_CASES``,
+#: above it (the tree merge in global scratch: width 8,193 up to P * cap,
+#: ties across probes, ragged n_active, the cascade's stage-1 form).
 FOLD_CASES = {
     "descending_narrow": (10, lambda: select_cases.descending_inputs(
         q=64, p=32, k=8, cap=2048)),
-    "descending_max_width": (port_fused.MAX_WIDTH, lambda:
+    "descending_max_width": (port_fused.SMEM_WIDTH, lambda:
                              select_cases.descending_inputs(
                                  q=64, p=32, k=8, cap=2048)),
-    "all_live_max_width": (port_fused.MAX_WIDTH, lambda:
+    "all_live_max_width": (port_fused.SMEM_WIDTH, lambda:
                            select_cases.random_inputs(
                                5, q=64, p=32, g=64, k=32, cap=2048, s=8,
                                keep_frac=1.0, mask_frac=1.0)),
@@ -190,6 +193,8 @@ FOLD_CASES = {
         7, q=32, p=16, g=16, k=32, cap=1664, s=8)),
     "ties_across_probes": (3000, lambda: select_cases.tie_inputs(
         q=8, p=8, g=5, k=8, cap=1100, s=4)),
+    **{f"wide_{name}": case
+       for name, case in select_cases.WIDE_CASES.items()},
 }
 
 
@@ -224,9 +229,50 @@ def test_launch_count_rises_by_one_per_call(cuda_device):
 
 @pytest.mark.gpu
 def test_kernel_refuses_width_beyond_its_limit(cuda_device):
+    """Widths 1..max(SMEM_WIDTH, P * cap): above the shared-memory merge
+    only up to P * cap, and each probe's list min(width, cap) at most
+    SMEM_WIDTH."""
     args, _ = _select_inputs(1, cuda_device, q=1, p=1, g=2, k=4, cap=32)
+    for width in (0, port_fused.SMEM_WIDTH + 1):
+        with pytest.raises(ValueError, match="width"):
+            port_fused.fused_scan_select(*args, width=width)
+    args, _ = _select_inputs(2, cuda_device, q=2, p=8, g=4, k=4, cap=1100)
     with pytest.raises(ValueError, match="width"):
-        port_fused.fused_scan_select(*args, width=port_fused.MAX_WIDTH + 1)
+        port_fused.fused_scan_select(*args, width=8 * 1100 + 1)
+    d, _ = port_fused.fused_scan_select(*args, width=8 * 1100)
+    assert d.shape == (2, 8 * 1100)
+    args, _ = _select_inputs(3, cuda_device, q=1, p=2, g=2, k=1,
+                             cap=port_fused.SMEM_WIDTH + 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        port_fused.fused_scan_select(*args, width=port_fused.SMEM_WIDTH + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budgets", [None, (2048, 32)])
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_cascade_search_launches_the_kernel_on_card(cuda_device, mode,
+                                                    budgets):
+    """A "cascade" search on a CUDA density index runs stage 1 through
+    fused_scan_select (at budgets=None the wide merge: b1 = P * cap) and
+    equals "cascade_ref" (stage 1 on the plain version) bit for bit."""
+    from repro_torch.core import planner
+
+    x = synthetic.anisotropic_manifold(n=8192, d=64, intrinsic=8, seed=2)
+    q = torch.from_numpy(synthetic.queries_from(x, nq=40)).to(cuda_device)
+    cfg = repro_torch.HNTLConfig(d=64, k=8, s=4, block=32, n_grains=16,
+                                 nprobe=16, pool=32, bit_alloc="density")
+    idx, _ = repro_torch.build(x, cfg, device=cuda_device)
+    assert idx.grains.qmaxg is not None
+    assert 16 * idx.grains.cap > port_fused.SMEM_WIDTH
+    kw = dict(nprobe=16, pool=32, topk=10, mode=mode, budgets=budgets)
+    before = port_fused.fused_scan_select.launches
+    got = planner.search(idx, q, scan_impl="cascade", **kw)
+    torch.cuda.synchronize()
+    assert port_fused.fused_scan_select.launches == before + 1
+    want = planner.search(idx, q, scan_impl="cascade_ref", **kw)
+    assert port_fused.fused_scan_select.launches == before + 1
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.dists, want.dists)
 
 
 def _mixed_tile(seed, coord_dtype=np.int16):

@@ -99,16 +99,19 @@ def test_select_and_gather_candidates_agree(built):
 
 
 def test_budgets_are_refused_until_the_cascade_is_ported(built):
+    """Budgets need a staged plane (the cascade, ``test_torch_cascade.py``):
+    any other plane refuses them, and invalid budgets are refused first."""
     _, _, cfg, idx, _, q = built
-    with pytest.raises(ValueError, match="cascade"):
-        planner.search(idx, torch.from_numpy(q), nprobe=4, pool=16, topk=5,
-                       budgets=(32, 16))
+    for plane in ("ref", "fused_ref", None):
+        with pytest.raises(ValueError, match="not staged"):
+            planner.search(idx, torch.from_numpy(q), nprobe=4, pool=16,
+                           topk=5, scan_impl=plane, budgets=(32, 16))
     with pytest.raises(ValueError, match="b1 >= b2"):
         planner.search(idx, torch.from_numpy(q), nprobe=4, pool=16, topk=5,
-                       budgets=(8, 16))
+                       scan_impl="cascade", budgets=(8, 16))
 
 
-@pytest.mark.parametrize("name", ["pallas", "interpret", "cascade", "nope"])
+@pytest.mark.parametrize("name", ["pallas", "interpret", "mosaic", "nope"])
 def test_unported_planes_raise(built, name):
     _, _, cfg, idx, _, q = built
     with pytest.raises(ValueError, match="registered"):

@@ -554,7 +554,9 @@ def test_ttl_expiry_in_sealed_and_memtable_rows():
 @pytest.mark.parametrize("call, match", [
     (lambda st: VectorStore(_cfg(), device_budget=-1, device="cpu"),
      "device_budget must be >= 0"),
-    (lambda st: st.search(np.zeros(D), budgets=(32, 16)), "item 4"),
+    (lambda st: st.search(np.zeros(D), scan_impl="cascade",
+                          budgets=(32, 16), fused=False),
+     "fused search plane"),
     (lambda st: st.search(np.zeros(D), budgets=(8, 16)), "b1 >= b2"),
     (lambda st: st.search(np.zeros(D), adaptive=True), "item 5"),
     (lambda st: st.search(np.zeros(D), probe_margin=0.5), "adaptive=True"),

@@ -13,6 +13,12 @@ The knobs are exhaustive (every grain probed, a pool of every slot) and
 ``envelope_frac=1.0`` prunes no grain, so Mode B reduces to exact filtered
 L2 over the live set.  Plain module (no hypothesis, no JAX): the test
 runs it over a fixed list of seeded interleavings.
+
+The cascade's twin (``scan_impl`` a staged plane, ``budgeted=True``):
+budgets=(pool, pool) cover every live slot, so stage 1 prunes nothing
+real and the result must still be the brute-force top-k; with
+``device_budget`` set the store searches its tiered plane, where the
+budgets act on each pass.
 """
 import numpy as np
 
@@ -36,10 +42,14 @@ def interleaving(seed: int, n_ops: int = 12) -> tuple:
     return tuple(str(op) for op in rng.permutation(ops))
 
 
-def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed"):
+def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed",
+                                scan_impl=None, budgeted: bool = False,
+                                device_budget=None, cold_dir=None):
     rng = np.random.default_rng(seed)
     store = VectorStore(_cfg(bit_alloc), seal_threshold=64,
-                        clock=lambda: 0.0, device="cpu")
+                        clock=lambda: 0.0, device="cpu",
+                        device_budget=device_budget, cold_dir=cold_dir,
+                        prefetch_grains=1)
     model = {}                    # gid -> (vec, tag, ts, expire_at)
 
     def write(gids=None):
@@ -92,7 +102,9 @@ def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed"):
 
     total_grains = sum(s.index.grains.n_grains for s in store._segments)
     kw = dict(topk=5, mode="B", now=NOW, nprobe=max(total_grains, 1),
-              pool=max(2 * store.n_vectors, 1))
+              pool=max(2 * store.n_vectors, 1), scan_impl=scan_impl)
+    if budgeted:
+        kw["budgets"] = (kw["pool"], kw["pool"])
     assert store.n_live(now=NOW) == len(live)
     for filt in ({}, {"tag_mask": 2}, {"ts_range": (2.0, 8.0)}):
         res = store.search(q, **kw, **filt)
