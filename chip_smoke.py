@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # the full-size run, one card
     python3 chip_smoke.py --n 100000 --grains 128 --kv-tokens 65536 \
         --store-n 100000 --tier-n 100000   # a shorter rehearsal
+    compute-sanitizer --tool racecheck python3 chip_smoke.py --race-cases
+        # one small launch of each kernel path, for a race checker
 
 What it does, in order (any failure exits non-zero before the last line):
 
@@ -21,7 +23,9 @@ What it does, in order (any failure exits non-zero before the last line):
    pair, exact ties across probes, cap below width, the scalar-load path
    (cap % 4 != 0) and killed pairs inside the grains' runs, and widths
    above the shared-memory carry (``select_cases.WIDE_CASES``: the tree
-   merge up to P * cap, the cascade's stage-1 form); then
+   merge up to P * cap, the cascade's stage-1 form), and per-probe lists
+   above it (``select_cases.LONG_LIST_CASES``: caps of 8,320 and 16,384,
+   built from each pair's chunk runs); then
    ``hntl_scan`` and ``hntl_scan_single`` against theirs (``torch.equal``)
    over the JAX package's kernel sweep, int32 extremes and wraparound,
    all-invalid panels, the int8 sketch panels, caps off 128, and the
@@ -81,6 +85,12 @@ What it does, in order (any failure exits non-zero before the last line):
    seal, stack and search times, the select kernel
    at the store's shape, profiles with and without the memtable, peak
    memory; and 256 queries through the "kernel" plane held to "ref";
+9c. the select past its 8,192-key per-probe list in a search
+   (``long_list_phase``): a density index over the first 262,144 rows in
+   16 grains (cap above 8,192), 256 queries through "cascade" at
+   ``budgets=None`` (Mode A and B) and "fused" at pool 10,000 (Mode A),
+   equal to "cascade_ref" / "fused_ref" (``torch.equal``); each select
+   held to its plain version and timed beside its bound; peak memory;
 11. the store's lifecycle (``lifecycle_phase``) on the same store, its
    memtable at half the seal threshold: the searches first, then
    ``compact()`` with its defaults (2 merges, 8 -> 2 segments of ~497k
@@ -99,7 +109,14 @@ What it does, in order (any failure exits non-zero before the last line):
    its all-warm plane held as in 10, then the same store under
    ``device_budget`` 0, 25% of the panel tier and twice the tier, every
    paged search equal to the all-warm one (ids and dists,
-   ``torch.equal``); the cascade on the cold store (all-warm at (4096,
+   ``torch.equal``); adaptive routing (``adaptive_phase``) at
+   ``probe_margin`` 0.35 and 1.0 with 4 hubs: all-warm Mode A and B equal
+   to "fused_ref" from the same traffic state, one select launch per
+   (width bucket, 256 queries) at the bucket's width, ``adaptive=False``
+   and ``probe_margin=inf`` equal to the static search, paged at 25% of
+   the tier equal to all-warm with equal ``probe_stats()``; active probes,
+   hubs, recall@10 adaptive and static, times, launches, busy shares;
+   the cascade on the cold store (all-warm at (4096,
    64) held to "cascade_ref"; paged at 25% of the tier: at budgets None
    equal to the all-warm cascade but for exact ties, at (4096, 64), per
    pass, to the paged "cascade_ref"); again after 10,000 more deletes, after
@@ -117,6 +134,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -193,14 +211,16 @@ def kernel_label(line):
         if name not in line:
             continue
         tail = line.split(name, 1)[1]
+        if name == "fused_scan_select_wide_merge_kernel":
+            return name + (" (chunk runs)" if "ILb1E" in tail else "")
         if "merge_kernel" in name:
             return name
         if name == "fused_scan_select_probe_kernel":
-            # template flags of the kernel's <sketch, tenant, vec>
+            # template flags of the kernel's <sketch, tenant, vec, runs>
             flags = tail.split("ILb")[-1].split("EEEv")[0].split("ELb")
             return name + " " + ", ".join(
-                f"{k}={v}" for k, v in zip(("sketch", "tenant", "vec"),
-                                           flags))
+                f"{k}={v}" for k, v in zip(("sketch", "tenant", "vec",
+                                            "runs"), flags))
         coord = next((t for m, t in _MANGLED_TYPES.items()
                       if tail.startswith(m)), "?")
         return f"{name}<{coord}>"
@@ -329,11 +349,75 @@ def kernel_phase(torch, dev):
         log(f"  kernel == plain: {label} (Q={q_n} P={p_n} G={g_n} k={k} "
             f"cap={cap} s={a['sq'].shape[2] if 'sq' in a else 0} "
             f"width={width}, the wide merge) ok")
+    # per-probe lists above it: each pair's sorted chunk runs, tree-merged
+    for label, (width, make) in select_cases.LONG_LIST_CASES.items():
+        a = make()
+        args, kw = select_cases.split(
+            a, lambda v: torch.from_numpy(v).to(dev))
+        errs.append(hold(torch, fsel, args, kw, width, label))
+        q_n, p_n, k = a["zq"].shape
+        g_n, _, cap = a["coords"].shape
+        log(f"  kernel == plain: {label} (Q={q_n} P={p_n} G={g_n} k={k} "
+            f"cap={cap} s={a['sq'].shape[2] if 'sq' in a else 0} "
+            f"width={width}{', ragged n_active' if 'n_active' in a else ''}"
+            f", per-probe lists of {min(width, cap)} keys from chunk runs) "
+            "ok")
     log("kernels: fused_scan_select (held against fused_scan_select_ref, "
         f"torch.equal on dists and rows, {len(errs)} cases, "
-        f"{len(select_cases.WIDE_CASES)} of them above the shared-memory "
-        f"carry of {fsel.SMEM_WIDTH} keys)")
+        f"{len(select_cases.WIDE_CASES) + len(select_cases.LONG_LIST_CASES)}"
+        f" of them above the shared-memory carry of {fsel.SMEM_WIDTH} keys, "
+        f"{len(select_cases.LONG_LIST_CASES)} with per-probe lists above "
+        "it)")
     return max(errs)
+
+
+#: One small launch of each kernel path: the probe kernel and the shared
+#: merge (vector and scalar loads, ragged probes), the wide merge, the
+#: chunk runs with their tree merge, and both scan kernels.
+RACE_CASES = {
+    "probe kernel + shared merge": (64, dict(q=4, p=4, g=6, k=8, cap=256,
+                                             s=4, ragged=True)),
+    "scalar loads + shared merge": (64, dict(q=2, p=3, g=4, k=4, cap=130,
+                                             tenants=2)),
+    "wide merge": (9000, dict(q=2, p=3, g=4, k=4, cap=4000)),
+    "chunk runs + tree merges": (8400, dict(q=2, p=2, g=3, k=2, cap=8320,
+                                            s=2, ragged=True)),
+}
+
+
+def race_phase(torch, np, dev):
+    """Each kernel path launched once at a small shape and held to its
+    plain version (``torch.equal``): the whole run under
+    ``compute-sanitizer --tool racecheck`` / ``synccheck`` is the race
+    check of the kernels."""
+    from repro_torch.kernels import fused_select as fsel
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scan_cases as sc
+    from repro_torch.kernels import select_cases
+
+    for i, (label, (width, shape)) in enumerate(RACE_CASES.items()):
+        args, kw = select_cases.split(
+            select_cases.random_inputs(i, **shape),
+            lambda v: torch.from_numpy(v).to(dev))
+        hold(torch, fsel, args, kw, width, label)
+        log(f"race case: fused_scan_select, {label} ({shape}, width "
+            f"{width}) == plain")
+    a = sc.panels(5, p=3, q=20, k=16, cap=200)
+    conv = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
+    for label, kern, plain, args in (
+            ("hntl_scan", hs.hntl_scan, ref.hntl_scan_ref, sc.args(a, conv)),
+            ("hntl_scan_single", hs.hntl_scan_single,
+             ref.hntl_scan_single_ref,
+             sc.args(sc.single(sc.panels(6, p=3, q=1, k=16, cap=200)),
+                     conv))):
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"race case {label}: differs from "
+              "its plain version")
+        log(f"race case: {label} == plain")
+    log(f"race cases: {len(RACE_CASES) + 2} launches, all equal to their "
+        "plain versions")
 
 
 def mixed_tile(sc, np, seed, coord_dtype):
@@ -1386,6 +1470,112 @@ def cascade_phase(torch, np, mp, dev):
             lambda: planner.search(index, qt, mode="A", scan_impl="cascade",
                                    **kw0), wall, top=10)
     del index
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9c: the select past its 8,192-key per-probe list, at the search level
+# ---------------------------------------------------------------------------
+
+#: A density index of this many of the main path's rows in grains of
+#: this many rows on average (16 grains at full size; fewer in a short
+#: run) holds grains of more than 8,192 rows (cap > SMEM_WIDTH); the
+#: fused plane's pool there.
+LONG_INDEX_ROWS = 262_144
+LONG_GRAIN_ROWS = 16_384
+LONG_POOL = 10_000
+
+
+def long_list_phase(torch, np, mp, dev):
+    """The select past its per-probe list of 8,192 keys in a search: a
+    density index over the first 262,144 rows of the main path's corpus
+    in 16 grains (cap above ``SMEM_WIDTH``), 256 queries through
+    ``planner.search`` with ``scan_impl="cascade"`` at ``budgets=None``
+    (stage 1 at b1 = P * cap, Mode A and B) and with "fused" at pool
+    10,000 (Mode A), each equal to "cascade_ref" / "fused_ref" (ids and
+    dists, ``torch.equal``), the select's counter zeroed just before each
+    search and read just after; each search's select held to its plain
+    version and timed (CUPTI, events, plain, bound); peak memory."""
+    from repro_torch.core import build, int32_safe_qmax, planner
+    from repro_torch.kernels import fused_select as fsel
+
+    x = mp["x"][:LONG_INDEX_ROWS]
+    qt = mp["q"][:planner.QUERY_BATCH]
+    cfg = dataclasses.replace(mp["cfg"], bit_alloc="density",
+                              n_grains=max(2, len(x) // LONG_GRAIN_ROWS))
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    index, info = build(x, cfg, device=dev)
+    sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    cap = index.grains.cap
+    check(cap > fsel.SMEM_WIDTH, f"long lists: cap {cap} is not above "
+          f"{fsel.SMEM_WIDTH}")
+    sizes = index.routing.sizes.cpu().numpy()
+    log(f"long lists: density index over {len(x)} rows of the main path's "
+        f"corpus, G={cfg.n_grains}, cap={cap} (grains of {int(sizes.min())}"
+        f"..{int(sizes.max())} rows), build {build_s:.2f} s")
+    kw0 = dict(nprobe=cfg.nprobe, topk=10, envelope_frac=cfg.envelope_frac,
+               qeff=int32_safe_qmax(cfg.k, cfg.coord_bits))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs = {"cascade, budgets=None": ("cascade", "cascade_ref", cfg.pool,
+                                      "AB"),
+            f"fused, pool={LONG_POOL}": ("fused", "fused_ref", LONG_POOL,
+                                         "A")}
+    out = dict(cap=cap, build_s=build_s, launches=0, searches={})
+    for name, (impl, ref_impl, pool, modes) in runs.items():
+        for m in modes:
+            kw = dict(kw0, pool=pool, mode=m)
+            fsel.fused_scan_select.launches = 0
+            got = planner.search(index, qt, scan_impl=impl, **kw)
+            sync(torch, dev)
+            n = fsel.fused_scan_select.launches
+            out["launches"] += n
+            if dev.type == "cuda":
+                check(n == 1, f"long lists, {name} Mode {m}: "
+                      f"fused_scan_select launched {n} times")
+            want = planner.search(index, qt, scan_impl=ref_impl, **kw)
+            check(torch.equal(got.ids, want.ids)
+                  and torch.equal(got.dists, want.dists),
+                  f"long lists, {name} Mode {m}: differs from {ref_impl} "
+                  f"({int((got.ids != want.ids).sum())} ids)")
+            check(got.ids.shape == (qt.shape[0], 10)
+                  and bool(torch.isfinite(got.dists).all())
+                  and bool((got.ids[:, 0] >= 0).all()),
+                  f"long lists, {name} Mode {m}: bad result")
+            out["searches"][f"{name} Mode {m}"] = n
+    if dev.type == "cuda":
+        out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    log(f"long lists: {', '.join(out['searches'])} == "
+        "cascade_ref / fused_ref (ids and dists, torch.equal), one "
+        "fused_scan_select launch each; peak device memory "
+        f"{out.get('peak', 'not measured')} bytes above the {base} held "
+        "when the phase began (the index included)")
+
+    # each search's select: captured, held to its plain version, timed
+    with _CaptureCascade(torch) as cc:
+        planner.search(index, qt, mode="A", scan_impl="cascade",
+                       **dict(kw0, pool=cfg.pool))
+    with _CaptureSelect(torch) as cs:
+        planner.search(index, qt, mode="A", scan_impl="fused",
+                       **dict(kw0, pool=LONG_POOL))
+    calls = {"cascade stage 1, budgets=None": cc.stage1[:2],
+             f"fused plane, pool={LONG_POOL}": cs.calls[0]}
+    del cc, cs
+    out["timing"] = {}
+    for label, (args, kw) in calls.items():
+        kw = dict(kw)
+        width = kw.pop("width")
+        if dev.type != "cuda":
+            out["timing"][label] = dict(max_abs_err=hold(
+                torch, fsel, args, kw, width, label))
+            continue
+        out["timing"][label] = time_stage1(
+            torch, fsel, args, kw, width,
+            f"{label}, per-probe lists of {min(width, cap)} keys")
+    del index, calls
     return out
 
 
@@ -2481,6 +2671,217 @@ def paged_select_times(torch, fsel, calls, reps=10):
     return out
 
 
+#: Adaptive routing's margins: ``benchmarks/routing_adaptive.py``'s and
+#: the config's default.
+ADAPTIVE_MARGINS = (0.35, 1.0)
+
+
+def traffic_copy(st):
+    """The store's adaptive probe-traffic state, copied (the counters; the
+    entries' segment tuples are shared), to run a search again from it."""
+    return collections.OrderedDict(
+        (k, dict(hit, wins=hit["wins"].copy(),
+                 touches=hit["touches"].copy()))
+        for k, hit in st._probe_traffic.items())
+
+
+class _RecordBuckets:
+    """While installed, keeps each adaptive search's plan (n_active) and
+    its width buckets [(w, queries)] as the store makes them."""
+
+    def __init__(self):
+        self.plans = []
+
+    def __enter__(self):
+        from repro_torch.core import store as store_mod
+
+        self.mod, self.real = store_mod, store_mod._width_buckets
+
+        def record(n_active, nprobe):
+            out = self.real(n_active, nprobe)
+            self.plans.append((n_active.copy(),
+                               [(w, len(sel)) for w, sel in out]))
+            return out
+
+        store_mod._width_buckets = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._width_buckets = self.real
+
+
+def adaptive_phase(torch, np, st, qt, xl, alive, budget, label):
+    """Adaptive routing (``search(adaptive=True)``, ``cfg.hub_size`` hubs)
+    on the cold store over the skewed mix, at each margin of
+    ``ADAPTIVE_MARGINS``, the traffic state cleared first:
+
+    - all-warm (``device_budget=None``), Mode A and B: the select's
+      counter zeroed just before, read just after, equal to the sum over
+      the width buckets of ceil(queries / 256), each launch at its
+      bucket's width; ids equal to the same adaptive search on
+      "fused_ref" run from the same traffic state, no deleted gid, Mode B
+      dists the live vectors' exact distances (rtol 1e-5);
+    - ``adaptive=False`` and ``probe_margin=inf`` equal to the static
+      search bit for bit;
+    - paged at ``budget``, Mode A and B: equal to the all-warm adaptive
+      search run from the same traffic state (ids and dists,
+      ``torch.equal``), with equal ``probe_stats()``;
+    - active probes per query (mean, p50, p99), ``hub_grains()``,
+      recall@10 against exact search over the live rows (adaptive and
+      static), ms per search (static and adaptive: warm Mode A and B,
+      paged Mode A), select launches per search and the busy share.
+    """
+    from repro_torch.core import planner
+    from repro_torch.core.flat import flat_search, recall_at_k
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq, nprobe = qt.device, qt.shape[0], st.cfg.nprobe
+    on_card = dev.type == "cuda"
+    dead = torch.nonzero(~alive).flatten()
+    live = torch.nonzero(alive).flatten()
+    truth = live[flat_search(xl[live], qt, topk=10).ids.long()]
+    out = dict(margins={}, launches=0, paged_launches=0)
+    for margin in ADAPTIVE_MARGINS:
+        row = dict(launches={}, paged_launches={}, ms={})
+        st._probe_traffic.clear()
+        st.device_budget = None
+        akw = dict(topk=10, adaptive=True, probe_margin=margin)
+        res = {}
+        for m in "AB":
+            before = traffic_copy(st)
+            with _RecordBuckets() as rb, _CaptureSelect(torch) as cap:
+                fsel.fused_scan_select.launches = 0
+                got = st.search(qt, mode=m, **akw)
+                sync(torch, dev)
+                n = fsel.fused_scan_select.launches
+            (na, buckets), = rb.plans
+            widths = [w for w, c in buckets
+                      for _ in range(-(-c // planner.QUERY_BATCH))]
+            seen = [a[1].shape[1] for a, _ in cap.calls]
+            del cap
+            if on_card:               # the CPU's default plane is "ref"
+                check(n == len(widths), f"{label} {margin} Mode {m}: "
+                      f"{n} select launches, expected {len(widths)} (the "
+                      f"buckets {buckets})")
+                check(seen == widths, f"{label} {margin} Mode {m}: launches "
+                      f"at widths {seen}, expected the buckets' {widths}")
+            row["launches"][m] = n
+            out["launches"] += n
+            after = traffic_copy(st)
+            st._probe_traffic = before
+            want = st.search(qt, mode=m, scan_impl="fused_ref", **akw)
+            st._probe_traffic = after
+            ids, d = got.ids, got.dists
+            check(torch.equal(ids, want.ids), f"{label} {margin} Mode {m}: "
+                  f"ids differ from the fused_ref plane "
+                  f"({int((ids != want.ids).sum())} entries)")
+            row[f"dists equal {m}"] = bool(torch.equal(d, want.dists))
+            check(ids.shape == (nq, 10) and bool(torch.isfinite(d).all())
+                  and bool((ids[:, 0] >= 0).all()),
+                  f"{label} {margin} Mode {m}: bad result")
+            check(not bool(torch.isin(ids.long(), dead).any()),
+                  f"{label} {margin} Mode {m}: a deleted gid was returned")
+            if m == "B":
+                ok = ids >= 0
+                at = torch.clamp(ids, min=0).long()
+                exact = (xl[at] - qt[:, None, :]).square_().sum(-1)
+                check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
+                      f"{label} {margin} Mode B: dists are not the live "
+                      "vectors' exact distances")
+            res[m] = got
+            row["buckets " + m] = buckets
+            row["active " + m] = dict(
+                mean=float(na.mean()), p50=float(np.percentile(na, 50)),
+                p99=float(np.percentile(na, 99)))
+        # bit-identity of adaptive=False and of an infinite margin
+        static = {}
+        for m in "AB":
+            static[m] = st.search(qt, topk=10, mode=m)
+            for kw in (dict(adaptive=False),
+                       dict(adaptive=True, probe_margin=float("inf"))):
+                got = st.search(qt, topk=10, mode=m, **kw)
+                check(torch.equal(got.ids, static[m].ids)
+                      and torch.equal(got.dists, static[m].dists),
+                      f"{label} {margin} Mode {m}: {kw} differs from the "
+                      "static search")
+        # the paged plane, from the same traffic state as all-warm, its
+        # hot set elected under ``budget`` (a new budget applies from the
+        # next election)
+        st.device_budget = budget
+        st.update_residency()
+        hot = st.residency_stats()["hot_grains"]
+        for m in "AB":
+            before = traffic_copy(st)
+            st.device_budget = None
+            want = st.search(qt, mode=m, **akw)
+            stats = st.probe_stats()
+            st._probe_traffic = before
+            st.device_budget = budget
+            fsel.fused_scan_select.launches = 0
+            got = st.search(qt, mode=m, **akw)
+            sync(torch, dev)
+            row["paged_launches"][m] = fsel.fused_scan_select.launches
+            out["paged_launches"] += row["paged_launches"][m]
+            check(torch.equal(got.ids, want.ids)
+                  and torch.equal(got.dists, want.dists),
+                  f"{label} {margin} Mode {m}: paged differs from all-warm "
+                  f"({int((got.ids != want.ids).sum())} ids)")
+            check(st.probe_stats() == stats, f"{label} {margin} Mode {m}: "
+                  f"paged probe_stats {st.probe_stats()} != all-warm {stats}")
+        row["hubs"] = st.hub_grains().tolist()
+        row["probe_stats"] = st.probe_stats()
+        row["recall"] = {f"{m} {k}": recall_at_k(r[m].ids, truth)
+                         for k, r in (("adaptive", res), ("static", static))
+                         for m in "AB"}
+
+        def timed(fn, reps=2):
+            fn()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync(torch, dev)
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        for plane, b, modes in (("warm", None, "AB"), ("paged", budget, "A")):
+            st.device_budget = b
+            if b is not None:
+                st.update_residency()
+            for m in modes:
+                for kind, kw in (("static", dict(topk=10)), ("adaptive", akw)):
+                    row["ms"][f"{plane} {m} {kind}"] = timed(
+                        lambda kw=kw, m=m: st.search(qt, mode=m, **kw))
+        if on_card:
+            for plane, b in (("warm", None), ("paged", budget)):
+                st.device_budget = b
+                row[f"profile {plane}"] = profile(
+                    torch, f"one adaptive search, margin {margin}, Mode A, "
+                    f"{plane}, {nq} queries",
+                    lambda: st.search(qt, mode="A", **akw),
+                    row["ms"][f"{plane} A adaptive"] / 1e3, top=8)
+        st.device_budget = None
+        act = row["active A"]
+        log(f"{label}, probe_margin {margin}, hub_size {st.cfg.hub_size}: "
+            f"active probes per query of {nprobe} mean {act['mean']:.3f}, "
+            f"p50 {act['p50']:.0f}, p99 {act['p99']:.0f} (Mode A's plan); "
+            f"buckets (width, queries) {row['buckets A']}; select launches "
+            f"per search all-warm {row['launches']} (== sum over the "
+            f"buckets of ceil(queries / 256), each at its bucket's width), "
+            f"paged {row['paged_launches']}; ids == fused_ref from the same "
+            f"traffic (dists torch.equal: A {row['dists equal A']}, B "
+            f"{row['dists equal B']}); adaptive=False and probe_margin=inf "
+            f"== static bit for bit; paged at {budget} bytes ({hot} grains "
+            f"hot) == all-warm (ids, dists torch.equal; probe_stats equal); "
+            f"hub_grains "
+            f"{row['hubs']}; probe_stats {row['probe_stats']}; recall@10 "
+            "vs exact search over the live rows: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row["recall"].items())
+            + f"; ms per {nq} queries (host clock, ends in a synchronise): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in row["ms"].items()))
+        out["margins"][margin] = row
+    return out
+
+
 def tiered_round(torch, np, st, qt, xl, alive, tg, tsv, budgets, label):
     """The all-warm plane of the cold store, then the paged plane at every
     budget, each paged search equal to the all-warm one."""
@@ -2665,6 +3066,9 @@ def _tiered_phase(torch, np, dev, cold_dir, *, n, nq, segments, grains,
                 f"{k}: {v}" for k, v in memory.items()))
     out["first"] = first
     out["budgets"] = budgets
+    out["adaptive"] = adaptive_phase(torch, np, st, qt, xl, alive,
+                                     budgets["25% of the tier"],
+                                     "tiered adaptive")
     out["cascade"] = paged_cascade(torch, st, qt, xl, alive, tg, tsv,
                                    budgets["25% of the tier"],
                                    "tiered cascade")
@@ -2824,6 +3228,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tier-n", type=int, default=1_000_000,
                     help="rows of the tiered phase's cold store: 8 sealed "
                     "segments, no memtable")
+    ap.add_argument("--race-cases", action="store_true",
+                    help="only build the kernels and launch each path once "
+                    "at a small shape, held to its plain version (the run "
+                    "to put under compute-sanitizer), then exit")
     a = ap.parse_args(argv)
 
     import numpy as np
@@ -2843,6 +3251,9 @@ def main(argv=None) -> int:
     name, count, smi = device_phase(torch)
     build_phase()
     cuda = torch.device("cuda")
+    if a.race_cases:
+        race_phase(torch, np, cuda)
+        return 0
     err_cases = kernel_phase(torch, cuda)
     err_scan = scan_kernel_phase(torch, np, cuda)
     mp = main_path(torch, np, n=a.n, nq=a.nq, grains=a.grains, dev=cuda)
@@ -2857,6 +3268,8 @@ def main(argv=None) -> int:
                          ref.hntl_scan_single_ref, kvp["scan_args"], 1)
     profile_phase(torch, mp, gp, kvp)
     cp = cascade_phase(torch, np, mp, cuda)
+    gc.collect()
+    lp = long_list_phase(torch, np, mp, cuda)
     gc.collect()
     torch.cuda.empty_cache()
     batched_at = "P={} Q={} k={} cap={} int16 (the coordinate launch)".format(
@@ -2895,7 +3308,12 @@ def main(argv=None) -> int:
                     "store cascade search": stp["cascade"]["launches"],
                     "cold store cascade search (all-warm plane)":
                     tp["cascade"]["warm"]["launches"],
-                    "paged cascade search": tp["cascade"]["launches"]}
+                    "paged cascade search": tp["cascade"]["launches"],
+                    "adaptive store search (all-warm)":
+                    tp["adaptive"]["launches"],
+                    "paged adaptive store search":
+                    tp["adaptive"]["paged_launches"],
+                    "select at L > 8192": lp["launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
                     "store search, kernel plane": stp["kernel_launches"],
@@ -2913,9 +3331,13 @@ def main(argv=None) -> int:
     select_entry["at_cascade_stage1"] = {
         k: {f: v for f, v in t.items() if f != "max_abs_err"}
         for k, t in cp["stage1"].items()}
+    select_entry["at_wide_lists"] = {
+        k: {f: v for f, v in t.items() if f != "max_abs_err"}
+        for k, t in lp["timing"].items()}
     select_entry["max_abs_err"] = max(
         select_entry["max_abs_err"], tp["select"]["max_abs_err"],
-        *(t["max_abs_err"] for t in cp["stage1"].values()))
+        *(t["max_abs_err"] for t in cp["stage1"].values()),
+        *(t["max_abs_err"] for t in lp["timing"].values()))
     log(json.dumps({"kernels": [
         select_entry,
         kernel_entry("hntl_scan_single", src + "hntl_scan.cu",

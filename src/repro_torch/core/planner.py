@@ -20,7 +20,10 @@ segments fused into one ``StackedSegments`` plane, with the tag/ts
 predicates and the store's liveness bitmap evaluated in the scan and
 pushed down into routing.  Both end in ``_candidate_epilogue``.
 
-``static_route`` and ``project_probes`` run the routing and projection
+``probe_plan`` is the adaptive routing stage alone (routing, the
+``routing.adaptive_prefix`` stopping rule and the probe-traffic counters)
+for the store's bucketed adaptive dispatch.  ``static_route`` and
+``project_probes`` run the routing and projection
 stages of ``search_stacked`` alone, in the same batches, so a caller that
 scans the probed grains in passes of its own (the store's tiered
 residency plane) hands every pass bits equal to the ones the one-call
@@ -29,6 +32,7 @@ change with its shape, so no stage is run over a different batch.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -367,7 +371,8 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
                    tag_mask: Optional[int] = None,
                    ts_range: Optional[tuple] = None,
                    tenant_live=None, tenant_ix=None, probe_margin=None,
-                   hub_mask=None, probe_plan=None) -> SearchResult:
+                   min_probes: int = 1, hub_mask=None,
+                   probe_plan=None) -> SearchResult:
     """HNTL search across all sealed segments of a store in one call.
 
     One routing pass over the concatenated [S*G] routing plane, one
@@ -382,20 +387,28 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
       lo <= ts < hi, in the scan and in routing; ``stacked.live`` joins
       the same predicate.
     probe_plan: a precomputed (gids [Q, P] i32, n_active [Q] i32 | None)
-      that replaces routing (``static_route``); probes p >= n_active[q]
-      are killed.  Needs global routing.
+      that replaces routing (``static_route``, ``probe_plan``); probes
+      p >= n_active[q] are killed.  Needs global routing.
+    probe_margin + min_probes + hub_mask [G] bool (adaptive routing):
+      after routing, ``routing.adaptive_prefix`` kills the probes beyond
+      the distance-gap rule (hubs always probed) and the ragged-probe
+      vector rides to the candidate stage.  ``probe_margin=None`` or inf
+      is the static plane, bit for bit (inf is short-cut, never computed).
     budgets: (b1, b2) per-stage survivor budgets for a staged (cascade)
       backend.
-    tenant_live/tenant_ix, probe_margin and hub_mask are refused until the
-      ROADMAP items that bring them land.
+    tenant_live/tenant_ix are refused until the ROADMAP item that brings
+      them lands.
     """
     check_budgets(budgets, topk)
-    for name, value, item in (
-            ("tenant_live", tenant_live, 6), ("tenant_ix", tenant_ix, 6),
-            ("probe_margin", probe_margin, 5), ("hub_mask", hub_mask, 5)):
+    for name, value in (("tenant_live", tenant_live),
+                        ("tenant_ix", tenant_ix)):
         if value is not None:
             raise ValueError(f"{name}= is not ported yet (ROADMAP Queue A "
-                             f"item {item})")
+                             "item 6)")
+    adaptive = probe_margin is not None and not math.isinf(probe_margin)
+    if adaptive and route_mode != "global":
+        raise ValueError("adaptive routing needs global routing "
+                         "(route_mode='global')")
     _check_mode(mode)
     if route_mode not in ("global", "per_segment"):
         raise ValueError(f"route_mode must be 'global' or 'per_segment', "
@@ -420,8 +433,12 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
             gids, _ = routing.route_per_segment(index.routing, qb, nprobe,
                                                 seg_shape)
         else:
-            gids, _ = routing.route(index.routing, qb, nprobe,
-                                    grain_mask=grain_ok)
+            gids, gd2 = routing.route(index.routing, qb, nprobe,
+                                      grain_mask=grain_ok)
+            if adaptive:
+                gids, n_active = routing.adaptive_prefix(
+                    gids, gd2, margin=probe_margin, min_probes=min_probes,
+                    hub_mask=hub_mask)
         dists, rows = candidate_stage(
             index, qb, gids, envelope_frac=envelope_frac, qeff=qeff,
             width=max(pool, topk), scan_impl=scan_impl, budgets=budgets,
@@ -445,6 +462,53 @@ def static_route(plane: RoutingPlane, q: torch.Tensor, *, nprobe: int,
         return (torch.empty((0, nprobe), dtype=torch.int32, device=q.device),
                 torch.empty((0, nprobe), device=q.device))
     return tuple(torch.cat(t) for t in zip(*out))
+
+
+def probe_plan(stacked: StackedSegments, q: torch.Tensor, *, nprobe: int,
+               probe_margin: float, min_probes: int = 1,
+               hub_mask: Optional[torch.Tensor] = None,
+               tag_mask: Optional[int] = None,
+               ts_range: Optional[tuple] = None,
+               grain_mask: Optional[torch.Tensor] = None):
+    """The adaptive routing stage of ``search_stacked`` alone: routing with
+    the same filter and liveness pushdown, in the same ``QUERY_BATCH``
+    batches (so at ``probe_margin=inf`` the gids are ``static_route``'s
+    bit for bit), then the ``routing.adaptive_prefix`` rule.
+
+    Returns (gids [Q, P] i32, n_active [Q] i32, wins [G] i32, touches [G]
+    i32): ``wins[g]`` counts the queries whose closest grain is g,
+    ``touches[g]`` the active probes on g; the hub set and
+    ``grain_health`` read them.  ``probe_margin=inf`` returns the static
+    plan (every probe active).  The store buckets the queries by
+    ``n_active`` on the host and hands each bucket its slice of the plan
+    through ``search_stacked(probe_plan=...)``.
+
+    grain_mask ([G] bool): a routing pushdown that replaces the
+    filter/liveness one (the paged plane's stub has no panels, so the
+    store computes it from the host copy of the panels).
+    """
+    index = stacked.index
+    if grain_mask is None:
+        _, grain_mask = _mixed_recall_mask(index.grains, tag_mask, ts_range,
+                                           live=stacked.live)
+    gids, gd2 = static_route(index.routing, q, nprobe=nprobe,
+                             grain_mask=grain_mask)
+    if math.isinf(probe_margin):
+        n_active = torch.full((q.shape[0],), gids.shape[1],
+                              dtype=torch.int32, device=q.device)
+    else:
+        gids, n_active = routing.adaptive_prefix(
+            gids, gd2, margin=probe_margin, min_probes=min_probes,
+            hub_mask=hub_mask)
+    g_n = index.routing.n_grains
+    active = (torch.arange(gids.shape[1], device=q.device)[None, :]
+              < n_active[:, None]).to(torch.int32)
+    gl = gids.long()
+    wins = torch.zeros(g_n, dtype=torch.int32, device=q.device)
+    wins.index_add_(0, gl[:, 0], torch.ones_like(gids[:, 0]))
+    touches = torch.zeros(g_n, dtype=torch.int32, device=q.device)
+    touches.index_add_(0, gl.reshape(-1), active.reshape(-1))
+    return gids, n_active, wins, touches
 
 
 def project_probes(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,

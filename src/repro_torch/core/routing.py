@@ -71,6 +71,36 @@ def route_per_segment(plane: RoutingPlane, q: torch.Tensor, nprobe: int,
             d[:, :, :p].reshape(q.shape[0], -1))
 
 
+def adaptive_prefix(gids: torch.Tensor, gd2: torch.Tensor, *,
+                    margin: float, min_probes: int = 1,
+                    hub_mask: Optional[torch.Tensor] = None):
+    """Per-query early termination over the routed top-P.
+
+    A probe p stays active iff gd2[q, p] <= (1 + margin) * gd2[q, 0] (the
+    distance-gap rule), or its grain is a hub (``hub_mask`` [G] bool), and
+    its grain is valid (gd2 < BIG / 2); the first ``min_probes`` probes
+    always stay.  Active probes are stable-partitioned to the front
+    (ascending gd2 stays ascending), so the select takes a per-query
+    prefix length.  ``(1 + margin)`` is a Python float times the f32
+    ``gd2``, as in the JAX package.  ``margin=inf`` must be short-cut by
+    the caller ((1 + inf) * 0 is NaN).
+
+    Returns (gids [Q, P] i32 reordered, n_active [Q] i32 >= 1).
+    """
+    p_n = gids.shape[1]
+    pos = torch.arange(p_n, device=gids.device)[None, :]
+    active = gd2 <= (1.0 + margin) * gd2[:, :1]
+    if hub_mask is not None:
+        active = torch.logical_or(active, hub_mask[gids.long()])
+    active = torch.logical_and(active, gd2 < BIG / 2)
+    active = torch.logical_or(active, pos < min_probes)
+    # stable partition: actives first, their routing order kept
+    order = torch.sort((~active).to(torch.uint8), dim=1, stable=True).indices
+    gids_s = torch.gather(gids, 1, order)
+    n_active = torch.clamp(active.sum(dim=1, dtype=torch.int32), min=1)
+    return gids_s, n_active
+
+
 def merge_target(centroids, live_counts, cap: int, src: int,
                  excluded=(), max_merged: Optional[int] = None) -> int:
     """The grain an underfull grain ``src`` merges into: the nearest other

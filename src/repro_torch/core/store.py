@@ -48,16 +48,23 @@ Grains are self-contained, so the index maps onto immutable segments:
   the stacked plane, the cold re-rank (which reads only the ``b2``
   survivors) and the tiered plane, where the budgets act per pass, as in
   the JAX package.
+- **adaptive routing** (``search(adaptive=True)``): one routing pass
+  applies the distance-gap stopping rule and the hub set, then the
+  queries run in power-of-two probe-width buckets, so an easy query
+  scans fewer grains; on the stacked plane, the cold tier and the tiered
+  plane.  The probe-traffic counters it keeps elect the hubs and feed
+  ``grain_health``, ``hub_grains`` and ``probe_stats``.
 
-The JAX package's ``repro.core.store`` is the reference.  Adaptive
-routing, tenancy and the sharded plane are not ported yet; the arguments
-that would ask for them raise, naming the ROADMAP item that brings each.
+The JAX package's ``repro.core.store`` is the reference.  Tenancy and the
+sharded plane are not ported yet; the arguments that would ask for them
+raise, naming the ROADMAP item that brings each.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import math
 import os
 import tempfile
 import threading
@@ -349,6 +356,32 @@ def _finalize(ids: torch.Tensor, d: torch.Tensor, topk: int) -> SearchResult:
     return SearchResult(ids=ids.to(torch.int32), dists=d)
 
 
+def _width_buckets(n_active: np.ndarray, nprobe: int) -> list:
+    """Adaptive routing's query buckets: [(w, query indices)] by
+    power-of-two probe width w >= n_active[q] (capped at ``nprobe``),
+    narrowest first."""
+    w = np.ones_like(n_active)
+    while bool((w < n_active).any()):
+        w = np.where(w < n_active, w * 2, w)
+    w = np.minimum(w, nprobe)
+    return [(int(v), np.flatnonzero(w == v)) for v in np.unique(w)]
+
+
+def _bucketed(buckets: list, q_n: int, topk: int, dev, run):
+    """(ids [Q, topk] i32, dists [Q, topk] f32) from ``run(w,
+    queries on dev) -> SearchResult`` over each width bucket, (-1, BIG)
+    past a bucket's results."""
+    out_ids = torch.full((q_n, topk), -1, dtype=torch.int32, device=dev)
+    out_d = torch.full((q_n, topk), BIG, device=dev)
+    for w, sel in buckets:
+        sel_d = _to_device(sel, dev)
+        res = run(w, sel_d)
+        k = res.ids.shape[1]
+        out_ids[sel_d, :k] = res.ids
+        out_d[sel_d, :k] = res.dists
+    return out_ids, out_d
+
+
 def _live_rows(mut_gid: Optional[np.ndarray], mut_seq: Optional[np.ndarray],
                gids: np.ndarray, seqs: np.ndarray) -> Optional[np.ndarray]:
     """Tombstone/shadow verdict for physical rows.  None = all live.
@@ -548,6 +581,12 @@ class VectorStore:
         # reused.
         self._stack_cache: collections.OrderedDict = \
             collections.OrderedDict()
+        # Adaptive routing's probe traffic per segment set (same keys and
+        # pinning as the plane LRU): routing-win and active-probe counters
+        # over the stacked grain axis, which elect the hub set and feed
+        # grain_health; only adaptive searches add to them.
+        self._probe_traffic: collections.OrderedDict = \
+            collections.OrderedDict()
         self._rerank_stats = _new_rerank_stats()
 
     @property
@@ -703,23 +742,99 @@ class VectorStore:
         [G] (the existing frame over the live rows), ``best`` [G] (the refit
         bound), ``drift2`` [G] (squared centroid walk-off) and ``var_live``
         [G], the signals ``maintain()`` acts on, computed on the device;
-        and ``route_wins``/``touches`` [G], the probe-traffic counters of
-        adaptive routing, which stay zero here: adaptive routing is not
-        ported (ROADMAP Queue A item 5).
+        and ``route_wins`` [G] (queries whose closest grain this was) and
+        ``touches`` [G] (active probes on it), adaptive routing's
+        probe-traffic counters for the live segment set: zeros until an
+        ``adaptive=True`` search has run against it.
         """
         now = self._clock() if now is None else now
         mg, ms = self._mut_arrays()
+        traffic = self._probe_traffic.get(
+            tuple(id(s) for s in self._segments))
+        s_n = max(len(self._segments), 1)
+        gmax = traffic["wins"].shape[0] // s_n if traffic else 0
         out = []
-        for seg in self._segments:
+        for si, seg in enumerate(self._segments):
             stats = maintenance.grain_stats(
                 seg, self._seg_live_rows(seg, mg, ms, now))
-            zeros = np.zeros(stats["live_cnt"].shape[0], np.int64)
+            g_seg = stats["live_cnt"].shape[0]
+            if traffic is not None and g_seg <= gmax:
+                lo = si * gmax
+                wins = traffic["wins"][lo:lo + g_seg].copy()
+                touch = traffic["touches"][lo:lo + g_seg].copy()
+            else:
+                wins = np.zeros(g_seg, np.int64)
+                touch = np.zeros(g_seg, np.int64)
             out.append({k: stats[k] for k in
                         ("live_cnt", "captured", "best", "drift2",
                          "var_live")}
-                       | {"seg_id": seg.seg_id, "route_wins": zeros,
-                          "touches": zeros.copy()})
+                       | {"seg_id": seg.seg_id, "route_wins": wins,
+                          "touches": touch})
         return out
+
+    # ------------------------------------------------- adaptive probe traffic
+    def _traffic_for(self, segments: tuple, g_total: int) -> dict:
+        """The probe-traffic counters of one segment set (zeroed on first
+        use).  The entry pins the segment tuple, so its id()-key cannot be
+        reused, as the plane cache's entries do; the LRU keeps
+        max(4, ``STACK_CACHE_ENTRIES``) of them."""
+        key = tuple(id(s) for s in segments)
+        hit = self._probe_traffic.get(key)
+        if hit is None or hit["wins"].shape[0] != g_total:
+            hit = {"segments": tuple(segments),
+                   "wins": np.zeros(g_total, np.int64),
+                   "touches": np.zeros(g_total, np.int64),
+                   "queries": 0, "active_probes": 0}
+            self._probe_traffic[key] = hit
+            while len(self._probe_traffic) > max(4, STACK_CACHE_ENTRIES):
+                self._probe_traffic.popitem(last=False)
+        else:
+            self._probe_traffic.move_to_end(key)
+        return hit
+
+    def _purge_probe_traffic(self) -> None:
+        """Drop the traffic entries that pin a segment no longer in the
+        store (after ``compact()``/``maintain()`` replaced it), or the
+        replaced segment, and through ``_COLD_REFS`` its cold file, would
+        live until the LRU happened to evict the entry.  Entries of
+        snapshots and branches whose segments are all still live stay."""
+        live = {id(s) for s in self._segments}
+        for key in [k for k, hit in self._probe_traffic.items()
+                    if any(id(s) not in live for s in hit["segments"])]:
+            del self._probe_traffic[key]
+
+    def _hub_mask_host(self, traffic: dict) -> Optional[np.ndarray]:
+        """The hub set as a [G] bool mask over the stacked grain axis (None
+        before any traffic): the ``cfg.hub_size`` grains with the most
+        routing wins (ties to the lower grain), which every adaptive query
+        probes."""
+        wins = traffic["wins"]
+        if self.cfg.hub_size <= 0 or wins.max(initial=0) <= 0:
+            return None
+        top = np.argsort(wins, kind="stable")[::-1][:self.cfg.hub_size]
+        mask = np.zeros(wins.shape[0], bool)
+        mask[top[wins[top] > 0]] = True
+        return mask
+
+    def hub_grains(self) -> np.ndarray:
+        """Stacked-plane grain indices of the current hub set (sorted;
+        empty until adaptive traffic exists for the live segment set)."""
+        hit = self._probe_traffic.get(tuple(id(s) for s in self._segments))
+        mask = self._hub_mask_host(hit) if hit is not None else None
+        if mask is None:
+            return np.zeros(0, np.int64)
+        return np.nonzero(mask)[0].astype(np.int64)
+
+    def probe_stats(self) -> dict:
+        """Adaptive routing's traffic for the live segment set: adaptive
+        ``queries``, their ``active_probes`` and ``mean_active`` probes per
+        query (0.0 before any traffic)."""
+        hit = self._probe_traffic.get(tuple(id(s) for s in self._segments))
+        if hit is None or hit["queries"] == 0:
+            return {"queries": 0, "active_probes": 0, "mean_active": 0.0}
+        return {"queries": hit["queries"],
+                "active_probes": hit["active_probes"],
+                "mean_active": hit["active_probes"] / hit["queries"]}
 
     def maintain(self, *, now: Optional[float] = None,
                  policy: Optional[maintenance.MaintenancePolicy] = None
@@ -762,6 +877,7 @@ class VectorStore:
             self._segments = new_segs
             self._maint_epoch += 1
             self._purge_tombstones()
+            self._purge_probe_traffic()
         return maintenance.MaintenanceReport(segments=tuple(reports))
 
     # ------------------------------------------------------------ compaction
@@ -830,6 +946,7 @@ class VectorStore:
             if merged is not None:             # None: every row was dead
                 kept.insert(pos, merged)
             self._segments = kept
+            self._purge_probe_traffic()
             return True
         return False
 
@@ -1249,10 +1366,20 @@ class VectorStore:
         nprobe / pool: override cfg.nprobe / cfg.pool on the stacked plane.
         route_mode: "global" (top-P over every segment's grains) or
           "per_segment" (top-P within each segment, still one call).
+        adaptive: per-query probe counts.  After routing, the distance-gap
+          rule (``routing.adaptive_prefix``) kills the probes whose grain
+          lies beyond (1 + probe_margin) times the query's best grain's
+          distance; the hub grains (the ``cfg.hub_size`` grains with the
+          most routing wins so far) are always probed.  The queries then
+          run in power-of-two probe-width buckets.  ``adaptive=False`` and
+          ``probe_margin=inf`` are the static plane bit for bit.  Needs
+          the fused plane and global routing.
+        probe_margin / min_probes: the rule's knobs (None: ``cfg``'s);
+          setting them without ``adaptive=True`` is an error.
         now: TTL clock (default: the store's clock).
         With ``device_budget`` set the sealed segments are searched on the
         tiered plane (fused, global routing, one device only).
-        mesh and adaptive=True are refused until ported.
+        mesh is refused until ported.
         """
         if budgets is not None:
             check_budgets(budgets, topk)
@@ -1262,7 +1389,18 @@ class VectorStore:
                     "loop (fused=False) has no staged candidate stage")
         routing.check_probe_args(adaptive, probe_margin, min_probes)
         if adaptive:
-            raise _unported("adaptive=True", 5, "adaptive routing")
+            if not fused:
+                raise ValueError(
+                    "adaptive=True needs the fused search plane; the "
+                    "per-segment loop (fused=False) has no ragged-probe "
+                    "stage")
+            if route_mode != "global":
+                raise ValueError(
+                    "adaptive=True needs route_mode='global' (the stopping "
+                    "rule compares one fused routing pass)")
+        margin = (self.cfg.probe_margin if probe_margin is None
+                  else float(probe_margin))
+        minp = self.cfg.min_probes if min_probes is None else int(min_probes)
         if self.device_budget is not None:
             if not fused:
                 raise ValueError(
@@ -1295,7 +1433,9 @@ class VectorStore:
                 ids_s, d_s = self._search_segments_fused(
                     q, man, topk=topk, mode=mode, tag_mask=tag_mask,
                     ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
-                    nprobe=nprobe, pool=pool, route_mode=route_mode, now=now)
+                    nprobe=nprobe, pool=pool, route_mode=route_mode, now=now,
+                    adaptive=adaptive and not math.isinf(margin),
+                    probe_margin=margin, min_probes=minp)
                 all_ids.append(ids_s)
                 all_d.append(d_s)
             return self._merge_with_memtable(q, man, all_ids, all_d, topk,
@@ -1338,10 +1478,12 @@ class VectorStore:
 
     def _search_segments_fused(self, q, man, *, topk, mode, tag_mask,
                                ts_range, scan_impl, budgets, nprobe, pool,
-                               route_mode, now):
+                               route_mode, now, adaptive=False,
+                               probe_margin=1.0, min_probes=1):
         """One ``planner.search_stacked`` call over the stacked plane (the
-        tiered plane under a ``device_budget``).  Returns (global ids
-        [Q, k] i32, dists [Q, k] f32) on the device.
+        tiered plane under a ``device_budget``; the bucketed dispatch of
+        ``_adaptive_fused`` when ``adaptive``, whose margin is finite).
+        Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device.
 
         A cold plane (no stacked raw tier) runs Mode A for the pool and
         re-ranks it with the rows read from the cold files (``_RawRows``,
@@ -1352,7 +1494,8 @@ class VectorStore:
             return self._search_segments_tiered(
                 q, man, topk=topk, mode=mode, tag_mask=tag_mask,
                 ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
-                nprobe=nprobe, pool=pool, now=now)
+                nprobe=nprobe, pool=pool, now=now, adaptive=adaptive,
+                probe_margin=probe_margin, min_probes=min_probes)
         segments = man.segments
         entry = self._stacked_for(segments)
         stacked = self._live_plane(entry, man, now)
@@ -1360,6 +1503,13 @@ class VectorStore:
             segments, stacked, topk, nprobe, pool, route_mode)
         cold = mode == "B" and stacked.index.raw is None
         pe = pool_eff if budgets is None else min(pool_eff, int(budgets[1]))
+        if adaptive:
+            return self._adaptive_fused(
+                q, segments, entry, stacked, mode=mode, probe=probe,
+                pool_eff=pool_eff, topk_eff=topk_eff, pe=pe, cold=cold,
+                budgets=budgets, scan_impl=scan_impl, tag_mask=tag_mask,
+                ts_range=ts_range, probe_margin=probe_margin,
+                min_probes=min_probes)
         res = planner.search_stacked(
             stacked, q, nprobe=probe, pool=pool_eff,
             topk=pe if cold else topk_eff, mode="A" if cold else mode,
@@ -1375,9 +1525,88 @@ class VectorStore:
                 translate=lambda r, d: planner._translate_rows(stacked, r, d))
         return res.ids, res.dists
 
+    def _adaptive_fused(self, q, segments, entry, stacked, *, mode, probe,
+                        pool_eff, topk_eff, pe, cold, budgets, scan_impl,
+                        tag_mask, ts_range, probe_margin, min_probes):
+        """Adaptive routing on the stacked plane, in two phases.
+
+        1. One ``planner.probe_plan`` pass: routing, the stopping rule with
+           the current hub set, and the traffic counters, read back to the
+           host in one copy.
+        2. The queries are bucketed by power-of-two probe width w >=
+           n_active (``_width_buckets``), and each bucket runs
+           ``search_stacked`` on its slice of the plan, (gids[:, :w],
+           min(n_active, w)) at nprobe=w and pool min(pool, w * cap) (the
+           cascade's b1 is clamped to w * cap there too): an easy query
+           scans fewer grains instead of masking them.  A cold Mode B
+           takes each bucket's Mode A pool and re-ranks it with the rows
+           of the cold files (``_RawRows``, ``_rerank_pool``) over the
+           bucket's batches, so it equals the warm plane bit for bit.
+        Returns (ids [Q, topk] i32, dists [Q, topk] f32) on the device,
+        (-1, BIG) past a bucket's results."""
+        dev, q_n = q.device, q.shape[0]
+        traffic = self._traffic_for(segments, stacked.index.routing.n_grains)
+        gids_d, na_d, plan_h = self._adaptive_plan(
+            stacked, q, traffic, nprobe=probe, probe_margin=probe_margin,
+            min_probes=min_probes, tag_mask=tag_mask, ts_range=ts_range)
+        qeff = index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits)
+        cap = stacked.index.grains.cap
+        raw = self._raw_rows(entry, segments) if cold else None
+
+        def tr(r, d):
+            return planner._translate_rows(stacked, r, d)
+
+        def run(w, sel_d):
+            pool_b = min(pool_eff, w * cap)
+            topk_b = min(topk_eff, pool_b)
+            qb = q[sel_d]
+            kw = dict(nprobe=w, envelope_frac=self.cfg.envelope_frac,
+                      qeff=qeff, scan_impl=scan_impl, budgets=budgets,
+                      tag_mask=tag_mask, ts_range=ts_range,
+                      probe_plan=(gids_d[sel_d, :w].contiguous(),
+                                  torch.clamp(na_d[sel_d], max=w)))
+            if not cold:
+                return planner.search_stacked(stacked, qb, pool=pool_b,
+                                              topk=topk_b, mode=mode, **kw)
+            pe_b = min(pe, pool_b)
+            res = planner.search_stacked(stacked, qb, pool=pool_b, topk=pe_b,
+                                         mode="A", translate=False, **kw)
+            return _rerank_pool(res.dists, res.ids, qb, raw, pool=pe_b,
+                                topk=topk_b, translate=tr)
+
+        return _bucketed(_width_buckets(plan_h[1], probe), q_n, topk_eff,
+                         dev, run)
+
+    def _adaptive_plan(self, plane, q, traffic, *, nprobe, probe_margin,
+                       min_probes, tag_mask=None, ts_range=None,
+                       grain_mask=None):
+        """``planner.probe_plan`` with the current hub set of ``traffic``,
+        whose counters it then feeds.  Returns the plan on the device
+        (gids [Q, P], n_active [Q]) and on the host (gids, n_active, wins,
+        touches: the one device-to-host copy of an adaptive search)."""
+        hub = self._hub_mask_host(traffic)
+        gids_d, na_d, wins, touches = planner.probe_plan(
+            plane, q, nprobe=nprobe, probe_margin=probe_margin,
+            min_probes=min_probes,
+            hub_mask=None if hub is None else _to_device(hub, q.device),
+            tag_mask=tag_mask, ts_range=ts_range, grain_mask=grain_mask)
+        q_n, p_n = gids_d.shape
+        flat = torch.cat([gids_d.reshape(-1), na_d, wins, touches]).cpu() \
+            .numpy()
+        cut = np.cumsum([q_n * p_n, q_n, wins.shape[0]])
+        gids_h, na_h, wins_h, touch_h = np.split(flat, cut)
+        plan_h = (gids_h.reshape(q_n, p_n), na_h, wins_h.astype(np.int64),
+                  touch_h.astype(np.int64))
+        traffic["wins"] += plan_h[2]
+        traffic["touches"] += plan_h[3]
+        traffic["queries"] += q_n
+        traffic["active_probes"] += int(na_h.sum())
+        return gids_d, na_d, plan_h
+
     def _search_segments_tiered(self, q, man, *, topk, mode, tag_mask,
                                 ts_range, scan_impl, budgets, nprobe, pool,
-                                now):
+                                now, adaptive=False, probe_margin=1.0,
+                                min_probes=1):
         """The fused search on the tiered plane under ``device_budget``.
         Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device,
         equal to the all-warm plane's bit for bit.
@@ -1400,6 +1629,15 @@ class VectorStore:
         re-ranks min(pool, b2) candidates.  At ``budgets=None`` the merged
         pool holds the all-warm cascade's candidates at the same
         distances, ordered alike except between equal distances.
+
+        ``adaptive``: the plan is ``planner.probe_plan``'s on the stub (the
+        stopping rule and the hub set of the same traffic entry as the
+        all-warm plane's, which it feeds), read back before any pass; its
+        ``n_active`` kills the slack probes of the hot pass and of every
+        cold chunk.  The projection runs once per search, per power-of-two
+        width bucket as the all-warm plane's buckets run it
+        (``_bucket_projection``), and Mode B re-ranks each bucket's share
+        of the merged pool over the bucket's batches: the same bits.
         """
         segments = man.segments
         entry = self._tiered_for(segments)
@@ -1424,16 +1662,28 @@ class VectorStore:
 
         # 1: the plan and the projection, once
         stub = entry["plane"]
-        gids_d, _ = planner.static_route(stub.index.routing, q, nprobe=probe,
-                                         grain_mask=grain_ok_dev)
-        zq, rq, alive, sq = planner.project_probes(
-            stub.index, q, gids_d, self.cfg.envelope_frac, qeff)
-        gids_h = torch.empty(gids_d.shape, dtype=gids_d.dtype,
-                             pin_memory=dev.type == "cuda")
-        gids_h.copy_(gids_d, non_blocking=True)
-        plan_read = torch.cuda.Event() if dev.type == "cuda" else None
-        if plan_read is not None:
-            plan_read.record()
+        buckets = na_d = plan_read = None
+        if adaptive:
+            gids_d, na_d, (gids_h, na_h, wins_h, touch_h) = \
+                self._adaptive_plan(
+                    stub, q, self._traffic_for(segments, g_total),
+                    nprobe=probe, probe_margin=probe_margin,
+                    min_probes=min_probes, grain_mask=grain_ok_dev)
+            buckets = _width_buckets(na_h, probe)
+            zq, rq, alive, sq = self._bucket_projection(stub.index, q, gids_d,
+                                                        buckets, qeff)
+        else:
+            gids_d, _ = planner.static_route(stub.index.routing, q,
+                                             nprobe=probe,
+                                             grain_mask=grain_ok_dev)
+            zq, rq, alive, sq = planner.project_probes(
+                stub.index, q, gids_d, self.cfg.envelope_frac, qeff)
+            gids_h = torch.empty(gids_d.shape, dtype=gids_d.dtype,
+                                 pin_memory=dev.type == "cuda")
+            gids_h.copy_(gids_d, non_blocking=True)
+            if dev.type == "cuda":
+                plan_read = torch.cuda.Event()
+                plan_read.record()
 
         # 2a: the hot pass, queued before the host waits for the plan
         passes = []
@@ -1443,13 +1693,17 @@ class VectorStore:
                                            dummy_slot=tiered.n_hot)
             keep_h = torch.logical_and(alive, plan_h != tiered.n_hot)
             passes.append(self._tiered_pass(
-                plane_h, q, plan_h, None, (zq, rq, keep_h, sq),
+                plane_h, q, plan_h, na_d, (zq, rq, keep_h, sq),
                 width=min(target, probe * cap), **pkw))
-        if plan_read is not None:
-            plan_read.synchronize()
-        gids_h = gids_h.numpy()
-        entry["r_wins"] += np.bincount(gids_h[:, 0], minlength=g_total)
-        entry["r_touches"] += np.bincount(gids_h.ravel(), minlength=g_total)
+        if not adaptive:
+            if plan_read is not None:
+                plan_read.synchronize()
+            gids_h = gids_h.numpy()
+            na_h = np.full(q_n, probe, np.int32)
+            wins_h = np.bincount(gids_h[:, 0], minlength=g_total)
+            touch_h = np.bincount(gids_h.ravel(), minlength=g_total)
+        entry["r_wins"] += wins_h
+        entry["r_touches"] += touch_h
         entry["searches"] += 1
         tiered.paged_queries += q_n
         # an election applies from the next search: this one's hot pass is
@@ -1460,9 +1714,9 @@ class VectorStore:
 
         # 2b: the cold chunks, staged double-buffered
         need = (hot_map[gids_h] < 0) & (tiered.sizes[gids_h] > 0)
+        need &= np.arange(probe)[None, :] < na_h[:, None]
         if grain_ok is not None:      # masked grains scan to BIG anyway
             need &= grain_ok[gids_h]
-        na_h = np.full(q_n, probe, np.int32)
         cold = np.unique(gids_h[need])
         for ch in residency.chunk_cold(cold, self.prefetch_grains):
             plane_c, member, release = tiered.chunk_plane(ch, mask_src)
@@ -1518,9 +1772,47 @@ class VectorStore:
         if mode != "B":
             return translate(r_p[:, :topk_eff], d_p[:, :topk_eff]), \
                 d_p[:, :topk_eff]
-        res = _rerank_pool(d_p, r_p, q, self._raw_rows(entry, segments),
-                           pool=target, topk=topk_eff, translate=translate)
-        return res.ids, res.dists
+        raw = self._raw_rows(entry, segments)
+        if buckets is None:
+            res = _rerank_pool(d_p, r_p, q, raw, pool=target, topk=topk_eff,
+                               translate=translate)
+            return res.ids, res.dists
+        # adaptive: each bucket's share of the pool, re-ranked as the
+        # all-warm plane's bucket re-ranks it
+        def run(w, sel_d):
+            pool_b = min(pool_eff, w * cap)
+            pe_b = min(target, pool_b)
+            return _rerank_pool(d_p[sel_d, :pe_b], r_p[sel_d, :pe_b],
+                                q[sel_d], raw, pool=pe_b,
+                                topk=min(topk_eff, pool_b),
+                                translate=translate)
+
+        return _bucketed(buckets, q_n, topk_eff, dev, run)
+
+    def _bucket_projection(self, index, q, gids, buckets, qeff):
+        """An adaptive plan's projection as the all-warm plane's buckets
+        compute it: per bucket (w, queries), ``planner.project_probes``
+        over its queries' first w probes, in the same batches, so each
+        (query, probe) gets the same bits; gathered into [Q, P] tensors
+        (zeros, and keep False, past a query's bucket width)."""
+        q_n, p_n = gids.shape
+        out = None
+        for w, sel in buckets:
+            sel_d = _to_device(sel, q.device)
+            part = planner.project_probes(index, q[sel_d],
+                                          gids[sel_d, :w].contiguous(),
+                                          self.cfg.envelope_frac, qeff)
+            if out is None:
+                out = [None if t is None else
+                       t.new_zeros((q_n, p_n) + tuple(t.shape[2:]))
+                       for t in part]
+            for o, t in zip(out, part):
+                if o is not None:
+                    o[sel_d, :w] = t
+        if out is None:               # no queries
+            return planner.project_probes(index, q, gids,
+                                          self.cfg.envelope_frac, qeff)
+        return tuple(out)
 
     def _tiered_pass(self, plane, q, gids, n_active, proj, *, width: int,
                      scan_impl, budgets, qeff):

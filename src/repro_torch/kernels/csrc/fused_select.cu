@@ -85,13 +85,30 @@
 //    (dist, row) straight to the outputs.  A round reads and writes each
 //    key once: ceil(log2 P) passes over Q * P * L keys, where folding the
 //    probes one by one into a width-key carry would re-read it P times.
+//  * Chunk runs (L > kSmemWidth: a grain of more than 8,192 slots with
+//    width above it, the cascade's stage 1 at b1 = P * cap on such an
+//    index): a pair's top-L no longer fits shared memory as a carry.
+//    The probe kernel (template kRuns) then prices and sorts each
+//    128-slot chunk as before and writes it whole to global scratch as
+//    one sorted run, dropped slots as big_key, so a pair owns
+//    ceil(cap / 128) runs of 128 keys.  The same tree merge
+//    (fused_scan_select_wide_merge_kernel<kRuns = true>, one group per
+//    live pair) merges them pairwise and cuts each output run to L keys;
+//    its last round writes the pair's L keys to `lists`, the same keys
+//    the carry would hold: the live ones ascending, then big_keys.  From
+//    there the per-query merge runs unchanged.  The shape picks the path
+//    (L <= kSmemWidth keeps the carry); there is no switch.
 //
 // Limits: 1 <= width, and width <= kSmemWidth or width <= P * cap;
-// L = min(width, cap) <= kSmemWidth; P * cap < 2^32 - 1; Q * P < 2^31.
-// Shared memory: probe kernel 2 L + 128 keys of 8 bytes (129 KB at
-// L = 8192); merge kernel 2 width keys plus a staging area, within
-// kSmemBudget; wide merge kernel kTile keys.  Global scratch of the wide
-// merge: fused_scan_select_scratch_keys() keys, allocated by the caller.
+// P * cap < 2^32 - 1; Q * P < 2^31 (and Q * P * ceil(cap / 128) < 2^31
+// on the chunk-run path).  Shared memory: probe kernel 2 L + 128 keys of
+// 8 bytes (129 KB at L = 8192; only the query's coordinates with chunk
+// runs); merge kernel 2 width keys plus a staging area, within
+// kSmemBudget; wide merge kernel kTile keys.  Global scratch:
+// fused_scan_select_scratch_keys() keys, allocated by the caller: the
+// wide merge's two halves and, with chunk runs, about twice
+// Q * P * round_up(cap, 128) keys (the runs and one round's output; the
+// two merges run one after the other and share it).
 
 #include <cuda_runtime.h>
 
@@ -129,9 +146,10 @@ struct Params {
   const int32_t* n_active;      // [Q] or null (= all P probes)
   const int64_t* order;         // [Q * P] pairs q * P + p, grain order
   u64* lists;                   // [Q * P, L] per-pair sorted top-L keys
+  u64* runs;                    // [Q * P, n_chunks * kChunk] chunk runs
   float* out_d;                 // [Q, width]
   int32_t* out_r;               // [Q, width]
-  int P, k, s, G, cap, width, L, stage_probes;
+  int P, k, s, G, cap, width, L, stage_probes, n_chunks;
   u64 big_key;
   float big;
 };
@@ -252,13 +270,15 @@ __device__ __forceinline__ void load4(const T* row, int c0, int cap,
 }
 
 // 32 resident CTAs of one warp fill an SM's 64K registers at 64 each.
-template <bool kSketch, bool kTenant, bool kVec>
+// kRuns: no carry; each chunk's 128 keys go out sorted as one run.
+template <bool kSketch, bool kTenant, bool kVec, bool kRuns>
 __global__ void __launch_bounds__(32, 32)
 fused_scan_select_probe_kernel(const Params p) {
   extern __shared__ u64 smem[];
+  const int L = kRuns ? 0 : p.L;               // the carry's keys
   u64* carry = smem;                           // [L]
-  u64* spare = carry + p.L;                    // [L]
-  u64* run = spare + p.L;                      // [kChunk] a chunk's survivors
+  u64* spare = carry + L;                      // [L]
+  u64* run = spare + L;                        // [kChunk] a chunk's survivors
   int* zq_s = reinterpret_cast<int*>(run + kChunk);
   int* sq_s = zq_s + p.k;
   constexpr unsigned kAll = 0xffffffffu;
@@ -268,7 +288,6 @@ fused_scan_select_probe_kernel(const Params p) {
   const int pi = static_cast<int>(pair - static_cast<int64_t>(q) * p.P);
   if (!pair_alive(p, q, pi)) return;           // warp-uniform
   const int lane = threadIdx.x;
-  const int L = p.L;
 
   for (int j = lane; j < p.k; j += 32) zq_s[j] = p.zq[pair * p.k + j];
   if (kSketch)
@@ -353,6 +372,19 @@ fused_scan_select_probe_kernel(const Params p) {
 #pragma unroll
       for (int r = 0; r < kSlotsPerThread; ++r) v[r] = kEmpty;
     }
+    if constexpr (kRuns) {
+      // the whole chunk as one sorted run, dropped slots as big_key
+      // (thr stays big_key, so every kept key is below it)
+#pragma unroll
+      for (int r = 0; r < kSlotsPerThread; ++r)
+        if (v[r] == kEmpty) v[r] = p.big_key;
+      warp_sort(v);
+      u64* out = p.runs + pair * (static_cast<int64_t>(p.n_chunks) * kChunk) +
+                 base + lane * kSlotsPerThread;
+#pragma unroll
+      for (int r = 0; r < kSlotsPerThread; ++r) out[r] = v[r];
+      continue;
+    }
     // survivors of the warp, each lane's count summed inclusively
     int incl = cnt;
 #pragma unroll
@@ -394,6 +426,7 @@ fused_scan_select_probe_kernel(const Params p) {
     thr = carry[L - 1];
   }
 
+  if (kRuns) return;
   u64* out = p.lists + pair * L;
   for (int i = lane; i < L; i += 32) out[i] = carry[i];
 }
@@ -438,41 +471,52 @@ fused_scan_select_merge_kernel(const Params p) {
   for (int i = tid; i < W; i += kThreads) emit(p, q, i, carry[i]);
 }
 
-// One round of the wide merge.  Input run r of query q, the lists of
-// probes [r * span, min((r + 1) * span, P)) merged and cut to
-// min(count * L, width) keys, sits at src + (q * n_in + r) * in_stride;
-// output run j, the merge of input runs 2j and 2j + 1 cut the same way,
-// goes to dst + (q * n_out + j) * out_stride, or, at the last round (dst
-// null, one output run of `width` keys), to out_d / out_r.  At the first
-// round (span 1) src is `lists`, and a dead probe's run is empty.  Block
-// b makes outputs [t * kTile, (t + 1) * kTile) of run j of query q, with
-// b = (q * n_out + j) * n_tiles + t.
+// One round of a tree merge of sorted runs, in groups: the wide merge
+// (kRuns false: group q, a query, whose runs are its probes' lists of L
+// keys, cut to `width`) or the chunk-run merge (kRuns true: group
+// q * P + p, a pair, whose runs are its chunks' runs of kChunk keys, cut
+// to L).  Input run r of group g, the runs [r * span, min((r + 1) * span,
+// n)) merged and cut to min(count * base, cut) keys, sits at
+// src + (g * n_in + r) * in_stride; output run j, the merge of input runs
+// 2j and 2j + 1 cut the same way, goes to dst + (g * n_out + j) *
+// out_stride, or, at the last round (dst null, one output run), to
+// out_d / out_r (the wide merge) or to the pair's `lists` row (chunk
+// runs).  At the wide merge's first round (span 1) src is `lists`, and a
+// dead probe's run is empty; a dead pair has no chunk runs and makes
+// nothing.  Block b makes outputs [t * kTile, (t + 1) * kTile) of run j
+// of group g, with b = (g * n_out + j) * n_tiles + t.
+template <bool kRuns>
 __global__ void __launch_bounds__(kThreads)
 fused_scan_select_wide_merge_kernel(const Params p, const u64* src, u64* dst,
                                     int span, int in_stride, int out_stride,
                                     int n_tiles) {
   __shared__ u64 stage[kTile];
   __shared__ int cut[2];
-  const int n_in = (p.P + span - 1) / span;
+  const int n = kRuns ? p.n_chunks : p.P;      // runs of a group at span 1
+  const int64_t base = kRuns ? kChunk : p.L;   // keys of such a run
+  const int64_t W = kRuns ? p.L : p.width;     // each output cut to W
+  const int n_in = (n + span - 1) / span;
   const int n_out = (n_in + 1) / 2;
   const int t = static_cast<int>(blockIdx.x % n_tiles);
   const int j = static_cast<int>(blockIdx.x / n_tiles % n_out);
-  const int q = static_cast<int>(blockIdx.x / n_tiles / n_out);
-  const int64_t L = p.L, W = p.width;
-  const int p0 = 2 * j * span;                  // the first probe of run 2j
-  const int cnt_a = min(span, p.P - p0);
-  const int cnt_b = max(0, min(span, p.P - p0 - span));
-  const int out_len = static_cast<int>(min((cnt_a + cnt_b) * L, W));
+  const int64_t g = blockIdx.x / n_tiles / n_out;
+  const int q = static_cast<int>(kRuns ? g / p.P : g);
+  if (kRuns && !pair_alive(p, q, static_cast<int>(g - int64_t{q} * p.P)))
+    return;                                     // block-uniform
+  const int r0 = 2 * j * span;                  // the first run of run 2j
+  const int cnt_a = min(span, n - r0);
+  const int cnt_b = max(0, min(span, n - r0 - span));
+  const int out_len = static_cast<int>(min((cnt_a + cnt_b) * base, W));
   const int i0 = t * kTile;
   if (i0 >= out_len) return;                    // block-uniform
   const int i1 = min(i0 + kTile, out_len);
-  int la = static_cast<int>(min(cnt_a * L, W));
-  int lb = static_cast<int>(min(cnt_b * L, W));
-  if (span == 1) {
-    if (!pair_alive(p, q, p0)) la = 0;
-    if (cnt_b == 0 || !pair_alive(p, q, p0 + 1)) lb = 0;
+  int la = static_cast<int>(min(cnt_a * base, W));
+  int lb = static_cast<int>(min(cnt_b * base, W));
+  if (!kRuns && span == 1) {
+    if (!pair_alive(p, q, r0)) la = 0;
+    if (cnt_b == 0 || !pair_alive(p, q, r0 + 1)) lb = 0;
   }
-  const u64* a = src + (static_cast<int64_t>(q) * n_in + 2 * j) * in_stride;
+  const u64* a = src + (g * n_in + 2 * j) * in_stride;
   const u64* b = a + in_stride;
   // outputs [e0, e1) come from the runs' live keys, the rest are big_keys;
   // they are the merge of a[cut[0], cut[1]) and b[e0 - cut[0], e1 - cut[1])
@@ -485,21 +529,32 @@ fused_scan_select_wide_merge_kernel(const Params p, const u64* src, u64* dst,
   for (int x = threadIdx.x; x < na; x += kThreads) stage[x] = a[cut[0] + x];
   for (int x = threadIdx.x; x < nb; x += kThreads) stage[na + x] = b[b0 + x];
   __syncthreads();
-  u64* out = dst + (static_cast<int64_t>(q) * n_out + j) * out_stride;
+  u64* out = dst != nullptr ? dst + (g * n_out + j) * out_stride
+             : kRuns        ? p.lists + g * p.L
+                            : nullptr;
   for (int i = i0 + threadIdx.x; i < i1; i += kThreads) {
     const u64 key =
         i < e1 ? merge_at(stage, na, stage + na, nb, i - e0) : p.big_key;
-    if (dst == nullptr) emit(p, q, i, key);
+    if (out == nullptr) emit(p, q, i, key);
     else out[i] = key;
   }
 }
 
 typedef void (*Kernel)(const Params);
 
-template <bool kSketch, bool kTenant>
+template <bool kSketch, bool kTenant, bool kRuns>
 Kernel probe_kernel(bool vec) {
-  return vec ? fused_scan_select_probe_kernel<kSketch, kTenant, true>
-             : fused_scan_select_probe_kernel<kSketch, kTenant, false>;
+  return vec ? fused_scan_select_probe_kernel<kSketch, kTenant, true, kRuns>
+             : fused_scan_select_probe_kernel<kSketch, kTenant, false, kRuns>;
+}
+
+template <bool kRuns>
+Kernel probe_kernel(bool sketch, bool tenant, bool vec) {
+  if (sketch)
+    return tenant ? probe_kernel<true, true, kRuns>(vec)
+                  : probe_kernel<true, false, kRuns>(vec);
+  return tenant ? probe_kernel<false, true, kRuns>(vec)
+                : probe_kernel<false, false, kRuns>(vec);
 }
 
 cudaError_t set_smem(Kernel kern, size_t smem) {
@@ -512,49 +567,98 @@ bool aligned16(const void* ptr) {
   return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-// The wide merge's rounds: round r (from 0) merges runs of 2^r probes two
-// by two into ceil(P / 2^(r+1)) runs of min(2^(r+1) L, width) keys.  All
-// but the last write to the global scratch, even rounds to its first
-// half, odd rounds to its second (each reads the other).  Returns the
-// scratch's keys and sets `second`, the second half's offset.
-int64_t wide_scratch(int64_t q, int64_t P, int64_t L, int64_t W,
-                     int64_t* second) {
-  int64_t half[2] = {0, 0};
+// The rounds of a tree merge of `groups` groups of n runs of `base` keys,
+// each output cut to `cut` keys: round r (from 0) merges runs of 2^r
+// input runs two by two into ceil(n / 2^(r+1)) runs of min(2^(r+1) base,
+// cut) keys.  All but the last write to the global scratch, even rounds
+// to its first half, odd rounds to its second; round 0 reads its input
+// from the second half when `in_keys` (the input's keys) is not 0, else
+// from elsewhere.  Returns the scratch's keys and sets `second`, the
+// second half's offset.
+int64_t tree_scratch(int64_t groups, int64_t n, int64_t base, int64_t cut,
+                     int64_t in_keys, int64_t* second) {
+  int64_t half[2] = {0, in_keys};
   int r = 0;
-  for (int64_t span = 1; span < P; span *= 2, ++r) {
-    const int64_t n_out = (P + 2 * span - 1) / (2 * span);
+  for (int64_t span = 1; span < n; span *= 2, ++r) {
+    const int64_t n_out = (n + 2 * span - 1) / (2 * span);
     if (n_out == 1) break;                     // the last round
-    const int64_t stride = 2 * span * L < W ? 2 * span * L : W;
-    const int64_t keys = q * n_out * stride;
+    const int64_t stride = 2 * span * base < cut ? 2 * span * base : cut;
+    const int64_t keys = groups * n_out * stride;
     if (keys > half[r % 2]) half[r % 2] = keys;
   }
   if (second != nullptr) *second = half[0];
   return half[0] + half[1];
 }
 
+int64_t chunks_of(int64_t cap) { return (cap + kChunk - 1) / kChunk; }
+
+// The chunk-run path's tree scratch (runs in its second half).
+int64_t runs_scratch(int64_t q, int64_t P, int64_t cap, int64_t L,
+                     int64_t* second) {
+  const int64_t pairs = q * P, n = chunks_of(cap);
+  return tree_scratch(pairs, n, kChunk, L, pairs * n * kChunk, second);
+}
+
+// Launches the rounds of one tree merge (see tree_scratch) on `st`: the
+// input at src with in_stride keys per run, outputs of the last round to
+// the kernel's destination (one round for a single run: n = 1).
+cudaError_t tree_merge(const Params& p, bool runs, int64_t groups, int64_t n,
+                       int64_t base, int64_t cut, const u64* src,
+                       int in_stride, u64* scratch, int64_t second,
+                       cudaStream_t st) {
+  int r = 0;
+  for (int64_t span = 1;; span *= 2, ++r) {    // one round at least
+    const int64_t n_out = (n + 2 * span - 1) / (2 * span);
+    const int out_stride =
+        static_cast<int>(2 * span * base < cut ? 2 * span * base : cut);
+    u64* dst = n_out == 1 ? nullptr : scratch + (r % 2 ? second : 0);
+    const int n_tiles = (out_stride + kTile - 1) / kTile;
+    const unsigned blocks = static_cast<unsigned>(groups * n_out * n_tiles);
+    if (runs)
+      fused_scan_select_wide_merge_kernel<true><<<blocks, kThreads, 0, st>>>(
+          p, src, dst, static_cast<int>(span), in_stride, out_stride,
+          n_tiles);
+    else
+      fused_scan_select_wide_merge_kernel<false><<<blocks, kThreads, 0, st>>>(
+          p, src, dst, static_cast<int>(span), in_stride, out_stride,
+          n_tiles);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || n_out == 1) return e;
+    src = dst;
+    in_stride = out_stride;
+  }
+}
+
 }  // namespace
 
 extern "C" int fused_scan_select_smem_width() { return kSmemWidth; }
 
-// Keys of global scratch the launch needs (0 when width <= kSmemWidth).
+// Keys of global scratch the launch needs (0 when width <= kSmemWidth):
+// the wide merge's, or the chunk-run path's where that is larger (the two
+// run one after the other in the same scratch).
 extern "C" long long fused_scan_select_scratch_keys(int n_queries,
                                                     int n_probes, int cap,
                                                     int width) {
   if (width <= kSmemWidth) return 0;
   const int L = width < cap ? width : cap;
-  return wide_scratch(n_queries, n_probes, L, width, nullptr);
+  const int64_t wide =
+      tree_scratch(n_queries, n_probes, L, width, 0, nullptr);
+  if (L <= kSmemWidth) return wide;
+  const int64_t runs = runs_scratch(n_queries, n_probes, cap, L, nullptr);
+  return wide > runs ? wide : runs;
 }
 
 extern "C" const char* fused_scan_select_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the probe kernel over `n_pairs` = Q * P CTAs, then the merge
-// kernel over Q (width <= kSmemWidth) or the wide merge's rounds, on
-// `stream`; returns cudaGetLastError() after the launches (0 on
-// success).  Null pointers mark absent optional inputs.  `order` is the
-// schedule (int64 pair indices, killed pairs anywhere), `lists` scratch
-// of Q * P * min(width, cap) keys, `scratch` that of
+// Launches the probe kernel over `n_pairs` = Q * P CTAs (with chunk
+// runs, L > kSmemWidth: its kRuns form, then the chunk-run merge's
+// rounds), then the merge kernel over Q (width <= kSmemWidth) or the wide
+// merge's rounds, on `stream`; returns cudaGetLastError() after the
+// launches (0 on success).  Null pointers mark absent optional inputs.
+// `order` is the schedule (int64 pair indices, killed pairs anywhere),
+// `lists` scratch of Q * P * min(width, cap) keys, `scratch` that of
 // fused_scan_select_scratch_keys(); `vec` selects the vector loads
 // (cap % 4 == 0 and 16-byte aligned panels, checked here).
 extern "C" int fused_scan_select_launch(
@@ -567,8 +671,8 @@ extern "C" int fused_scan_select_launch(
     int n_probes, int k, int s, int n_grains, int cap, int width, int vec,
     float big, void* stream) {
   const bool wide = width > kSmemWidth;
+  const bool runs = (width < cap ? width : cap) > kSmemWidth;
   if (width < 1 || n_queries < 1 || n_probes < 1 || cap < 1 ||
-      (width < cap ? width : cap) > kSmemWidth ||
       (wide && width > static_cast<int64_t>(n_probes) * cap))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec && (cap % kSlotsPerThread != 0 || !aligned16(coords) ||
@@ -596,6 +700,7 @@ extern "C" int fused_scan_select_launch(
   p.n_active = static_cast<const int32_t*>(n_active);
   p.order = static_cast<const int64_t*>(order);
   p.lists = static_cast<u64*>(lists);
+  p.runs = nullptr;
   p.out_d = static_cast<float*>(out_d);
   p.out_r = static_cast<int32_t*>(out_r);
   p.P = n_probes;
@@ -605,6 +710,7 @@ extern "C" int fused_scan_select_launch(
   p.cap = cap;
   p.width = width;
   p.L = width < cap ? width : cap;
+  p.n_chunks = static_cast<int>(chunks_of(cap));
   p.big = big;
   uint32_t big_bits;
   memcpy(&big_bits, &big, sizeof(big_bits));
@@ -617,29 +723,33 @@ extern "C" int fused_scan_select_launch(
   const int fit =
       wide ? 1 : static_cast<int>((kSmemBudget - fixed) / per_list);
   p.stage_probes = fit < 1 ? 1 : (fit > n_probes ? n_probes : fit);
-  // the wide merge: every round's grid must fit a launch
-  int64_t second = 0;
+  // the wide merge and the chunk runs: every round's grid must fit a launch
+  int64_t second = 0, runs_second = 0;
   if (wide) {
-    if (wide_scratch(n_queries, n_probes, p.L, width, &second) > 0 &&
+    if (tree_scratch(n_queries, n_probes, p.L, width, 0, &second) > 0 &&
         scratch == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     const int64_t tiles = (static_cast<int64_t>(width) + kTile - 1) / kTile;
     if (static_cast<int64_t>(n_queries) * n_probes * tiles >= (1ll << 31))
       return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  if (runs) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    runs_scratch(n_queries, n_probes, cap, p.L, &runs_second);
+    p.runs = static_cast<u64*>(scratch) + runs_second;
+    if (static_cast<int64_t>(n_queries) * n_probes * p.n_chunks >=
+        (1ll << 31))
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
 
   const size_t probe_smem =
-      (2 * static_cast<size_t>(p.L) + kChunk) * sizeof(u64) +
+      (2 * static_cast<size_t>(runs ? 0 : p.L) + kChunk) * sizeof(u64) +
       static_cast<size_t>(p.k + p.s) * sizeof(int);
   const size_t merge_smem =
       fixed + static_cast<size_t>(p.stage_probes) * per_list;
-  Kernel probe;
-  if (has_sketch)
-    probe = has_tenant ? probe_kernel<true, true>(vec)
-                       : probe_kernel<true, false>(vec);
-  else
-    probe = has_tenant ? probe_kernel<false, true>(vec)
-                       : probe_kernel<false, false>(vec);
+  const Kernel probe =
+      runs ? probe_kernel<true>(has_sketch, has_tenant, vec)
+           : probe_kernel<false>(has_sketch, has_tenant, vec);
   cudaError_t e = set_smem(probe, probe_smem);
   if (e == cudaSuccess && !wide)
     e = set_smem(fused_scan_select_merge_kernel, merge_smem);
@@ -649,27 +759,17 @@ extern "C" int fused_scan_select_launch(
   probe<<<n_pairs, 32, probe_smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (runs) {
+    e = tree_merge(p, true, static_cast<int64_t>(n_queries) * n_probes,
+                   p.n_chunks, kChunk, p.L, p.runs, kChunk,
+                   static_cast<u64*>(scratch), runs_second, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (!wide) {
     fused_scan_select_merge_kernel<<<n_queries, kThreads, merge_smem, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  const u64* src = p.lists;
-  int in_stride = p.L;
-  int r = 0;
-  for (int64_t span = 1; span < n_probes; span *= 2, ++r) {
-    const int64_t n_out = (n_probes + 2 * span - 1) / (2 * span);
-    const int out_stride = static_cast<int>(
-        2 * span * p.L < width ? 2 * span * p.L : width);
-    u64* dst = n_out == 1 ? nullptr
-                          : static_cast<u64*>(scratch) + (r % 2 ? second : 0);
-    const int n_tiles = (out_stride + kTile - 1) / kTile;
-    const unsigned blocks = static_cast<unsigned>(n_queries * n_out * n_tiles);
-    fused_scan_select_wide_merge_kernel<<<blocks, kThreads, 0, st>>>(
-        p, src, dst, static_cast<int>(span), in_stride, out_stride, n_tiles);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    src = dst;
-    in_stride = out_stride;
-  }
-  return static_cast<int>(cudaSuccess);
+  return static_cast<int>(tree_merge(p, false, n_queries, n_probes, p.L,
+                                     width, p.lists, p.L,
+                                     static_cast<u64*>(scratch), second, st));
 }

@@ -15,7 +15,11 @@ query: candidate state is [Q, width] instead of [Q, P*cap].
   together) and the merge: up to ``SMEM_WIDTH`` one kernel per query that
   folds the probes' lists into a top-``width`` carry in shared memory;
   above it (the cascade's stage 1, up to P * cap) a pairwise tree merge of
-  the lists in global scratch, ceil(log2 P) launches.
+  the lists in global scratch, ceil(log2 P) launches.  A pair's list of
+  min(width, cap) keys above ``SMEM_WIDTH`` (a grain of more than 8,192
+  slots) is built in global scratch too: the probe kernel writes each
+  128-slot chunk as a sorted run and the same tree merge folds a pair's
+  runs into its list.
 
 The kernels equal the plain version bit for bit: the same exact integer
 sums, the same float op order without FMA contraction, and the same tie
@@ -36,9 +40,11 @@ from . import _build
 
 #: Widest ``width`` merged in shared memory (two copies of ``width`` keys
 #: of 8 bytes, 128 KB at this limit, of the 227 KB a block may use), and
-#: the widest per-probe list min(width, cap) the probe kernel keeps there.
-#: A wider ``width`` takes the tree merge in global scratch and must be at
-#: most P * cap.
+#: the widest per-probe list min(width, cap) the probe kernel keeps there
+#: as a carry.  A wider ``width`` takes the tree merge in global scratch
+#: and must be at most P * cap; a wider list is built from the pair's
+#: sorted 128-slot chunk runs in global scratch.  So the kernels take
+#: every 1 <= width <= max(SMEM_WIDTH, P * cap).
 SMEM_WIDTH = 8192
 
 _SOURCE = "fused_select"
@@ -116,10 +122,6 @@ def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
         raise ValueError(
             f"fused_scan_select: width={width} is outside the kernel's range "
             f"1..max({SMEM_WIDTH}, P * cap = {p_n * cap}) (below 2^31)")
-    if min(width, cap) > SMEM_WIDTH:
-        raise ValueError(
-            f"fused_scan_select: min(width, cap) = {min(width, cap)} is above "
-            f"{SMEM_WIDTH} (each probe's list lives in shared memory)")
     if p_n * cap >= 2 ** 32 - 1:
         raise ValueError("fused_scan_select: P * cap must be < 2^32 - 1")
     if (sketch is None) != (sq is None) or (sketch is None) != \
@@ -202,8 +204,15 @@ def fused_scan_select(gids, zq, rq, keep, coords, res, mask, rows, scale,
     Returns (dists [Q, width] f32 ascending, rows [Q, width] i32), with
     (BIG, -1) beyond the live candidates; see ``blocksoa_select_ref`` for
     the exact order.  CPU tensors take the plain version; CUDA tensors take
-    the kernels (``width`` <= max(``SMEM_WIDTH``, P * cap), min(``width``,
-    cap) <= ``SMEM_WIDTH``) or raise.
+    the kernels (1 <= ``width`` <= max(``SMEM_WIDTH``, P * cap)) or raise.
+
+    Device memory on the card, besides the outputs: the pairs' lists,
+    Q * P * min(width, cap) keys of 8 bytes; above ``SMEM_WIDTH`` the
+    tree merge's scratch (``fused_scan_select_scratch_keys``); and where
+    min(width, cap) > ``SMEM_WIDTH`` the chunk runs and one merge round's
+    output, about 2 * Q * P * round_up(cap, 128) keys.  At Q=256, P=16
+    and cap 16,384 the lists and the runs take about 0.54 GB each, and
+    the scratch about 1.07 GB, per call.
     """
     if gids.device.type == "cpu":
         return fused_scan_select_ref(

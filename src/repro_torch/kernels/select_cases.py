@@ -164,6 +164,23 @@ WIDE_CASES = {
 }
 
 
+#: Inputs whose per-probe list min(width, cap) is above the kernels'
+#: shared width of 8,192 (a grain of more than 8,192 slots), which the
+#: kernels build from each pair's sorted 128-slot chunk runs: name ->
+#: (width, maker).  Width = cap and width = P * cap at cap 8,320 (65
+#: chunks), ragged n_active and killed pairs at cap 16,384, a sketch.
+LONG_LIST_CASES = {
+    "cap8320_width_cap": (8320, lambda: random_inputs(
+        15, q=8, p=4, g=8, k=8, cap=8320)),
+    "cap8320_width_p_cap": (4 * 8320, lambda: random_inputs(
+        16, q=8, p=4, g=8, k=8, cap=8320)),
+    "ragged_cap16384": (20000, lambda: random_inputs(
+        17, q=8, p=4, g=8, k=8, cap=16384, ragged=True, keep_frac=0.7)),
+    "sketch_cap8320": (10000, lambda: random_inputs(
+        18, q=8, p=4, g=8, k=8, cap=8320, s=8)),
+}
+
+
 def split(a: dict, convert=lambda v: v):
     """(args, kwargs) of the select runner, each array passed through
     ``convert`` (for example to a tensor on a device)."""

@@ -437,3 +437,85 @@ def test_policy_drift_repair_on_a_cold_store(tmp_path):
     assert r_cold.summary() == r_warm.summary() and r_cold.changed
     for s in SEARCHES:
         _assert_equal(st.search(q, topk=5, **s), warm.search(q, topk=5, **s))
+
+
+# ---------------------------------------------------------------------------
+# Adaptive routing on the cold tier: results, and the traffic entries'
+# hold on cold files (twins of tests/test_cold_bugfixes.py's bugfix 3)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_cold_adaptive_search_equals_a_warm_store(mode, tmp_path):
+    """Each width bucket's Mode A pool re-ranked from the cold files, in
+    the bucket's batches: the warm store's adaptive search bit for bit,
+    through a sequence of searches (the hub set forms), with equal probe
+    stats."""
+    st, _, q = _store(tmp_path, hub_size=2)
+    warm = _warm_twin(st)
+    for margin in (0.3, 0.1, 0.1):
+        kw = dict(topk=5, mode=mode, adaptive=True, probe_margin=margin)
+        _assert_equal(st.search(q, **kw), warm.search(q, **kw), margin)
+    assert st.probe_stats() == warm.probe_stats()
+    assert st.probe_stats()["mean_active"] < st.cfg.nprobe
+    assert np.array_equal(st.hub_grains(), warm.hub_grains())
+
+
+def _four_seals(tmp_path, **kw):
+    rng = np.random.default_rng(4)
+    st = VectorStore(_cfg(hub_size=1, **kw), seal_threshold=64,
+                     device="cpu", cold_tier=True, cold_dir=str(tmp_path))
+    for _ in range(4):
+        st.add(rng.standard_normal((64, D)).astype(np.float32))
+    q = rng.standard_normal((8, D)).astype(np.float32)
+    return st, q
+
+
+def test_probe_traffic_purged_on_compact(tmp_path, monkeypatch):
+    """compact() after adaptive traffic: the traffic LRU no longer pins
+    the replaced segments, so their cold files go once the plane cache
+    turns over."""
+    monkeypatch.setattr(store_mod, "STACK_CACHE_ENTRIES", 1)
+    st, q = _four_seals(tmp_path)
+    old_paths = [s.cold_path for s in st._segments]
+    assert len(old_paths) == 4 and all(os.path.exists(p) for p in old_paths)
+    st.search(q, topk=4, adaptive=True)
+    assert len(st._probe_traffic) == 1
+    st.compact(fanin=4, maintain=False)
+    assert st.n_segments == 1
+    assert not [hit for hit in st._probe_traffic.values()
+                if any(s.cold_path in old_paths for s in hit["segments"])]
+    st.search(q, topk=4, adaptive=True)     # re-stacks; LRU(1) evicts
+    gc.collect()
+    assert not any(os.path.exists(p) for p in old_paths)
+    assert os.path.exists(st._segments[0].cold_path)
+
+
+def test_probe_traffic_kept_for_live_subset(tmp_path):
+    """seal() only appends: an entry whose segments are all still live
+    survives the purge."""
+    st, q = _four_seals(tmp_path)
+    st.search(q, topk=4, adaptive=True)
+    key = tuple(id(s) for s in st._segments)
+    assert key in st._probe_traffic
+    st.add(np.random.default_rng(5).standard_normal((64, D))
+           .astype(np.float32))
+    st._purge_probe_traffic()
+    assert key in st._probe_traffic
+
+
+def test_probe_traffic_purged_on_maintain(tmp_path):
+    """maintain() that replaces a segment drops the traffic entries that
+    pin the old one; the new segment set starts from zero counters."""
+    st, q = _four_seals(tmp_path)
+    st.search(q, topk=4, adaptive=True)
+    seg = st._segments[0]
+    ids = seg.index.grains.ids.numpy()
+    valid = seg.index.grains.valid.numpy()
+    st.delete(seg.global_ids()[ids[0][valid[0]]])       # empty one grain
+    rep = st.maintain()
+    assert rep.total("retires") >= 1 and st._segments[0] is not seg
+    assert not [hit for hit in st._probe_traffic.values()
+                if any(s is seg for s in hit["segments"])]
+    assert st.probe_stats()["queries"] == 0
+    assert all((h["route_wins"] == 0).all() for h in st.grain_health())

@@ -15,9 +15,11 @@ way twice, on the CPU, where a build is deterministic): budgets 0, mid
 and huge in Mode A and B; tag, ts and joint filters; the "ref",
 "fused_ref" and "kernel" planes; the cold raw tier; deletes, upserts and
 compaction; re-election, the size-seeded hot set, knob validation, branch
-propagation and the panel file's lifetime.  Adaptive routing and tenancy
-stay refused on this path, and are tested as refusals.  The residency
-helpers are held to the JAX package's on the same inputs.
+propagation and the panel file's lifetime; adaptive routing (paged
+equals all-warm through a sequence of searches, with equal probe stats
+and traffic counters).  Tenancy stays refused on this path, and is
+tested as a refusal.  The residency helpers are held to the JAX
+package's on the same inputs.
 """
 import gc
 import glob
@@ -201,9 +203,41 @@ def test_one_store_under_every_budget_equals_its_all_warm_plane(tmp_path):
 
 
 def test_adaptive_routing_stays_refused_on_the_paged_plane(tmp_path):
-    _, tiered, qs = _pair(BUDGETS["mid"], tmp_path)
-    with pytest.raises(ValueError, match="item 5"):
-        tiered.search(qs, topk=5, adaptive=True, probe_margin=0.5)
+    """Adaptive routing is ported to the paged plane: what it refuses now
+    is what the all-warm plane refuses (the per-segment loop and
+    per-segment routing), and a paged adaptive search feeds the same
+    probe traffic as the all-warm one, which ``grain_health`` reports."""
+    oracle, tiered, qs = _pair(BUDGETS["mid"], tmp_path)
+    with pytest.raises(ValueError, match="fused search plane"):
+        tiered.search(qs, topk=5, adaptive=True, fused=False)
+    with pytest.raises(ValueError, match="global"):
+        tiered.search(qs, topk=5, adaptive=True, route_mode="per_segment")
+    for st in (oracle, tiered):
+        st.search(qs, topk=5, adaptive=True, probe_margin=0.5)
+    health = [tiered.grain_health(), oracle.grain_health()]
+    for name in ("route_wins", "touches"):
+        got, want = ([h[name] for h in hs] for hs in health)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert sum(int(h["route_wins"].sum()) for h in health[0]) == Q
+    assert tiered.residency_stats()["paged_queries"] == Q
+
+
+@pytest.mark.parametrize("mode", ["A", "B"])
+@pytest.mark.parametrize("budget", ["zero", "mid"])
+def test_paged_parity_adaptive(budget, mode, tmp_path):
+    """Adaptive routing pages the probe sets the all-warm plane scans:
+    three searches in a row (the hub set forms), each equal to the
+    all-warm one (``torch.equal``), and the probe stats in lockstep."""
+    oracle, tiered, qs = _pair(BUDGETS[budget], tmp_path)
+    for margin in (0.5, 0.2, 0.2):     # 0.2: ragged plans at this shape
+        _assert_same(
+            oracle.search(qs, topk=5, mode=mode, adaptive=True,
+                          probe_margin=margin, min_probes=1),
+            tiered.search(qs, topk=5, mode=mode, adaptive=True,
+                          probe_margin=margin, min_probes=1))
+    assert oracle.probe_stats() == tiered.probe_stats()
+    assert np.array_equal(oracle.hub_grains(), tiered.hub_grains())
+    assert 1.0 <= tiered.probe_stats()["mean_active"] < 4.0
 
 
 def test_tenants_and_budgets_stay_refused_on_the_paged_plane(tmp_path):

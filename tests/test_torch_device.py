@@ -6,15 +6,17 @@
   ``interop`` carriers and ``VectorStore`` with no ``device`` and no card
   raise.
 - ``gpu``-marked tests hold the CUDA kernels against their plain
-  versions on the card, the "kernel" gather plane and HNTL-KV decode
-  against their plain-scan runs, and a store's search against its
-  "fused_ref" plane, also after compaction and maintenance; they skip
-  (inside a fixture) where there is no card.
+  versions on the card (per-probe lists above the shared width too), the
+  "kernel" gather plane and HNTL-KV decode against their plain-scan runs,
+  and a store's search against its "fused_ref" plane, also after
+  compaction and maintenance, and with adaptive routing (warm, cold and
+  paged); they skip (inside a fixture) where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.
 """
 import ast
+import collections
 import os
 import subprocess
 import sys
@@ -195,6 +197,9 @@ FOLD_CASES = {
         q=8, p=8, g=5, k=8, cap=1100, s=4)),
     **{f"wide_{name}": case
        for name, case in select_cases.WIDE_CASES.items()},
+    # per-probe lists above the shared width: the chunk-run path
+    **{f"long_{name}": case
+       for name, case in select_cases.LONG_LIST_CASES.items()},
 }
 
 
@@ -230,8 +235,8 @@ def test_launch_count_rises_by_one_per_call(cuda_device):
 @pytest.mark.gpu
 def test_kernel_refuses_width_beyond_its_limit(cuda_device):
     """Widths 1..max(SMEM_WIDTH, P * cap): above the shared-memory merge
-    only up to P * cap, and each probe's list min(width, cap) at most
-    SMEM_WIDTH."""
+    only up to P * cap; a probe's list min(width, cap) above SMEM_WIDTH
+    runs (built from its chunk runs) and equals the plain version."""
     args, _ = _select_inputs(1, cuda_device, q=1, p=1, g=2, k=4, cap=32)
     for width in (0, port_fused.SMEM_WIDTH + 1):
         with pytest.raises(ValueError, match="width"):
@@ -241,10 +246,15 @@ def test_kernel_refuses_width_beyond_its_limit(cuda_device):
         port_fused.fused_scan_select(*args, width=8 * 1100 + 1)
     d, _ = port_fused.fused_scan_select(*args, width=8 * 1100)
     assert d.shape == (2, 8 * 1100)
-    args, _ = _select_inputs(3, cuda_device, q=1, p=2, g=2, k=1,
-                             cap=port_fused.SMEM_WIDTH + 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        port_fused.fused_scan_select(*args, width=port_fused.SMEM_WIDTH + 1)
+    cap = port_fused.SMEM_WIDTH + 4
+    args, _ = _select_inputs(3, cuda_device, q=1, p=2, g=2, k=1, cap=cap)
+    for width in (port_fused.SMEM_WIDTH + 1, cap, 2 * cap):
+        d, r = port_fused.fused_scan_select(*args, width=width)
+        rd, rr = port_fused.fused_scan_select_ref(*args, width=width)
+        torch.cuda.synchronize()
+        assert torch.equal(d, rd) and torch.equal(r, rr)
+    with pytest.raises(ValueError, match="width"):
+        port_fused.fused_scan_select(*args, width=2 * cap + 1)
 
 
 @pytest.mark.gpu
@@ -578,3 +588,88 @@ def test_cold_store_mode_b_equals_warm_store_on_card(cuda_device, tmp_path):
         b = warm.search(q, topk=10, mode="B", **kw)
         torch.cuda.synchronize()
         assert torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+
+
+def _traffic_copy(st):
+    """The store's adaptive probe-traffic state, copied (the counters
+    only; the entries' segment tuples are shared)."""
+    return collections.OrderedDict(
+        (k, dict(hit, wins=hit["wins"].copy(),
+                 touches=hit["touches"].copy()))
+        for k, hit in st._probe_traffic.items())
+
+
+def _adaptive_on_card(st, q, mode, margin):
+    """One adaptive search on the "fused" plane, then the same search on
+    "fused_ref" from the same traffic state: (fused, fused_ref, the
+    select's launches)."""
+    saved = _traffic_copy(st)
+    before = port_fused.fused_scan_select.launches
+    got = st.search(q, topk=10, mode=mode, adaptive=True,
+                    probe_margin=margin)
+    torch.cuda.synchronize()
+    launches = port_fused.fused_scan_select.launches - before
+    after = _traffic_copy(st)
+    st._probe_traffic = saved
+    want = st.search(q, topk=10, mode=mode, adaptive=True,
+                     probe_margin=margin, scan_impl="fused_ref")
+    st._probe_traffic = after
+    return got, want, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["warm", "cold"])
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_adaptive_store_search_equals_fused_ref_on_card(cuda_device, mode,
+                                                        tier, tmp_path):
+    """Adaptive searches on the card, a warm store and a cold one: every
+    width bucket through the select kernel, ids and dists equal to the
+    "fused_ref" plane's from the same traffic state, through a sequence
+    of searches (the hub set forms); probes are ragged."""
+    from repro_torch.core import VectorStore
+
+    st, _, q = _cold_store(cuda_device, tmp_path)
+    if tier == "warm":
+        warm = VectorStore(st.cfg, seal_threshold=1024, device=cuda_device)
+        for lo in range(0, 4 * 1024, 1024):
+            warm.add(np.array(st._segments[lo // 1024].raw_vectors()))
+        warm.delete(np.arange(0, 4 * 1024, 9))
+        st = warm
+    for margin in (0.3, 0.1, 0.1):
+        got, want, launches = _adaptive_on_card(st, q, mode, margin)
+        assert launches >= 2
+        assert torch.equal(got.ids, want.ids)
+        assert torch.equal(got.dists, want.dists)
+    stats = st.probe_stats()
+    assert stats["queries"] == 3 * q.shape[0]
+    assert 1.0 <= stats["mean_active"] < st.cfg.nprobe
+    assert st.hub_grains().size > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_paged_adaptive_search_equals_all_warm_on_card(cuda_device, mode,
+                                                       tmp_path):
+    """A cold store on the card under device_budget 0 and a few grains:
+    each adaptive search equals the all-warm adaptive search from the
+    same traffic state (ids and dists, torch.equal), with equal probe
+    stats after."""
+    st, _, q = _cold_store(cuda_device, tmp_path)
+    for budget in (0, 40_000):
+        for margin in (0.3, 0.1):
+            saved = _traffic_copy(st)
+            st.device_budget = None
+            want = st.search(q, topk=10, mode=mode, adaptive=True,
+                             probe_margin=margin)
+            stats = st.probe_stats()
+            st._probe_traffic = saved
+            st.device_budget = budget
+            before = port_fused.fused_scan_select.launches
+            got = st.search(q, topk=10, mode=mode, adaptive=True,
+                            probe_margin=margin)
+            torch.cuda.synchronize()
+            assert port_fused.fused_scan_select.launches > before
+            assert torch.equal(got.ids, want.ids)
+            assert torch.equal(got.dists, want.dists)
+            assert st.probe_stats() == stats
+        st.update_residency()

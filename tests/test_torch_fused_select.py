@@ -196,11 +196,46 @@ def _probe_top(keys, big_key, L):
     return carry
 
 
-def two_stage_select(a, width):
+def _tree(runs, base, cut, big_key):
+    """The tree merge in global scratch: rounds merge runs 2j and 2j + 1
+    (each a group of input runs of ``base`` keys; an empty run is a dead
+    probe's) into runs of min(count * base, cut) keys padded with
+    big_keys, one round at least, down to one run."""
+    runs = [(r, 1) for r in runs]
+    while True:
+        out = []
+        for j in range(0, len(runs), 2):
+            (a, ca), (b, cb) = runs[j], (runs[j + 1] if j + 1 < len(runs)
+                                         else ([], 0))
+            n = min((ca + cb) * base, cut)
+            m = _merge(a, b, min(len(a) + len(b), n))
+            out.append((m + [big_key] * (n - len(m)), ca + cb))
+        runs = out
+        if len(runs) == 1:
+            return runs[0][0]
+
+
+def _chunk_runs_top(keys, big_key, L):
+    """The chunk-run path on one pair (L > the shared width): each
+    128-slot chunk sorted whole, dropped slots (and keys at or above
+    big_key) as big_key, the tail past cap as big_key; the pair's runs
+    tree-merged with each output cut to L."""
+    runs = []
+    for base in range(0, len(keys), _CHUNK):
+        run = [k if k < big_key else big_key
+               for k in keys[base:base + _CHUNK]]
+        runs.append(sorted(run + [big_key] * (_CHUNK - len(run))))
+    return _tree(runs, _CHUNK, L, big_key)
+
+
+def two_stage_select(a, width, smem_width=port_fused.SMEM_WIDTH):
     """numpy model of the CUDA kernels: per live (query, probe) pair its
     top-min(width, cap) keys (order bits of the distance << 32 | visit
     index + 1), then per query a carry of `width` big_keys folded with
-    each live probe's list in probe order, then keys -> (dist, row)."""
+    each live probe's list in probe order, then keys -> (dist, row).
+    ``smem_width`` is the kernels' shared width: a list above it is built
+    from the pair's chunk runs, and a width above it merges the probes'
+    lists by the tree merge."""
     t = {n: torch.from_numpy(np.ascontiguousarray(v)) for n, v in a.items()}
     gl = t["gids"].long()
     sk = "sketch" in t
@@ -223,15 +258,19 @@ def two_stage_select(a, width):
     keys = (_order_bits(d) << np.uint64(32)) | visit
     out_d = np.empty((q_n, width), np.float32)
     out_r = np.empty((q_n, width), np.int32)
+    top = _chunk_runs_top if L > smem_width else _probe_top
     for q in range(q_n):
         carry = [big_key] * width
+        lists = []
         for p in range(p_n):
-            if not alive[q, p]:
-                continue
-            lst = _probe_top([int(k) if ok else _EMPTY for k, ok in
-                              zip(keys[q, p], live[q, p])], big_key, L)
-            if lst[0] < carry[-1]:
+            lst = [] if not alive[q, p] else top(
+                [int(k) if ok else _EMPTY for k, ok in
+                 zip(keys[q, p], live[q, p])], big_key, L)
+            lists.append(lst)
+            if width <= smem_width and lst and lst[0] < carry[-1]:
                 carry = _merge(carry, lst, width)
+        if width > smem_width:
+            carry = _tree(lists, L, width, big_key)
         for i, key in enumerate(carry):
             out_d[q, i] = _float_of_order(key >> 32)
             v = (key & 0xffffffff) - 1
@@ -312,6 +351,44 @@ def test_two_stage_select_model_equals_plain_version(case):
     args, kw = select_cases.split(a, torch.from_numpy)
     want_d, want_r = port_scan.blocksoa_select_ref(*args, width=width, **kw)
     got_d, got_r = two_stage_select(a, width)
+    assert np.array_equal(got_r, want_r.numpy())
+    assert np.array_equal(got_d.view(np.uint32),
+                          want_d.numpy().view(np.uint32))
+
+
+#: Caps above a shared width of 64, so the model takes the chunk-run path
+#: (L = min(width, cap) > 64) at small shapes: one chunk and many, widths
+#: from L up to P * cap, ragged n_active, killed pairs, ties across
+#: probes, every slot entering the pool, the cascade's stage-1 form.
+CHUNK_RUN_CASES = {
+    "one_chunk_p1": (65, lambda: select_cases.random_inputs(
+        31, q=3, p=1, g=3, k=4, cap=65, s=2)),
+    "width_p_cap": (900, lambda: select_cases.random_inputs(
+        32, q=3, p=3, g=5, k=3, cap=300, s=2)),
+    "ragged_killed": (200, lambda: select_cases.random_inputs(
+        33, q=5, p=5, g=6, k=3, cap=300, ragged=True, keep_frac=0.6)),
+    "scalar_cap_tenant": (1000, lambda: select_cases.random_inputs(
+        34, q=3, p=5, g=6, k=3, cap=333, s=2, tenants=2)),
+    "ties_across_probes": (400, lambda: select_cases.tie_inputs(
+        q=3, p=4, g=3, k=2, cap=150, s=2)),
+    "descending": (900, lambda: select_cases.descending_inputs(
+        q=2, p=3, k=4, cap=300)),
+    "stage1_form": (1200, lambda: select_cases.stage1_inputs(
+        35, q=3, p=3, g=5, cap=400, s=2, ragged=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_RUN_CASES))
+def test_chunk_run_model_equals_plain_version(case):
+    """The kernels' path for a per-probe list above the shared width,
+    modelled at a shared width of 64 (the kernels' is ``SMEM_WIDTH``):
+    bit for bit the plain version."""
+    width, make = CHUNK_RUN_CASES[case]
+    a = make()
+    assert min(width, a["coords"].shape[2]) > 64
+    args, kw = select_cases.split(a, torch.from_numpy)
+    want_d, want_r = port_scan.blocksoa_select_ref(*args, width=width, **kw)
+    got_d, got_r = two_stage_select(a, width, smem_width=64)
     assert np.array_equal(got_r, want_r.numpy())
     assert np.array_equal(got_d.view(np.uint32),
                           want_d.numpy().view(np.uint32))

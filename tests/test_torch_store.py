@@ -558,7 +558,8 @@ def test_ttl_expiry_in_sealed_and_memtable_rows():
                           budgets=(32, 16), fused=False),
      "fused search plane"),
     (lambda st: st.search(np.zeros(D), budgets=(8, 16)), "b1 >= b2"),
-    (lambda st: st.search(np.zeros(D), adaptive=True), "item 5"),
+    (lambda st: st.search(np.zeros(D), adaptive=True, fused=False),
+     "fused search plane"),
     (lambda st: st.search(np.zeros(D), probe_margin=0.5), "adaptive=True"),
     (lambda st: st.search(np.zeros(D), mesh=object()), "item 10"),
     (lambda st: st.search(np.zeros(D), route_mode="nope"), "route_mode"),
@@ -574,11 +575,30 @@ def test_unported_arguments_are_refused(call, match):
     ("tenant_live", 6), ("tenant_ix", 6), ("probe_margin", 5),
     ("hub_mask", 5)])
 def test_search_stacked_refuses_unported_arguments(name, item):
+    """Tenancy (item 6) is refused.  Adaptive routing (item 5) is
+    ported: ``probe_margin=`` is refused only with per-segment routing, as
+    the JAX package refuses it, and an all-hub ``hub_mask=`` keeps every
+    probe active even at margin 0, so the search is the static one."""
     st, _, _, q, _ = _port_store(tail=0)
     stacked = stack_segments(st._segments)
-    with pytest.raises(ValueError, match=f"item {item}"):
-        planner.search_stacked(stacked, torch.from_numpy(q), nprobe=4,
-                               pool=16, topk=5, **{name: 1.0})
+    qt = torch.from_numpy(q)
+    kw = dict(nprobe=4, pool=16, topk=5)
+    if item == 6:
+        with pytest.raises(ValueError, match=f"item {item}"):
+            planner.search_stacked(stacked, qt, **kw, **{name: 1.0})
+    elif name == "probe_margin":
+        with pytest.raises(ValueError, match="global routing"):
+            planner.search_stacked(
+                stacked, qt, route_mode="per_segment",
+                seg_shape=(N_SEG, stacked.index.grains.n_grains // N_SEG),
+                probe_margin=0.5, **kw)
+    else:
+        hubs = torch.ones(stacked.index.grains.n_grains, dtype=torch.bool)
+        got = planner.search_stacked(stacked, qt, probe_margin=0.0,
+                                     hub_mask=hubs, **kw)
+        want = planner.search_stacked(stacked, qt, **kw)
+        assert torch.equal(got.ids, want.ids)
+        assert torch.equal(got.dists, want.dists)
 
 
 def test_stacked_plane_bytes_and_shapes():

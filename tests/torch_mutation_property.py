@@ -19,6 +19,12 @@ budgets=(pool, pool) cover every live slot, so stage 1 prunes nothing
 real and the result must still be the brute-force top-k; with
 ``device_budget`` set the store searches its tiered plane, where the
 budgets act on each pass.
+
+Adaptive routing's twin (``adaptive_margin``): a huge finite margin at
+exhaustive nprobe keeps every valid grain active but still kills the
+invalid (BIG-distance) probes, so the stable partition and the bucketed
+dispatch run, and the result must still be the brute-force top-k
+(``cold_tier=True`` for a store whose raw rows live in cold files).
 """
 import numpy as np
 
@@ -44,12 +50,14 @@ def interleaving(seed: int, n_ops: int = 12) -> tuple:
 
 def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed",
                                 scan_impl=None, budgeted: bool = False,
-                                device_budget=None, cold_dir=None):
+                                device_budget=None, cold_dir=None,
+                                cold_tier: bool = False,
+                                adaptive_margin=None):
     rng = np.random.default_rng(seed)
     store = VectorStore(_cfg(bit_alloc), seal_threshold=64,
                         clock=lambda: 0.0, device="cpu",
                         device_budget=device_budget, cold_dir=cold_dir,
-                        prefetch_grains=1)
+                        cold_tier=cold_tier, prefetch_grains=1)
     model = {}                    # gid -> (vec, tag, ts, expire_at)
 
     def write(gids=None):
@@ -105,6 +113,8 @@ def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed",
               pool=max(2 * store.n_vectors, 1), scan_impl=scan_impl)
     if budgeted:
         kw["budgets"] = (kw["pool"], kw["pool"])
+    if adaptive_margin is not None:
+        kw.update(adaptive=True, probe_margin=float(adaptive_margin))
     assert store.n_live(now=NOW) == len(live)
     for filt in ({}, {"tag_mask": 2}, {"ts_range": (2.0, 8.0)}):
         res = store.search(q, **kw, **filt)

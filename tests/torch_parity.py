@@ -76,3 +76,18 @@ def assert_clear_margins(jax_store, policy, now, seg_ids=None,
                 / var]
         for gap in gaps:
             assert (np.abs(np.asarray(gap)[judged]) > margin).all(), gaps
+
+
+def assert_clear_probe_margins(gd2, margin, tol=1e-4):
+    """No valid probe's routing distance sits within ``tol`` (relative to
+    the query's best) of adaptive routing's threshold (1 + margin) * best,
+    so a gd2 that differs by an ulp between the two packages' f32 routing
+    matmuls cannot flip a probe of the stopping rule.  The lead itself
+    (probe 0, compared with itself) is exact in both."""
+    gd2 = np.asarray(gd2, np.float64)
+    lead = gd2[:, :1]
+    ok = (gd2 < 1e29) & (lead > 0)
+    ok[:, 0] = False
+    ratio = np.divide(gd2, lead, out=np.zeros_like(gd2), where=ok)
+    gap = np.abs(ratio - (1.0 + margin))[ok]
+    assert (gap > tol).all(), float(gap.min())
