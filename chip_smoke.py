@@ -85,6 +85,23 @@ What it does, in order (any failure exits non-zero before the last line):
    seal, stack and search times, the select kernel
    at the store's shape, profiles with and without the memtable, peak
    memory; and 256 queries through the "kernel" plane held to "ref";
+10b. multi-tenant serving (``tenancy_phase``) on a ``branch()`` of that
+   store before its memtable grows (the registry seals its 5,120 rows):
+   ``TenantRegistry(memtable_budget=1024, max_live=24)``, 32 tenants of
+   1,536 private docs (corpus rows moved to the tenant's own far point),
+   64 shared and 16 own deletes and 32 shared upserts each; windows of
+   1,024 requests (32 per tenant, Mode A, B and B under a tag filter)
+   through ``coalesced_retrieve``: no cross-tenant, deleted or
+   superseded row, the deleted and upserted shared rows hidden in the
+   writer's bitmap and visible to another tenant's, ``torch.equal`` to
+   "fused_ref", each request equal to its tenant's own search (ids;
+   near-ties at a routing or pool boundary excused and counted), zero
+   re-stacks after a warm-up window and ceil(padded rows / 256) select
+   launches per group (counters zeroed just before, read just after);
+   the same window through the cascade (== "cascade_ref") and adaptive
+   routing (== "fused_ref"); window times and QPS, the host's share by
+   part, a profile, and the select with its tenant stream held to its
+   plain version and timed beside its bound;
 9c. the select past its 8,192-key per-probe list in a search
    (``long_list_phase``): a density index over the first 262,144 rows in
    16 grains (cap above 8,192), 256 queries through "cascade" at
@@ -119,7 +136,9 @@ What it does, in order (any failure exits non-zero before the last line):
    the cascade on the cold store (all-warm at (4096,
    64) held to "cascade_ref"; paged at 25% of the tier: at budgets None
    equal to the all-warm cascade but for exact ties, at (4096, 64), per
-   pass, to the paged "cascade_ref"); again after 10,000 more deletes, after
+   pass, to the paged "cascade_ref"); tenancy on a branch of the cold
+   store at 25% of the tier (``paged_tenancy``: 8 tenants, 256 requests,
+   paged == all-warm, ``torch.equal``); again after 10,000 more deletes, after
    ``compact()`` (merged cold files written, the replaced ones gone from
    disk) and after ``maintain()`` (the repaired child shares its
    parent's cold file); seal (build, cold write), search, re-rank gather
@@ -137,6 +156,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -642,6 +662,10 @@ def select_bound(torch, args, kw, width):
     in_bytes = int(probed.numel()) * per_grain + sum(
         t.numel() * t.element_size() for t in (gids, zq, rq, keep)) \
         + (kw["sq"].numel() * 4 if s else 0)
+    if kw.get("tenant_mask") is not None:   # a byte per (tenant, slot)
+        ti = kw["tenant_ix"].long()[:, None].expand_as(gids)
+        pairs = torch.unique(ti[keep] * coords.shape[0] + gids[keep].long())
+        in_bytes += int(pairs.numel()) * cap + q_n * 4
     out_bytes = q_n * width * (4 + 4 + 4)          # dists, rows, row lookup
     slots = int(mask.sum(dim=1)[gids.long()][keep].sum())
     ops = slots * (3 * (k + s) + 7)
@@ -1268,10 +1292,11 @@ def tie_aware_equal(torch, got, want, wide, label, *, pool=None):
     return int((~same).sum())
 
 
-def time_stage1(torch, fsel, args, kw, width, label):
-    """One stage-1 select, captured from a cascade search: held to its
-    plain version, then CUPTI, CUDA events, the plain version's time and
-    the bound."""
+def time_select_call(torch, fsel, args, kw, width, label,
+                     what="  stage 1, "):
+    """One select call captured from a search (a cascade's stage 1, a
+    coalesced tenant window's batch): held to its plain version, then
+    CUPTI, CUDA events, the plain version's time and the bound."""
     err = hold(torch, fsel, args, kw, width, label)
     run = lambda: fsel.fused_scan_select(*args, width=width, **kw)  # noqa
     for _ in range(3):
@@ -1285,7 +1310,7 @@ def time_stage1(torch, fsel, args, kw, width, label):
     q_n, p_n, k = args[1].shape
     at = (f"Q={q_n} P={p_n} G={args[4].shape[0]} k={k} "
           f"cap={args[4].shape[2]} s={kw['sq'].shape[2]} width={width}")
-    log(f"  stage 1, fused_scan_select at {label} ({at}): {ms:.4f} ms per "
+    log(f"{what}fused_scan_select at {label} ({at}): {ms:.4f} ms per "
         "call (CUPTI: " + ", ".join(f"{SELECT_PARTS[k]} {v:.4f}"
                                     for k, v in parts.items())
         + f"; CUDA events {events_ms:.4f} ms), plain version "
@@ -1438,7 +1463,8 @@ def cascade_phase(torch, np, mp, dev):
             out["stage1"][name] = dict(max_abs_err=hold(
                 torch, fsel, args, kw, width, f"stage 1 at {name}"))
             continue
-        out["stage1"][name] = time_stage1(torch, fsel, args, kw, width,
+        out["stage1"][name] = time_select_call(torch, fsel, args, kw,
+                                               width,
                                           f"budgets={name}")
         rargs, rkw = cap.runner
         rkw = dict(rkw)
@@ -1572,7 +1598,7 @@ def long_list_phase(torch, np, mp, dev):
             out["timing"][label] = dict(max_abs_err=hold(
                 torch, fsel, args, kw, width, label))
             continue
-        out["timing"][label] = time_stage1(
+        out["timing"][label] = time_select_call(
             torch, fsel, args, kw, width,
             f"{label}, per-probe lists of {min(width, cap)} keys")
     del index, calls
@@ -1805,6 +1831,9 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
     log(f"store \"kernel\" plane == \"ref\" plane (ids, {q256.shape[0]} "
         f"queries, Mode B); hntl_scan_single launches "
         f"{out['kernel_launches']}")
+    # the tenancy phase's base: the store as it stands (its 5,120-row
+    # memtable), before the half-memtable rows
+    out["branch"] = st.branch()
     out["half"] = half_memtable(torch, np, st, qt, x, tags, ts, dead_t,
                                 per_seg, rng)
     # what the lifecycle phase goes on with: the store and the live vectors
@@ -1945,6 +1974,577 @@ def half_memtable(torch, np, st, qt, x, tags, ts, dead_t, per_seg, rng):
 
 
 # ---------------------------------------------------------------------------
+# 10b: multi-tenant serving (serve.tenancy) on a branch of the store
+# ---------------------------------------------------------------------------
+
+#: The tenancy phase's registry and traffic: tenants of 1,536 private docs
+#: each (1,024 force-sealed at the memtable budget, 512 left in the
+#: memtable), an LRU of 24 live tenants, and windows of 32 requests per
+#: tenant in three groups (Mode A, Mode B, Mode B under a tag filter).
+TENANTS = 32
+TENANT_DOCS = 1536
+TENANT_BUDGET = 1024
+TENANT_MAX_LIVE = 24
+TENANT_REQUESTS = 32
+TENANT_GROUPS = (dict(mode="A"), dict(mode="B"),
+                 dict(mode="B", tag_mask=0b0101))
+#: The windows after the default one: the cascade at the README's
+#: budgets, and adaptive routing at ``benchmarks/routing_adaptive.py``'s
+#: margin.
+TENANT_VARIANTS = {"cascade": dict(scan_impl="cascade", budgets=(4096, 64)),
+                   "adaptive": dict(adaptive=True, probe_margin=0.35)}
+#: Coalesced ids may differ from a solo search's only where the solo's
+#: candidates tie this closely at a routing or pool boundary.
+TIE_RTOL = 1e-5
+
+
+def tenant_center(np, t, d):
+    """``benchmarks/serve_load.py``'s ``_tenant_center``: a point unique to
+    tenant t, 200 along axis t (the corpus rows have norm ~35)."""
+    v = np.zeros(d, np.float32)
+    v[t % d] = 200.0 * (1 + t // d)
+    return v
+
+
+class _Tenants:
+    """The registry's tenants as a brute-force view: each tenant's private
+    docs, its deletes (shared and own) and its upserts of shared gids, on
+    the device, to price any (query, gid) against the tenant's own
+    version of the row."""
+
+    def __init__(self, torch, np, reg, xb, base_dead, corpus_q, *, tenants,
+                 docs, seed=2):
+        dev = xb.device
+        self.torch, self.xb, self.docs = torch, xb, docs
+        self.names = [f"tenant{t:02d}" for t in range(tenants)]
+        self.n0 = reg.base._next_id
+        d = xb.shape[1]
+        rng = np.random.default_rng(seed)
+        taken = np.zeros(xb.shape[0], bool)
+        taken[list(reg.base._live_seq)] = True    # the base's own mutations
+        free = np.flatnonzero(~taken[:self.n0])
+        pick = rng.choice(free, tenants * (64 + 32), replace=False)
+        self.priv, self.priv_h, self.dead, self.up, self.up_vec = \
+            [], [], [], [], []
+        self.shared_dead = []
+        budget = reg.memtable_budget
+        for t, name in enumerate(self.names):
+            st = reg.get(name)
+            # corpus rows moved to the tenant's far point: the corpus's
+            # shape, so the tenant's grains fit its docs as well
+            rows = torch.from_numpy(rng.choice(self.n0, docs)).to(dev)
+            priv = tenant_center(np, t, d)[None] + xb[rows].cpu().numpy()
+            ptags = (1 << (np.arange(docs) % 4)).astype(np.uint32)
+            pts = rng.random(docs).astype(np.float32)
+            ids = np.concatenate([st.add(priv[lo:lo + budget],
+                                         tags=ptags[lo:lo + budget],
+                                         ts=pts[lo:lo + budget])
+                                  for lo in range(0, docs, budget)])
+            check(ids[0] == self.n0 and len(st.snapshot().mem)
+                  == docs % budget, f"tenancy: {name}'s private writes")
+            mine = pick[t * 96:(t + 1) * 96]
+            shared, up = mine[:64], mine[64:]
+            own = np.r_[ids[:8], ids[budget:budget + 8]]
+            check(st.delete(np.r_[shared, own]) == 80,
+                  f"tenancy: {name}'s delete count")
+            x_up = (xb[torch.from_numpy(up).to(dev)].cpu().numpy()
+                    + 0.01 * rng.standard_normal((32, d))).astype(
+                        np.float32)
+            st.upsert(up, x_up)
+            self.priv.append(torch.from_numpy(priv).to(dev))
+            self.priv_h.append(priv)
+            self.shared_dead.append(shared)
+            self.dead.append(torch.from_numpy(
+                np.r_[base_dead, shared, own]).to(dev))
+            order = np.argsort(up)
+            self.up.append(torch.from_numpy(up[order]).to(dev))
+            self.up_vec.append(torch.from_numpy(x_up[order]).to(dev))
+        self.corpus_q = corpus_q
+        self.rng = rng
+        # the shared-row probes' queries (own deletes, another tenant's
+        # deletes, the old versions of its upserts), on the host
+        self.probe_q = [xb[torch.from_numpy(np.r_[
+            self.shared_dead[t][:2], self.shared_dead[(t + 1) % tenants][2:4],
+            self.up[t][:2].cpu().numpy()]).to(dev)].cpu().numpy()
+            for t in range(tenants)]
+
+    def window(self, np, requests):
+        """A window of ``requests`` per tenant, tenant-interleaved: the
+        first half jittered copies of the tenant's live private docs, the
+        second half from the corpus, of which the Mode B slots (j % 3 ==
+        1) probe, in pairs: rows the tenant deleted, rows another tenant
+        deleted (still visible here) and the old versions of rows it
+        upserted.  Returns (requests, per-request facts)."""
+        from repro_torch.serve import RetrievalRequest
+
+        rng, docs, n_t = self.rng, self.docs, len(self.names)
+        reqs, facts = [], []
+        probes = [j for j in range(requests // 2, requests) if j % 3 == 1]
+        for j in range(requests):
+            for t, name in enumerate(self.names):
+                kw = TENANT_GROUPS[j % 3]
+                fact = {"tenant": t, "kind": "corpus"}
+                if j < requests // 2:
+                    i = int(rng.integers(8, docs - 8))
+                    i += 8 * (i >= TENANT_BUDGET)     # skip the own deletes
+                    q = self.priv_h[t][i] + 0.01 * rng.standard_normal(
+                        self.priv_h[t].shape[1]).astype(np.float32)
+                    fact = {"tenant": t, "kind": "private",
+                            "gid": self.n0 + i}
+                elif j in probes[:6]:
+                    k = probes.index(j)
+                    if k < 2:
+                        g = int(self.shared_dead[t][k])
+                    elif k < 4:
+                        g = int(self.shared_dead[(t + 1) % n_t][k])
+                    else:
+                        g = int(self.up[t][k - 4])
+                    q = self.probe_q[t][k]
+                    fact = {"tenant": t, "gid": g, "kind": (
+                        "own delete", "other's delete", "old version")[k // 2]}
+                else:
+                    q = self.corpus_q[(t * requests + j) % len(
+                        self.corpus_q)]
+                reqs.append(RetrievalRequest(
+                    rid=len(reqs), tenant=name, q=np.asarray(q, np.float32),
+                    topk=10, mode=kw["mode"], tag_mask=kw.get("tag_mask")))
+                facts.append(fact)
+        return reqs, facts
+
+    def exact(self, t, ids, q):
+        """Exact distances [R, k] from queries q [R, d] to the tenant's own
+        version of each gid in ids [R, k] (its upsert, its private doc or
+        the shared row)."""
+        torch = self.torch
+        safe = ids.long().clamp(min=0)
+        base = self.xb[safe.clamp(max=self.n0 - 1)]
+        priv = self.priv[t][(safe - self.n0).clamp(0, self.docs - 1)]
+        v = torch.where((safe < self.n0)[..., None], base, priv)
+        up = self.up[t]
+        pos = torch.searchsorted(up, safe).clamp(max=up.numel() - 1)
+        hit = up[pos] == safe
+        v = torch.where(hit[..., None], self.up_vec[t][pos], v)
+        return (v - q[:, None, :]).square_().sum(-1)
+
+
+def check_tenant_window(torch, np, tv, reqs, facts, label):
+    """The isolation checks of one window: no gid a tenant deleted; Mode B
+    dists equal to the tenant's own version of each row (rtol 1e-5: a row
+    of another tenant under the same gid, or a superseded version, fails
+    it); Mode A rows of a private-doc query within 20,000 of the query
+    (another tenant's docs lie ~80,000 away, the corpus ~40,000) and no
+    private gid for a corpus query.  Returns the counts (cross-tenant,
+    deleted, superseded), which must be zero, and the shares of Mode B
+    queries whose aimed-at row came first: a private doc (at least 0.8:
+    a tenant's private grains are few and near), a shared row another
+    tenant deleted, and the new version for a query at the old one
+    (``check_shared_rows`` checks their visibility; whether the search
+    finds them is the ANN's recall)."""
+    dev = tv.xb.device
+    counts = {"cross-tenant": 0, "deleted": 0, "superseded": 0}
+    aimed = collections.defaultdict(lambda: [0, 0])
+    for t in range(len(tv.names)):
+        rows = [i for i, f in enumerate(facts) if f["tenant"] == t]
+        ids = torch.stack([reqs[i].result.ids for i in rows]).long()
+        d = torch.stack([reqs[i].result.dists for i in rows])
+        q = torch.from_numpy(np.stack([reqs[i].q for i in rows])).to(dev)
+        ok = ids >= 0
+        counts["deleted"] += int((torch.isin(ids, tv.dead[t]) & ok).sum())
+        exact = tv.exact(t, ids, q)
+        mode_b = torch.tensor([reqs[i].mode == "B" for i in rows],
+                              device=dev)[:, None]
+        bad = ok & mode_b & ~torch.isclose(d, exact, rtol=1e-5, atol=1e-6)
+        private = ids >= tv.n0
+        counts["superseded"] += int((bad & torch.isin(ids, tv.up[t])).sum())
+        counts["cross-tenant"] += int((bad & ~torch.isin(ids, tv.up[t]))
+                                      .sum())
+        kind = [facts[i]["kind"] for i in rows]
+        near = torch.tensor([k == "private" for k in kind],
+                            device=dev)[:, None]
+        counts["cross-tenant"] += int((ok & ~mode_b & near & (d >= 2e4))
+                                      .sum())
+        counts["cross-tenant"] += int((ok & ~near & private).sum())
+        for r, i in enumerate(rows):
+            f = facts[i]
+            if reqs[i].mode == "B" and reqs[i].tag_mask is None \
+                    and f["kind"] in ("private", "other's delete",
+                                      "old version"):
+                aimed[f["kind"]][0] += int(ids[r, 0]) == f["gid"]
+                aimed[f["kind"]][1] += 1
+    check(all(v == 0 for v in counts.values()), f"{label}: {counts}")
+    first = {k: v[0] / max(v[1], 1) for k, v in aimed.items()}
+    check(first.get("private", 1.0) >= 0.8, f"{label}: the aimed-at private "
+          f"doc came first in {aimed['private']} Mode B queries")
+    return dict(counts, first=first)
+
+
+def check_shared_rows(np, reg, tv, now, label):
+    """The tenant bitmaps of the union plane at the shared rows the
+    tenants deleted and upserted: a row is hidden from the tenant that
+    deleted it (or upserted its gid: the old version) and visible to the
+    next tenant, which did neither.  Returns the rows checked."""
+    union = reg.union_segments()
+    entry = reg.base._plane_entry_for(union)
+    ids = np.asarray(entry["ids_host"]).reshape(-1)
+    slot_of = np.full(entry["row_gid"].shape[0], -1, np.int64)
+    slot_of[ids[ids >= 0]] = np.flatnonzero(ids >= 0)
+    shared_end = entry["offsets"][reg.base.n_segments]
+    gid_of = entry["row_gid"][:shared_end]
+    n_t = len(tv.names)
+    checked = 0
+    for t in range(n_t):
+        u = (t + 1) % n_t
+        bm_t, bm_u = (reg._tenant_bitmap(
+            entry, union, reg.get(tv.names[i]).snapshot(), now).reshape(-1)
+            for i in (t, u))
+        gids = np.r_[tv.shared_dead[t], tv.up[t].cpu().numpy()]
+        rows = np.flatnonzero(np.isin(gid_of, gids))
+        slots = slot_of[rows]
+        check(len(rows) == len(gids) and (slots >= 0).all()
+              and not bm_t[slots].any() and bm_u[slots].all(),
+              f"{label}: a shared row {tv.names[t]} deleted or upserted is "
+              f"visible to it, or hidden from {tv.names[u]}")
+        checked += len(rows)
+    return checked
+
+
+def solo_parity(torch, np, reg, tv, reqs, cfg, label, now):
+    """Each coalesced request against its tenant's own ``search`` of the
+    same query with the same knobs (the tenants' planes stacked one at a
+    time, dropped after).
+
+    On the card a row's float bits may change with the batch's shape
+    (the projection's GEMVs, routing's GEMM over another grain count), and
+    a quantized query coordinate then flips by one step now and then, so
+    a Mode A (approximate) distance moves by up to some delta, measured
+    here as the largest |coalesced - solo| Mode A distance over the
+    requests whose ids agree.  Ids must be equal, except where the solo's
+    routing distances at nprobe lie within ``TIE_RTOL`` of each other,
+    or its approximate candidate distances at the pool's end (Mode B) or
+    within its top 10 and the next (Mode A) lie within ``TIE_RTOL`` plus
+    2 delta; fewer than 1% of the requests may be excused.  Mode B dists
+    (the exact re-rank) of agreeing requests to rtol/atol 1e-5.  Returns
+    (requests compared, excused, excused at ``TIE_RTOL`` alone, max
+    |dist diff| in Mode A and B)."""
+    from repro_torch.core import planner, routing
+
+    worst, differing = {"A": 0.0, "B": 0.0}, []
+    for t, name in enumerate(tv.names):
+        st = reg.get(name)
+        rows = [i for i, r in enumerate(reqs) if r.tenant == name]
+        for kw in TENANT_GROUPS:
+            sel = [i for i in rows if reqs[i].mode == kw["mode"]
+                   and reqs[i].tag_mask == kw.get("tag_mask")]
+            q = np.stack([reqs[i].q for i in sel])
+            solo = st.search(q, topk=10, now=now, **kw)
+            got_i = torch.stack([reqs[i].result.ids for i in sel])
+            got_d = torch.stack([reqs[i].result.dists for i in sel])
+            same = torch.all(got_i == solo.ids, dim=1)
+            m = kw["mode"]
+            if bool(same.any()):
+                want = solo.dists[same]
+                diff = (got_d[same] - want).abs()
+                worst[m] = max(worst[m], float(diff.max()))
+                check(m == "A" or bool(torch.allclose(
+                    got_d[same], want, rtol=1e-5, atol=1e-5)),
+                      f"{label}: {name}'s Mode B dists differ from its "
+                      f"solo search by {float(diff.max())}")
+            for r in torch.nonzero(~same).flatten().tolist():
+                # the solo's routing and candidate distances at the
+                # boundaries, while its plane is cached
+                qr = torch.from_numpy(q[r:r + 1]).to(tv.xb.device)
+                man = st.snapshot()
+                plane = st._live_plane(st._stacked_for(man.segments), man,
+                                       now)
+                _, gok = planner._mixed_recall_mask(
+                    plane.index.grains, kw.get("tag_mask"), None,
+                    live=plane.live)
+                _, d2 = routing.route(plane.index.routing, qr,
+                                      cfg.nprobe + 1, grain_mask=gok)
+                wide = st.search(q[r:r + 1], topk=cfg.pool + 1, mode="A",
+                                 pool=cfg.pool + 1, now=now,
+                                 tag_mask=kw.get("tag_mask")).dists[0]
+                differing.append((name, sel[r], m, d2[0].tolist(),
+                                  wide.tolist(), got_i[r].tolist(),
+                                  solo.ids[r].tolist()))
+        st._stack_cache.clear()           # one solo plane at a time
+        st._probe_traffic.clear()
+
+    def tie(a, b, slack):
+        return abs(a - b) <= TIE_RTOL * max(abs(a), abs(b)) + slack
+
+    excused = strict = 0
+    for name, rid, m, d2, wd, got, want in differing:
+        at = [cfg.pool - 1] if m == "B" else range(10)
+        route = tie(d2[cfg.nprobe - 1], d2[cfg.nprobe], 0.0)
+        check(route or any(tie(wd[i], wd[i + 1], 2 * worst["A"])
+                           for i in at),
+              f"{label}: {name}'s request {rid} (Mode {m}) differs from "
+              f"its solo search without a tie ({got} vs {want})")
+        strict += route or any(tie(wd[i], wd[i + 1], 0.0) for i in at)
+        excused += 1
+    check(excused < 0.01 * len(reqs), f"{label}: {excused} of {len(reqs)} "
+          "requests excused by ties (1% allowed)")
+    return len(reqs), excused, strict, worst
+
+
+def replay_window(reg, reqs, now, **kw):
+    """The same requests again, as new ones, through
+    ``coalesced_retrieve`` with ``kw``."""
+    from repro_torch.serve import RetrievalRequest, coalesced_retrieve
+
+    again = [RetrievalRequest(rid=r.rid, tenant=r.tenant, q=r.q,
+                              topk=r.topk, mode=r.mode, tag_mask=r.tag_mask)
+             for r in reqs]
+    return coalesced_retrieve(reg, again, now=now, **kw)
+
+
+def same_results(torch, a, b, label):
+    """Two windows' results equal request by request (``torch.equal``)."""
+    bad = sum(not (torch.equal(x.result.ids, y.result.ids)
+                   and torch.equal(x.result.dists, y.result.dists))
+              for x, y in zip(a, b))
+    check(bad == 0, f"{label}: {bad} requests differ")
+
+
+def launches_by_group(reqs):
+    """Select launches one window needs: per (mode, topk, filter) group,
+    ceil(padded rows / 256)."""
+    from repro_torch.serve import tenancy
+
+    groups = collections.Counter((r.mode, r.topk, r.tag_mask, r.ts_range)
+                                 for r in reqs)
+    return {g: -(-tenancy.pad_rows(n) // 256) for g, n in groups.items()}
+
+
+def tenancy_phase(torch, np, dev, branch, *, xb, base_dead, corpus_q, cfg,
+                  tenants=TENANTS, docs=TENANT_DOCS,
+                  requests=TENANT_REQUESTS):
+    """Multi-tenant serving on a branch of the store phase's store (its
+    memtable tail sealed by the registry): ``TenantRegistry(branch,
+    memtable_budget=1024, max_live=24)`` with ``tenants`` tenants, each
+    writing ``docs`` private docs around its own far point, deleting 64
+    shared gids and 16 of its own and upserting 32 shared gids; windows
+    of ``requests`` requests per tenant through ``coalesced_retrieve``:
+    a warm-up, then the default window (counters zeroed just before,
+    read just after) held for isolation, to "fused_ref" (``torch.equal``)
+    and to each tenant's solo search; zero re-stacks and the select's
+    launches by group; the same window on the cascade and with adaptive
+    routing; times, a breakdown of the host's share, a profile and the
+    select with its tenant stream against its plain version and bound.
+    ``xb``: the base rows as the branch sees them, on the device."""
+    from repro_torch.core import store as store_mod
+    from repro_torch.core.types import tree_bytes
+    from repro_torch.kernels import fused_select as fsel
+    from repro_torch.serve import TenantRegistry, coalesced_retrieve
+    from repro_torch.serve import tenancy
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    now = time.time()
+    if on_card:
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    reg = TenantRegistry(branch, memtable_budget=TENANT_BUDGET,
+                         max_live=TENANT_MAX_LIVE)
+    tv = _Tenants(torch, np, reg, xb, base_dead, corpus_q, tenants=tenants,
+                  docs=docs)
+    sync(torch, dev)
+    setup_s = time.perf_counter() - t0
+    log(f"tenancy: TenantRegistry(branch of the store, memtable_budget="
+        f"{TENANT_BUDGET}, max_live={TENANT_MAX_LIVE}), {tenants} tenants "
+        f"of {docs} private docs (a forced seal each, {docs % TENANT_BUDGET}"
+        f" left in the memtable), 64 shared and 16 own deletes and 32 "
+        f"shared upserts each; {setup_s:.2f} s; {reg.n_live} live, "
+        f"{tenants - reg.n_live} frozen")
+
+    def run(**kw):
+        reqs, facts = tv.window(np, requests)
+        coalesced_retrieve(reg, reqs, now=now, **kw)
+        return reqs, facts
+
+    warm, _ = run()                       # the union plane, the bitmaps
+    sync(torch, dev)
+    union = reg.union_segments()
+    entry = branch._plane_entry_for(union)
+    plane = entry["plane"]
+    g_n, cap = plane.index.grains.ids.shape
+    n_req = tenants * requests
+    log(f"tenancy union plane: {len(union)} segments ({branch.n_segments} "
+        f"shared, the rest private), {g_n} grains x cap {cap}, "
+        f"{tree_bytes(plane.index)} bytes on the device; tenant bitmap "
+        f"{tenants} x {g_n} x {cap} = {tenants * g_n * cap} bytes per group;"
+        f" {reg.n_live} live tenants, their memtables now "
+        f"{sum(len(s._mem) for s in reg._live.values())} rows (every "
+        "tenant was frozen once, which sealed its memtable)")
+
+    # ---- the default window: counters zeroed just before, read after ----
+    stacks = []
+    real_stack = store_mod.stack_segments
+    store_mod.stack_segments = lambda *a, **k: stacks.append(1) or \
+        real_stack(*a, **k)
+    fsel.fused_scan_select.launches = 0
+    try:
+        reqs, facts = run()
+        sync(torch, dev)
+    finally:
+        store_mod.stack_segments = real_stack
+    launches = fsel.fused_scan_select.launches
+    want = launches_by_group(reqs)
+    check(not stacks, f"tenancy: {len(stacks)} re-stacks after warm-up")
+    if on_card:
+        check(launches == sum(want.values()), f"tenancy: {launches} select "
+              f"launches, expected {sum(want.values())} ({want})")
+    counts = check_tenant_window(torch, np, tv, reqs, facts, "tenancy fused")
+    shared = check_shared_rows(np, reg, tv, now, "tenancy")
+    same_results(torch, reqs, replay_window(reg, reqs, now,
+                                            scan_impl="fused_ref"),
+                 "tenancy: coalesced fused vs fused_ref")
+    n_cmp, excused, strict, worst = solo_parity(torch, np, reg, tv, reqs,
+                                                cfg, "tenancy solo", now)
+    log(f"tenancy window ({n_req} requests, {tenants} tenants, 3 groups): "
+        f"{counts}; {shared} shared rows hidden from the tenant that "
+        f"deleted or upserted them and visible to the next (its bitmap); "
+        f"== fused_ref (ids, dists torch.equal); vs solo: "
+        f"{n_cmp} compared, {excused} excused by ties ({strict} within "
+        f"rtol {TIE_RTOL} alone), max |dist diff| by mode {worst}; "
+        f"re-stacks 0; fused_scan_select launches {launches} (by group "
+        f"{list(want.values())})")
+    out = dict(launches=launches, counts=counts, excused=excused,
+               excused_strict=strict,
+               solo_max_diff=worst, union_grains=g_n, cap=cap,
+               bitmap_bytes=tenants * g_n * cap, setup_s=setup_s)
+
+    # ---- the cascade and adaptive windows --------------------------------
+    out["variants"] = {}
+    for name, kw in TENANT_VARIANTS.items():
+        saved = traffic_copy(branch)
+        fsel.fused_scan_select.launches = 0
+        got, facts_v = run(**kw)
+        sync(torch, dev)
+        n_l = fsel.fused_scan_select.launches
+        after = traffic_copy(branch)
+        branch._probe_traffic = saved
+        plain = {"cascade": dict(kw, scan_impl="cascade_ref")}.get(
+            name, dict(kw, scan_impl="fused_ref"))
+        same_results(torch, got, replay_window(reg, got, now, **plain),
+                     f"tenancy {name} vs {plain['scan_impl']}")
+        branch._probe_traffic = after
+        c = check_tenant_window(torch, np, tv, got, facts_v, f"tenancy {name}")
+        if on_card:
+            check(n_l >= sum(launches_by_group(got).values()),
+                  f"tenancy {name}: {n_l} select launches")
+        out["variants"][name] = dict(launches=n_l, counts=c)
+        log(f"tenancy {name} window ({kw}): {c}; == {plain['scan_impl']} "
+            f"(torch.equal); fused_scan_select launches {n_l}")
+
+    # ---- times: uninstrumented windows, then the host's share ------------
+    ms = []
+    for _ in range(3):
+        reqs_t, _ = tv.window(np, requests)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        coalesced_retrieve(reg, reqs_t, now=now)
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["window_ms"] = ms
+    log(f"tenancy window: {' '.join(f'{v:.3f}' for v in ms)} ms per "
+        f"{n_req} requests (host clock, ends in a synchronise); QPS "
+        f"{n_req / (min(ms) / 1e3):.1f} at the fastest")
+    reqs_t, _ = tv.window(np, requests)
+    with _Timed(torch, dev, tenancy.TenantRegistry, "_tenant_bitmap") as bm, \
+            _Timed(torch, dev, store_mod, "_to_device") as h2d, \
+            _Timed(torch, dev, store_mod.VectorStore,
+                   "_search_memtable") as mem, \
+            _Timed(torch, dev, tenancy, "_finalize") as fin:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        coalesced_retrieve(reg, reqs_t, now=now)
+        sync(torch, dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    mans = [reg.get(n).snapshot() for n in tv.names]
+    t0 = time.perf_counter()
+    np.stack([reg._tenant_bitmap(entry, union, m, now) for m in mans])
+    stack_s = time.perf_counter() - t0
+    parts = {"tenant bitmaps (cached)": sum(bm.calls),
+             "stack of one group's bitmaps": stack_s,
+             "H2D (pinned copies)": sum(h2d.calls),
+             "memtable scans": sum(mem.calls), "finalize": sum(fin.calls)}
+    out["host_ms"] = {k: v * 1e3 for k, v in parts.items()}
+    log(f"tenancy window, instrumented (each part synchronised): {wall:.3f}"
+        f" ms; " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                             parts.items())
+        + f" ({len(bm.calls)} bitmap lookups, {len(h2d.calls)} copies, "
+        f"{len(mem.calls)} memtable scans, {len(fin.calls)} finalizes; the "
+        "stack of one group's bitmaps timed apart, once); re-stacks 0")
+    if on_card:
+        out["profile"] = profile(
+            torch, f"one coalesced window, {n_req} requests",
+            lambda: coalesced_retrieve(reg, tv.window(np, requests)[0],
+                                       now=now), min(ms) / 1e3)
+        with _CaptureSelect(torch) as cap_sel:
+            coalesced_retrieve(reg, tv.window(np, requests)[0], now=now)
+            sync(torch, dev)
+        args, kw = cap_sel.calls[0]
+        kw = dict(kw)
+        width = kw.pop("width")
+        out["select"] = time_select_call(
+            torch, fsel, args, kw, width, "the coalesced tenant window "
+            "(the first group's first batch, tenant stream on)", what="")
+        del cap_sel
+    if on_card:
+        out["peak"] = torch.cuda.max_memory_allocated(dev) - held
+        log(f"tenancy peak device memory {out['peak']} bytes above the "
+            f"{held} held when the phase began (max_memory_allocated)")
+    log(f"tenancy phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def paged_tenancy(torch, np, st, xb, qt, budget, dead, label, *, tenants=8,
+                  docs=TENANT_DOCS, requests=32):
+    """Tenancy on the paged plane: a registry over a branch of the cold
+    store, ``tenants`` tenants as in ``tenancy_phase``, one window of
+    ``requests`` requests each all-warm and then under ``budget`` (twice:
+    the second on the elected hot set); every paged result equal to the
+    all-warm one (ids and dists, ``torch.equal``), isolation held."""
+    from repro_torch.kernels import fused_select as fsel
+    from repro_torch.serve import TenantRegistry
+
+    dev = qt.device
+    t_phase = time.perf_counter()
+    now = time.time()
+    branch = st.branch()
+    branch.device_budget = None
+    reg = TenantRegistry(branch, memtable_budget=TENANT_BUDGET,
+                         max_live=TENANT_MAX_LIVE)
+    tv = _Tenants(torch, np, reg, xb, dead, qt.cpu().numpy(),
+                  tenants=tenants, docs=docs, seed=4)
+    reqs, facts = tv.window(np, requests)
+
+    warm = replay_window(reg, reqs, now)
+    sync(torch, dev)
+    counts = check_tenant_window(torch, np, tv, warm, facts, f"{label} warm")
+    check_shared_rows(np, reg, tv, now, label)
+    branch.device_budget = budget
+    fsel.fused_scan_select.launches = 0
+    for rnd in range(2):
+        same_results(torch, replay_window(reg, reqs, now), warm,
+                     f"{label}: round {rnd} against the all-warm window")
+    launches = fsel.fused_scan_select.launches
+    stats = branch.residency_stats()
+    check(dev.type != "cuda" or launches > 0, f"{label}: no select launch")
+    log(f"{label}: {tenants} tenants, {len(reqs)} requests, union "
+        f"{len(reg.union_segments())} segments ({stats['n_grains']} grains, "
+        f"{stats['hot_grains']} hot at budget {budget}): paged == all-warm "
+        f"(ids, dists torch.equal, 2 rounds); isolation {counts}; "
+        f"fused_scan_select launches {launches} (paged, 2 rounds); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, counts=counts, stats=stats)
+
+
+# ---------------------------------------------------------------------------
 # 11: the store's lifecycle (VectorStore.compact / grain_health / maintain)
 # ---------------------------------------------------------------------------
 
@@ -1962,8 +2562,9 @@ LIFECYCLE_DRIFT_RATIO = 0.01
 
 
 class _Timed:
-    """Wall time of every call of ``module.name`` while installed (the
-    device synchronised before and after each call)."""
+    """Wall time of every call of ``module.name`` (a function of a module
+    or a method of a class) while installed (the device synchronised
+    before and after each call)."""
 
     def __init__(self, torch, dev, module, name):
         self.torch, self.dev, self.module, self.name = torch, dev, module, name
@@ -1977,6 +2578,10 @@ class _Timed:
         sync(self.torch, self.dev)
         self.calls.append(time.perf_counter() - t0)
         return out
+
+    def __get__(self, obj, objtype=None):
+        """Installed on a class, it times a method: bound to ``obj``."""
+        return self if obj is None else functools.partial(self, obj)
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -3072,6 +3677,9 @@ def _tiered_phase(torch, np, dev, cold_dir, *, n, nq, segments, grains,
     out["cascade"] = paged_cascade(torch, st, qt, xl, alive, tg, tsv,
                                    budgets["25% of the tier"],
                                    "tiered cascade")
+    out["tenancy"] = paged_tenancy(torch, np, st, xl, qt,
+                                   budgets["25% of the tier"], dead,
+                                   "tiered tenancy")
 
     # the select at the paged plane's shapes, and one paged search profiled
     st.device_budget = budgets["25% of the tier"]
@@ -3279,6 +3887,15 @@ def main(argv=None) -> int:
     del mp["index"], mp["x"], sb["args"], sb["sketch"]
     stp = store_phase(torch, np, cuda, n=a.store_n)
     state = stp.pop("state")
+    xb = torch.from_numpy(state["x"]).to(cuda)
+    xb[torch.from_numpy(state["up"]).to(cuda)] = torch.from_numpy(
+        state["x_up"]).to(cuda)
+    tn = tenancy_phase(torch, np, cuda, stp.pop("branch"), xb=xb,
+                       base_dead=state["dead"],
+                       corpus_q=state["qt"].cpu().numpy(), cfg=state["cfg"])
+    del xb
+    gc.collect()
+    torch.cuda.empty_cache()
     lc = lifecycle_phase(
         torch, np, cuda, state["st"], qt=state["qt"], x=state["x"],
         tags=state["tags"], up=state["up"], x_up=state["x_up"],
@@ -3313,7 +3930,12 @@ def main(argv=None) -> int:
                     tp["adaptive"]["launches"],
                     "paged adaptive store search":
                     tp["adaptive"]["paged_launches"],
-                    "select at L > 8192": lp["launches"]}
+                    "select at L > 8192": lp["launches"],
+                    "coalesced tenant search": tn["launches"],
+                    **{f"coalesced tenant search, {k}": v["launches"]
+                       for k, v in tn["variants"].items()},
+                    "paged coalesced tenant search":
+                    tp["tenancy"]["launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
                     "store search, kernel plane": stp["kernel_launches"],
@@ -3328,6 +3950,8 @@ def main(argv=None) -> int:
                                 if k != "max_abs_err"}
     select_entry["at_paged"] = {k: v for k, v in tp["select"].items()
                                 if k != "max_abs_err"}
+    select_entry["at_tenancy"] = {k: v for k, v in tn["select"].items()
+                                  if k != "max_abs_err"}
     select_entry["at_cascade_stage1"] = {
         k: {f: v for f, v in t.items() if f != "max_abs_err"}
         for k, t in cp["stage1"].items()}
@@ -3336,6 +3960,7 @@ def main(argv=None) -> int:
         for k, t in lp["timing"].items()}
     select_entry["max_abs_err"] = max(
         select_entry["max_abs_err"], tp["select"]["max_abs_err"],
+        tn["select"]["max_abs_err"],
         *(t["max_abs_err"] for t in cp["stage1"].values()),
         *(t["max_abs_err"] for t in lp["timing"].values()))
     log(json.dumps({"kernels": [

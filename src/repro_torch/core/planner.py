@@ -20,6 +20,11 @@ segments fused into one ``StackedSegments`` plane, with the tag/ts
 predicates and the store's liveness bitmap evaluated in the scan and
 pushed down into routing.  Both end in ``_candidate_epilogue``.
 
+Tenancy (the coalesced serving plane of ``serve.tenancy``): a per-query
+visibility bitmap ``tenant_live`` [T, G, cap] + ``tenant_ix`` [Q] joins
+the slot predicate in the candidate stage and, any-reduced per grain, the
+routing pushdown ([Q, G], ``_tenant_grain_mask``).
+
 ``probe_plan`` is the adaptive routing stage alone (routing, the
 ``routing.adaptive_prefix`` stopping rule and the probe-traffic counters)
 for the store's bucketed adaptive dispatch.  ``static_route`` and
@@ -353,6 +358,25 @@ def _mixed_recall_mask(grains, tag_mask, ts_range, live=None):
     return keep, torch.any(keep, dim=1)
 
 
+def _tenant_grains(grains, extra, tenant_live):
+    """[T, G] bool: the grains each tenant sees a slot of that also passes
+    the shared predicate ``extra`` (None = the valid slots)."""
+    base = extra if extra is not None else grains.valid
+    return torch.any(torch.logical_and(tenant_live, base[None]), dim=2)
+
+
+def _tenant_grain_mask(grain_ok, tenant_ok, tenant_ix):
+    """The per-query routing pushdown: ``tenant_ok`` [T, G] (from
+    ``_tenant_grains``) gathered by ``tenant_ix`` [Q] and joined with the
+    shared [G] pushdown ``grain_ok``.  Returns [Q, G] (or ``grain_ok``
+    unchanged without tenants)."""
+    if tenant_ok is None:
+        return grain_ok
+    ok_q = tenant_ok[tenant_ix.long()]                        # [Q, G]
+    return ok_q if grain_ok is None \
+        else torch.logical_and(ok_q, grain_ok[None, :])
+
+
 def _translate_rows(stacked: StackedSegments, rows: torch.Tensor,
                     dists: torch.Tensor) -> torch.Tensor:
     """Flat raw rows -> global ids (-1 for padding and pruned slots)."""
@@ -396,15 +420,16 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
       is the static plane, bit for bit (inf is short-cut, never computed).
     budgets: (b1, b2) per-stage survivor budgets for a staged (cascade)
       backend.
-    tenant_live/tenant_ix are refused until the ROADMAP item that brings
-      them lands.
+    tenant_live [T, G, cap] bool + tenant_ix [Q] i32 (the coalesced
+      serving plane): query q sees only the slots of row tenant_ix[q], in
+      the scan and in its own routing pushdown.  Needs global routing.
     """
     check_budgets(budgets, topk)
-    for name, value in (("tenant_live", tenant_live),
-                        ("tenant_ix", tenant_ix)):
-        if value is not None:
-            raise ValueError(f"{name}= is not ported yet (ROADMAP Queue A "
-                             "item 6)")
+    if (tenant_live is None) != (tenant_ix is None):
+        raise ValueError("tenant_live and tenant_ix come together")
+    if tenant_live is not None and route_mode != "global":
+        raise ValueError("tenant visibility needs global routing (a "
+                         "per-query pushdown): route_mode='global'")
     adaptive = probe_margin is not None and not math.isinf(probe_margin)
     if adaptive and route_mode != "global":
         raise ValueError("adaptive routing needs global routing "
@@ -421,11 +446,15 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
     index = stacked.index
     extra, grain_ok = _mixed_recall_mask(index.grains, tag_mask, ts_range,
                                          live=stacked.live)
+    tenant_ok = None
+    if tenant_live is not None and probe_plan is None:
+        tenant_ok = _tenant_grains(index.grains, extra, tenant_live)
     tr = ((lambda r, d: _translate_rows(stacked, r, d)) if translate
           else (lambda r, d: r))
 
     def run(sl):
         qb, n_active = q[sl], None
+        ti = None if tenant_ix is None else tenant_ix[sl]
         if probe_plan is not None:
             gids, n_active = probe_plan[0][sl], probe_plan[1]
             n_active = None if n_active is None else n_active[sl]
@@ -433,8 +462,9 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
             gids, _ = routing.route_per_segment(index.routing, qb, nprobe,
                                                 seg_shape)
         else:
-            gids, gd2 = routing.route(index.routing, qb, nprobe,
-                                      grain_mask=grain_ok)
+            gids, gd2 = routing.route(
+                index.routing, qb, nprobe,
+                grain_mask=_tenant_grain_mask(grain_ok, tenant_ok, ti))
             if adaptive:
                 gids, n_active = routing.adaptive_prefix(
                     gids, gd2, margin=probe_margin, min_probes=min_probes,
@@ -442,7 +472,8 @@ def search_stacked(stacked: StackedSegments, q: torch.Tensor, *,
         dists, rows = candidate_stage(
             index, qb, gids, envelope_frac=envelope_frac, qeff=qeff,
             width=max(pool, topk), scan_impl=scan_impl, budgets=budgets,
-            extra_mask=extra, n_active=n_active)
+            extra_mask=extra, tenant_mask=tenant_live, tenant_ix=ti,
+            n_active=n_active)
         return _candidate_epilogue(dists, rows, qb, index.raw, pool=pool,
                                    topk=topk, mode=mode, translate=tr)
 
@@ -454,9 +485,15 @@ def static_route(plane: RoutingPlane, q: torch.Tensor, *, nprobe: int,
     """The routing stage of ``search_stacked`` (global routing) alone:
     ``routing.route`` over the same ``QUERY_BATCH``-query batches, so the
     probe sets are bit-identical to the ones the one-call plane scans.
-    Returns (gids [Q, P] i32, d2 [Q, P] f32)."""
+    ``grain_mask``: the [G] pushdown, or a per-query [Q, G] one (tenants),
+    sliced with the queries.  Returns (gids [Q, P] i32, d2 [Q, P] f32)."""
+    per_query = grain_mask is not None and grain_mask.dim() == 2
+
+    def mask(lo):
+        return grain_mask[lo:lo + QUERY_BATCH] if per_query else grain_mask
+
     out = [routing.route(plane, q[lo:lo + QUERY_BATCH], nprobe,
-                         grain_mask=grain_mask)
+                         grain_mask=mask(lo))
            for lo in range(0, q.shape[0], QUERY_BATCH)]
     if not out:
         return (torch.empty((0, nprobe), dtype=torch.int32, device=q.device),
@@ -469,11 +506,14 @@ def probe_plan(stacked: StackedSegments, q: torch.Tensor, *, nprobe: int,
                hub_mask: Optional[torch.Tensor] = None,
                tag_mask: Optional[int] = None,
                ts_range: Optional[tuple] = None,
+               tenant_live: Optional[torch.Tensor] = None,
+               tenant_ix: Optional[torch.Tensor] = None,
                grain_mask: Optional[torch.Tensor] = None):
     """The adaptive routing stage of ``search_stacked`` alone: routing with
-    the same filter and liveness pushdown, in the same ``QUERY_BATCH``
-    batches (so at ``probe_margin=inf`` the gids are ``static_route``'s
-    bit for bit), then the ``routing.adaptive_prefix`` rule.
+    the same filter, liveness and tenant pushdown, in the same
+    ``QUERY_BATCH`` batches (so at ``probe_margin=inf`` the gids are
+    ``static_route``'s bit for bit), then the ``routing.adaptive_prefix``
+    rule.
 
     Returns (gids [Q, P] i32, n_active [Q] i32, wins [G] i32, touches [G]
     i32): ``wins[g]`` counts the queries whose closest grain is g,
@@ -483,14 +523,18 @@ def probe_plan(stacked: StackedSegments, q: torch.Tensor, *, nprobe: int,
     ``n_active`` on the host and hands each bucket its slice of the plan
     through ``search_stacked(probe_plan=...)``.
 
-    grain_mask ([G] bool): a routing pushdown that replaces the
-    filter/liveness one (the paged plane's stub has no panels, so the
-    store computes it from the host copy of the panels).
+    grain_mask ([G] or per-query [Q, G] bool): a routing pushdown that
+    replaces the filter/liveness/tenant one (the paged plane's stub has no
+    panels, so the store computes it from the host copy of the panels).
     """
     index = stacked.index
     if grain_mask is None:
-        _, grain_mask = _mixed_recall_mask(index.grains, tag_mask, ts_range,
-                                           live=stacked.live)
+        extra, grain_mask = _mixed_recall_mask(
+            index.grains, tag_mask, ts_range, live=stacked.live)
+        if tenant_live is not None:
+            grain_mask = _tenant_grain_mask(
+                grain_mask, _tenant_grains(index.grains, extra, tenant_live),
+                tenant_ix)
     gids, gd2 = static_route(index.routing, q, nprobe=nprobe,
                              grain_mask=grain_mask)
     if math.isinf(probe_margin):

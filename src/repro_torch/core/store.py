@@ -54,10 +54,13 @@ Grains are self-contained, so the index maps onto immutable segments:
   scans fewer grains; on the stacked plane, the cold tier and the tiered
   plane.  The probe-traffic counters it keeps elect the hubs and feed
   ``grain_health``, ``hub_grains`` and ``probe_stats``.
+- **tenancy** (``serve.tenancy``): the fused dispatch takes a per-query
+  visibility bitmap (``tenant_live`` [T, G, cap] + ``tenant_ix`` [Q]) over
+  a registry's union of segments, on the stacked plane, the cold tier and
+  the tiered plane, with the static, cascade and adaptive planes.
 
-The JAX package's ``repro.core.store`` is the reference.  Tenancy and the
-sharded plane are not ported yet; the arguments that would ask for them
-raise, naming the ROADMAP item that brings each.
+The JAX package's ``repro.core.store`` is the reference.  The sharded
+plane is not ported yet; ``mesh=`` raises, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -1140,9 +1143,11 @@ class VectorStore:
     def _stacked_for(self, segments: tuple) -> dict:
         """The stacked plane of a segment set, stacked on first use.
 
-        The entry also holds the host row tables (flat-row gid, seq and
-        TTL, and a host copy of the grain id panels) that the per-epoch
-        liveness bitmap is computed from."""
+        The entry also holds the host row tables (the segments' flat-row
+        ranges ``offsets``, flat-row gid, seq and TTL, and a host copy of
+        the grain id panels) that the per-epoch liveness bitmap and the
+        tenant bitmaps are computed from; ``row_base`` is None: the id
+        panels hold flat rows of the segments' order."""
         key = ("stacked", tuple(id(s) for s in segments))
         hit = self._cache_get(key)
         if hit is not None:
@@ -1151,6 +1156,8 @@ class VectorStore:
         entry = {
             "plane": stacked,
             "ids_host": stacked.index.grains.ids.cpu().numpy(),
+            "offsets": stacked.row_offset.cpu().numpy().astype(np.int64),
+            "row_base": None,
             "row_gid": np.concatenate([s.global_ids() for s in segments]),
             "row_seq": np.concatenate([s.global_seqs() for s in segments]),
             "row_exp": _concat_expiry(segments),
@@ -1190,6 +1197,8 @@ class VectorStore:
             "plane": tiered.routing_stub(),
             "tiered": tiered,
             "ids_host": tiered.panels["ids"],
+            "offsets": host.row_offset.numpy().astype(np.int64),
+            "row_base": None,
             "row_gid": gids,
             "row_seq": np.concatenate([s.global_seqs() for s in segments]),
             "row_exp": _concat_expiry(segments),
@@ -1206,6 +1215,15 @@ class VectorStore:
         }
         self._seed_hot(tiered)
         return self._cache_put(key, segments, entry)
+
+    def _plane_entry_for(self, segments: tuple) -> dict:
+        """The plane-cache entry a segment set is searched on under the
+        current residency mode: the tiered one under a ``device_budget``,
+        else the stacked one (the coalesced serving plane builds its tenant
+        bitmaps on it, so tenancy follows the store's tier)."""
+        if self.device_budget is not None:
+            return self._tiered_for(segments)
+        return self._stacked_for(segments)
 
     def _seed_hot(self, tiered) -> None:
         """Admission before any traffic: the biggest grains first (ties to
@@ -1479,11 +1497,17 @@ class VectorStore:
     def _search_segments_fused(self, q, man, *, topk, mode, tag_mask,
                                ts_range, scan_impl, budgets, nprobe, pool,
                                route_mode, now, adaptive=False,
-                               probe_margin=1.0, min_probes=1):
+                               probe_margin=1.0, min_probes=1,
+                               tenant_live=None, tenant_ix=None):
         """One ``planner.search_stacked`` call over the stacked plane (the
         tiered plane under a ``device_budget``; the bucketed dispatch of
         ``_adaptive_fused`` when ``adaptive``, whose margin is finite).
         Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device.
+
+        tenant_live [T, G, cap] bool + tenant_ix [Q] (host arrays): the
+        coalesced serving plane's per-query visibility over ``man``, then a
+        registry's union of segments; they reach the device through pinned
+        memory and join the scan's mask and routing's pushdown.
 
         A cold plane (no stacked raw tier) runs Mode A for the pool and
         re-ranks it with the rows read from the cold files (``_RawRows``,
@@ -1495,7 +1519,8 @@ class VectorStore:
                 q, man, topk=topk, mode=mode, tag_mask=tag_mask,
                 ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
                 nprobe=nprobe, pool=pool, now=now, adaptive=adaptive,
-                probe_margin=probe_margin, min_probes=min_probes)
+                probe_margin=probe_margin, min_probes=min_probes,
+                tenant_live=tenant_live, tenant_ix=tenant_ix)
         segments = man.segments
         entry = self._stacked_for(segments)
         stacked = self._live_plane(entry, man, now)
@@ -1503,13 +1528,20 @@ class VectorStore:
             segments, stacked, topk, nprobe, pool, route_mode)
         cold = mode == "B" and stacked.index.raw is None
         pe = pool_eff if budgets is None else min(pool_eff, int(budgets[1]))
+        tenants = {}
+        if tenant_live is not None:
+            tenants = dict(
+                tenant_live=_to_device(np.asarray(tenant_live, bool),
+                                       q.device),
+                tenant_ix=_to_device(np.asarray(tenant_ix, np.int32),
+                                     q.device))
         if adaptive:
             return self._adaptive_fused(
                 q, segments, entry, stacked, mode=mode, probe=probe,
                 pool_eff=pool_eff, topk_eff=topk_eff, pe=pe, cold=cold,
                 budgets=budgets, scan_impl=scan_impl, tag_mask=tag_mask,
                 ts_range=ts_range, probe_margin=probe_margin,
-                min_probes=min_probes)
+                min_probes=min_probes, **tenants)
         res = planner.search_stacked(
             stacked, q, nprobe=probe, pool=pool_eff,
             topk=pe if cold else topk_eff, mode="A" if cold else mode,
@@ -1517,7 +1549,7 @@ class VectorStore:
             qeff=index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits),
             scan_impl=scan_impl, budgets=budgets, route_mode=route_mode,
             seg_shape=seg_shape, translate=not cold, tag_mask=tag_mask,
-            ts_range=ts_range)
+            ts_range=ts_range, **tenants)
         if cold:
             res = _rerank_pool(
                 res.dists, res.ids, q, self._raw_rows(entry, segments),
@@ -1527,7 +1559,8 @@ class VectorStore:
 
     def _adaptive_fused(self, q, segments, entry, stacked, *, mode, probe,
                         pool_eff, topk_eff, pe, cold, budgets, scan_impl,
-                        tag_mask, ts_range, probe_margin, min_probes):
+                        tag_mask, ts_range, probe_margin, min_probes,
+                        tenant_live=None, tenant_ix=None):
         """Adaptive routing on the stacked plane, in two phases.
 
         1. One ``planner.probe_plan`` pass: routing, the stopping rule with
@@ -1542,13 +1575,16 @@ class VectorStore:
            takes each bucket's Mode A pool and re-ranks it with the rows
            of the cold files (``_RawRows``, ``_rerank_pool``) over the
            bucket's batches, so it equals the warm plane bit for bit.
+        The tenant pair (on the device) joins the routing pass, and each
+        bucket takes its queries' rows of ``tenant_ix``.
         Returns (ids [Q, topk] i32, dists [Q, topk] f32) on the device,
         (-1, BIG) past a bucket's results."""
         dev, q_n = q.device, q.shape[0]
         traffic = self._traffic_for(segments, stacked.index.routing.n_grains)
         gids_d, na_d, plan_h = self._adaptive_plan(
             stacked, q, traffic, nprobe=probe, probe_margin=probe_margin,
-            min_probes=min_probes, tag_mask=tag_mask, ts_range=ts_range)
+            min_probes=min_probes, tag_mask=tag_mask, ts_range=ts_range,
+            tenant_live=tenant_live, tenant_ix=tenant_ix)
         qeff = index_mod.int32_safe_qmax(self.cfg.k, self.cfg.coord_bits)
         cap = stacked.index.grains.cap
         raw = self._raw_rows(entry, segments) if cold else None
@@ -1565,6 +1601,9 @@ class VectorStore:
                       tag_mask=tag_mask, ts_range=ts_range,
                       probe_plan=(gids_d[sel_d, :w].contiguous(),
                                   torch.clamp(na_d[sel_d], max=w)))
+            if tenant_live is not None:
+                kw.update(tenant_live=tenant_live,
+                          tenant_ix=tenant_ix[sel_d].contiguous())
             if not cold:
                 return planner.search_stacked(stacked, qb, pool=pool_b,
                                               topk=topk_b, mode=mode, **kw)
@@ -1579,7 +1618,7 @@ class VectorStore:
 
     def _adaptive_plan(self, plane, q, traffic, *, nprobe, probe_margin,
                        min_probes, tag_mask=None, ts_range=None,
-                       grain_mask=None):
+                       grain_mask=None, tenant_live=None, tenant_ix=None):
         """``planner.probe_plan`` with the current hub set of ``traffic``,
         whose counters it then feeds.  Returns the plan on the device
         (gids [Q, P], n_active [Q]) and on the host (gids, n_active, wins,
@@ -1589,7 +1628,8 @@ class VectorStore:
             plane, q, nprobe=nprobe, probe_margin=probe_margin,
             min_probes=min_probes,
             hub_mask=None if hub is None else _to_device(hub, q.device),
-            tag_mask=tag_mask, ts_range=ts_range, grain_mask=grain_mask)
+            tag_mask=tag_mask, ts_range=ts_range, tenant_live=tenant_live,
+            tenant_ix=tenant_ix, grain_mask=grain_mask)
         q_n, p_n = gids_d.shape
         flat = torch.cat([gids_d.reshape(-1), na_d, wins, touches]).cpu() \
             .numpy()
@@ -1606,7 +1646,8 @@ class VectorStore:
     def _search_segments_tiered(self, q, man, *, topk, mode, tag_mask,
                                 ts_range, scan_impl, budgets, nprobe, pool,
                                 now, adaptive=False, probe_margin=1.0,
-                                min_probes=1):
+                                min_probes=1, tenant_live=None,
+                                tenant_ix=None):
         """The fused search on the tiered plane under ``device_budget``.
         Returns (global ids [Q, k] i32, dists [Q, k] f32) on the device,
         equal to the all-warm plane's bit for bit.
@@ -1638,6 +1679,12 @@ class VectorStore:
         width bucket as the all-warm plane's buckets run it
         (``_bucket_projection``), and Mode B re-ranks each bucket's share
         of the merged pool over the bucket's batches: the same bits.
+
+        Tenants (host ``tenant_live`` [T, G, cap] + ``tenant_ix`` [Q]): the
+        per-query [Q, G] routing pushdown is computed on the host
+        (``residency.host_tenant_mask``), and every pass takes the bitmap
+        sliced to its mini-plane's grains, with an all-False row for the
+        dummy grain, and the ``tenant_ix`` rows of its queries.
         """
         segments = man.segments
         entry = self._tiered_for(segments)
@@ -1659,6 +1706,23 @@ class VectorStore:
         mask_src = keep if keep is not None else tiered.panels["valid"]
         mask_key = (live_key, tag_mask, ts_range)
         pkw = dict(scan_impl=scan_impl, budgets=budgets, qeff=qeff)
+        tl_host = ti_host = ti_d = None
+        if tenant_live is not None:
+            tl_host = np.asarray(tenant_live, bool)
+            ti_host = np.asarray(tenant_ix, np.int64)
+            ti_d = _to_device(ti_host.astype(np.int32), dev)
+            grain_ok = residency.host_tenant_mask(
+                tiered.panels, keep, grain_ok, tl_host, ti_host)  # [Q, G]
+            grain_ok_dev = _to_device(grain_ok, dev)
+
+        def tenant_slice(slots, ti):
+            """The bitmap over a mini-plane's grains (+ the dummy)."""
+            if tl_host is None:
+                return {}
+            tl = tl_host[:, np.asarray(slots, np.int64)]
+            tl = np.concatenate(
+                [tl, np.zeros((tl.shape[0], 1, tl.shape[2]), bool)], axis=1)
+            return dict(tenant_mask=_to_device(tl, dev), tenant_ix=ti)
 
         # 1: the plan and the projection, once
         stub = entry["plane"]
@@ -1694,7 +1758,8 @@ class VectorStore:
             keep_h = torch.logical_and(alive, plan_h != tiered.n_hot)
             passes.append(self._tiered_pass(
                 plane_h, q, plan_h, na_d, (zq, rq, keep_h, sq),
-                width=min(target, probe * cap), **pkw))
+                width=min(target, probe * cap),
+                **tenant_slice(tiered.hot_slots, ti_d), **pkw))
         if not adaptive:
             if plan_read is not None:
                 plan_read.synchronize()
@@ -1716,7 +1781,8 @@ class VectorStore:
         need = (hot_map[gids_h] < 0) & (tiered.sizes[gids_h] > 0)
         need &= np.arange(probe)[None, :] < na_h[:, None]
         if grain_ok is not None:      # masked grains scan to BIG anyway
-            need &= grain_ok[gids_h]
+            need &= grain_ok[gids_h] if grain_ok.ndim == 1 else \
+                np.take_along_axis(grain_ok, gids_h.astype(np.int64), axis=1)
         cold = np.unique(gids_h[need])
         for ch in residency.chunk_cold(cold, self.prefetch_grains):
             plane_c, member, release = tiered.chunk_plane(ch, mask_src)
@@ -1735,6 +1801,9 @@ class VectorStore:
                 plan_g, plan_na, pos = plan_g[qsel], plan_na[qsel], pos[qsel]
             qsel_d = None if qsel is None else _to_device(qsel, dev)
             pos_d = _to_device(pos, dev)
+            ti_c = ti_d
+            if ti_host is not None and qsel is not None:
+                ti_c = _to_device(ti_host[qsel].astype(np.int32), dev)
 
             def part(t, qsel_d=qsel_d, pos_d=pos_d):
                 if t is None:
@@ -1748,7 +1817,8 @@ class VectorStore:
                 plane_c, q if qsel_d is None else q[qsel_d],
                 _to_device(plan_g, dev), _to_device(plan_na, dev),
                 tuple(part(t) for t in (zq, rq, alive, sq)),
-                width=min(target, w * cap), **pkw)
+                width=min(target, w * cap), **tenant_slice(ch, ti_c),
+                **pkw)
             release()
             if qsel_d is not None:    # back to [Q] rows
                 rows_q = qsel_d[:n_act]
@@ -1815,15 +1885,18 @@ class VectorStore:
         return tuple(out)
 
     def _tiered_pass(self, plane, q, gids, n_active, proj, *, width: int,
-                     scan_impl, budgets, qeff):
+                     scan_impl, budgets, qeff, tenant_mask=None,
+                     tenant_ix=None):
         """One residency pass (the hot mini-plane, or a staged cold chunk)
         over its probe plan and the gathered projection ``proj``: the
         candidate stage on the registered scan plane, cut to its top
         ``width`` by (distance, plan position, slot), ``budgets`` applied
-        to this pass alone.  A select plane runs one call; a gather plane
-        runs ``QUERY_BATCH``-query batches (it copies every probed panel
-        per query).  Returns (dists [Q, width], rows [Q, width] with -1 at
-        the pruned entries)."""
+        to this pass alone, the tenant bitmap over the mini-plane's grains
+        (``tenant_mask`` [T, n + 1, cap], ``tenant_ix`` [Q]) in its mask.
+        A select plane runs one call; a gather plane runs
+        ``QUERY_BATCH``-query batches (it copies every probed panel per
+        query).  Returns (dists [Q, width], rows [Q, width] with -1 at the
+        pruned entries)."""
         index = plane.index
         select = scanplane.get_scan_plane(scan_impl, index.device).kind \
             == scanplane.SELECT
@@ -1835,6 +1908,8 @@ class VectorStore:
                 index, q[sl], gids[sl], envelope_frac=self.cfg.envelope_frac,
                 qeff=qeff, width=width, scan_impl=scan_impl, budgets=budgets,
                 n_active=None if n_active is None else n_active[sl],
+                tenant_mask=tenant_mask,
+                tenant_ix=None if tenant_ix is None else tenant_ix[sl],
                 proj=tuple(None if t is None else t[sl] for t in proj))
             if not select:
                 d, pos = planner._smallest(d, width)

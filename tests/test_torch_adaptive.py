@@ -15,7 +15,7 @@
   packages' f32 routing matmuls may differ by an ulp.
 - **The port alone**: twins of the reference's 15 store-level tests
   (``tests/test_adaptive.py``, all but the tenancy and serving-engine
-  ones, which wait for ROADMAP Queue A item 6), on the "ref", "kernel",
+  ones, whose twins are in ``test_torch_tenancy.py``), on the "ref", "kernel",
   "fused" and "fused_ref" planes and the cascades, warm and cold:
   ``adaptive=False`` and ``probe_margin=inf`` are the static plane bit for
   bit, a huge finite margin at exhaustive knobs equals the static

@@ -17,9 +17,9 @@ and huge in Mode A and B; tag, ts and joint filters; the "ref",
 compaction; re-election, the size-seeded hot set, knob validation, branch
 propagation and the panel file's lifetime; adaptive routing (paged
 equals all-warm through a sequence of searches, with equal probe stats
-and traffic counters).  Tenancy stays refused on this path, and is
-tested as a refusal.  The residency helpers are held to the JAX
-package's on the same inputs.
+and traffic counters); tenancy (a per-query tenant bitmap through the
+paged plane equals the all-warm one).  The residency helpers are held to
+the JAX package's on the same inputs.
 """
 import gc
 import glob
@@ -241,14 +241,36 @@ def test_paged_parity_adaptive(budget, mode, tmp_path):
 
 
 def test_tenants_and_budgets_stay_refused_on_the_paged_plane(tmp_path):
-    """Tenancy (item 6) has no store path yet and ``search_stacked``
-    refuses its masks.  (The cascade's budgets are ported, on the paged
-    store too: ``test_paged_cascade_budgets_act_per_pass``.)"""
-    _, tiered, qs = _pair(BUDGETS["mid"], tmp_path)
-    stub = tiered._tiered_for(tuple(tiered._segments))["plane"]
-    with pytest.raises(ValueError, match="item 6"):
-        planner.search_stacked(stub, torch.from_numpy(qs), nprobe=4,
-                               pool=16, topk=5, tenant_live=torch.ones(1))
+    """Tenancy on the paged plane: the fused dispatch with a per-query
+    tenant bitmap (three tenants, every query's row reaching the last
+    one too) pages through the tiered plane and returns the all-warm
+    plane's ids and dists (``torch.equal``), static and adaptive, Mode A
+    and B, with a filter, under budgets 0 and mid.  (The cascade's
+    budgets are ported on the paged store too:
+    ``test_paged_cascade_budgets_act_per_pass``.)"""
+    r = np.random.default_rng(8)
+    for budget in (BUDGETS["zero"], BUDGETS["mid"]):
+        oracle, tiered, qs = _pair(budget, tmp_path)
+        man = oracle.snapshot()
+        shape = oracle._stacked_for(man.segments)["ids_host"].shape
+        tman = tiered.snapshot()
+        assert tiered._tiered_for(tman.segments)["ids_host"].shape == shape
+        tl = r.random((3, *shape)) < 0.5
+        ti = np.array([0, 1, 2, 2, 1, 0], np.int32)
+        for mode in ("A", "B"):
+            for kw in ({}, {"tag_mask": 1}, {"adaptive": True,
+                                             "probe_margin": 0.3}):
+                args = {**dict(topk=5, mode=mode, tag_mask=None,
+                               ts_range=None, scan_impl=None, budgets=None,
+                               nprobe=None, pool=None, route_mode="global",
+                               now=0.0, tenant_live=tl, tenant_ix=ti), **kw}
+                want = oracle._search_segments_fused(
+                    torch.from_numpy(qs), man, **args)
+                got = tiered._search_segments_fused(
+                    torch.from_numpy(qs), tman, **args)
+                assert torch.equal(want[0], got[0]), (budget, mode, kw)
+                assert torch.equal(want[1], got[1]), (budget, mode, kw)
+        assert tiered.residency_stats()["searches"] == 6
 
 
 @pytest.mark.parametrize("mode", ["A", "B"])

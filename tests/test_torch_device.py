@@ -673,3 +673,87 @@ def test_paged_adaptive_search_equals_all_warm_on_card(cuda_device, mode,
             assert torch.equal(got.dists, want.dists)
             assert st.probe_stats() == stats
         st.update_residency()
+
+
+def _tenant_window(dev, cold_dir, n=64):
+    """A registry over ``_cold_store`` with four tenants (each a private
+    segment, memtable rows, private deletes and a shared-gid delete) and
+    a window of ``n`` requests over them, Mode A and B."""
+    from repro_torch.serve import RetrievalRequest, TenantRegistry
+
+    st, x, q = _cold_store(dev, cold_dir)
+    reg = TenantRegistry(st, memtable_budget=256, max_live=3)
+    rng = np.random.default_rng(6)
+    for t in range(4):
+        ten = reg.get(f"t{t}")
+        ids = ten.add((x[t * 300:(t + 1) * 300] + 0.05 * rng.standard_normal(
+            (300, x.shape[1]))).astype(np.float32))
+        ten.delete(np.r_[ids[:5], [1 + t]])
+
+    def window(mode):
+        return [RetrievalRequest(rid=i, tenant=f"t{i % 4}", q=q[i], topk=10,
+                                 mode=mode) for i in range(n)]
+    return reg, window
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_coalesced_fused_equals_fused_ref_on_card(cuda_device, mode,
+                                                  tmp_path):
+    """A coalesced window on the card: the select kernel with its tenant
+    stream (one launch per group), ids and dists equal to the same
+    window through the plain version (``torch.equal``)."""
+    from repro_torch.serve import coalesced_retrieve
+
+    reg, window = _tenant_window(cuda_device, tmp_path)
+    before = port_fused.fused_scan_select.launches
+    got = coalesced_retrieve(reg, window(mode), scan_impl="fused")
+    torch.cuda.synchronize()
+    assert port_fused.fused_scan_select.launches - before == 1
+    want = coalesced_retrieve(reg, window(mode), scan_impl="fused_ref")
+    for a, b in zip(got, want):
+        assert a.result.ids.device.type == "cuda"
+        assert torch.equal(a.result.ids, b.result.ids)
+        assert torch.equal(a.result.dists, b.result.dists)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_paged_tenant_window_equals_all_warm_on_card(cuda_device, mode,
+                                                     tmp_path):
+    """The same coalesced window on the all-warm plane and paged under
+    budgets 0 and a few grains: ids and dists ``torch.equal``, through
+    the select kernel on every pass."""
+    from repro_torch.serve import coalesced_retrieve
+
+    reg, window = _tenant_window(cuda_device, tmp_path)
+    warm = coalesced_retrieve(reg, window(mode))
+    for budget in (0, 40_000):
+        reg.base.device_budget = budget
+        before = port_fused.fused_scan_select.launches
+        got = coalesced_retrieve(reg, window(mode))
+        torch.cuda.synchronize()
+        assert port_fused.fused_scan_select.launches > before
+        for a, b in zip(got, warm):
+            assert torch.equal(a.result.ids, b.result.ids), budget
+            assert torch.equal(a.result.dists, b.result.dists), budget
+    assert reg.base.residency_stats()["chunk_dispatches"] > 0
+
+
+@pytest.mark.gpu
+def test_select_reads_the_last_tenant_row_on_card(cuda_device):
+    """Every query on the last row of a tenant mask of more than 2^31
+    bytes: the kernel's row offset is 64-bit, and its result equals the
+    plain version's."""
+    args, a = _select_inputs(21, cuda_device, q=16, p=4, g=4, k=8, cap=256,
+                             s=4)
+    t_n = (1 << 31) // (4 * 256) + 1
+    tm = torch.zeros((t_n, 4, 256), dtype=torch.bool, device=cuda_device)
+    tm[-1] = torch.rand((4, 256), device=cuda_device) < 0.5
+    a.update(tenant_mask=tm, tenant_ix=torch.full(
+        (16,), t_n - 1, dtype=torch.int32, device=cuda_device))
+    d, r = port_fused.fused_scan_select(*args, width=64, **a)
+    rd, rr = port_fused.fused_scan_select_ref(*args, width=64, **a)
+    torch.cuda.synchronize()
+    assert torch.equal(d, rd) and torch.equal(r, rr)
+    assert bool((r >= 0).any())

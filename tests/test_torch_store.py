@@ -574,18 +574,53 @@ def test_unported_arguments_are_refused(call, match):
 @pytest.mark.parametrize("name, item", [
     ("tenant_live", 6), ("tenant_ix", 6), ("probe_margin", 5),
     ("hub_mask", 5)])
-def test_search_stacked_refuses_unported_arguments(name, item):
-    """Tenancy (item 6) is refused.  Adaptive routing (item 5) is
-    ported: ``probe_margin=`` is refused only with per-segment routing, as
-    the JAX package refuses it, and an all-hub ``hub_mask=`` keeps every
-    probe active even at margin 0, so the search is the static one."""
+def test_search_stacked_refuses_unported_arguments(carried, name, item):
+    """Tenancy (item 6) and adaptive routing (item 5) are ported.  The
+    tenant pair is held to the JAX planner on the same stacked plane
+    ("tenant_live": a random bitmap over three tenants, Mode A;
+    "tenant_ix": every query on the last tenant row, Mode B), and is
+    refused only half given or with per-segment routing, as the JAX
+    package refuses it.  ``probe_margin=`` is refused only with
+    per-segment routing, and an all-hub ``hub_mask=`` keeps every probe
+    active even at margin 0, so the search is the static one."""
     st, _, _, q, _ = _port_store(tail=0)
     stacked = stack_segments(st._segments)
     qt = torch.from_numpy(q)
     kw = dict(nprobe=4, pool=16, topk=5)
     if item == 6:
-        with pytest.raises(ValueError, match=f"item {item}"):
-            planner.search_stacked(stacked, qt, **kw, **{name: 1.0})
+        import jax.numpy as jnp
+        from repro.core import planner as jax_planner
+
+        _, man, _, pman, q = carried          # both packages' segments
+        stacked = stack_segments(pman.segments)
+        qt = torch.from_numpy(q)
+        shape = tuple(stacked.index.grains.ids.shape)
+        tl = np.random.default_rng(2).random((3, *shape)) < 0.5
+        ti = np.random.default_rng(3).integers(0, 3, q.shape[0])
+        mode = "A"
+        if name == "tenant_ix":
+            ti, mode = np.full(q.shape[0], 2), "B"
+        ti = ti.astype(np.int32)
+        jst = jax_stack_segments(man.segments)
+        ref = jax_planner.search_stacked(
+            jst, jnp.asarray(q), tenant_live=jnp.asarray(tl),
+            tenant_ix=jnp.asarray(ti), mode=mode, **kw)
+        got = planner.search_stacked(
+            stacked, qt, tenant_live=torch.from_numpy(tl),
+            tenant_ix=torch.from_numpy(ti), mode=mode, **kw)
+        _assert_same(got, ref)
+        with pytest.raises(ValueError, match="come together"):
+            planner.search_stacked(stacked, qt,
+                                   **{name: torch.from_numpy(
+                                       tl if name == "tenant_live" else ti)},
+                                   **kw)
+        with pytest.raises(ValueError, match="global routing"):
+            planner.search_stacked(
+                stacked, qt, route_mode="per_segment",
+                seg_shape=(len(pman.segments), stacked.index.grains.n_grains
+                           // len(pman.segments)),
+                tenant_live=torch.from_numpy(tl),
+                tenant_ix=torch.from_numpy(ti), **kw)
     elif name == "probe_margin":
         with pytest.raises(ValueError, match="global routing"):
             planner.search_stacked(

@@ -25,6 +25,16 @@ exhaustive nprobe keeps every valid grain active but still kills the
 invalid (BIG-distance) probes, so the stable partition and the bucketed
 dispatch run, and the result must still be the brute-force top-k
 (``cold_tier=True`` for a store whose raw rows live in cold files).
+
+The tenancy twin (``tenant_interleaving_check``): tenants of a
+``serve.tenancy.TenantRegistry`` run per-tenant add/delete/upsert/seal
+and registry evictions (freeze and thaw through an LRU of 2), deletes and
+upserts hitting shared base gids too; every coalesced window must return
+each tenant's own brute-force top-k.  Its knobs stay exhaustive after
+the window's own evictions: ``nprobe`` and ``pool`` exceed anything a
+plane holds (the store clamps them), since hydrating one tenant of the
+window can freeze another and seal its memtable into a new segment after
+any count of grains was taken.
 """
 import numpy as np
 
@@ -33,6 +43,15 @@ from repro_torch.core import HNTLConfig, VectorStore
 D = 16
 NOW = 500.0                       # query-time clock (store clock pinned at 0)
 OPS = ("add", "delete", "upsert", "seal", "compact", "maintain")
+TENANT_OPS = ("add", "delete", "upsert", "seal", "evict", "retrieve")
+
+#: The JAX package's tenant property fails on this interleaving (seed 0,
+#: warm): its window counts the union's grains before the window freezes
+#: t1, whose memtable then seals into a segment its nprobe never reaches.
+STALE_KNOBS_EXAMPLE = (("add", 1), ("add", 1), ("upsert", 1))
+
+#: Knobs above any plane's grains and slots: exhaustive after any seal.
+EXHAUSTIVE = 1 << 20
 
 
 def _cfg(bit_alloc: str = "fixed"):
@@ -140,3 +159,118 @@ def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed",
                                        np.sort(d_all[qi][order]),
                                        rtol=1e-4, atol=1e-4)
             assert (ids[qi, k_eff:] == -1).all(), (filt, qi, ids[qi])
+
+
+# ---------------------------------------------------------------- tenancy
+def tenant_interleaving(seed: int, n_ops: int = 10) -> tuple:
+    """A seeded interleaving of (op, tenant) pairs over ``TENANT_OPS``."""
+    rng = np.random.default_rng(seed)
+    return tuple((str(rng.choice(TENANT_OPS)), int(rng.integers(4)))
+                 for _ in range(n_ops))
+
+
+def _assert_matches_oracle(req, model, seed, ops):
+    """One coalesced result == brute-force L2 over the tenant's live set
+    (the id set, and the dists to 1e-4)."""
+    live = [(g, v) for g, (v, tag, ts, exp) in sorted(model.items())
+            if exp > NOW]
+    ids = req.result.ids.numpy()
+    dists = req.result.dists.numpy()
+    if not live:
+        assert (ids == -1).all(), (req.tenant, ids, seed, ops)
+        return
+    gs = np.fromiter((g for g, _ in live), np.int64, len(live))
+    vs = np.stack([v for _, v in live])
+    d_all = np.sum((vs - req.q[None, :]) ** 2, axis=-1)
+    k_eff = min(req.topk, len(live))
+    order = np.argsort(d_all)[:k_eff]
+    assert set(ids[:k_eff].tolist()) == set(gs[order].tolist()), \
+        (req.tenant, ids, gs[order], seed, ops)
+    np.testing.assert_allclose(np.sort(dists[:k_eff]), np.sort(d_all[order]),
+                               rtol=1e-4, atol=1e-4)
+    assert (ids[k_eff:] == -1).all(), (req.tenant, ids, seed, ops)
+
+
+def tenant_interleaving_check(ops, seed: int, cold: bool = False,
+                              cold_dir=None, n_tenants: int = 3,
+                              scan_impl=None):
+    """Coalesced multi-tenant retrieval against per-tenant brute force.
+
+    ``n_tenants`` branches of one base run ``ops`` ((op, tenant) pairs of
+    ``TENANT_OPS``) with max_live=2, so freeze and thaw always run;
+    deletes and upserts also hit shared base gids (the tenant stops
+    seeing the shared row, or sees only its own new version, while the
+    others keep the original).  After every "retrieve" op and at the end,
+    one coalesced window over all tenants at ``EXHAUSTIVE`` knobs must
+    return each tenant's own brute-force top-k.
+    """
+    from repro_torch.serve.tenancy import (RetrievalRequest, TenantRegistry,
+                                           coalesced_retrieve)
+    rng = np.random.default_rng(seed)
+    base = VectorStore(_cfg(), seal_threshold=64, cold_tier=cold,
+                       cold_dir=cold_dir, clock=lambda: 0.0, device="cpu")
+    vecs = rng.standard_normal((32, D)).astype(np.float32)
+    tags = rng.integers(1, 4, size=32)
+    ts = rng.uniform(0.0, 10.0, size=32)
+    gids = base.add(vecs, tags=tags.tolist(), ts=ts.tolist())
+    shared = {g: (vecs[i], int(tags[i]), float(ts[i]), np.inf)
+              for i, g in enumerate(np.asarray(gids, np.int64).tolist())}
+    reg = TenantRegistry(base, memtable_budget=16, max_live=2)
+    names = [f"t{i}" for i in range(n_tenants)]
+    models = {n: dict(shared) for n in names}
+
+    def write(name, gids=None):
+        st = reg.get(name)
+        n = 8 if gids is None else len(gids)
+        v = rng.standard_normal((n, D)).astype(np.float32)
+        tg = rng.integers(1, 4, size=n)
+        tv = rng.uniform(0.0, 10.0, size=n)
+        ttl = rng.uniform(100.0, 2000.0, size=n) \
+            if rng.random() < 0.4 else None
+        if gids is None:
+            ids = st.add(v, tags=tg.tolist(), ts=tv.tolist(), ttl=ttl)
+        else:
+            ids = st.upsert(gids, v, tags=tg.tolist(), ts=tv.tolist(),
+                            ttl=ttl)
+        exp = ttl if ttl is not None else np.full(n, np.inf)
+        for i, g in enumerate(np.asarray(ids, np.int64).tolist()):
+            models[name][g] = (v[i], int(tg[i]), float(tv[i]), float(exp[i]))
+
+    def window():
+        reqs = []
+        for rid, name in enumerate(names):
+            live = [v for v, _, _, e in models[name].values() if e > NOW]
+            near = (live[int(rng.integers(len(live)))] if live
+                    else np.zeros(D, np.float32))
+            q = (near + 0.05 * rng.standard_normal(D)).astype(np.float32)
+            reqs.append(RetrievalRequest(rid=rid, tenant=name, q=q,
+                                         topk=5, mode="B"))
+        coalesced_retrieve(reg, reqs, scan_impl=scan_impl,
+                           nprobe=EXHAUSTIVE, pool=EXHAUSTIVE, now=NOW)
+        for r in reqs:
+            _assert_matches_oracle(r, models[r.tenant], seed, ops)
+
+    for op, who in ops:
+        name = names[who % n_tenants]
+        if op == "add":
+            write(name)
+        elif op == "seal":
+            reg.get(name).seal()
+        elif op == "evict":
+            reg.evict(name)
+        elif op == "retrieve":
+            window()
+        else:
+            known = np.fromiter(sorted(models[name]), np.int64,
+                                len(models[name]))
+            if not len(known):
+                continue
+            k = min(len(known), 8 if op == "delete" else 4)
+            sel = rng.choice(known, size=k, replace=False)
+            if op == "delete":
+                reg.get(name).delete(sel)
+                for g in sel.tolist():
+                    models[name].pop(g, None)
+            else:
+                write(name, gids=sel)
+    window()
