@@ -102,6 +102,22 @@ What it does, in order (any failure exits non-zero before the last line):
    routing (== "fused_ref"); window times and QPS, the host's share by
    part, a profile, and the select with its tenant stream held to its
    plain version and timed beside its bound;
+10c. the grain-sharded search plane (``sharded_phase``, before 10b, on a
+   branch of that store with its 5,120-row memtable): meshes of 1, 2, 4
+   and 8 grain shards and (2 data x 4 model) with ``shard_queries``,
+   slots round-robin over the cards (all ``cuda:0`` on one card); per
+   mesh the store phase's four searches through
+   ``VectorStore.search(mesh=)`` (counter zeroed just before each, read
+   just after: shards x query rows x 256-query batches), each
+   ``torch.equal`` to the mesh's "fused_ref", held to the live vectors,
+   1 shard against the single-device search (ids, ties counted),
+   recall@10, times, the placed plane's bytes; the exhaustive cut (4 x
+   4,096 rows at d=768, every grain probed, ids equal at 1-8 shards);
+   on 4 shards the "kernel" plane, the cascade at (4096, 64) and
+   adaptive routing at 0.35 against their plain planes, a profile and
+   the per-shard select against its plain version and bound; 10b's
+   default window again over 4 shards, and 12's cold store on 4 shards
+   (the host re-rank of every shard's pool);
 9c. the select past its 8,192-key per-probe list in a search
    (``long_list_phase``): a density index over the first 262,144 rows in
    16 grains (cap above 8,192), 256 queries through "cascade" at
@@ -697,16 +713,26 @@ def device_ms(torch, fn, kernels, reps=20):
     A trace that holds fewer than ``reps`` launches of a named kernel is
     incomplete (the profiler has dropped a record now and then): it is
     taken again, the run fails after three such traces, and ``traces``
-    says how many were taken."""
+    says how many were taken.  Each trace records a warm-up step of
+    ``reps`` calls first and keeps only the second step (the profiler's
+    schedule): the first records of a fresh profiler trace can be
+    lost."""
     from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
 
     attempts = 3
     for attempt in range(1, attempts + 1):
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
+        trace = {}
+        with tprofile(activities=[ProfilerActivity.CUDA],
+                      schedule=schedule(wait=0, warmup=1, active=1),
+                      on_trace_ready=lambda p: trace.setdefault(
+                          "evs", p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [e for e in trace.get("evs", [])
                if e.device_type == torch.autograd.DeviceType.CUDA]
         seen = {name: sum(e.count for e in evs if name in e.key)
                 for name in kernels}
@@ -1609,6 +1635,31 @@ def long_list_phase(torch, np, mp, dev):
 # 10: the vector store (VectorStore add/seal/delete/upsert/search)
 # ---------------------------------------------------------------------------
 
+def hold_store_result(torch, res, kw, label, *, xl, dead_t, tg, tsv, qt):
+    """A store search's result: shape, finite, no deleted gid, Mode B
+    dists the live vectors' exact distances (rtol 1e-5: a superseded
+    version fails it), the filters obeyed."""
+    ids, d = res.ids, res.dists
+    check(ids.shape == (qt.shape[0], 10) and bool(torch.isfinite(d).all()),
+          f"{label}: bad result shape or non-finite dists")
+    check(not bool(torch.isin(ids.long(), dead_t).any()),
+          f"{label}: a deleted gid was returned")
+    ok = ids >= 0
+    check(bool(ok[:, 0].all()), f"{label}: a query found nothing")
+    at = torch.clamp(ids, min=0).long()
+    if kw["mode"] == "B":
+        exact = (xl[at] - qt[:, None, :]).square_().sum(-1)
+        check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
+              f"{label}: dists are not the live vectors' exact distances")
+    if "tag_mask" in kw:
+        check(bool((tg[at] & kw["tag_mask"])[ok].all()),
+              f"{label}: a row outside tag_mask")
+    if "ts_range" in kw:
+        lo, hi = kw["ts_range"]
+        check(bool(((tsv[at] >= lo) & (tsv[at] < hi))[ok].all()),
+              f"{label}: a row outside ts_range")
+
+
 #: The store phase's searches: the unfiltered modes, then Mode B under a
 #: tag filter and a timestamp filter.
 STORE_SEARCHES = {"A": dict(mode="A"), "B": dict(mode="B"),
@@ -1720,31 +1771,15 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
     xl = torch.from_numpy(x).to(dev)
     xl[torch.from_numpy(up).to(dev)] = torch.from_numpy(x_up).to(dev)
     dead_t = torch.from_numpy(dead).to(dev)
+    tg = torch.from_numpy(tags.astype(np.int64)).to(dev)
+    tsv = torch.from_numpy(ts).to(dev)
     for label, kw in STORE_SEARCHES.items():
         ref = st.search(qt, topk=10, scan_impl="fused_ref", **kw)
-        ids, d = res[label].ids, res[label].dists
+        ids = res[label].ids
         check(torch.equal(ids, ref.ids), f"store {label}: ids differ from "
               f"the fused_ref plane ({int((ids != ref.ids).sum())} entries)")
-        check(ids.shape == (nq, 10) and bool(torch.isfinite(d).all()),
-              f"store {label}: bad result shape or non-finite dists")
-        check(not bool(torch.isin(ids.long(), dead_t).any()),
-              f"store {label}: a deleted gid was returned")
-        ok = ids >= 0
-        check(bool(ok[:, 0].all()), f"store {label}: a query found nothing")
-        if kw["mode"] == "B":
-            live_vec = xl[torch.clamp(ids, min=0).long()]
-            exact = (live_vec - qt[:, None, :]).square_().sum(-1)
-            check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
-                  f"store {label}: dists are not the live vectors' exact "
-                  "distances")
-        sel = torch.from_numpy(ts).to(dev)[torch.clamp(ids, min=0).long()]
-        if "ts_range" in kw:
-            check(bool(((sel >= 0.25) & (sel < 0.75))[ok].all()),
-                  f"store {label}: a row outside ts_range")
-        if "tag_mask" in kw:
-            tg = torch.from_numpy(tags.astype(np.int64)).to(dev)
-            check(bool((tg[torch.clamp(ids, min=0).long()] & 0b0101)
-                       [ok].all()), f"store {label}: a row outside tag_mask")
+        hold_store_result(torch, res[label], kw, f"store {label}", xl=xl,
+                          dead_t=dead_t, tg=tg, tsv=tsv, qt=qt)
     alive = np.ones(n, bool)
     alive[dead] = False
     alive_t = torch.from_numpy(np.nonzero(alive)[0]).to(dev)
@@ -1755,9 +1790,8 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
         f"dists == the live vectors' exact distances (rtol 1e-5); recall@10 "
         f"vs flat_search over the {n_live} live rows: Mode A "
         f"{recall['A']:.4f}, Mode B {recall['B']:.4f}")
-    cascade = store_cascade(
-        torch, st, qt, xl, dead_t, torch.from_numpy(tags.astype(np.int64))
-        .to(dev), torch.from_numpy(ts).to(dev), truth, "store cascade")
+    cascade = store_cascade(torch, st, qt, xl, dead_t, tg, tsv, truth,
+                            "store cascade")
     del xl
 
     timing = {}
@@ -1837,8 +1871,9 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
     out["half"] = half_memtable(torch, np, st, qt, x, tags, ts, dead_t,
                                 per_seg, rng)
     # what the lifecycle phase goes on with: the store and the live vectors
-    out["state"] = dict(st=st, qt=qt, x=x, tags=tags, up=up, x_up=x_up,
-                        dead=dead, cfg=cfg, recall=recall)
+    out["state"] = dict(st=st, qt=qt, x=x, tags=tags, ts=ts, up=up,
+                        x_up=x_up, dead=dead, cfg=cfg, recall=recall,
+                        truth=truth)
     return out
 
 
@@ -2440,6 +2475,11 @@ def tenancy_phase(torch, np, dev, branch, *, xb, base_dead, corpus_q, cfg,
         log(f"tenancy {name} window ({kw}): {c}; == {plain['scan_impl']} "
             f"(torch.equal); fused_scan_select launches {n_l}")
 
+    # ---- the default window over the 4-shard mesh ------------------------
+    out["sharded"] = sharded_window(torch, np, dev, reg, tv, reqs, facts,
+                                    want, now)
+    drop_sharded(branch)
+
     # ---- times: uninstrumented windows, then the host's share ------------
     ms = []
     for _ in range(3):
@@ -2500,6 +2540,57 @@ def tenancy_phase(torch, np, dev, branch, *, xb, base_dead, corpus_q, cfg,
             f"{held} held when the phase began (max_memory_allocated)")
     log(f"tenancy phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def sharded_window(torch, np, dev, reg, tv, reqs, facts, want, now):
+    """The tenancy phase's default window again over a 4-shard mesh (the
+    union plane sharded, every tenant bitmap placed along the grain
+    axis): select launches 4 x the single plane's per group (counter
+    zeroed just before, read just after), ``torch.equal`` to the same
+    mesh's "fused_ref", the isolation checks; against the single-device
+    window the requests whose ids agree are counted, and the Mode B ones
+    whose sharded distances are no farther at any rank (per-shard knobs
+    probe more grains in all, so ids need not agree); the window's time.
+    """
+    from repro_torch.kernels import fused_select as fsel
+
+    mesh = sharded_mesh(torch, 4)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    replay_window(reg, reqs, now, mesh=mesh)    # sharded union + bitmaps
+    sync(torch, dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    fsel.fused_scan_select.launches = 0
+    got = replay_window(reg, reqs, now, mesh=mesh)
+    sync(torch, dev)
+    launches = fsel.fused_scan_select.launches
+    if dev.type == "cuda":
+        check(launches == 4 * sum(want.values()), f"tenancy sharded: "
+              f"{launches} select launches, expected 4 x {want}")
+    same_results(torch, got, replay_window(reg, reqs, now, mesh=mesh,
+                                           scan_impl="fused_ref"),
+                 "tenancy sharded: coalesced fused vs fused_ref")
+    counts = check_tenant_window(torch, np, tv, got, facts,
+                                 "tenancy sharded")
+    equal = sum(bool(torch.equal(a.result.ids, b.result.ids))
+                for a, b in zip(got, reqs))
+    mode_b = [(a, b) for a, b in zip(got, reqs) if b.mode == "B"]
+    no_farther = sum(bool((a.result.dists <= b.result.dists * (1 + 1e-5)
+                           + 1e-5).all()) for a, b in mode_b)
+    t0 = time.perf_counter()
+    replay_window(reg, reqs, now, mesh=mesh)
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"tenancy window over 4 shards ({len(reqs)} requests): {counts}; "
+        f"== fused_ref on the mesh (torch.equal); select launches "
+        f"{launches}; ids equal to the single-device window's in {equal} "
+        f"of {len(reqs)} requests, Mode B no farther at any rank in "
+        f"{no_farther} of {len(mode_b)}; {ms:.3f} ms per window (the first,"
+        f" which shards the union and builds the bitmaps, {first_ms:.3f} "
+        "ms)")
+    return dict(launches=launches, counts=counts, equal=equal,
+                no_farther=no_farther, mode_b=len(mode_b), ms=ms,
+                first_ms=first_ms)
 
 
 def paged_tenancy(torch, np, st, xb, qt, budget, dead, label, *, tenants=8,
@@ -3016,28 +3107,11 @@ def cold_searches(torch, np, st, qt, xl, alive, tg, tsv, label):
     dead = torch.nonzero(~alive).flatten()
     for name, kw in TIERED_SEARCHES.items():
         ref = st.search(qt, topk=10, scan_impl="fused_ref", **kw)
-        ids, d = res[name].ids, res[name].dists
+        ids = res[name].ids
         check(torch.equal(ids, ref.ids), f"{label} {name}: ids differ from "
               f"the fused_ref plane ({int((ids != ref.ids).sum())} entries)")
-        check(ids.shape == (nq, 10) and bool(torch.isfinite(d).all())
-              and bool((ids[:, 0] >= 0).all()), f"{label} {name}: bad "
-              "result")
-        check(not bool(torch.isin(ids.long(), dead).any()),
-              f"{label} {name}: a deleted gid was returned")
-        ok = ids >= 0
-        at = torch.clamp(ids, min=0).long()
-        if kw["mode"] == "B":
-            exact = (xl[at] - qt[:, None, :]).square_().sum(-1)
-            check(torch.allclose(d[ok], exact[ok], rtol=1e-5, atol=0.0),
-                  f"{label} {name}: dists are not the live vectors' exact "
-                  "distances")
-        if "tag_mask" in kw:
-            check(bool((tg[at] & kw["tag_mask"])[ok].all()),
-                  f"{label} {name}: a row outside tag_mask")
-        if "ts_range" in kw:
-            lo, hi = kw["ts_range"]
-            check(bool(((tsv[at] >= lo) & (tsv[at] < hi))[ok].all()),
-                  f"{label} {name}: a row outside ts_range")
+        hold_store_result(torch, res[name], kw, f"{label} {name}", xl=xl,
+                          dead_t=dead, tg=tg, tsv=tsv, qt=qt)
     live = torch.nonzero(alive).flatten()
     truth = live[flat_search(xl[live], qt, topk=10).ids.long()]
     recall = {m: recall_at_k(res[m].ids, truth) for m in "AB"}
@@ -3637,6 +3711,8 @@ def _tiered_phase(torch, np, dev, cold_dir, *, n, nq, segments, grains,
     # ---- 1-2: the all-warm plane, then the budgets ------------------------
     warm = cold_searches(torch, np, st, qt, xl, alive, tg, tsv,
                          "tiered: cold store")
+    out["cold_sharded"] = cold_sharded(torch, np, st, qt, xl, alive,
+                                       "tiered: cold store, sharded")
     resident("+ the all-warm plane of the cold store (stacked panels, "
              "frames, liveness)")
     st._rerank_stats.update(store_mod._new_rerank_stats())
@@ -3810,6 +3886,368 @@ def _tiered_phase(torch, np, dev, cold_dir, *, n, nq, segments, grains,
 
 
 # ---------------------------------------------------------------------------
+# 10c: the grain-sharded search plane
+# ---------------------------------------------------------------------------
+
+#: Mode B recall@10 may fall this far below the 1-shard plane's on a
+#: mesh: each shard's probes hold the single plane's probes in its slice,
+#: but a shard's pool of ``pool`` may drop a candidate the single pool
+#: kept when its extra grains bring closer approximate distances.
+SHARD_RECALL_SLACK = 0.002
+#: The sharded phase's meshes: name -> (grain shards, query rows).
+SHARD_MESHES = {"1 shard": (1, 1), "2 shards": (2, 1), "4 shards": (4, 1),
+                "8 shards": (8, 1), "2 x 4, shard_queries": (4, 2)}
+
+
+def sharded_mesh(torch, shards, batch=1):
+    """A (batch, shards) search mesh whose slots go round-robin over the
+    cards: on one card every slot is ``cuda:0``."""
+    from repro_torch.launch.mesh import make_search_mesh
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    devs = ([f"cuda:{i % n}" for i in range(shards * batch)] if n
+            else ["cpu"] * (shards * batch))
+    return make_search_mesh(shards, batch=batch, devices=devs)
+
+
+def ids_agree(torch, got, want, label, *, limit=0.01):
+    """Two searches of the same queries whose float bits may differ (a
+    shard routes over its own grain count, the projection's GEMVs run at
+    another batch shape): the queries whose ids differ, and the largest
+    |dist diff| where the ids agree (delta).  A differing query must hold
+    the same distances within 2 delta + ``TIE_RTOL`` (a swap among
+    near-equal candidates); at most ``limit`` of the queries may differ.
+    Returns (queries differing, delta)."""
+    same = torch.all(got.ids == want.ids, dim=1)
+    delta = float((got.dists[same] - want.dists[same]).abs().max()) \
+        if bool(same.any()) else 0.0
+    bad = ~same
+    if bool(bad.any()):
+        gd, wd = got.dists[bad], want.dists[bad]
+        slack = 2 * delta + TIE_RTOL * wd.abs()
+        check(bool(((gd - wd).abs() <= slack).all()),
+              f"{label}: {int(bad.sum())} queries' ids differ without a tie "
+              f"(largest dist gap {float((gd - wd).abs().max())})")
+    n_bad = int(bad.sum())
+    check(n_bad <= limit * got.ids.shape[0], f"{label}: {n_bad} of "
+          f"{got.ids.shape[0]} queries differ ({limit:.0%} allowed)")
+    return n_bad, delta
+
+
+def sharded_phase(torch, np, dev, st, *, xb, dead, tags, ts, truth):
+    """The grain-sharded search plane on a branch of the store phase's
+    store (its 5,120-row memtable kept): for each mesh of
+    ``SHARD_MESHES`` (slots round-robin over the cards), 1024 queries in
+    Mode A, B, B with a tag and B with a ts filter through
+    ``VectorStore.search(mesh=)`` (the select's counter zeroed just before
+    each, read just after: n_shards x the 256-query batches per shard),
+    each ``torch.equal`` to the same mesh's "fused_ref" plane and held to
+    the live vectors; 1 shard against the single-device search (ids, ties
+    counted, the dist delta measured); recall@10 per shard count; times,
+    the plane's bytes; then the exhaustive cut
+    (``sharded_exhaustive``), and on the 4-shard mesh the cascade at
+    (4096, 64), adaptive routing at 0.35 and the "kernel" plane; a
+    profile and the per-shard select against its plain version and
+    bound.  ``xb``: the live vectors (upserts applied) on the device."""
+    from repro_torch.core.flat import recall_at_k
+    from repro_torch.core.types import tree_bytes
+    from repro_torch.kernels import fused_select as fsel
+    from repro_torch.kernels import hntl_scan as hs
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    if on_card:
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    qt = truth["q"]
+    nq = qt.shape[0]
+    dead_t = torch.from_numpy(dead).to(dev)
+    tg = torch.from_numpy(tags.astype(np.int64)).to(dev)
+    tsv = torch.from_numpy(ts).to(dev)
+    hold_kw = dict(xl=xb, dead_t=dead_t, tg=tg, tsv=tsv, qt=qt)
+    segs = tuple(st._segments)
+    single = {label: st.search(qt, topk=10, **kw)
+              for label, kw in STORE_SEARCHES.items()}
+    fused_bytes = tree_bytes(st._stacked_for(segs)["plane"])
+    st._stack_cache.clear()
+    log(f"sharded phase: {torch.cuda.device_count() if on_card else 0} "
+        f"card(s); the store's {len(segs)} segments, "
+        f"{sum(s.index.grains.n_grains for s in segs)} grains, "
+        f"{st.n_vectors} rows ({len(st.snapshot().mem)} in the memtable); "
+        f"the fused plane {fused_bytes} bytes")
+    out = {"meshes": {}, "launches": {}, "fused_bytes": fused_bytes}
+    recall_b = {}
+    for name, (shards, batch) in SHARD_MESHES.items():
+        mesh = sharded_mesh(torch, shards, batch)
+        sq = batch > 1
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        entry = st._sharded_for(segs, mesh, "model")
+        sync(torch, dev)
+        build_s = time.perf_counter() - t0
+        plane = entry["plane"]
+        res, per = {}, {}
+        fsel.fused_scan_select.launches = 0
+        for label, kw in STORE_SEARCHES.items():
+            before = fsel.fused_scan_select.launches
+            res[label] = st.search(qt, topk=10, mesh=mesh, shard_queries=sq,
+                                   **kw)
+            sync(torch, dev)
+            per[label] = fsel.fused_scan_select.launches - before
+        launches = fsel.fused_scan_select.launches
+        want = batch * shards * -(-(nq // batch) // 256)
+        if on_card:
+            check(all(v == want for v in per.values()),
+                  f"sharded {name}: select launches per search {per}, "
+                  f"expected {want} (shards x query rows x 256-query "
+                  "batches)")
+        for label, kw in STORE_SEARCHES.items():
+            ref = st.search(qt, topk=10, mesh=mesh, shard_queries=sq,
+                            scan_impl="fused_ref", **kw)
+            got = res[label]
+            check(torch.equal(got.ids, ref.ids) and torch.equal(
+                got.dists, ref.dists), f"sharded {name} {label}: differs "
+                f"from the fused_ref plane on the same mesh "
+                f"({int((got.ids != ref.ids).sum())} ids)")
+            hold_store_result(torch, got, kw, f"sharded {name} {label}",
+                              **hold_kw)
+        vs_single = None
+        if shards == 1 and batch == 1:
+            vs_single = {label: ids_agree(torch, res[label], single[label],
+                                          f"sharded 1 shard vs single "
+                                          f"device, {label}")
+                         for label in STORE_SEARCHES}
+        recall = {m: recall_at_k(res[m].ids, truth["ids"]) for m in "AB"}
+        recall_b[name] = recall["B"]
+        ms = {}
+        for label, kw in STORE_SEARCHES.items():
+            st.search(qt, topk=10, mesh=mesh, shard_queries=sq, **kw)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            for _ in range(2):
+                st.search(qt, topk=10, mesh=mesh, shard_queries=sq, **kw)
+            sync(torch, dev)
+            ms[label] = (time.perf_counter() - t0) / 2 * 1e3
+        nbytes = plane.nbytes()
+        layout = " ".join(f"[{','.join(str(d) for d in row)}]"
+                          for row in mesh.devices)
+        log(f"sharded {name}: slots {layout}; G_l={plane.g_local} grains "
+            f"and {plane.rows_local} rows per shard; plane built and placed "
+            f"in {build_s:.3f} s, {nbytes} bytes on the device(s) "
+            f"({nbytes / fused_bytes:.3f} of the fused plane's); == "
+            f"fused_ref ({len(res)} searches, ids and dists torch.equal); "
+            f"no deleted gid, Mode B dists exact; select launches {per}; "
+            f"recall@10 A {recall['A']:.4f} B {recall['B']:.4f}"
+            + (f"; vs the single-device search (queries differing, max "
+               f"|dist diff|): {vs_single}" if vs_single else "")
+            + "; ms per " + f"{nq} queries: " + ", ".join(
+                f"{k} {v:.3f} (QPS {nq / v * 1e3:.1f})"
+                for k, v in ms.items()))
+        out["meshes"][name] = dict(
+            shards=shards, batch=batch, launches=launches, per_search=per,
+            recall=recall, ms=ms, bytes=nbytes, build_s=build_s,
+            vs_single=vs_single)
+        out["launches"][f"sharded store search, {name}"] = launches
+        del entry, plane, res
+        st._stack_cache.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+    base_b = recall_b["1 shard"]
+    check(all(v >= base_b - SHARD_RECALL_SLACK for v in recall_b.values()),
+          f"sharded: Mode B recall@10 fell with the shard count {recall_b}"
+          " (each shard probes its own top nprobe grains: a superset of "
+          "the single plane's probes)")
+
+    # ---- the 4-shard mesh: the kernel plane, cascade, adaptive ------------
+    mesh4 = sharded_mesh(torch, 4)
+    q256 = qt[:256]
+    hs.hntl_scan_single.launches = 0
+    got = st.search(q256, topk=10, mode="B", mesh=mesh4, scan_impl="kernel")
+    sync(torch, dev)
+    out["kernel_launches"] = hs.hntl_scan_single.launches
+    want_k = st.search(q256, topk=10, mode="B", mesh=mesh4, scan_impl="ref")
+    check(torch.equal(got.ids, want_k.ids), "sharded kernel plane: ids "
+          "differ from the ref plane on the same mesh")
+    if on_card:
+        check(out["kernel_launches"] > 0, "sharded kernel plane: "
+              "hntl_scan_single never launched")
+    log(f"sharded 4 shards, \"kernel\" plane (256 queries, Mode B) == "
+        f"\"ref\" plane (ids); hntl_scan_single launches "
+        f"{out['kernel_launches']}")
+    b = STORE_CASCADE_BUDGETS
+    fsel.fused_scan_select.launches = 0
+    casc = {m: st.search(qt, topk=10, mode=m, mesh=mesh4, scan_impl="cascade",
+                         budgets=b) for m in "AB"}
+    sync(torch, dev)
+    out["launches"]["sharded cascade search (4 shards)"] = \
+        fsel.fused_scan_select.launches
+    for m in "AB":
+        ref = st.search(qt, topk=10, mode=m, mesh=mesh4,
+                        scan_impl="cascade_ref", budgets=b)
+        check(torch.equal(casc[m].ids, ref.ids) and torch.equal(
+            casc[m].dists, ref.dists), f"sharded cascade {m}: differs from "
+            "cascade_ref")
+        hold_store_result(torch, casc[m], {"mode": m},
+                          f"sharded cascade {m}", **hold_kw)
+    casc_recall = {m: recall_at_k(casc[m].ids, truth["ids"]) for m in "AB"}
+    fsel.fused_scan_select.launches = 0
+    adap = {m: st.search(qt, topk=10, mode=m, mesh=mesh4, adaptive=True,
+                         probe_margin=0.35) for m in "AB"}
+    sync(torch, dev)
+    out["launches"]["sharded adaptive search (4 shards)"] = \
+        fsel.fused_scan_select.launches
+    for m in "AB":
+        ref = st.search(qt, topk=10, mode=m, mesh=mesh4, adaptive=True,
+                        probe_margin=0.35, scan_impl="fused_ref")
+        check(torch.equal(adap[m].ids, ref.ids) and torch.equal(
+            adap[m].dists, ref.dists), f"sharded adaptive {m}: differs "
+            "from fused_ref")
+        hold_store_result(torch, adap[m], {"mode": m},
+                          f"sharded adaptive {m}", **hold_kw)
+    adap_recall = {m: recall_at_k(adap[m].ids, truth["ids"]) for m in "AB"}
+    log(f"sharded 4 shards: cascade {b} == cascade_ref (A, B; torch.equal),"
+        f" recall@10 {casc_recall}, select launches "
+        f"{out['launches']['sharded cascade search (4 shards)']}; adaptive "
+        f"(margin 0.35, no hub mask) == fused_ref, recall@10 "
+        f"{adap_recall}, select launches "
+        f"{out['launches']['sharded adaptive search (4 shards)']}")
+    out["cascade_recall"], out["adaptive_recall"] = casc_recall, adap_recall
+
+    if on_card:
+        wall = out["meshes"]["4 shards"]["ms"]["B"] / 1e3
+        out["profile"] = profile(
+            torch, f"sharded store search, 4 shards, Mode B, {nq} queries",
+            lambda: st.search(qt, topk=10, mode="B", mesh=mesh4), wall)
+        with _CaptureSelect(torch) as cap_sel:
+            st.search(qt[:256], topk=10, mode="B", mesh=mesh4)
+            sync(torch, dev)
+        args, kw = cap_sel.calls[0]
+        kw = dict(kw)
+        width = kw.pop("width")
+        out["select"] = time_select_call(
+            torch, fsel, args, kw, width, "a shard of the 4-shard store "
+            "search (shard 0, the first batch)", what="")
+        del cap_sel
+    st._stack_cache.clear()
+    out["exhaustive"] = sharded_exhaustive(torch, np, dev)
+    out["launches"]["sharded exhaustive search (d=768)"] = \
+        out["exhaustive"]["launches"]
+    if on_card:
+        out["peak"] = torch.cuda.max_memory_allocated(dev) - held
+        log(f"sharded peak device memory {out['peak']} bytes above the "
+            f"{held} held when the phase began (max_memory_allocated)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded phase: {out['seconds']:.1f} s")
+    return out
+
+
+def sharded_exhaustive(torch, np, dev, *, segments=4, rows=4096, nq=64):
+    """Exhaustive invariance at the paper's width: ``segments`` segments
+    of ``rows`` rows (16 grains each) at d=768, 1% deleted, 64 queries at
+    nprobe = every grain and a pool of every row: the ids at 1, 2, 4 and 8
+    shards equal the fused plane's (ties counted), Mode A and B, each
+    shard's "fused" ``torch.equal`` its "fused_ref" (the 1-shard pool is
+    16,384 wide: the select's tree merge)."""
+    from repro_torch.core import HNTLConfig, VectorStore
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fused_select as fsel
+
+    t0 = time.perf_counter()
+    n = segments * rows
+    x = synthetic.anisotropic_manifold(n=n, d=768, intrinsic=24, seed=5)
+    q = synthetic.queries_from(x, nq=nq)
+    cfg = HNTLConfig(d=768, k=32, s=8, block=128, n_grains=16, nprobe=16,
+                     pool=64)
+    st = VectorStore(cfg, seal_threshold=rows, device=dev)
+    for lo in range(0, n, rows):
+        st.add(x[lo:lo + rows])
+    check(st.n_segments == segments and all(
+        s.index.grains.n_grains == 16 for s in st._segments),
+        "sharded exhaustive: the store's layout")
+    dead = np.random.default_rng(4).choice(n, n // 100, replace=False)
+    st.delete(dead)
+    dead_t = torch.from_numpy(dead).to(dev)
+    qt = torch.from_numpy(q).to(dev)
+    ex = dict(nprobe=segments * 16, pool=n)
+    out = {"launches": 0, "differ": {}, "delta": {}}
+    for m in "AB":
+        base = st.search(qt, topk=10, mode=m, **ex)
+        check(not bool(torch.isin(base.ids.long(), dead_t).any()),
+              f"sharded exhaustive {m}: a deleted gid")
+        for shards in (1, 2, 4, 8):
+            mesh = sharded_mesh(torch, shards)
+            before = fsel.fused_scan_select.launches
+            got = st.search(qt, topk=10, mode=m, mesh=mesh, **ex)
+            sync(torch, dev)
+            out["launches"] += fsel.fused_scan_select.launches - before
+            ref = st.search(qt, topk=10, mode=m, mesh=mesh,
+                            scan_impl="fused_ref", **ex)
+            check(torch.equal(got.ids, ref.ids) and torch.equal(
+                got.dists, ref.dists), f"sharded exhaustive {m}, {shards} "
+                "shards: fused differs from fused_ref")
+            check(not bool(torch.isin(got.ids.long(), dead_t).any()),
+                  f"sharded exhaustive {m}: a deleted gid")
+            key = f"{m} {shards}"
+            out["differ"][key], out["delta"][key] = ids_agree(
+                torch, got, base, f"sharded exhaustive {m}, {shards} shards "
+                "vs the fused plane")
+            st._stack_cache.clear()
+    log(f"sharded exhaustive (d=768, {segments} x {rows} rows, 16 grains "
+        f"each, {n // 100} deleted, {nq} queries, nprobe {ex['nprobe']}, "
+        f"pool {n}): ids == the fused plane at 1, 2, 4, 8 shards, Mode A "
+        f"and B (queries differing {out['differ']}, max |dist diff| where "
+        f"ids agree {out['delta']}); fused == fused_ref on every mesh; "
+        f"select launches {out['launches']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del st
+    return out
+
+
+def drop_sharded(st):
+    """Drop a store's cached sharded planes (their device bytes go with
+    them); its other planes stay cached."""
+    for key in [k for k in st._stack_cache if k[0] == "sharded"]:
+        del st._stack_cache[key]
+
+
+def cold_sharded(torch, np, st, qt, xl, alive, label):
+    """The cold store (no ``device_budget``) on the 4-shard mesh: Mode B
+    with the host re-rank of each shard's whole pool, ``torch.equal`` to
+    the sharded "fused_ref" plane, no deleted gid, dists the live vectors'
+    exact distances; select launches counted; time."""
+    from repro_torch.kernels import fused_select as fsel
+
+    dev, nq = qt.device, qt.shape[0]
+    st.device_budget = None
+    mesh = sharded_mesh(torch, 4)
+    st.search(qt[:1], topk=10, mode="B", mesh=mesh)     # place the plane
+    fsel.fused_scan_select.launches = 0
+    got = st.search(qt, topk=10, mode="B", mesh=mesh)
+    sync(torch, dev)
+    launches = fsel.fused_scan_select.launches
+    ref = st.search(qt, topk=10, mode="B", mesh=mesh, scan_impl="fused_ref")
+    check(torch.equal(got.ids, ref.ids) and torch.equal(got.dists,
+                                                        ref.dists),
+          f"{label}: differs from the sharded fused_ref plane")
+    dead = torch.nonzero(~alive).flatten()
+    hold_store_result(torch, got, {"mode": "B"}, label, xl=xl, dead_t=dead,
+                      tg=None, tsv=None, qt=qt)
+    if dev.type == "cuda":
+        check(launches == 4 * -(-nq // 256), f"{label}: {launches} select "
+              "launches")
+    t0 = time.perf_counter()
+    st.search(qt, topk=10, mode="B", mesh=mesh)
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"{label}: 4 shards, Mode B, {nq} queries: == sharded fused_ref "
+        f"(torch.equal), no deleted gid, dists exact; select launches "
+        f"{launches}; {ms:.3f} ms (each shard's whole pool re-ranked on "
+        "the host)")
+    drop_sharded(st)
+    return dict(launches=launches, ms=ms)
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -3890,6 +4328,12 @@ def main(argv=None) -> int:
     xb = torch.from_numpy(state["x"]).to(cuda)
     xb[torch.from_numpy(state["up"]).to(cuda)] = torch.from_numpy(
         state["x_up"]).to(cuda)
+    shp = sharded_phase(torch, np, cuda, stp["branch"], xb=xb,
+                        dead=state["dead"], tags=state["tags"],
+                        ts=state["ts"], truth=dict(q=state["qt"],
+                                                   ids=state["truth"]))
+    gc.collect()
+    torch.cuda.empty_cache()
     tn = tenancy_phase(torch, np, cuda, stp.pop("branch"), xb=xb,
                        base_dead=state["dead"],
                        corpus_q=state["qt"].cpu().numpy(), cfg=state["cfg"])
@@ -3935,12 +4379,19 @@ def main(argv=None) -> int:
                     **{f"coalesced tenant search, {k}": v["launches"]
                        for k, v in tn["variants"].items()},
                     "paged coalesced tenant search":
-                    tp["tenancy"]["launches"]}
+                    tp["tenancy"]["launches"],
+                    **shp["launches"],
+                    "cold store search, 4 shards":
+                    tp["cold_sharded"]["launches"],
+                    "coalesced tenant search, 4 shards":
+                    tn["sharded"]["launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
                     "store search, kernel plane": stp["kernel_launches"],
                     "store search after maintain, kernel plane":
-                    lc["kernel_launches"]}
+                    lc["kernel_launches"],
+                    "sharded store search, kernel plane (4 shards)":
+                    shp["kernel_launches"]}
     select_entry = kernel_entry(
         "fused_scan_select", src + "fused_select.cu",
         "src/repro/kernels/fused_select.py:179", sum(select_paths.values()),
@@ -3952,6 +4403,8 @@ def main(argv=None) -> int:
                                 if k != "max_abs_err"}
     select_entry["at_tenancy"] = {k: v for k, v in tn["select"].items()
                                   if k != "max_abs_err"}
+    select_entry["at_shard"] = {k: v for k, v in shp["select"].items()
+                                if k != "max_abs_err"}
     select_entry["at_cascade_stage1"] = {
         k: {f: v for f, v in t.items() if f != "max_abs_err"}
         for k, t in cp["stage1"].items()}
@@ -3960,7 +4413,7 @@ def main(argv=None) -> int:
         for k, t in lp["timing"].items()}
     select_entry["max_abs_err"] = max(
         select_entry["max_abs_err"], tp["select"]["max_abs_err"],
-        tn["select"]["max_abs_err"],
+        tn["select"]["max_abs_err"], shp["select"]["max_abs_err"],
         *(t["max_abs_err"] for t in cp["stage1"].values()),
         *(t["max_abs_err"] for t in lp["timing"].values()))
     log(json.dumps({"kernels": [

@@ -25,6 +25,10 @@ visibility bitmap ``tenant_live`` [T, G, cap] + ``tenant_ix`` [Q] joins
 the slot predicate in the candidate stage and, any-reduced per grain, the
 routing pushdown ([Q, G], ``_tenant_grain_mask``).
 
+``search_stacked_sharded`` runs the same pipeline per shard of a
+grain-sharded plane on a ``launch.mesh.SearchMesh``, then one merge of the
+per-shard pools.
+
 ``probe_plan`` is the adaptive routing stage alone (routing, the
 ``routing.adaptive_prefix`` stopping rule and the probe-traffic counters)
 for the store's bucketed adaptive dispatch.  ``static_route`` and
@@ -46,7 +50,7 @@ import torch
 from . import quantize, routing, scan, scanplane
 from .cascade import check_budgets
 from .types import (BIG, HNTLIndex, RoutingPlane, SearchResult,
-                    StackedSegments)
+                    ShardedStackedSegments, StackedSegments)
 
 #: Queries per batch of ``search`` (bounds the [Q, P, d, k] basis gather).
 QUERY_BATCH = 256
@@ -553,6 +557,183 @@ def probe_plan(stacked: StackedSegments, q: torch.Tensor, *, nprobe: int,
     touches = torch.zeros(g_n, dtype=torch.int32, device=q.device)
     touches.index_add_(0, gl.reshape(-1), active.reshape(-1))
     return gids, n_active, wins, touches
+
+
+# ---------------------------------------------------------------------------
+# Distributed fused search (grain-sharded across a mesh)
+# ---------------------------------------------------------------------------
+
+
+def sharded_knobs(n_shards: int, g_local: int, cap: int, *, nprobe: int,
+                  pool: int, topk: int, mode: str):
+    """The per-shard clamps of ``search_stacked_sharded``: (probe,
+    pool_eff, k_local, k_final).  ``pool`` caps each shard's contribution
+    in both modes (Mode B pools at least topk before its re-rank)."""
+    probe = max(1, min(nprobe, g_local))
+    slots = probe * cap
+    pool_eff = (min(max(pool, topk), slots) if mode == "B"
+                else max(1, min(pool, slots)))
+    k_local = min(topk, pool_eff)
+    return probe, pool_eff, k_local, min(topk, n_shards * k_local)
+
+
+def search_stacked_sharded(plane, q: torch.Tensor, *, mesh,
+                           grain_axis: str = "model",
+                           batch_axis: Optional[str] = None, nprobe: int,
+                           pool: int, topk: int, mode: str = "B",
+                           envelope_frac: float = 0.25, qeff: int = 8191,
+                           scan_impl: Optional[str] = None,
+                           budgets: Optional[tuple] = None,
+                           translate: bool = True,
+                           tag_mask: Optional[int] = None,
+                           ts_range: Optional[tuple] = None,
+                           tenant_live=None, tenant_ix=None,
+                           probe_margin: Optional[float] = None,
+                           min_probes: int = 1,
+                           hub_mask=None) -> SearchResult:
+    """Grain-sharded fused search: each shard runs the whole pipeline on
+    its own grain slice, then one merge of the per-shard pools.
+
+    ``plane``: a ``ShardedStackedSegments`` (``store.shard_segments``;
+    placed here) or a ``distributed.sharding.PlacedPlane`` on ``mesh``.
+    Per shard, in shard order, on the shard's device: the mixed-recall
+    mask and tenant pushdown, top-P routing over its local centroids,
+    (adaptive) ``routing.adaptive_prefix`` on the local table with the
+    shard's slice of ``hub_mask``, the candidate stage on the ScanPlane
+    backend (the select kernel then runs once per shard and 256-query
+    batch, at G = G_l), and the Mode A/B epilogue, the Mode B re-rank
+    from the shard's own permuted raw slice, translated to global ids
+    locally.  The merge moves each shard's [Q, k_local] (ids, dists) to
+    the query row's first slot, concatenates them in mesh order and keeps
+    the first ``k_final`` of a stable sort by distance (ties to the lower
+    position, as ``jax.lax.top_k`` keeps them).
+
+    Knobs are per shard (``sharded_knobs``): ``nprobe`` grains probed and
+    ``pool`` candidates pooled on each shard, clamped to its slice;
+    ``budgets`` are checked against k_local.  With exhaustive knobs the
+    ids equal ``search_stacked``'s for every shard count.
+
+    ``batch_axis``: split the queries into contiguous slices over that
+    mesh axis; slice b runs on row b of the mesh and the results are
+    concatenated in order.  Without it the queries run on row 0.
+    ``translate=False`` returns permuted global rows (shard-local row +
+    shard * rows_local) for the host's cold-tier re-rank.
+    ``tenant_live`` [T, n*G_l, cap] (placed along dim 1 here, or placed
+    already) + ``tenant_ix`` [Q]: per-query visibility, as in
+    ``search_stacked``.  ``probe_margin=None`` or inf is the static plane.
+    """
+    from ..distributed import sharding as shd
+
+    if isinstance(plane, ShardedStackedSegments):
+        plane = shd.shard_search_plane(
+            plane, shd.search_plane_rules(mesh, grain_axis=grain_axis))
+    rules = plane.rules
+    if rules.mesh != mesh or rules.grain_axis != grain_axis:
+        raise ValueError("the plane was placed on another mesh or grain "
+                         "axis than the search names")
+    _check_mode(mode)
+    if (tenant_live is None) != (tenant_ix is None):
+        raise ValueError("tenant_live and tenant_ix come together")
+    adaptive = probe_margin is not None and not math.isinf(probe_margin)
+    n_shards = rules.n_shards
+    probe, pool_eff, k_local, k_final = sharded_knobs(
+        n_shards, plane.g_local, plane.cap, nprobe=nprobe, pool=pool,
+        topk=topk, mode=mode)
+    check_budgets(budgets, k_local)
+    if mode == "B" and not plane.warm:
+        raise ValueError("in-scan Mode B needs the warm tier; a cold "
+                         "plane re-ranks on the host")
+    if tenant_live is not None and not isinstance(tenant_live, tuple):
+        tenant_live = shd.shard_plane_field(tenant_live, rules,
+                                            "tenant_live", dim=1)
+    if hub_mask is not None and not isinstance(hub_mask, tuple):
+        hub_mask = shd.shard_plane_field(hub_mask, rules, "hub_mask")
+    if tenant_ix is not None:
+        tenant_ix = torch.as_tensor(tenant_ix)
+    n_rows = 1
+    if batch_axis is not None:
+        if batch_axis == grain_axis or batch_axis not in mesh.axis_names:
+            raise ValueError(f"batch_axis must be the mesh axis besides "
+                             f"{grain_axis!r}, got {batch_axis!r}")
+        n_rows = rules.n_rows
+        if q.shape[0] % n_rows:
+            raise ValueError(f"{q.shape[0]} queries do not split over the "
+                             f"{n_rows}-way {batch_axis!r} axis")
+    per_row = q.shape[0] // n_rows
+    out_ids, out_d = [], []
+    for r in range(n_rows):
+        qs = slice(r * per_row, (r + 1) * per_row)
+        lead = rules.slot_device(r, 0)
+        g_ids, g_d = [], []
+        for s in range(n_shards):
+            sl = plane.slots[r][s]
+            dev = sl.index.device
+            res = _shard_body(
+                sl, q[qs].to(dev), shard=s, rows_local=plane.rows_local,
+                probe=probe, pool_eff=pool_eff, k_local=k_local, mode=mode,
+                envelope_frac=envelope_frac, qeff=qeff,
+                scan_impl=scan_impl, budgets=budgets, translate=translate,
+                tag_mask=tag_mask, ts_range=ts_range,
+                tenant_live=None if tenant_live is None
+                else tenant_live[r][s],
+                tenant_ix=None if tenant_ix is None
+                else tenant_ix[qs].to(device=dev, dtype=torch.int32),
+                probe_margin=probe_margin if adaptive else None,
+                min_probes=min_probes,
+                hub=None if hub_mask is None else hub_mask[r][s])
+            g_ids.append(res.ids.to(lead))
+            g_d.append(res.dists.to(lead))
+        # the merge: [Q, n_shards * k_local] in mesh order, first k_final
+        d, order = torch.sort(torch.cat(g_d, dim=1), dim=1, stable=True)
+        ids = torch.gather(torch.cat(g_ids, dim=1), 1, order[:, :k_final])
+        out_ids.append(ids.to(q.device))
+        out_d.append(d[:, :k_final].to(q.device))
+    return SearchResult(ids=torch.cat(out_ids), dists=torch.cat(out_d))
+
+
+def _shard_body(sl, qv, *, shard, rows_local, probe, pool_eff, k_local,
+                mode, envelope_frac, qeff, scan_impl, budgets, translate,
+                tag_mask, ts_range, tenant_live, tenant_ix, probe_margin,
+                min_probes, hub) -> SearchResult:
+    """One shard's pipeline over its slice ``sl`` (a 1-shard
+    ``ShardedStackedSegments`` on its device), in ``QUERY_BATCH`` batches.
+    Returns [Q, k_local] global ids (or permuted global rows) and
+    dists."""
+    index = sl.index
+    extra, grain_ok = _mixed_recall_mask(index.grains, tag_mask, ts_range,
+                                         live=sl.live)
+    tenant_ok = None
+    if tenant_live is not None:
+        tenant_ok = _tenant_grains(index.grains, extra, tenant_live)
+
+    def local_ids(rows_k, d_k):
+        ok = torch.logical_and(rows_k >= 0, d_k < BIG / 2)
+        safe = torch.clamp(rows_k, min=0).long()
+        out = sl.gid_of_row[safe] if translate \
+            else safe + shard * rows_local
+        return torch.where(ok, out, -1).to(torch.int32)
+
+    def run(bs):
+        qb = qv[bs]
+        ti = None if tenant_ix is None else tenant_ix[bs]
+        gids, gd2 = routing.route(
+            index.routing, qb, probe,
+            grain_mask=_tenant_grain_mask(grain_ok, tenant_ok, ti))
+        n_active = None
+        if probe_margin is not None:
+            gids, n_active = routing.adaptive_prefix(
+                gids, gd2, margin=probe_margin, min_probes=min_probes,
+                hub_mask=hub)
+        dists, rows = candidate_stage(
+            index, qb, gids, envelope_frac=envelope_frac, qeff=qeff,
+            width=max(pool_eff, k_local), scan_impl=scan_impl,
+            budgets=budgets, extra_mask=extra, tenant_mask=tenant_live,
+            tenant_ix=ti, n_active=n_active)
+        return _candidate_epilogue(dists, rows, qb, index.raw,
+                                   pool=pool_eff, topk=k_local, mode=mode,
+                                   translate=local_ids)
+
+    return _in_batches(run, qv.shape[0], k_local, index.device)
 
 
 def project_probes(index: HNTLIndex, q: torch.Tensor, gids: torch.Tensor,

@@ -59,8 +59,13 @@ Grains are self-contained, so the index maps onto immutable segments:
   a registry's union of segments, on the stacked plane, the cold tier and
   the tiered plane, with the static, cascade and adaptive planes.
 
-The JAX package's ``repro.core.store`` is the reference.  The sharded
-plane is not ported yet; ``mesh=`` raises, naming its ROADMAP item.
+- **the sharded plane** (``search(mesh=...)``): ``shard_segments`` lays
+  the stacked plane out shard-aligned (grain axis padded to the shard
+  count, raw rows permuted so each shard owns its grains' rows), it is
+  placed on a ``launch.mesh.SearchMesh`` once per segment set, and each
+  shard runs the whole pipeline on its slice before one merge.
+
+The JAX package's ``repro.core.store`` is the reference.
 """
 from __future__ import annotations
 
@@ -83,7 +88,7 @@ from . import index as index_mod
 from . import maintenance, planner, residency, routing, scanplane
 from .cascade import check_budgets
 from .types import (BIG, GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
-                    SearchResult, StackedSegments)
+                    SearchResult, ShardedStackedSegments, StackedSegments)
 
 #: Device bytes of the [queries, memtable rows, d] difference tensor of one
 #: chunk of the memtable scan (a 1024-query batch against 5k rows at
@@ -504,6 +509,83 @@ def stack_segments(segments: Sequence[Segment], *, device=None,
         index=index,
         gid_of_row=torch.from_numpy(gid_of_row.astype(np.int32)).to(dev),
         row_offset=torch.from_numpy(offsets.astype(np.int32)).to(dev))
+
+
+def shard_segments(segments: Sequence[Segment], n_shards: int, *,
+                   device="cpu"):
+    """Re-lay-out the stacked plane for an ``n_shards``-way mesh.
+
+    Builds on :func:`stack_segments` (on ``device``: ``"cpu"`` for the
+    host layout, the store's device for the store's own planes), then
+    makes the layout shard-aligned:
+
+    - the fused grain axis is padded to a multiple of ``n_shards`` with
+      dead grains (sizes 0, valid False) and split into contiguous chunks,
+      one per shard;
+    - the raw tier is permuted grain-wise: shard s's slice holds exactly
+      the member rows of the grains in its chunk, in scan order, padded to
+      a common per-shard row count; grain ``ids`` become rows local to the
+      owning shard's slice, so a shard's Mode B re-rank never reads
+      another shard's raw tier;
+    - ``gid_of_row`` is permuted the same way (-1 on padding rows).
+
+    The permutation is computed on the host from the id panels; the
+    permuted raw tier and id table are gathered on ``device``.  Returns
+    ``(plane, perm)``: the ``ShardedStackedSegments`` and the host
+    ``perm [n_shards * rows_per_shard] i64`` table mapping a permuted row
+    back to its flat row (-1 on padding rows), which the cold tier's
+    re-rank reads.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    stacked = stack_segments(segments, device=device)
+    g = stacked.index.grains
+    dev = g.coords.device
+    sg = g.n_grains
+    g_pad = -(-sg // n_shards) * n_shards - sg
+    g_local = (sg + g_pad) // n_shards
+
+    def padg(t, fill):
+        if t is None or not g_pad:
+            return t
+        return torch.cat([t, t.new_full((g_pad,) + tuple(t.shape[1:]),
+                                        fill)])
+
+    ids = padg(g.ids, -1).cpu().numpy()             # [Gp, cap] flat rows
+    valid = padg(g.valid, False).cpu().numpy()
+    owned = [ids[s * g_local:(s + 1) * g_local][
+        valid[s * g_local:(s + 1) * g_local]].astype(np.int64)
+        for s in range(n_shards)]                   # rows per shard
+    rows_per_shard = max(1, max(len(r) for r in owned))
+    perm = np.full(n_shards * rows_per_shard, -1, np.int64)
+    new_ids = np.full_like(ids, -1)
+    lut = np.full(stacked.gid_of_row.shape[0], -1, np.int64)
+    for s, rows in enumerate(owned):
+        perm[s * rows_per_shard:s * rows_per_shard + len(rows)] = rows
+        lut[:] = -1
+        lut[rows] = np.arange(len(rows))
+        ch = ids[s * g_local:(s + 1) * g_local]
+        new_ids[s * g_local:(s + 1) * g_local] = np.where(
+            ch >= 0, lut[np.maximum(ch, 0)], -1).astype(np.int32)
+    keep = torch.from_numpy(np.maximum(perm, 0)).to(dev)
+    is_row = torch.from_numpy(perm >= 0).to(dev)
+    gid_perm = torch.where(is_row, stacked.gid_of_row[keep], -1).to(
+        torch.int32)
+    mu = padg(g.mu, 0.0)
+    grains = GrainStore(
+        coords=padg(g.coords, 0), res=padg(g.res, 0),
+        sketch=padg(g.sketch, 0), ids=torch.from_numpy(new_ids).to(dev),
+        valid=torch.from_numpy(valid).to(dev), basis=padg(g.basis, 0.0),
+        mu=mu, scale=padg(g.scale, 1.0), res_scale=padg(g.res_scale, 1.0),
+        sketch_basis=padg(g.sketch_basis, 0.0),
+        sketch_scale=padg(g.sketch_scale, 1.0),
+        tags=padg(g.tags, 0), ts=padg(g.ts, 0.0), qmaxg=padg(g.qmaxg, 1))
+    raw = stacked.index.raw
+    index = HNTLIndex(
+        routing=RoutingPlane(centroids=mu,
+                             sizes=padg(stacked.index.routing.sizes, 0)),
+        grains=grains, raw=raw[keep] if raw is not None else None)
+    return ShardedStackedSegments(index=index, gid_of_row=gid_perm), perm
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -1349,11 +1431,201 @@ class VectorStore:
         plane = entry["plane"]
         if live_row is not None:
             ids = entry["ids_host"]
-            bitmap = (ids >= 0) & live_row[np.maximum(ids, 0)]
-            plane = dataclasses.replace(
-                plane, live=torch.from_numpy(bitmap).to(plane.index.device))
+            rows = ids.astype(np.int64)
+            if entry["row_base"] is not None:     # shard-local -> permuted
+                rows = rows + entry["row_base"][:, None]
+            bitmap = (ids >= 0) & live_row[np.maximum(rows, 0)]
+            if entry.get("rules") is not None:    # placed shard-wise
+                from ..distributed import sharding as shd
+                plane = plane.with_live(
+                    shd.shard_plane_field(bitmap, entry["rules"], "live"))
+            else:
+                plane = dataclasses.replace(plane, live=torch.from_numpy(
+                    bitmap).to(plane.index.device))
         entry["live"] = (key, plane)
         return plane
+
+    # ------------------------------------------------ the sharded plane
+    def _sharded_for(self, segments: tuple, mesh, grain_axis: str) -> dict:
+        """The mesh-sharded plane of a segment set: the shard-aligned
+        layout (``shard_segments``, built on the store's device) placed
+        shard-wise on the mesh, plus the host row tables the liveness
+        bitmap, the tenant bitmaps and the cold re-rank read.  Row tables
+        are permuted like the raw tier, so the bitmap lands shard-aligned.
+        Cached in the plane LRU, keyed also by the mesh and grain axis.
+
+        Maintenance delta path: a refit-only maintenance epoch rewrites
+        grain panels but moves no rows, so the row permutation, and with
+        it the placed raw tier and id table, is unchanged; when a cached
+        plane on the same mesh proves that (``_reusable_row_leaves``), its
+        placed ``raw``/``gid_of_row`` are reused and only the grain panels
+        are placed."""
+        from ..distributed import sharding as shd
+        key = ("sharded", tuple(id(s) for s in segments), mesh, grain_axis)
+        hit = self._cache_get(key)
+        if hit is not None:
+            return hit
+        rules = shd.search_plane_rules(mesh, grain_axis=grain_axis)
+        n_shards = rules.n_shards
+        plane, perm = shard_segments(segments, n_shards, device=self.device)
+        ids_host = plane.index.grains.ids.cpu().numpy()
+        reuse = self._reusable_row_leaves(segments, mesh, grain_axis, perm)
+        placed = shd.shard_search_plane(plane, rules, reuse=reuse)
+        del plane
+        offsets = np.zeros(len(segments) + 1, np.int64)
+        np.cumsum([s.n for s in segments], out=offsets[1:])
+        gids = np.concatenate([s.global_ids() for s in segments])
+        seqs = np.concatenate([s.global_seqs() for s in segments])
+        exp = _concat_expiry(segments)
+        keep = np.maximum(perm, 0)
+        entry = {
+            "plane": placed,
+            "perm": perm,
+            "offsets": offsets,
+            "gids": gids,
+            "ids_host": ids_host,
+            "row_gid": np.where(perm >= 0, gids[keep], -1),
+            "row_seq": np.where(perm >= 0, seqs[keep], -1),
+            "row_exp": (np.where(perm >= 0, exp[keep], np.inf)
+                        if exp is not None else None),
+            # shard-local panel ids -> permuted global rows
+            "row_base": (np.arange(ids_host.shape[0]) // placed.g_local
+                         * placed.rows_local),
+            "rules": rules,
+            "live": (None, None),
+            "raw_rows": None,          # _RawRows of a cold segment set
+        }
+        if not placed.warm:            # the cold re-rank's row maps
+            entry["perm_dev"] = torch.from_numpy(perm).to(self.device)
+            entry["gid_flat"] = torch.from_numpy(
+                gids.astype(np.int32)).to(self.device)
+        return self._cache_put(key, segments, entry)
+
+    def _reusable_row_leaves(self, segments: tuple, mesh, grain_axis: str,
+                             perm: np.ndarray) -> Optional[dict]:
+        """The placed ``raw``/``gid_of_row`` of a cached sharded plane that
+        are provably the ones about to be placed, or None.  Valid iff a
+        cached plane on the same (mesh, grain_axis) has the same
+        per-segment row tables (object identity on the immutable arrays:
+        maintenance shares them through ``dataclasses.replace``) and the
+        same row permutation."""
+        for key, (old_segs, entry) in self._stack_cache.items():
+            if key[0] != "sharded" or key[2:] != (mesh, grain_axis):
+                continue
+            if len(old_segs) != len(segments):
+                continue
+            same_rows = all(
+                o.n == s.n and o.index.raw is s.index.raw
+                and o.id_map is s.id_map and o.id_base == s.id_base
+                and o.seq is s.seq
+                for o, s in zip(old_segs, segments))
+            if same_rows and np.array_equal(entry["perm"], perm):
+                return {"raw": entry["plane"].field("raw"),
+                        "gid_of_row": entry["plane"].field("gid_of_row")}
+        return None
+
+    def _sharded_statics(self, plane, topk: int, nprobe: Optional[int],
+                         pool: Optional[int]):
+        """Per-shard (probe, pool_eff), clamped to the local grain slice."""
+        probe = max(1, min(nprobe if nprobe is not None else self.cfg.nprobe,
+                           plane.g_local))
+        want_pool = pool if pool is not None else self.cfg.pool
+        return probe, min(max(want_pool, topk), probe * plane.cap)
+
+    @staticmethod
+    def _batch_axis(mesh, grain_axis: str, shard_queries: bool,
+                    q_n: int) -> Optional[str]:
+        """The query-batch mesh axis, or None to run the queries on the
+        mesh's first row.  An unsatisfiable explicit request is an error,
+        not a silent fallback."""
+        if not shard_queries:
+            return None
+        other = [a for a in mesh.axis_names if a != grain_axis]
+        if not other or mesh.shape[other[0]] <= 1:
+            raise ValueError(
+                f"shard_queries=True needs a >1-sized mesh axis besides "
+                f"{grain_axis!r}; mesh has {dict(mesh.shape)}")
+        if q_n % mesh.shape[other[0]] != 0:
+            raise ValueError(
+                f"shard_queries=True needs the {other[0]!r} axis size "
+                f"({mesh.shape[other[0]]}) to divide the query count "
+                f"({q_n}); pad the batch to a multiple of the axis")
+        return other[0]
+
+    def _search_segments_sharded(self, q, man, *, topk, mode, tag_mask,
+                                 ts_range, scan_impl, nprobe, pool, mesh,
+                                 grain_axis, shard_queries, now,
+                                 budgets=None, tenant_live=None,
+                                 tenant_ix=None, adaptive=False,
+                                 probe_margin=1.0, min_probes=1):
+        """The distributed fused search: per-shard route, scan, pool and
+        re-rank (``planner.search_stacked_sharded``) and one merge.
+        Returns (global ids [Q, k] i32, dists [Q, k] f32) on the store's
+        device.
+
+        tenant_live [T, G, cap] + tenant_ix [Q] (host arrays): as in
+        ``_search_segments_fused``; the stack is placed grain-sharded on
+        dim 1 (the tenant axis whole).
+
+        adaptive: the stopping rule runs per shard on its local routing
+        table, one fixed-shape pass per shard with the ragged ``n_active``
+        handed to the select; no host bucketing.  Hub pinning stays a
+        single-device feature: the traffic counters live on the stacked
+        grain axis, which does not map onto the permuted layout, so no hub
+        mask is passed (the planner takes one from callers that shard
+        their own counters).
+
+        A cold plane (no raw tier): each shard contributes its whole
+        Mode A pool (``topk = n_shards * pe``) as permuted rows, ``perm``
+        maps them to flat rows, and they are re-ranked with the rows of
+        the cold files (``_RawRows``, ``_rerank_pool``)."""
+        segments = man.segments
+        entry = self._sharded_for(segments, mesh, grain_axis)
+        plane = self._live_plane(entry, man, now)
+        n_shards = plane.n_shards
+        probe, pool_eff = self._sharded_statics(plane, topk, nprobe, pool)
+        kw = dict(mesh=mesh, grain_axis=grain_axis,
+                  batch_axis=self._batch_axis(mesh, grain_axis,
+                                              shard_queries, q.shape[0]),
+                  nprobe=probe, envelope_frac=self.cfg.envelope_frac,
+                  qeff=index_mod.int32_safe_qmax(self.cfg.k,
+                                                 self.cfg.coord_bits),
+                  scan_impl=scan_impl, budgets=budgets, tag_mask=tag_mask,
+                  ts_range=ts_range)
+        if adaptive and not math.isinf(probe_margin):
+            kw.update(probe_margin=probe_margin, min_probes=min_probes)
+        if tenant_live is not None:
+            from ..distributed import sharding as shd
+            kw["tenant_live"] = shd.shard_plane_field(
+                np.asarray(tenant_live, bool), entry["rules"],
+                "tenant_live", dim=1)
+            kw["tenant_ix"] = _to_device(np.asarray(tenant_ix, np.int32),
+                                         q.device)
+        if mode == "B" and not plane.warm:
+            pe = (pool_eff if budgets is None
+                  else min(pool_eff, int(budgets[1])))
+            res = planner.search_stacked_sharded(
+                plane, q, pool=pe, topk=n_shards * pe, mode="A",
+                translate=False, **kw)
+            perm, gid_flat = entry["perm_dev"], entry["gid_flat"]
+            ok = torch.logical_and(res.ids >= 0, res.dists < BIG / 2)
+            rows = torch.where(ok, perm[torch.clamp(res.ids, min=0).long()],
+                               -1)
+            ok = torch.logical_and(ok, rows >= 0)
+            width = rows.shape[1]
+
+            def translate(r, d):
+                hit = torch.logical_and(r >= 0, d < BIG / 2)
+                return torch.where(hit, gid_flat[torch.clamp(r, min=0)],
+                                   -1).to(torch.int32)
+
+            res = _rerank_pool(torch.where(ok, res.dists, BIG), rows, q,
+                               self._raw_rows(entry, segments), pool=width,
+                               topk=min(topk, width), translate=translate)
+            return res.ids, res.dists
+        res = planner.search_stacked_sharded(plane, q, pool=pool_eff,
+                                             topk=topk, mode=mode, **kw)
+        return res.ids, res.dists
 
     def search(self, q, *, topk: int = 10, mode: str = "B",
                tag_mask: Optional[int] = None,
@@ -1363,7 +1635,8 @@ class VectorStore:
                budgets: Optional[tuple] = None,
                nprobe: Optional[int] = None, pool: Optional[int] = None,
                fused: bool = True, route_mode: str = "global",
-               mesh=None, adaptive: bool = False,
+               mesh=None, grain_axis: str = "model",
+               shard_queries: bool = False, adaptive: bool = False,
                probe_margin: Optional[float] = None,
                min_probes: Optional[int] = None,
                now: Optional[float] = None) -> SearchResult:
@@ -1394,10 +1667,20 @@ class VectorStore:
           the fused plane and global routing.
         probe_margin / min_probes: the rule's knobs (None: ``cfg``'s);
           setting them without ``adaptive=True`` is an error.
+        mesh: a ``launch.mesh.SearchMesh``: the distributed search plane.
+          Grain panels and the permuted raw tier are split along
+          ``grain_axis``, each shard routes, scans, pools and re-ranks its
+          own slice (``planner.search_stacked_sharded``), and one merge of
+          the per-shard pools follows.  nprobe/pool/budgets become
+          per-shard knobs, clamped to each shard's slice.  The mesh's
+          slots must be devices of the store's kind (a store on the card
+          is never searched on CPU slots); needs the fused plane, global
+          routing and no ``device_budget``.
+        shard_queries: with a mesh, also split the queries over the mesh's
+          other axis (its size must divide the query count and exceed 1).
         now: TTL clock (default: the store's clock).
         With ``device_budget`` set the sealed segments are searched on the
         tiered plane (fused, global routing, one device only).
-        mesh is refused until ported.
         """
         if budgets is not None:
             check_budgets(budgets, topk)
@@ -1434,7 +1717,17 @@ class VectorStore:
                     "device_budget= (tiered residency) routes once "
                     "globally; route_mode='per_segment' has no paged plan")
         if mesh is not None:
-            raise _unported("mesh=", 10, "the sharded search plane")
+            if not fused:
+                raise ValueError(
+                    "mesh= requires the fused search plane; the per-segment "
+                    "loop (fused=False) has no sharded path")
+            if route_mode != "global":
+                raise ValueError(
+                    "the sharded plane routes per shard; route_mode "
+                    "overrides only apply to the single-device plane")
+            from ..distributed import sharding as shd
+            shd.search_plane_rules(mesh, grain_axis=grain_axis)
+            shd.check_mesh_devices(mesh, self.device)
         man = manifest or self.snapshot()
         now = self._clock() if now is None else now
         q = torch.as_tensor(q, dtype=torch.float32)
@@ -1447,7 +1740,17 @@ class VectorStore:
                     q, man, topk=topk, mode=mode, tag_mask=tag_mask,
                     ts_range=ts_range, scan_impl=scan_impl, now=now)
             all_ids, all_d = [], []
-            if man.segments:
+            if man.segments and mesh is not None:
+                ids_s, d_s = self._search_segments_sharded(
+                    q, man, topk=topk, mode=mode, tag_mask=tag_mask,
+                    ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
+                    nprobe=nprobe, pool=pool, mesh=mesh,
+                    grain_axis=grain_axis, shard_queries=shard_queries,
+                    now=now, adaptive=adaptive and not math.isinf(margin),
+                    probe_margin=margin, min_probes=minp)
+                all_ids.append(ids_s)
+                all_d.append(d_s)
+            elif man.segments:
                 ids_s, d_s = self._search_segments_fused(
                     q, man, topk=topk, mode=mode, tag_mask=tag_mask,
                     ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,

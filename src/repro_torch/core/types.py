@@ -164,6 +164,50 @@ class StackedSegments:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardedStackedSegments:
+    """A stacked plane re-laid-out for an N-way grain-sharded mesh.
+
+    The fused grain axis is padded to a multiple of the shard count and
+    split into contiguous chunks, one per shard; the raw tier is permuted
+    so that every grain's member rows live in its owning shard's row
+    slice, so a shard's Mode B re-rank reads only its own slice.  Grain
+    ``ids`` hold rows local to the owning shard's slice, and
+    ``gid_of_row`` is laid out per shard the same way (-1 on per-shard
+    padding rows), so ids translate to global ids before the merge.
+
+    Every tensor is split on dim 0 by ``PLANE_FIELD_AXES``: grain panels
+    along the padded grain axis, ``raw``/``gid_of_row`` along the
+    permuted row axis.  ``live`` [n*G_l, cap] is chunked like the panels.
+    One shard's slice of a placed plane is itself a 1-shard
+    ``ShardedStackedSegments`` (``distributed.sharding``).
+    """
+
+    index: HNTLIndex           # [n*G_l] grains, ids = shard-local raw rows
+    gid_of_row: torch.Tensor   # [n*rows_per_shard] i32: permuted row -> gid
+    live: Optional[torch.Tensor] = None
+
+    @property
+    def rows_total(self) -> int:
+        return self.gid_of_row.shape[0]
+
+
+# The logical axis of each plane field, by name: dim 0 of every leaf (the
+# tenant stack [T, G, cap] on dim 1), trailing dims replicated.  "grains"
+# fields split along the padded grain axis, "rows" fields along the
+# permuted raw-row axis; ``distributed.sharding.search_plane_rules`` maps
+# them onto a mesh axis.  The JAX package's ``SEARCH_PLANE_AXES``.
+PLANE_FIELD_AXES = {
+    "coords": "grains", "res": "grains", "sketch": "grains", "ids": "grains",
+    "valid": "grains", "basis": "grains", "mu": "grains", "scale": "grains",
+    "res_scale": "grains", "sketch_basis": "grains", "sketch_scale": "grains",
+    "tags": "grains", "ts": "grains", "qmaxg": "grains",
+    "centroids": "grains", "sizes": "grains",
+    "live": "grains", "tenant_live": "grains", "hub_mask": "grains",
+    "raw": "rows", "gid_of_row": "rows",
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class SearchResult:
     """Top-k result of a (batched) query."""
 

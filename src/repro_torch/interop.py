@@ -21,6 +21,9 @@ A cold segment's raw rows are copied into a cold file of this package's
 own (in ``cold_dir``, refcounted like a sealed one): the JAX package's
 file belongs to its store's refcount, which would unlink it under this
 package's segments (or this package's finalizer under the JAX store's);
+``sharded_from_numpy`` carries a JAX ``ShardedStackedSegments``
+(``repro.core.store.shard_segments``' host layout) across for
+``planner.search_stacked_sharded``;
 ``config_from_dict`` and ``model_config_from_dict``
 rebuild the two configuration dataclasses from ``dataclasses.asdict`` of
 the JAX ones.
@@ -46,7 +49,8 @@ import torch
 from .core.index import resolve_device
 from .core import store as store_mod
 from .core.store import Manifest, Segment, VectorStore
-from .core.types import GrainStore, HNTLConfig, HNTLIndex, RoutingPlane
+from .core.types import (GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
+                         ShardedStackedSegments)
 from .models.config import LayerSpec, ModelConfig
 from .models.hntl_attention import KVIndex
 
@@ -82,6 +86,17 @@ def index_from_numpy(tree: Any, device=None) -> HNTLIndex:
            for f in dataclasses.fields(GrainStore)})
     return HNTLIndex(routing=plane, grains=store,
                      raw=_tensor(_field(tree, "raw"), device))
+
+
+def sharded_from_numpy(tree: Any, device=None) -> ShardedStackedSegments:
+    """JAX ``ShardedStackedSegments`` with numpy leaves (its index, the
+    permuted ``gid_of_row`` and the optional ``live`` bitmap) -> this
+    package's, every dtype and shape kept."""
+    device = resolve_device(device)
+    return ShardedStackedSegments(
+        index=index_from_numpy(_field(tree, "index"), device),
+        gid_of_row=_tensor(_field(tree, "gid_of_row"), device),
+        live=_tensor(_field(tree, "live"), device))
 
 
 def _host(tree: Any, name: str) -> Optional[np.ndarray]:

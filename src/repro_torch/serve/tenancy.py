@@ -23,8 +23,11 @@ tenant's rows are then merged with its own memtable scan and finalized
 in one call.  Results are ``SearchResult`` s of tensors on the base
 store's device.
 
-The JAX package's ``repro.serve.tenancy`` is the reference.  The sharded
-plane (``mesh=``) is not ported yet and is refused.
+With ``mesh=`` the union plane is the base store's sharded plane: the
+per-tenant bitmaps are built over its permuted rows and placed along the
+grain axis, and each group runs as one sharded dispatch.
+
+The JAX package's ``repro.serve.tenancy`` is the reference.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from ..core import index as index_mod
 from ..core import routing
 from ..core.cascade import check_budgets
 from ..core.store import (Manifest, VectorStore, _finalize, _live_rows,
-                          _to_device, _unported)
+                          _to_device)
 from ..core.types import BIG, SearchResult
 
 #: Coalesced query batches are padded up to power-of-two buckets of at
@@ -210,17 +213,18 @@ class TenantRegistry:
     @staticmethod
     def _visible_rows(entry: dict, union: tuple, man: Manifest,
                       now: float) -> np.ndarray:
-        """[rows] bool over the union plane's flat rows: the manifest's
-        segments, its liveness table and TTLs."""
-        if entry["row_base"] is not None:
-            raise _unported("a permuted (sharded) plane", 10,
-                            "the sharded search plane")
+        """[rows] bool over the union plane's rows (flat, or permuted on a
+        sharded plane): the manifest's segments, its liveness table and
+        TTLs."""
         mine = {id(s) for s in man.segments}
         offs = entry["offsets"]
-        vis = np.zeros(entry["row_gid"].shape[0], bool)
+        vis = np.zeros(int(offs[-1]), bool)
         for si, seg in enumerate(union):
             if id(seg) in mine:
                 vis[offs[si]:offs[si + 1]] = True
+        if entry["row_base"] is not None:        # sharded layout: permute
+            perm = entry["perm"]
+            vis = np.where(perm >= 0, vis[np.maximum(perm, 0)], False)
         lv = _live_rows(man.mut_gid, man.mut_seq, entry["row_gid"],
                         entry["row_seq"])
         if lv is not None:
@@ -246,7 +250,10 @@ class TenantRegistry:
             return hit
         ok = self._visible_rows(entry, union, man, now)
         ids = np.asarray(entry["ids_host"])
-        bm = (ids >= 0) & ok[np.maximum(ids, 0)]
+        rows = ids.astype(np.int64)
+        if entry["row_base"] is not None:        # shard-local -> permuted
+            rows = rows + entry["row_base"][:, None]
+        bm = (ids >= 0) & ok[np.maximum(rows, 0)]
         cache[key] = bm
         while len(cache) > 4 * self.max_live:
             cache.popitem(last=False)
@@ -264,7 +271,8 @@ def pad_rows(n: int) -> int:
 
 def coalesced_retrieve(registry: TenantRegistry,
                        requests: List[RetrievalRequest], *,
-                       mesh=None, scan_impl: Optional[str] = None,
+                       mesh=None, grain_axis: str = "model",
+                       scan_impl: Optional[str] = None,
                        budgets: Optional[tuple] = None,
                        nprobe: Optional[int] = None,
                        pool: Optional[int] = None,
@@ -288,11 +296,20 @@ def coalesced_retrieve(registry: TenantRegistry,
     adaptive / probe_margin / min_probes: as in ``VectorStore.search``
       (None: the base config's knobs); the stopping rule runs on each
       query's tenant-masked routing pass.
-    mesh: the sharded plane, not ported yet; refused.
+    mesh / grain_axis: run every group on the base store's sharded plane
+      of the union (``VectorStore.search(mesh=)``'s per-shard knobs); the
+      mesh's slots must be devices of the base store's kind.
     """
-    if mesh is not None:
-        raise _unported("mesh=", 10, "the sharded search plane")
     base = registry.base
+    if mesh is not None:
+        from ..distributed import sharding as shd
+        shd.search_plane_rules(mesh, grain_axis=grain_axis)
+        shd.check_mesh_devices(mesh, base.device)
+        if base.device_budget is not None:
+            raise ValueError(
+                "device_budget= (tiered residency) is single-device; the "
+                "sharded plane (mesh=) keeps every shard resident: drop "
+                "one of the two")
     now = base._clock() if now is None else now
     if budgets is not None:
         for r in requests:
@@ -321,7 +338,8 @@ def coalesced_retrieve(registry: TenantRegistry,
                             scan_impl=scan_impl, budgets=budgets,
                             nprobe=nprobe, pool=pool, now=now,
                             adaptive=adaptive and not math.isinf(margin),
-                            probe_margin=margin, min_probes=minp)
+                            probe_margin=margin, min_probes=minp,
+                            mesh=mesh, grain_axis=grain_axis)
     return requests
 
 
@@ -330,7 +348,8 @@ def _dispatch_group(registry: TenantRegistry, union: tuple,
                     mans: Dict[str, Manifest], *, mode: str, topk: int,
                     tag_mask, ts_range, scan_impl, budgets, nprobe, pool,
                     now: float, adaptive: bool, probe_margin: float,
-                    min_probes: int) -> None:
+                    min_probes: int, mesh=None,
+                    grain_axis: str = "model") -> None:
     base = registry.base
     dev = base.device
     names: List[str] = []
@@ -352,18 +371,27 @@ def _dispatch_group(registry: TenantRegistry, union: tuple,
         for t, name in enumerate(names):
             tix[rows_of[name]] = t
         man_u = Manifest(segments=union, mem_n=0, writer="<registry>")
-        # under a device_budget the union plane is the tiered entry: its
-        # host id panels give the same bitmaps, and the fused dispatch
-        # pages through it
-        entry = base._plane_entry_for(union)
-        tl = np.stack([registry._tenant_bitmap(entry, union, mans[name],
-                                               now) for name in names])
-        ids, d = base._search_segments_fused(
-            q, man_u, topk=topk, mode=mode, tag_mask=tag_mask,
-            ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
-            nprobe=nprobe, pool=pool, route_mode="global", now=now,
-            adaptive=adaptive, probe_margin=probe_margin,
-            min_probes=min_probes, tenant_live=tl, tenant_ix=tix)
+        kw = dict(topk=topk, mode=mode, tag_mask=tag_mask,
+                  ts_range=ts_range, scan_impl=scan_impl, budgets=budgets,
+                  nprobe=nprobe, pool=pool, now=now, adaptive=adaptive,
+                  probe_margin=probe_margin, min_probes=min_probes,
+                  tenant_ix=tix)
+        if mesh is not None:
+            entry = base._sharded_for(union, mesh, grain_axis)
+            tl = np.stack([registry._tenant_bitmap(entry, union, mans[name],
+                                                   now) for name in names])
+            ids, d = base._search_segments_sharded(
+                q, man_u, mesh=mesh, grain_axis=grain_axis,
+                shard_queries=False, tenant_live=tl, **kw)
+        else:
+            # under a device_budget the union plane is the tiered entry:
+            # its host id panels give the same bitmaps, and the fused
+            # dispatch pages through it
+            entry = base._plane_entry_for(union)
+            tl = np.stack([registry._tenant_bitmap(entry, union, mans[name],
+                                                   now) for name in names])
+            ids, d = base._search_segments_fused(
+                q, man_u, route_mode="global", tenant_live=tl, **kw)
         seg = (ids[:n].long(), d[:n])
 
     # each tenant's rows: its memtable scan, then one finalize

@@ -757,3 +757,84 @@ def test_select_reads_the_last_tenant_row_on_card(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(d, rd) and torch.equal(r, rr)
     assert bool((r >= 0).any())
+
+
+def _sharded_store(dev):
+    """A small store on the card: 4 sealed segments of 2,048 rows (8
+    grains each), deletes, an upsert, a 100-row memtable."""
+    from repro_torch.core import VectorStore
+
+    x = synthetic.anisotropic_manifold(n=4 * 2048 + 100, d=64, intrinsic=8,
+                                       seed=2)
+    q = synthetic.queries_from(x, nq=300)
+    cfg = repro_torch.HNTLConfig(d=64, k=8, s=4, block=32, n_grains=8,
+                                 nprobe=6, pool=32)
+    st = VectorStore(cfg, seal_threshold=2048, device=dev)
+    tags = 1 << (np.arange(len(x)) % 3)
+    for lo in range(0, len(x), 2048):             # one seal per chunk
+        st.add(x[lo:lo + 2048], tags=tags[lo:lo + 2048])
+    st.delete(np.arange(0, 4 * 2048, 7))
+    st.upsert([3], x[3:4] + 0.01)
+    return st, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_sharded_fused_equals_fused_ref_on_card(cuda_device, shards, mode):
+    """The sharded plane on ``["cuda:0"] * n``: the select kernel once per
+    shard and 256-query batch (the counter rises by n_shards * 2 for 300
+    queries), ids and dists ``torch.equal`` to the same mesh's
+    "fused_ref" plane, no deleted gid."""
+    from repro_torch.launch.mesh import make_search_mesh
+
+    st, q = _sharded_store(cuda_device)
+    mesh = make_search_mesh(shards, devices=["cuda:0"] * shards)
+    for kw in ({}, {"tag_mask": 0b101}):
+        before = port_fused.fused_scan_select.launches
+        got = st.search(q, topk=10, mode=mode, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        assert port_fused.fused_scan_select.launches == before + 2 * shards
+        want = st.search(q, topk=10, mode=mode, mesh=mesh,
+                         scan_impl="fused_ref", **kw)
+        assert got.ids.device.type == "cuda"
+        assert torch.equal(got.ids, want.ids)
+        assert torch.equal(got.dists, want.dists)
+        assert not np.isin(got.ids.cpu().numpy(),
+                           np.arange(0, 4 * 2048, 7)).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["A", "B"])
+def test_sharded_exhaustive_ids_equal_across_shard_counts_on_card(
+        cuda_device, mode):
+    """At exhaustive knobs the sharded plane's ids are the fused plane's
+    for 1, 2, 4 and 8 shards on one card."""
+    from repro_torch.launch.mesh import make_search_mesh
+
+    st, q = _sharded_store(cuda_device)
+    ex = dict(nprobe=sum(s.index.grains.n_grains for s in st._segments),
+              pool=st.n_vectors)
+    base = st.search(q[:64], topk=10, mode=mode, **ex)
+    for n in (1, 2, 4, 8):
+        got = st.search(q[:64], topk=10, mode=mode, **ex,
+                        mesh=make_search_mesh(n, devices=["cuda:0"] * n))
+        assert torch.equal(got.ids, base.ids), n
+
+
+@pytest.mark.gpu
+def test_sharded_mesh_on_other_devices_raises_on_card(cuda_device):
+    """A store on the card searched with CPU slots (and a CPU store with
+    card slots) raises; nothing runs on the CPU in silence."""
+    from repro_torch.core import VectorStore
+    from repro_torch.launch.mesh import make_search_mesh
+
+    st, q = _sharded_store(cuda_device)
+    with pytest.raises(ValueError, match="do not match"):
+        st.search(q, mesh=make_search_mesh(2, devices=["cpu"] * 2))
+    cpu = VectorStore(st.cfg, seal_threshold=2048, device="cpu")
+    cpu.add(np.asarray(q[:64].cpu().numpy() if torch.is_tensor(q) else
+                       q[:64], np.float32))
+    cpu.seal()
+    with pytest.raises(ValueError, match="do not match"):
+        cpu.search(q[:4], mesh=make_search_mesh(2, devices=["cuda:0"] * 2))

@@ -36,6 +36,7 @@ from repro_torch.core import store as store_mod
 from repro_torch.core.store import VectorStore, stack_segments
 from repro_torch.core.types import BIG, tree_bytes
 from repro_torch.interop import manifest_from_numpy, segment_from_numpy
+from repro_torch.launch.mesh import make_search_mesh
 
 import torch_parity as tp
 
@@ -561,7 +562,9 @@ def test_ttl_expiry_in_sealed_and_memtable_rows():
     (lambda st: st.search(np.zeros(D), adaptive=True, fused=False),
      "fused search plane"),
     (lambda st: st.search(np.zeros(D), probe_margin=0.5), "adaptive=True"),
-    (lambda st: st.search(np.zeros(D), mesh=object()), "item 10"),
+    (lambda st: st.search(np.zeros(D), fused=False,
+                          mesh=make_search_mesh(1, devices=["cpu"])),
+     "mesh= requires the fused search plane"),
     (lambda st: st.search(np.zeros(D), route_mode="nope"), "route_mode"),
 ], ids=["device_budget", "budgets",
         "budgets_invalid", "adaptive", "probe_margin", "mesh", "route_mode"])

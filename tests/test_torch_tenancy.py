@@ -1,7 +1,8 @@
 """Multi-tenant serving in the port: ``repro_torch.serve``.
 
-Twins of the JAX package's ``tests/test_tenancy.py`` (the non-sharded
-ones) on the CPU, at its sizes (d=16, k=4, block=16):
+Twins of the JAX package's ``tests/test_tenancy.py`` (its sharded ones
+are in ``test_torch_sharded.py``) on the CPU, at its sizes (d=16, k=4,
+block=16):
 
 - **registry lifecycle**: copy-on-write branches, the memtable budget's
   forced seal, argument checks, the LRU's freeze and thaw, explicit
@@ -621,10 +622,31 @@ def test_engine_memory_eviction_api():
 
 
 def test_mesh_stays_refused():
+    """The sharded plane is ported: a coalesced window on a 2-shard CPU
+    mesh equals the single-device window (ids exactly, dists to 1e-5)
+    at exhaustive knobs, and only a mesh on other devices than the base
+    store's is refused."""
+    from repro_torch.launch.mesh import make_search_mesh
+
     base, rng = _base()
     reg = TenantRegistry(base, memtable_budget=16, max_live=4)
-    with pytest.raises(ValueError, match="item 10"):
-        coalesced_retrieve(reg, _window(rng, ["a"], n=1), mesh=object())
+    reg.get("a").add(rng.standard_normal((20, D)).astype(np.float32))
+    reg.get("b").delete([0, 1, 2])
+    kn = _exhaustive(reg)
+    names = ["a", "b"]
+    single = coalesced_retrieve(reg, _window(np.random.default_rng(4),
+                                             names), **kn)
+    sharded = coalesced_retrieve(
+        reg, _window(np.random.default_rng(4), names),
+        mesh=make_search_mesh(2, devices=["cpu"] * 2), **kn)
+    for a, b in zip(single, sharded):
+        assert torch.equal(a.result.ids, b.result.ids)
+        np.testing.assert_allclose(a.result.dists.numpy(),
+                                   b.result.dists.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="do not match"):
+        coalesced_retrieve(reg, _window(rng, ["a"], n=1),
+                           mesh=make_search_mesh(1, devices=["cuda:0"]))
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,11 @@ invalid (BIG-distance) probes, so the stable partition and the bucketed
 dispatch run, and the result must still be the brute-force top-k
 (``cold_tier=True`` for a store whose raw rows live in cold files).
 
+The sharded twins (``mesh=``, a ``launch.mesh.SearchMesh`` of CPU slots):
+the same checks through ``search(mesh=...)`` and
+``coalesced_retrieve(mesh=...)``, whose knobs are per shard (exhaustive
+on every shard).
+
 The tenancy twin (``tenant_interleaving_check``): tenants of a
 ``serve.tenancy.TenantRegistry`` run per-tenant add/delete/upsert/seal
 and registry evictions (freeze and thaw through an LRU of 2), deletes and
@@ -71,7 +76,7 @@ def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed",
                                 scan_impl=None, budgeted: bool = False,
                                 device_budget=None, cold_dir=None,
                                 cold_tier: bool = False,
-                                adaptive_margin=None):
+                                adaptive_margin=None, mesh=None):
     rng = np.random.default_rng(seed)
     store = VectorStore(_cfg(bit_alloc), seal_threshold=64,
                         clock=lambda: 0.0, device="cpu",
@@ -134,6 +139,8 @@ def mutation_interleaving_check(ops, seed: int, bit_alloc: str = "fixed",
         kw["budgets"] = (kw["pool"], kw["pool"])
     if adaptive_margin is not None:
         kw.update(adaptive=True, probe_margin=float(adaptive_margin))
+    if mesh is not None:
+        kw["mesh"] = mesh
     assert store.n_live(now=NOW) == len(live)
     for filt in ({}, {"tag_mask": 2}, {"ts_range": (2.0, 8.0)}):
         res = store.search(q, **kw, **filt)
@@ -193,7 +200,7 @@ def _assert_matches_oracle(req, model, seed, ops):
 
 def tenant_interleaving_check(ops, seed: int, cold: bool = False,
                               cold_dir=None, n_tenants: int = 3,
-                              scan_impl=None):
+                              scan_impl=None, mesh=None):
     """Coalesced multi-tenant retrieval against per-tenant brute force.
 
     ``n_tenants`` branches of one base run ``ops`` ((op, tenant) pairs of
@@ -245,7 +252,7 @@ def tenant_interleaving_check(ops, seed: int, cold: bool = False,
             q = (near + 0.05 * rng.standard_normal(D)).astype(np.float32)
             reqs.append(RetrievalRequest(rid=rid, tenant=name, q=q,
                                          topk=5, mode="B"))
-        coalesced_retrieve(reg, reqs, scan_impl=scan_impl,
+        coalesced_retrieve(reg, reqs, scan_impl=scan_impl, mesh=mesh,
                            nprobe=EXHAUSTIVE, pool=EXHAUSTIVE, now=NOW)
         for r in reqs:
             _assert_matches_oracle(r, models[r.tenant], seed, ops)
