@@ -161,6 +161,22 @@ What it does, in order (any failure exits non-zero before the last line):
    and staging times, every select launch of a paged search held to its
    plain version and timed, profiles, the device memory held; it checks
    the free disk first and removes its directory at the end;
+12b. serving a model (``serve_phase``): phi3-mini-3.8b at its published
+   width and depth (32 layers, d_model 3072, 32 heads of 96, d_ff 8192,
+   vocab 32064, bf16), random weights drawn on the card from a seeded
+   generator: ``repro_torch.launch.serve.main`` answers 8 requests (64
+   prompt tokens, 32 new, 4 slots, a 65,536-row memory sidecar whose
+   retrieval launches ``fused_scan_select``), tokens/s and engine ticks;
+   decode against forward at full width in float32 (within 1e-4; in
+   bf16 measured against the reference's tolerances) and the engine
+   equal to a manual greedy loop; one 32,768-token request
+   (``--serve-tokens``) prefilled, one exact decode step, promoted to 32
+   ``KVIndex`` layers (``promote_to_retrieval``), then 16 retrieval
+   decode steps, each launching ``hntl_scan_single`` 32 times (counter
+   zeroed just before, read just after) and ``torch.equal`` to the same
+   step through the plain scan; the first step against the exact one
+   (measured, not gated), times, a profile of one step, the kernel at
+   this shape beside its bound, index and cache bytes, peak memory;
 13. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -181,6 +197,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
@@ -4248,6 +4265,348 @@ def cold_sharded(torch, np, st, qt, xl, alive, label):
 
 
 # ---------------------------------------------------------------------------
+# 12b: serving phi3-mini at its published width and depth
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "phi3-mini-3.8b"
+#: tests/test_models.py's decode-vs-forward tolerances (bf16 smoke models)
+SERVE_TOL_PREFILL = 3e-2
+SERVE_TOL_DECODE = 5e-2
+#: float32 decode against forward at full width: the port's float32 parity
+#: tolerance (tests/test_torch_models.py)
+SERVE_TOL_F32 = 1e-4
+
+
+class PlainScan:
+    """Stands in for ``hntl_attention``'s ``ops`` while a decode step is
+    run again for comparison: the scan on its plain version."""
+
+    @staticmethod
+    def scan_single(*args, backend=None):
+        from repro_torch.kernels import ops
+
+        return ops.scan_single(*args, backend="ref")
+
+
+def within(torch, got, want, tol):
+    """(max |got - want|, its median, max(|got - want| - tol |want|)) at
+    rtol = atol = tol; numpy's ``assert_allclose`` rule holds when the
+    last is at most tol."""
+    d = (got.float() - want.float()).abs()
+    return (float(d.max()), float(d.median()),
+            float((d - tol * want.float().abs()).max()))
+
+
+def decode_against_forward(torch, T, model, cfg, params, toks, dev):
+    """``forward``'s logits over [B, 64] tokens against a 32-token
+    ``prefill`` and 32 ``decode_step``s: max and median |difference| and
+    the worst excess over rtol |x| (for prefill and over all steps).
+    Beside them, how far the products depend on the row count alone:
+    a 32-token ``forward`` against the same rows of the 64-token one
+    ("rows"), and how many values of layer 0's MLP on [B, 32] rows
+    differ from the same rows of it on [B, 64] ("mlp_differ")."""
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.models import ffn
+
+    tf = T.logits_fn(params, cfg, T.forward(params, cfg, toks))
+    t32 = T.logits_fn(params, cfg, T.forward(params, cfg, toks[:, :32]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    h = torch.randn((toks.shape[0], 64, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.compute_dtype)
+    with full_fp32_matmul():
+        whole = ffn.mlp_apply(params.layers[0]["ffn"], h, cfg.mlp_kind)
+        part = ffn.mlp_apply(params.layers[0]["ffn"], h[:, :32],
+                             cfg.mlp_kind)
+    rows = dict(rows=float((t32 - tf[:, :32]).abs().max()),
+                mlp_differ=int((whole[:, :32] != part).sum()),
+                mlp_values=part.numel())
+    del t32, whole, part, h
+    logits, caches = model.prefill(params, toks[:, :32], max_len=64)
+    out = dict(zip(("prefill", "prefill_median", "prefill_excess"),
+                   within(torch, logits, tf[:, 31], SERVE_TOL_F32
+                          if cfg.dtype == "float32" else SERVE_TOL_PREFILL)))
+    out.update(rows, decode=0.0, decode_median=0.0, decode_excess=-1.0)
+    tol = SERVE_TOL_F32 if cfg.dtype == "float32" else SERVE_TOL_DECODE
+    for t in range(32, 64):
+        logits, caches = model.decode_step(params, toks[:, t], caches,
+                                           torch.full((2,), t, device=dev))
+        e, med, ex = within(torch, logits, tf[:, t], tol)
+        out["decode"] = max(out["decode"], e)
+        out["decode_median"] = max(out["decode_median"], med)
+        out["decode_excess"] = max(out["decode_excess"], ex)
+    return out
+
+
+def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
+                docs=65536, smoke=False):
+    """phi3-mini-3.8b at its published width and depth (``smoke``: its
+    smoke config, for a rehearsal on the CPU), random bf16 weights drawn
+    on the card from a seeded generator:
+
+    1. ``repro_torch.launch.serve.main``: 8 requests of 64 tokens, 32 new
+       tokens each, 4 slots, a ``docs``-row memory sidecar; every request
+       done with 32 tokens, rids unique and in order, the sidecar's
+       retrieval launched ``fused_scan_select`` (counter zeroed just
+       before, read just after); tokens/s and engine ticks;
+    2. decode against forward (2 x 64 tokens, prefill 32, decode 32):
+       in float32 at the same width and depth within 1e-4, and in bf16
+       measured against the reference's tolerances (the card's bf16
+       products round a row differently at another row count, which 32
+       layers amplify past them), and the engine against a manual
+       greedy loop at its batch shape (2 slots, a 16-token prompt, 8 new
+       tokens: equal tokens);
+    3. one ``long_tokens`` request from a 32-token alphabet: prefill
+       (``max_len`` = S + 64), one exact decode step on the linear caches,
+       ``promote_to_retrieval(cache_len=S)``, then ``steps`` retrieval
+       decode steps, each launching ``hntl_scan_single`` once per layer,
+       with finite logits ``torch.equal`` to the same step through the
+       plain scan; the first step's distance from the exact step's logits
+       and top-5 overlap (measured, not gated); times, a profile of one
+       step, the kernel at this shape beside its bound, index and cache
+       bytes, peak memory above the phase's start."""
+    import io
+    import re
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import tree_bytes
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.models import hntl_attention as H
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine, promote_to_retrieval
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)(SERVE_ARCH)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    log(f"serve phase: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+        f"{cfg.param_count()} parameters; {base} bytes held at its start")
+
+    # ---- 1. the server, through its entry point ---------------------------
+    argv = ["--arch", SERVE_ARCH, "--requests", "8", "--slots", "4",
+            "--prompt-len", "64", "--max-new", "32", "--retrieval-docs",
+            str(docs), "--seed", "0"]
+    argv += ["--smoke"] if smoke else []
+    argv += [] if on_card else ["--device", "cpu"]
+    buf = io.StringIO()
+    fs.fused_scan_select.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        reqs = serve.main(argv)
+    sync(torch, dev)
+    main_s = time.perf_counter() - t0
+    sidecar = fs.fused_scan_select.launches
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log("  " + line)
+    check(len(reqs) == 8 and all(r.done and len(r.out) == 32 for r in reqs),
+          "serve: a request is not done with 32 tokens")
+    check([r.rid for r in reqs] == list(range(8)),
+          "serve: the rids are not unique and in order")
+    if on_card:
+        check(sidecar > 0, "serve: the sidecar's retrieval launched no "
+              "fused_scan_select")
+    m = re.search(r"\(([0-9.]+) tok/s, ([0-9]+) engine ticks\)", text)
+    check(m is not None, "serve: no tokens/s line")
+    tok_s, ticks = float(m.group(1)), int(m.group(2))
+    log(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}: 8 "
+        f"requests done, {sum(len(r.out) for r in reqs)} tokens, "
+        f"{tok_s} tok/s over {ticks} engine ticks (the launcher's clock "
+        f"around run_to_completion); {main_s:.3f} s in all (init, memory "
+        f"build); fused_scan_select launches by the sidecar {sidecar}")
+    del reqs
+    gc.collect()
+
+    # ---- 2. full-width checks on the short path ---------------------------
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 64))).to(dev)
+    dec = {}
+    for dt in ("float32", cfg.dtype):
+        c = dataclasses.replace(cfg, dtype=dt)
+        m = get_model(c)
+        p = m.init(0, device=dev)
+        dec[dt] = decode_against_forward(torch, T, m, c, p, toks, dev)
+        del m, p
+        gc.collect()
+    e = dec["float32"]
+    check(e["prefill_excess"] <= SERVE_TOL_F32
+          and e["decode_excess"] <= SERVE_TOL_F32, f"serve: float32 decode "
+          f"against forward {e}, beyond {SERVE_TOL_F32} + {SERVE_TOL_F32} |x|")
+    for dt, e in dec.items():
+        tp, td = ((SERVE_TOL_F32, SERVE_TOL_F32) if dt == "float32"
+                  else (SERVE_TOL_PREFILL, SERVE_TOL_DECODE))
+        met = e["prefill_excess"] <= tp and e["decode_excess"] <= td
+        log(f"serve: decode against forward, {dt} (2 x 64 tokens, prefill "
+            f"32 then 32 steps): max |prefill - forward| "
+            f"{e['prefill']:.6f} (median {e['prefill_median']:.6f}), max "
+            f"|decode - forward| {e['decode']:.6f} (largest step median "
+            f"{e['decode_median']:.6f}); tolerance {tp} / {td} + the same "
+            f"|x|: {'met' if met else 'NOT met'}; the row count alone: a "
+            f"32-token forward against the same rows of the 64-token one "
+            f"{e['rows']:.6f}, layer 0's MLP on 32 rows against the same "
+            f"rows of 64: {e['mlp_differ']} of {e['mlp_values']} values "
+            f"differ"
+            + (" (gated)" if dt == "float32" else
+               " (measured, not gated: cuBLAS's bf16 products change a row's "
+               "rounding with the row count, and 32 layers amplify it)"))
+    model = get_model(cfg)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"serve: init {init_s:.3f} s, weights {w_bytes} bytes")
+
+    prompt = rng.integers(0, cfg.vocab, size=16)
+    eng = ServeEngine(model, params, n_slots=2, max_len=64)
+    caches = model.init_cache(2, 64, dev)
+    buf_t, pos = np.zeros(2, np.int64), np.zeros(2, np.int64)
+    for tok in prompt[:-1]:
+        buf_t[:] = 0
+        buf_t[0] = tok
+        _, caches = model.decode_step(params, torch.from_numpy(buf_t).to(dev),
+                                      caches, torch.from_numpy(pos).to(dev))
+        pos[0] += 1
+    buf_t[0] = prompt[-1]
+    manual = []
+    for _ in range(8):
+        logits, caches = model.decode_step(
+            params, torch.from_numpy(buf_t).to(dev), caches,
+            torch.from_numpy(pos).to(dev))
+        manual.append(int(logits[0].argmax()))
+        pos[0] += 1
+        buf_t[0] = manual[-1]
+    req = eng.submit(prompt, max_new=8)
+    eng.run_to_completion()
+    check(req.done and req.out == manual, f"serve: the engine's tokens "
+          f"{req.out} differ from the manual greedy loop's {manual}")
+    log(f"serve: the engine equals a manual greedy loop at its batch shape "
+        f"(2 slots, 16-token prompt, 8 new tokens): {manual}")
+    del eng, caches
+
+    # ---- 3. one long request on the HNTL-KV path --------------------------
+    s = long_tokens
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 32, size=(1, s))).to(dev)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, toks, max_len=s + 64)
+    sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    lin_bytes = sum(tree_bytes(c["mixer"]["k"]) + tree_bytes(c["mixer"]["v"])
+                    for c in caches)
+    tok = logits.argmax(-1)
+    pos = torch.full((1,), s, device=dev)
+    exact_ms = []
+    for _ in range(2):              # the second call is the one to read
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        l_exact, _ = model.decode_step(params, tok, caches, pos)
+        sync(torch, dev)
+        exact_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    prom = promote_to_retrieval(model, caches, cache_len=s)
+    sync(torch, dev)
+    promote_s = time.perf_counter() - t0
+    del caches
+    g = s // cfg.kv_cap
+    check(len(prom) == cfg.n_layers
+          and all(isinstance(c["mixer"], H.KVIndex)
+                  and c["mixer"].n_grains == g for c in prom),
+          f"serve: promote did not give {cfg.n_layers} KVIndex layers of "
+          f"{g} grains")
+    idx_bytes = sum(tree_bytes(c["mixer"]) for c in prom)
+    raw_bytes = sum(tree_bytes(c["mixer"].k_raw) + tree_bytes(
+        c["mixer"].v_raw) for c in prom)
+    log(f"serve: one {s}-token request ({g} grains of {cfg.kv_cap} tokens "
+        f"per KV head and layer): prefill {prefill_s:.3f} s, exact decode "
+        f"step {exact_ms[1]:.3f} ms (first call {exact_ms[0]:.3f} ms), "
+        f"promote {promote_s:.3f} s; linear caches {lin_bytes} bytes, "
+        f"{cfg.n_layers} KVIndex layers {idx_bytes} bytes (raw tier "
+        f"{raw_bytes}, a view of the linear caches; grains and tails "
+        f"{idx_bytes - raw_bytes})")
+    if cfg.kv_nprobe >= g:
+        log(f"serve: kv_nprobe = {cfg.kv_nprobe} of {g} grains: every grain "
+            "is probed, so this checks the model path, not routing's "
+            "saving (phase 8 covers that at 524,288 tokens on one layer)")
+
+    hs.hntl_scan_single.launches = 0
+    rows, cur = [], prom
+    for i in range(steps):
+        p = torch.full((1,), s + i, device=dev)
+        before = hs.hntl_scan_single.launches
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        lg, new = model.decode_step(params, tok, cur, p)
+        sync(torch, dev)
+        t_r = (time.perf_counter() - t0) * 1e3
+        n = hs.hntl_scan_single.launches - before
+        with unittest.mock.patch.object(H, "ops", PlainScan):
+            plain, _ = model.decode_step(params, tok, cur, p)
+        check(bool(torch.isfinite(lg).all()), f"serve: retrieval step {i}: "
+              "logits not finite")
+        check(torch.equal(lg, plain), f"serve: retrieval step {i}: the "
+              "kernel path differs from the plain scan's")
+        if on_card:
+            check(n == cfg.n_layers, f"serve: retrieval step {i} launched "
+                  f"hntl_scan_single {n} times, not {cfg.n_layers}")
+        row = dict(ms=t_r, launches=n)
+        if i == 0:
+            row["err"] = float((lg.float() - l_exact.float()).abs().max())
+            row["top5"] = len(set(torch.topk(lg[0], 5).indices.tolist())
+                              & set(torch.topk(l_exact[0], 5).indices
+                                    .tolist()))
+            log(f"serve: first retrieval step against the exact step: max "
+                f"|logit - exact logit| {row['err']:.6f}, top-5 overlap "
+                f"{row['top5']} of 5 (measured, not gated: a random-init "
+                "model attends near-uniformly)")
+        rows.append(row)
+        cur, tok = new, lg.argmax(-1)
+        del plain
+    launches = hs.hntl_scan_single.launches
+    mid = sorted(r["ms"] for r in rows)[len(rows) // 2]
+    log(f"serve: {steps} retrieval decode steps, median {mid:.3f} ms "
+        f"(exact step {exact_ms[1]:.3f} ms); hntl_scan_single launches "
+        f"{launches} ({[r['launches'] for r in rows]}), each step "
+        "torch.equal to the plain scan's")
+    out = dict(sidecar_launches=sidecar, launches=launches, tok_s=tok_s,
+               ticks=ticks, init_s=init_s, prefill_s=prefill_s,
+               promote_s=promote_s, exact_ms=exact_ms[1], retrieval_ms=mid,
+               err=rows[0]["err"], top5=rows[0]["top5"],
+               lin_bytes=lin_bytes, idx_bytes=idx_bytes)
+    if on_card:
+        p = torch.full((1,), s + steps, device=dev)
+        out["profile"] = profile(
+            torch, f"one retrieval decode step ({cfg.name}, "
+            f"{cfg.n_layers} layers)",
+            lambda: model.decode_step(params, tok, cur, p), mid / 1e3)
+        first = cur[0]["mixer"]
+        qh = first.centroids[:, :, :1].to(torch.float32)
+        _, _, scan_args = H._probe(qh, first, cfg)
+        out["scan"] = time_scan(
+            torch, f"a {cfg.name} decode step's layer", hs.hntl_scan_single,
+            ref.hntl_scan_single_ref, scan_args, 1)
+        out["peak"] = torch.cuda.max_memory_allocated(dev) - base
+        log(f"serve: peak device memory above the phase's start "
+            f"{out['peak']} bytes")
+    del prom, cur, params
+    gc.collect()
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -4274,6 +4633,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tier-n", type=int, default=1_000_000,
                     help="rows of the tiered phase's cold store: 8 sealed "
                     "segments, no memtable")
+    ap.add_argument("--serve-tokens", type=int, default=32_768,
+                    help="the serve phase's long request (a multiple of "
+                    "4096): prefilled, promoted to HNTL-KV, decoded")
     ap.add_argument("--race-cases", action="store_true",
                     help="only build the kernels and launch each path once "
                     "at a small shape, held to its plain version (the run "
@@ -4349,9 +4711,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp = tiered_phase(torch, np, cuda, n=a.tier_n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = serve_phase(torch, np, cuda, long_tokens=a.serve_tokens)
     log(f"peak device memory above each phase's start: warm store phase "
         f"(8 warm segments and a memtable) {stp['peak'] - stp['base']} "
-        f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes")
+        f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes, "
+        f"serve phase (phi3-mini, {a.serve_tokens}-token request) "
+        f"{sp['peak']} bytes")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     select_paths = {"search (fused plane)":
@@ -4384,14 +4751,17 @@ def main(argv=None) -> int:
                     "cold store search, 4 shards":
                     tp["cold_sharded"]["launches"],
                     "coalesced tenant search, 4 shards":
-                    tn["sharded"]["launches"]}
+                    tn["sharded"]["launches"],
+                    "serve sidecar retrieval": sp["sidecar_launches"]}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
                     "store search, kernel plane": stp["kernel_launches"],
                     "store search after maintain, kernel plane":
                     lc["kernel_launches"],
                     "sharded store search, kernel plane (4 shards)":
-                    shp["kernel_launches"]}
+                    shp["kernel_launches"],
+                    "model decode, HNTL-KV (phi3-mini, 32 layers)":
+                    sp["launches"]}
     select_entry = kernel_entry(
         "fused_scan_select", src + "fused_select.cu",
         "src/repro/kernels/fused_select.py:179", sum(select_paths.values()),
@@ -4416,14 +4786,15 @@ def main(argv=None) -> int:
         tn["select"]["max_abs_err"], shp["select"]["max_abs_err"],
         *(t["max_abs_err"] for t in cp["stage1"].values()),
         *(t["max_abs_err"] for t in lp["timing"].values()))
+    single_entry = kernel_entry(
+        "hntl_scan_single", src + "hntl_scan.cu",
+        "src/repro/kernels/hntl_scan.py:166", sum(single_paths.values()),
+        single_paths, err_scan["single"], st["kv"],
+        "HNTL-KV decode step: P=256 k=16 cap=4096 int16")
+    single_entry["at_model_decode"] = sp["scan"]
     log(json.dumps({"kernels": [
         select_entry,
-        kernel_entry("hntl_scan_single", src + "hntl_scan.cu",
-                     "src/repro/kernels/hntl_scan.py:166",
-                     sum(single_paths.values()), single_paths,
-                     err_scan["single"],
-                     st["kv"], "HNTL-KV decode step: P=256 k=16 cap=4096 "
-                     "int16"),
+        single_entry,
         kernel_entry("hntl_scan", src + "hntl_scan.cu",
                      "src/repro/kernels/hntl_scan.py:80", sb["launches"],
                      {"ops.scan_batched": sb["launches"]},

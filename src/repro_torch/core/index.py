@@ -55,13 +55,18 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def full_fp32_matmul():
-    """Float32 matrix products in full float32 (no TF32) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Matrix products at full precision inside the block: float32 ones in
+    full float32 (no TF32), bf16 ones reduced in float32 (no
+    reduced-precision split-K reduction), as the reference's
+    ``preferred_element_type=float32``."""
+    m = torch.backends.cuda.matmul
+    prev = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
+    m.allow_tf32 = False
+    m.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = prev
 
 
 class _Phases:

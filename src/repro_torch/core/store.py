@@ -598,7 +598,9 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-def _unported(name: str, item: int, what: str) -> ValueError:
+def _unported(name: str, item, what: str) -> ValueError:
+    """The refusal of a feature whose code is not ported yet; ``item`` is
+    its ROADMAP Queue A item (a number or a label such as "11a")."""
     return ValueError(f"{name} needs {what}, which is not ported yet "
                       f"(ROADMAP Queue A item {item})")
 

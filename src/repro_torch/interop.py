@@ -24,6 +24,9 @@ package's segments (or this package's finalizer under the JAX store's);
 ``sharded_from_numpy`` carries a JAX ``ShardedStackedSegments``
 (``repro.core.store.shard_segments``' host layout) across for
 ``planner.search_stacked_sharded``;
+``params_from_numpy`` and ``caches_from_numpy`` carry a JAX model's
+parameter tree and serving caches across (their ``[n_groups, ...]``
+stacked leaves unstacked into the port's unrolled layers);
 ``config_from_dict`` and ``model_config_from_dict``
 rebuild the two configuration dataclasses from ``dataclasses.asdict`` of
 the JAX ones.
@@ -53,6 +56,7 @@ from .core.types import (GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
                          ShardedStackedSegments)
 from .models.config import LayerSpec, ModelConfig
 from .models.hntl_attention import KVIndex
+from .models.transformer import Transformer, check_ported
 
 
 def _field(tree: Any, name: str):
@@ -204,6 +208,67 @@ def kv_index_from_numpy(tree: Any, device=None) -> KVIndex:
     device = resolve_device(device)
     return KVIndex(**{f.name: _tensor(_field(tree, f.name), device)
                       for f in dataclasses.fields(KVIndex)})
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layer_trees(tree: Any, cfg: ModelConfig):
+    """The reference's per-layer trees in layer order: group g's
+    ``groups["l{i}"]`` sliced at g, then the ``tail``."""
+    groups = _field(tree, "groups") or {}
+    out = []
+    for g in range(cfg.n_groups):
+        for i in range(len(cfg.pattern)):
+            out.append(_map_tree(groups[f"l{i}"], lambda a, g=g: a[g]))
+    return out + list(_field(tree, "tail") or ())
+
+
+def params_from_numpy(tree: Any, cfg: ModelConfig, device=None
+                      ) -> Transformer:
+    """A JAX model's parameter tree (numpy leaves, for example
+    ``jax.tree.map(np.asarray, params)``) -> this package's
+    ``Transformer``: the stacked groups unrolled, every dtype kept."""
+    device = resolve_device(device)
+    check_ported(cfg)
+
+    def conv(a):
+        return _tensor(a, device)
+
+    top = {k: _map_tree(_field(tree, k), conv)
+           for k in ("embedding", "final_norm", "lm_head")
+           if _field(tree, k) is not None}
+    return Transformer(cfg, top, [_map_tree(lt, conv)
+                                  for lt in _layer_trees(tree, cfg)])
+
+
+def caches_from_numpy(tree: Any, cfg: ModelConfig, device=None) -> list:
+    """A JAX model's serving caches (numpy leaves) -> this package's list
+    of per-layer caches: linear ``{"k", "v"}`` caches and stacked
+    ``KVIndex`` caches (each group's slice through
+    ``kv_index_from_numpy``) alike."""
+    device = resolve_device(device)
+
+    def linear(mix):
+        return isinstance(mix, Mapping) and set(mix) == {"k", "v"}
+
+    def group(mix, g):
+        if linear(mix):
+            return {k: mix[k][g] for k in ("k", "v")}
+        return {f.name: (None if _field(mix, f.name) is None
+                         else _field(mix, f.name)[g])
+                for f in dataclasses.fields(KVIndex)}
+
+    groups = _field(tree, "groups") or {}
+    mixers = [group(groups[f"l{i}"]["mixer"], g)
+              for g in range(cfg.n_groups) for i in range(len(cfg.pattern))]
+    mixers += [lt["mixer"] for lt in _field(tree, "tail") or ()]
+    return [{"mixer": ({k: _tensor(m[k], device) for k in ("k", "v")}
+                       if linear(m) else kv_index_from_numpy(m, device)),
+             "ffn": ()} for m in mixers]
 
 
 def _from_dict(cls, d: Mapping):

@@ -10,7 +10,9 @@
   "kernel" gather plane and HNTL-KV decode against their plain-scan runs,
   and a store's search against its "fused_ref" plane, also after
   compaction and maintenance, and with adaptive routing (warm, cold and
-  paged); they skip (inside a fixture) where there is no card.
+  paged), and a smoke model's prefill, decode, promoted HNTL-KV decode
+  and engine on the card against the CPU and the plain scan; they skip
+  (inside a fixture) where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.
@@ -114,6 +116,27 @@ def test_store_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VectorStore(cfg)
     assert VectorStore(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_models_without_device_need_a_card(monkeypatch):
+    from repro_torch import interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    model = get_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+    for carry in (interop.params_from_numpy, interop.caches_from_numpy):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            carry({}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "phi3-mini-3.8b", "--smoke"])
+    assert model.init(0, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_wrapper_refuses_other_devices():
@@ -838,3 +861,88 @@ def test_sharded_mesh_on_other_devices_raises_on_card(cuda_device):
     cpu.seal()
     with pytest.raises(ValueError, match="do not match"):
         cpu.search(q[:4], mesh=make_search_mesh(2, devices=["cuda:0"] * 2))
+
+
+def _smoke_model(device, **kw):
+    """A float32 phi3-mini smoke model on ``device`` (seed 0, drawn on
+    the CPU, then moved: ``nn.Module.to`` moves the module itself)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
+                              dtype="float32", **kw)
+    model = get_model(cfg)
+    return cfg, model, model.init(0, device="cpu").to(device)
+
+
+@pytest.mark.gpu
+def test_model_prefill_and_decode_on_card_equal_cpu(cuda_device):
+    cfg, model, params = _smoke_model(cuda_device)
+    _, _, cpu_params = _smoke_model("cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 20)))
+    got, caches = model.prefill(params, tokens[:, :12], max_len=20)
+    want, cpu_caches = model.prefill(cpu_params, tokens[:, :12], max_len=20)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for t in range(12, 16):
+        pos = torch.full((2,), t)
+        got, caches = model.decode_step(params, tokens[:, t], caches, pos)
+        want, cpu_caches = model.decode_step(cpu_params, tokens[:, t],
+                                             cpu_caches, pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert got.device.type == "cuda"
+
+
+class _PlainScan:
+    """Stands in for ``hntl_attention``'s ``ops``: the scan on its plain
+    version."""
+
+    @staticmethod
+    def scan_single(*args, backend=None):
+        from repro_torch.kernels import ops
+
+        return ops.scan_single(*args, backend="ref")
+
+
+@pytest.mark.gpu
+def test_promoted_model_decode_launches_the_scan_per_layer_on_card(
+        cuda_device, monkeypatch):
+    from repro_torch.models import hntl_attention as H
+    from repro_torch.serve.engine import promote_to_retrieval
+
+    cfg, model, params = _smoke_model(cuda_device, n_layers=3,
+                                      kv_nprobe=2, kv_pool=32)
+    s = 4 * cfg.kv_cap + 3
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, s)))
+    _, caches = model.prefill(params, tokens, max_len=s + 8)
+    promoted = promote_to_retrieval(model, caches, cache_len=s)
+    del caches
+    assert all(isinstance(c["mixer"], H.KVIndex) for c in promoted)
+    tok, pos = torch.tensor([5, 9]), torch.full((2,), s)
+    before = port_scan.hntl_scan_single.launches
+    got, new = model.decode_step(params, tok, promoted, pos)
+    torch.cuda.synchronize()
+    assert port_scan.hntl_scan_single.launches == before + cfg.n_layers
+    monkeypatch.setattr(H, "ops", _PlainScan)
+    plain, plain_new = model.decode_step(params, tok, promoted, pos)
+    assert port_scan.hntl_scan_single.launches == before + cfg.n_layers
+    assert torch.equal(got, plain)
+    assert all(torch.equal(a["mixer"].tail_k, b["mixer"].tail_k)
+               for a, b in zip(new, plain_new))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+def test_engine_decodes_two_requests_on_card(cuda_device):
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, model, params = _smoke_model(cuda_device)
+    engine = ServeEngine(model, params, n_slots=2, max_len=64)
+    assert engine.caches[0]["mixer"]["k"].device.type == "cuda"
+    reqs = [engine.submit(np.arange(3, 9 + i), max_new=5) for i in range(2)]
+    engine.run_to_completion()
+    assert all(r.done and len(r.out) == 5 for r in reqs)
+    assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)

@@ -268,7 +268,7 @@ def test_config_copy_matches_jax():
     assert (full.kv_kt, full.kv_cap, full.kv_nprobe, full.kv_pool,
             full.kv_tail) == (16, 4096, 8, 128, 1024)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("gemma2-2b")
+        get_config("llama-7b")
 
 
 def test_build_without_device_needs_a_card(monkeypatch):

@@ -581,10 +581,14 @@ def test_engine_mutations_route_to_tenant():
     assert reg.get("b")._live_seq == {}
 
 
-def test_engine_validates_adaptive_flags_then_refuses():
-    """The reference's constructor checks, in its order, then a refusal
-    naming the item that brings the decoder; no store is touched."""
+def test_engine_validates_adaptive_flags_then_sets_memory_budget():
+    """The reference's constructor checks, in its order; a refused
+    engine touches no store, and an engine on a smoke model sets its
+    ``memory_budget`` on the store."""
     import types
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
 
     dummy = types.SimpleNamespace(cfg=None)
     with pytest.raises(ValueError, match="adaptive=True"):
@@ -598,9 +602,15 @@ def test_engine_validates_adaptive_flags_then_refuses():
     with pytest.raises(ValueError, match="requires memory="):
         ServeEngine(dummy, None, memory_budget=1024)
     st, _ = _base()
-    with pytest.raises(ValueError, match="item 9"):
-        ServeEngine(dummy, None, memory=st, memory_budget=1024)
+    with pytest.raises(ValueError, match="adaptive=True"):
+        ServeEngine(dummy, None, memory=st, memory_budget=1024,
+                    probe_margin=0.25)
     assert st.device_budget is None
+    model = get_model(get_smoke_config("phi3-mini-3.8b"))
+    eng = ServeEngine(model, model.init(0, device="cpu"), n_slots=2,
+                      max_len=32, memory=st, memory_budget=1024)
+    assert st.device_budget == 1024 and eng.memory_budget == 1024
+    assert eng.memory_residency() is not None
 
 
 def test_engine_memory_eviction_api():
