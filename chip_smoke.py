@@ -177,6 +177,28 @@ What it does, in order (any failure exits non-zero before the last line):
    step through the plain scan; the first step against the exact one
    (measured, not gated), times, a profile of one step, the kernel at
    this shape beside its bound, index and cache bytes, peak memory;
+12c. the rest of the model families (``families_phase``), each at its
+   published width with random weights from seed 0, phi3-mini freed
+   first: qwen3-moe-30b-a3b at full depth in bf16 (61 GB; the free
+   device memory is checked first) through ``launch.serve.main`` (4
+   requests of 32 + 16 tokens, 4 slots), one ``--serve-tokens`` request
+   prefilled, promoted to 48 ``KVIndex`` layers and decoded 8 retrieval
+   steps (each launching ``hntl_scan_single`` 48 times and
+   ``torch.equal`` to its plain-scan twin), float32 decode against
+   forward at 4 layers with no drops (top-k set differences and the
+   published factor's drops counted); dbrx-132b in float32 at 2 and in
+   bf16 at 4 of 40 layers; recurrentgemma-9b and rwkv6-1.6b at full depth:
+   float32 decode against forward, 4 requests through 4 slots equal to
+   each served alone (and the final recurrent states compared), prefills
+   of 4,096 and 32,768 (rwkv6: 256 and 2,048) tokens with flat step times
+   and state bytes (rwkv6's float32 check gated at 1 layer, measured at
+   24 beside the card's row-count floor); whisper-base: a
+   1,500-frame window decoded 32 tokens on exact cross-attention (float32,
+   equal to the teacher-forced decode), then 65,536 frames sealed by
+   ``build_cross_index`` (16 grains per head, 8 probed) and 16
+   ``decode_step_retrieval`` steps, 6 scans each, each ``torch.equal`` to
+   its plain twin, against exact cross-attention; times, profiles, the
+   kernel at the two new shapes beside its bound, peak memory;
 13. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -4607,6 +4629,675 @@ def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
 
 
 # ---------------------------------------------------------------------------
+# 12c: the rest of the model families
+# ---------------------------------------------------------------------------
+
+#: Free device bytes the full-depth qwen3-moe-30b-a3b needs: its 61.1e9
+#: bytes of bf16 weights and ~10 GB for a 32,768-token prefill (3.2 GB of
+#: caches, the expert slabs and the combine's float32 gather).
+MOE_FREE_BYTES = 72e9
+
+
+def state_bytes(tree) -> int:
+    """Bytes of every tensor in a cache tree (lists, dicts, ``KVIndex``)."""
+    from repro_torch.core import tree_bytes
+
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(state_bytes(v) for v in tree)
+    return tree_bytes(tree)
+
+
+class RouterLog:
+    """Wraps ``ffn.moe_apply`` while it is entered: each call's routing
+    (the stable top-k expert set of every token, [B, S, K] sorted) and the
+    (token, expert) pairs its capacity drops, recomputed from the call's
+    inputs as the dispatch does."""
+
+    def __init__(self, torch):
+        from repro_torch.models import ffn
+
+        self.torch, self.ffn, self.calls = torch, ffn, []
+        self._orig = ffn.moe_apply
+
+    def _call(self, params, x, *, top_k, capacity_factor=1.25,
+              norm_topk=True):
+        torch = self.torch
+        b, s, d = x.shape
+        e = params["router"].shape[1]
+        probs = torch.softmax(x.reshape(-1, d).to(torch.float32)
+                              @ params["router"], dim=-1)
+        top_e = torch.sort(probs, dim=-1, descending=True,
+                           stable=True).indices[:, :top_k]
+        counts = torch.bincount(top_e.reshape(-1), minlength=e)
+        cap = self.ffn._capacity(b * s, e, top_k, capacity_factor)
+        self.calls.append(dict(
+            sets=torch.sort(top_e, dim=-1).values.reshape(b, s, top_k),
+            dropped=int(torch.clamp(counts - cap, min=0).sum()),
+            pairs=b * s * top_k))
+        return self._orig(params, x, top_k=top_k,
+                          capacity_factor=capacity_factor,
+                          norm_topk=norm_topk)
+
+    def __enter__(self):
+        self._patch = unittest.mock.patch.object(self.ffn, "moe_apply",
+                                                 self._call)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+
+def family_decode_check(torch, model, cfg, params, toks, n_prefill=32):
+    """``forward``'s logits over ``toks`` [B, S] against an
+    ``n_prefill``-token ``prefill`` and S - n_prefill ``decode_step``s:
+    max |difference| and the worst excess over rtol |x|, at the float32
+    tolerance.  Beside them the card's floor for the same function: an
+    ``n_prefill``-token forward against the same rows of the S-token one
+    ("rows"; only the products' row count differs).  For an MoE model
+    also the (layer, token) rows whose top-k expert set differs between
+    forward and decode."""
+    from repro_torch.models import transformer as T
+
+    s = toks.shape[1]
+    dev = toks.device
+    log_ = RouterLog(torch) if cfg.n_experts else contextlib.nullcontext()
+    with log_:
+        tf = T.logits_fn(params, cfg, T.forward(params, cfg, toks))
+        rows = float((T.logits_fn(params, cfg, T.forward(
+            params, cfg, toks[:, :n_prefill])) - tf[:, :n_prefill]).abs()
+            .max())
+        logits, caches = model.prefill(params, toks[:, :n_prefill],
+                                       max_len=s)
+        out = dict(zip(("prefill", "prefill_median", "prefill_excess"),
+                       within(torch, logits, tf[:, n_prefill - 1],
+                              SERVE_TOL_F32)))
+        out.update(decode=0.0, decode_excess=-1.0, rows=rows)
+        for t in range(n_prefill, s):
+            logits, caches = model.decode_step(
+                params, toks[:, t], caches,
+                torch.full((toks.shape[0],), t, device=dev))
+            e, _, ex = within(torch, logits, tf[:, t], SERVE_TOL_F32)
+            out["decode"] = max(out["decode"], e)
+            out["decode_excess"] = max(out["decode_excess"], ex)
+    if cfg.n_experts:
+        n = cfg.n_layers
+        fwd, steps = log_.calls[:n], log_.calls[3 * n:]
+        differ = 0
+        for i, call in enumerate(steps):
+            t, layer = n_prefill + i // n, i % n
+            differ += int((call["sets"][:, 0]
+                           != fwd[layer]["sets"][:, t]).any(-1).sum())
+        out["set_rows_differ"] = differ
+        out["set_rows"] = len(steps) * toks.shape[0]
+        out["forward_dropped"] = sum(c["dropped"] for c in fwd)
+    out["ok"] = (out["prefill_excess"] <= SERVE_TOL_F32
+                 and out["decode_excess"] <= SERVE_TOL_F32)
+    return out
+
+
+def log_decode_check(name, e):
+    extra = ""
+    if "set_rows" in e:
+        extra = (f"; top-k expert sets differ between forward and decode "
+                 f"in {e['set_rows_differ']} of {e['set_rows']} (layer, "
+                 f"token) rows; forward dropped {e['forward_dropped']} "
+                 "pairs")
+    log(f"families: {name} decode against forward (float32): max |prefill "
+        f"- forward| {e['prefill']:.3g}, max |decode - forward| "
+        f"{e['decode']:.3g}; tolerance {SERVE_TOL_F32} + the same |x|: "
+        f"{'met' if e['ok'] else 'NOT met'}; the row count alone: a 32-token "
+        f"forward against the same rows of the 64-token one "
+        f"{e['rows']:.3g}{extra}")
+
+
+def served_tokens(ServeEngine, model, params, prompts, n_slots, max_new,
+                  max_len=64):
+    """The tokens of ``prompts`` served through one ``n_slots`` engine,
+    and the engine."""
+    eng = ServeEngine(model, params, n_slots=n_slots, max_len=max_len)
+    reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+    eng.run_to_completion()
+    check(all(r.done and len(r.out) == max_new for r in reqs),
+          "families: a request is not done")
+    return [r.out for r in reqs], eng
+
+
+def slot_isolation(torch, name, ServeEngine, model, params, prompts,
+                   max_new=8):
+    """Each slot isolated: ``prompts`` through one engine of len(prompts)
+    slots give each request the tokens it gets alone, through a fresh
+    engine of the same slot count (the same batch shape, so a row's
+    products round the same way).  A random model often repeats one
+    token, so beside the tokens the recurrent state each request ends
+    with (slot i together, slot 0 alone) is compared: its largest
+    |difference| is reported."""
+    n = len(prompts)
+    together, eng = served_tokens(ServeEngine, model, params, prompts, n,
+                                  max_new)
+    alone, diff = [], 0.0
+    for i, p in enumerate(prompts):
+        out, solo = served_tokens(ServeEngine, model, params, [p], n,
+                                  max_new)
+        alone.append(out[0])
+        for li in eng._recurrent:
+            for part in ("mixer", "ffn"):
+                for k, v in (eng.caches[li][part] or {}).items():
+                    w = solo.caches[li][part][k]
+                    diff = max(diff, float((v[i].float() - w[0].float())
+                                           .abs().max()))
+        del solo
+    check(together == alone, f"families: {name}: {n} slots gave "
+          f"{together}, each request alone {alone}")
+    log(f"families: {name}: {n} requests through {n} slots equal each "
+        f"served alone ({[t[:3] for t in together]}...); largest |difference|"
+        f" of a request's final recurrent state, together against alone: "
+        f"{diff}")
+    return diff
+
+
+def timed_steps(torch, dev, fn, steps):
+    """Host ms of ``steps`` calls of ``fn`` (each ending in a
+    synchronise): the median and the list."""
+    ms = []
+    for _ in range(steps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[len(ms) // 2], ms
+
+
+def free_card(torch, dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def init_model(torch, dev, cfg):
+    """A model of ``cfg`` on ``dev`` (seed 0), timed."""
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    sync(torch, dev)
+    return model, params, time.perf_counter() - t0
+
+
+def retrieval_steps(torch, dev, step, steps, label, n_launch, on_card):
+    """``steps`` calls of ``step(i, backend_plain)`` -> (logits, next):
+    each kernel step launches ``hntl_scan_single`` ``n_launch`` times
+    (counted per step) and ``torch.equal``s the same step through the
+    plain scan.  Returns (median ms, launches, per-step rows)."""
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.models import hntl_attention as H
+
+    rows = []
+    for i in range(steps):
+        before = hs.hntl_scan_single.launches
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        lg = step(i, False)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        n = hs.hntl_scan_single.launches - before
+        with unittest.mock.patch.object(H, "ops", PlainScan):
+            plain = step(i, True)
+        check(bool(torch.isfinite(lg).all()), f"families: {label} step {i}: "
+              "logits not finite")
+        check(torch.equal(lg, plain), f"families: {label} step {i}: the "
+              "kernel path differs from the plain scan's")
+        if on_card:
+            check(n == n_launch, f"families: {label} step {i} launched "
+                  f"hntl_scan_single {n} times, not {n_launch}")
+        rows.append(dict(ms=ms, launches=n))
+    mid = sorted(r["ms"] for r in rows)[len(rows) // 2]
+    return mid, sum(r["launches"] for r in rows), rows
+
+
+def moe_family(torch, np, dev, *, long_tokens, steps, smoke, on_card):
+    """qwen3-moe-30b-a3b at full width and depth (bf16): the launcher, one
+    long request on HNTL-KV, and float32 decode against forward at 4
+    layers with no drops; then dbrx-132b cut in depth."""
+    import io
+    import re
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import hntl_attention as H
+    from repro_torch.serve.engine import promote_to_retrieval
+
+    arch = "qwen3-moe-30b-a3b"
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    out = {}
+    free_card(torch, dev)
+    if on_card:
+        free, total = torch.cuda.mem_get_info(dev)
+        need = 1.0e9 if smoke else MOE_FREE_BYTES
+        check(free >= need, f"families: {arch} needs {need:.3g} free device "
+              f"bytes ({cfg.param_count() * 2:.4g} of bf16 weights and a "
+              f"{long_tokens}-token prefill); {free} of {total} are free")
+        log(f"families: {free} of {total} device bytes free before "
+            f"{arch} ({cfg.param_count()} parameters, "
+            f"{cfg.active_param_count()} active)")
+
+    # ---- the launcher: 4 requests of 32 + 16 tokens on 4 slots ----------
+    argv = ["--arch", arch, "--requests", "4", "--slots", "4",
+            "--prompt-len", "32", "--max-new", "16", "--seed", "0"]
+    argv += ["--smoke"] if smoke else []
+    argv += [] if on_card else ["--device", "cpu"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        reqs = serve.main(argv)
+    sync(torch, dev)
+    main_s = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log("  " + line)
+    check(len(reqs) == 4 and all(r.done and len(r.out) == 16 for r in reqs),
+          f"families: {arch}: a request is not done with 16 tokens")
+    m = re.search(r"\(([0-9.]+) tok/s, ([0-9]+) engine ticks\)",
+                  buf.getvalue())
+    check(m is not None, "families: no tokens/s line")
+    out["tok_s"], out["ticks"] = float(m.group(1)), int(m.group(2))
+    log(f"families: python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"4 requests done, {out['tok_s']} tok/s over {out['ticks']} engine "
+        f"ticks (the launcher's clock around run_to_completion, 124 "
+        f"prompt-feed steps before them); {main_s:.3f} s in all (init "
+        "included)")
+    del reqs
+    free_card(torch, dev)
+
+    # ---- one long request on HNTL-KV --------------------------------------
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, params, out["init_s"] = init_model(torch, dev, cfg)
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    s = long_tokens
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 32, size=(1, s))).to(dev)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, toks, max_len=s + 64)
+    sync(torch, dev)
+    out["prefill_s"] = time.perf_counter() - t0
+    tok = logits.argmax(-1)
+    pos = torch.full((1,), s, device=dev)
+    holder = {}
+
+    def exact():
+        holder["l"], _ = model.decode_step(params, tok, caches, pos)
+    out["exact_ms"], _ = timed_steps(torch, dev, exact, 3)
+    l_exact = holder.pop("l")
+    t0 = time.perf_counter()
+    prom = promote_to_retrieval(model, caches, cache_len=s)
+    sync(torch, dev)
+    out["promote_s"] = time.perf_counter() - t0
+    out["lin_bytes"] = state_bytes([c["mixer"] for c in caches])
+    del caches
+    g = s // cfg.kv_cap
+    check(len(prom) == cfg.n_layers and all(
+        isinstance(c["mixer"], H.KVIndex) and c["mixer"].n_grains == g
+        for c in prom), f"families: promote did not give {cfg.n_layers} "
+          f"KVIndex layers of {g} grains")
+    out["idx_bytes"] = state_bytes([c["mixer"] for c in prom])
+    cur = {"c": prom, "tok": tok}
+
+    def step(i, plain):
+        lg, new = model.decode_step(params, cur["tok"], cur["c"],
+                                    torch.full((1,), s + i, device=dev))
+        if plain:                      # advance after the comparison
+            cur["c"], cur["tok"] = new, lg.argmax(-1)
+        elif i == 0:
+            cur["first"] = lg
+        return lg
+    hs.hntl_scan_single.launches = 0
+    out["retrieval_ms"], out["launches"], rows = retrieval_steps(
+        torch, dev, step, steps, f"{arch} retrieval", cfg.n_layers, on_card)
+    first = cur.pop("first")
+    out["err"] = float((first.float() - l_exact.float()).abs().max())
+    out["top5"] = len(set(torch.topk(first[0], 5).indices.tolist())
+                      & set(torch.topk(l_exact[0], 5).indices.tolist()))
+    log(f"families: {arch}: init {out['init_s']:.3f} s ({w_bytes} bytes "
+        f"of weights); one {s}-token request: prefill {out['prefill_s']:.3f}"
+        f" s, exact step {out['exact_ms']:.3f} ms, promote "
+        f"{out['promote_s']:.3f} s to {cfg.n_layers} KVIndex layers of {g} "
+        f"grains ({out['idx_bytes']} bytes, raw tier a view of the "
+        f"{out['lin_bytes']} bytes of linear caches); {steps} retrieval "
+        f"steps, median {out['retrieval_ms']:.3f} ms, hntl_scan_single "
+        f"launches {out['launches']} ({[r['launches'] for r in rows]}), "
+        f"each torch.equal to the plain scan's; first step against the "
+        f"exact one: max |logit - exact| {out['err']:.4f}, top-5 overlap "
+        f"{out['top5']} of 5 (measured, not gated)")
+    if on_card:
+        p = torch.full((1,), s + steps, device=dev)
+        out["profile"] = profile(
+            torch, f"one retrieval decode step ({arch}, {cfg.n_layers} "
+            "layers)", lambda: model.decode_step(params, cur["tok"], cur["c"],
+                                                 p),
+            out["retrieval_ms"] / 1e3)
+        idx0 = cur["c"][0]["mixer"]
+        _, _, scan_args = H._probe(
+            idx0.centroids[:, :, :1].to(torch.float32).expand(
+                -1, -1, cfg.n_heads // cfg.n_kv_heads, -1).contiguous(),
+            idx0, cfg)
+        out["scan"] = time_scan(
+            torch, f"a {arch} decode step's layer", hs.hntl_scan_single,
+            ref.hntl_scan_single_ref, scan_args, 1)
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        log(f"families: {arch} peak device memory {out['peak']} bytes")
+    del prom, cur, params, model, first, l_exact, logits
+    free_card(torch, dev)
+
+    # ---- float32 decode against forward, depth cut, no drops -------------
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 64))).to(dev)
+    c32 = dataclasses.replace(
+        cfg, dtype="float32", n_layers=min(4, cfg.n_layers),
+        capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    model, params, _ = init_model(torch, dev, c32)
+    e = family_decode_check(torch, model, c32, params, toks)
+    log_decode_check(f"{arch} at {c32.n_layers} of {cfg.n_layers} layers, "
+                     f"capacity factor {c32.capacity_factor}", e)
+    check(e["ok"], f"families: {arch} float32 decode against forward {e}")
+    from repro_torch.models import transformer as T
+    with RouterLog(torch) as rl:
+        T.forward(params, dataclasses.replace(
+            c32, capacity_factor=cfg.capacity_factor), toks)
+    out["published_dropped"] = sum(c["dropped"] for c in rl.calls)
+    out["published_pairs"] = sum(c["pairs"] for c in rl.calls)
+    log(f"families: {arch} at the published capacity factor "
+        f"{cfg.capacity_factor}: a 2 x 64-token forward drops "
+        f"{out['published_dropped']} of {out['published_pairs']} (token, "
+        f"expert) pairs over {c32.n_layers} layers")
+    out["decode_check"] = e
+    del model, params
+    free_card(torch, dev)
+
+    # ---- dbrx-132b: full width, depth cut ---------------------------------
+    arch = "dbrx-132b"
+    dcfg = (get_smoke_config if smoke else get_config)(arch)
+    c32 = dataclasses.replace(dcfg, dtype="float32", n_layers=2,
+                              capacity_factor=dcfg.n_experts
+                              / dcfg.moe_top_k)
+    model, params, init_s = init_model(torch, dev, c32)
+    e = family_decode_check(torch, model, c32, params, toks % dcfg.vocab)
+    log_decode_check(f"{arch} at 2 of {dcfg.n_layers} layers (init "
+                     f"{init_s:.3f} s)", e)
+    check(e["ok"], f"families: {arch} float32 decode against forward {e}")
+    out["dbrx_check"] = e
+    del model, params
+    free_card(torch, dev)
+    c16 = dataclasses.replace(dcfg, n_layers=4)
+    model, params, init_s = init_model(torch, dev, c16)
+    _, caches = model.prefill(params, toks[:1, :32] % dcfg.vocab, max_len=64)
+    tok = torch.ones(1, dtype=torch.long, device=dev)
+
+    def dstep():
+        model.decode_step(params, tok, caches, torch.full((1,), 32,
+                                                          device=dev))
+    dstep()
+    out["dbrx_step_ms"], _ = timed_steps(torch, dev, dstep, 5)
+    log(f"families: {arch} bf16 at 4 of {dcfg.n_layers} layers: init "
+        f"{init_s:.3f} s, B=1 decode step {out['dbrx_step_ms']:.3f} ms "
+        "(median of 5)")
+    del model, params, caches
+    free_card(torch, dev)
+    return out
+
+
+def recurrent_families(torch, np, dev, *, rg_tokens, rwkv_tokens, steps,
+                       smoke, on_card):
+    """recurrentgemma-9b and rwkv6-1.6b at full width and depth: float32
+    decode against forward, slot isolation in bf16, prefills of 1/8 of
+    the long request and of all of it, with step times and the state's
+    bytes at both."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.serve.engine import ServeEngine
+
+    out = {}
+    rng = np.random.default_rng(0)
+    # rwkv6 is gated at one layer: at its random init the card's float32
+    # products at another row count alone move its 24-layer logits by
+    # ~1.3 (the "rows" floor, printed beside the full-depth run, which is
+    # measured, not gated)
+    for arch, long_s, gate_layers in (
+            ("recurrentgemma-9b", rg_tokens, None),
+            ("rwkv6-1.6b", rwkv_tokens, 1)):
+        cfg = (get_smoke_config if smoke else get_config)(arch)
+        r = out[arch] = {}
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                             size=(2, 64))).to(dev)
+        for depth in ((gate_layers, cfg.n_layers) if gate_layers
+                      else (cfg.n_layers,)):
+            c32 = dataclasses.replace(cfg, dtype="float32", n_layers=depth)
+            model, params, init_s = init_model(torch, dev, c32)
+            e = family_decode_check(torch, model, c32, params, toks)
+            gated = depth == (gate_layers or cfg.n_layers)
+            log_decode_check(f"{arch} at {depth} of {cfg.n_layers} layers "
+                             f"(init {init_s:.3f} s; "
+                             f"{'gated' if gated else 'measured, not gated'})",
+                             e)
+            if gated:
+                check(e["ok"], f"families: {arch} float32 decode against "
+                      f"forward at {depth} layers {e}")
+                r["decode_check"] = e
+            else:
+                r["decode_full_depth"] = e
+            del model, params
+            free_card(torch, dev)
+
+        model, params, r["init_s"] = init_model(torch, dev, cfg)
+        prompts = [rng.integers(0, cfg.vocab, size=16) for _ in range(4)]
+        r["isolated"] = slot_isolation(torch, arch, ServeEngine, model,
+                                       params, prompts)
+        # step time and state bytes at two context lengths
+        tok = torch.ones(1, dtype=torch.long, device=dev)
+        short_s = max(cfg.kv_cap if smoke else 256, long_s // 8)
+        for s in (short_s, long_s):
+            ids = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                size=(1, s))).to(dev)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            _, caches = model.prefill(params, ids, max_len=s + 64)
+            sync(torch, dev)
+            prefill_s = time.perf_counter() - t0
+
+            def step():
+                model.decode_step(params, tok, caches,
+                                  torch.full((1,), s, device=dev))
+            step()
+            ms, _ = timed_steps(torch, dev, step, steps)
+            r[s] = dict(prefill_s=prefill_s, step_ms=ms,
+                        state_bytes=state_bytes(caches))
+            log(f"families: {arch} bf16, a {s}-token request: prefill "
+                f"{prefill_s:.3f} s ({s / prefill_s:.1f} tokens/s), decode "
+                f"step median {ms:.3f} ms of {steps}, state "
+                f"{r[s]['state_bytes']} bytes")
+        short, long_ = r[short_s], r[long_s]
+        check(short["state_bytes"] == long_["state_bytes"],
+              f"families: {arch}: the state grew with context "
+              f"({short['state_bytes']} -> {long_['state_bytes']} bytes)")
+        check(long_["step_ms"] <= 1.5 * short["step_ms"] + 1.0,
+              f"families: {arch}: the step time grew with context "
+              f"({short['step_ms']:.3f} -> {long_['step_ms']:.3f} ms)")
+        if on_card:
+            r["profile"] = profile(
+                torch, f"one decode step ({arch}, {cfg.n_layers} layers, "
+                f"{long_s}-token context)", step, long_["step_ms"] / 1e3)
+        del model, params, caches
+        free_card(torch, dev)
+    return out
+
+
+def whisper_family(torch, np, dev, *, window, long_frames, steps, smoke,
+                   on_card):
+    """whisper-base at full width: a 30 s window encoded and decoded
+    exactly, then a long encoder memory on HNTL-KV cross-attention."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import ref
+    from repro_torch.models import encdec as E
+    from repro_torch.models import hntl_attention as H
+
+    arch = "whisper-base"
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    out = {}
+    rng = np.random.default_rng(2)
+    # ---- one window, exact cross-attention, float32 against decode -------
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    model, params, _ = init_model(torch, dev, c32)
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, window, cfg.d_model)).astype(np.float32)).to(dev)
+    mem = model.encode(params, frames)
+    cross = E.build_cross_cache(params, c32, mem)
+    sc = E.init_self_cache(c32, 1, dev)
+    tok, toks, logit_rows = torch.zeros(1, dtype=torch.long, device=dev), \
+        [], []
+    for t in range(32):
+        toks.append(tok)
+        lg, sc = model.encdec_decode_step(params, tok, sc, cross,
+                                          torch.full((1,), t, device=dev))
+        logit_rows.append(lg)
+        tok = lg.argmax(-1)
+    forced = E.logits_fn(params, E.decode(params, c32, torch.stack(toks, 1),
+                                          mem))
+    e = within(torch, torch.stack(logit_rows, 1), forced, SERVE_TOL_F32)
+    check(e[2] <= SERVE_TOL_F32, f"families: {arch} 32 exact decode steps "
+          f"against the teacher-forced decode: {e}")
+    log(f"families: {arch} (float32): {window} frames encoded, 32 greedy "
+        f"tokens decoded on exact cross-attention, equal to the "
+        f"teacher-forced decode within {SERVE_TOL_F32} (max |diff| "
+        f"{e[0]:.3g})")
+    del model, params, mem, cross, sc
+    free_card(torch, dev)
+
+    # ---- bf16: the window's step time, then the long memory --------------
+    model, params, out["init_s"] = init_model(torch, dev, cfg)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    mem = model.encode(params, frames.to(cfg.compute_dtype))
+    sync(torch, dev)
+    out["encode_window_s"] = time.perf_counter() - t0
+    cross = E.build_cross_cache(params, cfg, mem)
+    sc = E.init_self_cache(cfg, 1, dev)
+    one = torch.ones(1, dtype=torch.long, device=dev)
+    out["window_step_ms"], _ = timed_steps(
+        torch, dev, lambda: model.encdec_decode_step(
+            params, one, sc, cross, torch.zeros(1, dtype=torch.long,
+                                                device=dev)), 8)
+    del mem, cross
+    long_x = torch.from_numpy(rng.standard_normal(
+        (1, long_frames, cfg.d_model)).astype(np.float32)).to(dev) \
+        .to(cfg.compute_dtype)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    mem = model.encode(params, long_x)
+    sync(torch, dev)
+    out["encode_s"] = time.perf_counter() - t0
+    del long_x
+    t0 = time.perf_counter()
+    idx = E.build_cross_index(params, cfg, mem)
+    sync(torch, dev)
+    out["index_s"] = time.perf_counter() - t0
+    g = long_frames // cfg.kv_cap
+    check(len(idx) == cfg.n_layers and all(
+        isinstance(i, H.KVIndex) and i.n_grains == g for i in idx),
+        f"families: {arch}: build_cross_index did not give "
+        f"{cfg.n_layers} indexes of {g} grains")
+    out["idx_bytes"] = state_bytes(idx)
+    cross = E.build_cross_cache(params, cfg, mem)
+    cur = {"sc": E.init_self_cache(cfg, 1, dev), "tok": one, "err": [],
+           "top5": []}
+
+    def step(i, plain):
+        p = torch.full((1,), i, device=dev)
+        lg, new = E.decode_step_retrieval(params, cfg, cur["tok"], cur["sc"],
+                                          idx, p)
+        if plain:                      # advance after the comparison
+            exact, _ = model.encdec_decode_step(params, cur["tok"],
+                                                cur["sc"], cross, p)
+            cur["err"].append(float((lg.float() - exact.float()).abs()
+                                    .max()))
+            cur["top5"].append(len(
+                set(torch.topk(lg[0], 5).indices.tolist())
+                & set(torch.topk(exact[0], 5).indices.tolist())))
+            cur["sc"], cur["tok"] = new, lg.argmax(-1)
+        return lg
+    hs.hntl_scan_single.launches = 0
+    out["retrieval_ms"], out["launches"], rows = retrieval_steps(
+        torch, dev, step, steps, f"{arch} retrieval cross-attention",
+        cfg.n_layers, on_card)
+    out["err"], out["top5"] = max(cur["err"]), min(cur["top5"])
+    log(f"families: {arch} bf16: init {out['init_s']:.3f} s; a {window}"
+        f"-frame window encoded in {out['encode_window_s']:.3f} s, exact "
+        f"step {out['window_step_ms']:.3f} ms; {long_frames} frames "
+        f"encoded in {out['encode_s']:.3f} s, build_cross_index "
+        f"{out['index_s']:.3f} s ({cfg.n_layers} indexes of {g} grains per "
+        f"head, kv_nprobe {cfg.kv_nprobe}; {out['idx_bytes']} bytes); "
+        f"{steps} decode_step_retrieval steps, median "
+        f"{out['retrieval_ms']:.3f} ms, hntl_scan_single launches "
+        f"{out['launches']} ({[r['launches'] for r in rows]}), each "
+        f"torch.equal to the plain scan's; against exact cross-attention: "
+        f"max |logit - exact| {out['err']:.4f}, least top-5 overlap "
+        f"{out['top5']} of 5 (measured, not gated)")
+    if on_card:
+        p = torch.full((1,), steps, device=dev)
+        out["profile"] = profile(
+            torch, f"one decode_step_retrieval ({arch}, {cfg.n_layers} "
+            "layers)", lambda: E.decode_step_retrieval(
+                params, cfg, cur["tok"], cur["sc"], idx, p),
+            out["retrieval_ms"] / 1e3)
+        qh = idx[0].centroids[:, :, :1].to(torch.float32)
+        _, _, scan_args = H._probe(qh, idx[0], cfg)
+        out["scan"] = time_scan(
+            torch, f"a {arch} retrieval cross-attention layer",
+            hs.hntl_scan_single, ref.hntl_scan_single_ref, scan_args, 1)
+    del model, params, mem, idx, cross, cur
+    free_card(torch, dev)
+    return out
+
+
+def families_phase(torch, np, dev, *, long_tokens=32768, steps=8,
+                   rg_tokens=32768, rwkv_tokens=2048, window=1500,
+                   whisper_frames=65536, smoke=False):
+    """The rest of the model families, each at its published width (random
+    weights from seed 0; ``smoke``: the smoke configs, for a rehearsal on
+    the CPU): qwen3-moe-30b-a3b at full depth (the launcher, a
+    ``long_tokens`` request promoted to HNTL-KV and ``steps`` retrieval
+    steps, float32 decode against forward at 4 layers), dbrx-132b at 2
+    and 4 of 40 layers, recurrentgemma-9b and rwkv6-1.6b at full depth
+    (float32 decode against forward, slot isolation, long prefills), and
+    whisper-base (a ``window``-frame window decoded exactly, a
+    ``whisper_frames`` memory on HNTL-KV cross-attention)."""
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    free_card(torch, dev)
+    out = dict(moe=moe_family(torch, np, dev, long_tokens=long_tokens,
+                              steps=steps, smoke=smoke, on_card=on_card))
+    t_moe = time.perf_counter() - t_phase
+    out["recurrent"] = recurrent_families(
+        torch, np, dev, rg_tokens=rg_tokens, rwkv_tokens=rwkv_tokens,
+        steps=16, smoke=smoke, on_card=on_card)
+    t_rec = time.perf_counter() - t_phase - t_moe
+    out["whisper"] = whisper_family(
+        torch, np, dev, window=window, long_frames=whisper_frames,
+        steps=2 * steps, smoke=smoke, on_card=on_card)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"families phase: {out['seconds']:.1f} s (MoE {t_moe:.1f} s, "
+        f"recurrent {t_rec:.1f} s, whisper "
+        f"{out['seconds'] - t_moe - t_rec:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -4635,7 +5326,9 @@ def main(argv=None) -> int:
                     "segments, no memtable")
     ap.add_argument("--serve-tokens", type=int, default=32_768,
                     help="the serve phase's long request (a multiple of "
-                    "4096): prefilled, promoted to HNTL-KV, decoded")
+                    "4096): prefilled, promoted to HNTL-KV, decoded; the "
+                    "families phase's qwen3-moe and recurrentgemma "
+                    "requests take the same length")
     ap.add_argument("--race-cases", action="store_true",
                     help="only build the kernels and launch each path once "
                     "at a small shape, held to its plain version (the run "
@@ -4714,11 +5407,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sp = serve_phase(torch, np, cuda, long_tokens=a.serve_tokens)
+    fp = families_phase(torch, np, cuda, long_tokens=a.serve_tokens,
+                        rg_tokens=a.serve_tokens)
     log(f"peak device memory above each phase's start: warm store phase "
         f"(8 warm segments and a memtable) {stp['peak'] - stp['base']} "
         f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes, "
         f"serve phase (phi3-mini, {a.serve_tokens}-token request) "
-        f"{sp['peak']} bytes")
+        f"{sp['peak']} bytes, families phase (qwen3-moe-30b-a3b, "
+        f"{a.serve_tokens}-token request) {fp['moe']['peak']} bytes in all")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     select_paths = {"search (fused plane)":
@@ -4761,7 +5457,11 @@ def main(argv=None) -> int:
                     "sharded store search, kernel plane (4 shards)":
                     shp["kernel_launches"],
                     "model decode, HNTL-KV (phi3-mini, 32 layers)":
-                    sp["launches"]}
+                    sp["launches"],
+                    "model decode, HNTL-KV (qwen3-moe, 48 layers)":
+                    fp["moe"]["launches"],
+                    "whisper retrieval cross-attention (6 layers)":
+                    fp["whisper"]["launches"]}
     select_entry = kernel_entry(
         "fused_scan_select", src + "fused_select.cu",
         "src/repro/kernels/fused_select.py:179", sum(select_paths.values()),
@@ -4792,6 +5492,8 @@ def main(argv=None) -> int:
         single_paths, err_scan["single"], st["kv"],
         "HNTL-KV decode step: P=256 k=16 cap=4096 int16")
     single_entry["at_model_decode"] = sp["scan"]
+    single_entry["at_moe_decode"] = fp["moe"]["scan"]
+    single_entry["at_whisper_cross"] = fp["whisper"]["scan"]
     log(json.dumps({"kernels": [
         select_entry,
         single_entry,

@@ -600,7 +600,7 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def _unported(name: str, item, what: str) -> ValueError:
     """The refusal of a feature whose code is not ported yet; ``item`` is
-    its ROADMAP Queue A item (a number or a label such as "11a")."""
+    its ROADMAP Queue A item (a number or a label such as "11b")."""
     return ValueError(f"{name} needs {what}, which is not ported yet "
                       f"(ROADMAP Queue A item {item})")
 

@@ -26,7 +26,9 @@ package's segments (or this package's finalizer under the JAX store's);
 ``planner.search_stacked_sharded``;
 ``params_from_numpy`` and ``caches_from_numpy`` carry a JAX model's
 parameter tree and serving caches across (their ``[n_groups, ...]``
-stacked leaves unstacked into the port's unrolled layers);
+stacked leaves unstacked into the port's unrolled layers; for the
+encoder-decoder, the ``[L, ...]`` stacks of each side's layers, of its
+self and cross caches and of a cross ``KVIndex``);
 ``config_from_dict`` and ``model_config_from_dict``
 rebuild the two configuration dataclasses from ``dataclasses.asdict`` of
 the JAX ones.
@@ -55,8 +57,9 @@ from .core.store import Manifest, Segment, VectorStore
 from .core.types import (GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
                          ShardedStackedSegments)
 from .models.config import LayerSpec, ModelConfig
+from .models.encdec import EncDec
 from .models.hntl_attention import KVIndex
-from .models.transformer import Transformer, check_ported
+from .models.transformer import Transformer
 
 
 def _field(tree: Any, name: str):
@@ -213,7 +216,14 @@ def kv_index_from_numpy(tree: Any, device=None) -> KVIndex:
 def _map_tree(tree, fn):
     if isinstance(tree, Mapping):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
     return fn(tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """A tree of ``[n, ...]`` stacked leaves -> n trees, one per slice."""
+    return [_map_tree(tree, lambda a, i=i: a[i]) for i in range(n)]
 
 
 def _layer_trees(tree: Any, cfg: ModelConfig):
@@ -227,17 +237,28 @@ def _layer_trees(tree: Any, cfg: ModelConfig):
     return out + list(_field(tree, "tail") or ())
 
 
-def params_from_numpy(tree: Any, cfg: ModelConfig, device=None
-                      ) -> Transformer:
+def params_from_numpy(tree: Any, cfg: ModelConfig, device=None):
     """A JAX model's parameter tree (numpy leaves, for example
     ``jax.tree.map(np.asarray, params)``) -> this package's
-    ``Transformer``: the stacked groups unrolled, every dtype kept."""
+    ``Transformer`` (the stacked groups unrolled) or, for the
+    encoder-decoder, ``EncDec`` (each side's stacked layers unrolled);
+    every dtype kept."""
     device = resolve_device(device)
-    check_ported(cfg)
 
     def conv(a):
         return _tensor(a, device)
 
+    if cfg.family == "encdec":
+        enc, dec = _field(tree, "enc"), _field(tree, "dec")
+        top = {"enc": {"final_ln": _map_tree(enc["final_ln"], conv)},
+               "dec": {k: _map_tree(dec[k], conv)
+                       for k in ("embedding", "pos_embedding", "final_ln")}}
+        return EncDec(
+            cfg, top,
+            [_map_tree(lt, conv)
+             for lt in _unstack(enc["layers"], cfg.n_enc_layers)],
+            [_map_tree(lt, conv)
+             for lt in _unstack(dec["layers"], cfg.n_layers)])
     top = {k: _map_tree(_field(tree, k), conv)
            for k in ("embedding", "final_norm", "lm_head")
            if _field(tree, k) is not None}
@@ -245,30 +266,50 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device=None
                                   for lt in _layer_trees(tree, cfg)])
 
 
+def _is_kv_index(tree) -> bool:
+    return _field(tree, "centroids") is not None
+
+
+def _slice_state(tree, i: int):
+    """Slice i of a stacked layer state: a ``KVIndex`` (as a mapping of
+    its fields, ``None`` leaves kept) or a tree of arrays."""
+    if _is_kv_index(tree):
+        return {f.name: (None if _field(tree, f.name) is None
+                         else _field(tree, f.name)[i])
+                for f in dataclasses.fields(KVIndex)}
+    return _map_tree(tree, lambda a: a[i])
+
+
+def _state(tree, device):
+    """One layer's state -> tensors: a ``KVIndex`` through
+    ``kv_index_from_numpy``, any other tree leaf by leaf (``()`` kept)."""
+    if _is_kv_index(tree):
+        return kv_index_from_numpy(tree, device)
+    return _map_tree(tree, lambda a: _tensor(a, device))
+
+
 def caches_from_numpy(tree: Any, cfg: ModelConfig, device=None) -> list:
     """A JAX model's serving caches (numpy leaves) -> this package's list
-    of per-layer caches: linear ``{"k", "v"}`` caches and stacked
-    ``KVIndex`` caches (each group's slice through
-    ``kv_index_from_numpy``) alike."""
+    of per-layer caches.
+
+    For a decoder: ``{"mixer", "ffn"}`` per layer, each group's slice of
+    the stacked caches, then the tail: linear ``{"k", "v"}`` caches,
+    ``KVIndex`` caches (through ``kv_index_from_numpy``), RG-LRU
+    ``{"h", "conv"}`` and RWKV6 ``{"s", "shift"}`` states with the
+    channel-mix's ``{"shift"}`` under ``"ffn"``.  For the encoder-decoder
+    (``family == "encdec"``): one of its ``[L, ...]`` stacks (a self or
+    cross cache ``{"k", "v"}``, or a cross ``KVIndex``) -> L entries."""
     device = resolve_device(device)
-
-    def linear(mix):
-        return isinstance(mix, Mapping) and set(mix) == {"k", "v"}
-
-    def group(mix, g):
-        if linear(mix):
-            return {k: mix[k][g] for k in ("k", "v")}
-        return {f.name: (None if _field(mix, f.name) is None
-                         else _field(mix, f.name)[g])
-                for f in dataclasses.fields(KVIndex)}
-
+    if cfg.family == "encdec":
+        return [_state(_slice_state(tree, li), device)
+                for li in range(cfg.n_layers)]
     groups = _field(tree, "groups") or {}
-    mixers = [group(groups[f"l{i}"]["mixer"], g)
+    layers = [{part: _slice_state(groups[f"l{i}"][part], g)
+               for part in ("mixer", "ffn")}
               for g in range(cfg.n_groups) for i in range(len(cfg.pattern))]
-    mixers += [lt["mixer"] for lt in _field(tree, "tail") or ()]
-    return [{"mixer": ({k: _tensor(m[k], device) for k in ("k", "v")}
-                       if linear(m) else kv_index_from_numpy(m, device)),
-             "ffn": ()} for m in mixers]
+    layers += list(_field(tree, "tail") or ())
+    return [{part: _state(lc[part], device) for part in ("mixer", "ffn")}
+            for lc in layers]
 
 
 def _from_dict(cls, d: Mapping):

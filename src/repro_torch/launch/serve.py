@@ -9,6 +9,15 @@ On the card, phi3-mini at its published width (random weights from
       --requests 8 --slots 4 --prompt-len 64 --max-new 32 \
       --retrieval-docs 65536
 
+qwen3-moe-30b-a3b at its published width and depth (61 GB of bf16
+weights, one 80 GB card):
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-30b-a3b --requests 4 --prompt-len 32 --max-new 16
+
+Every decoder family serves (dense, MoE, hybrid RG-LRU, RWKV6, VLM); an
+encoder-decoder (whisper-base) is refused, as the reference's launcher
+refuses it.
+
 On the CPU (smoke config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --smoke --device cpu --requests 4 --max-new 16
@@ -124,6 +133,11 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit(
+            f"{cfg.name} is an encoder-decoder: this launcher serves "
+            "decoder-only models (drive enc-dec through Model.encode and "
+            "Model.encdec_decode_step)")
     model = get_model(cfg)
     params = model.init(args.seed, device=dev)
     memory = memory_mesh = demo_q = None

@@ -1,14 +1,14 @@
-"""Model pieces of the port and ``get_model``: the serving API of the
-attention-only decoders (``transformer``), exact and chunked attention,
-and HNTL-KV retrieval attention (the paper's Mode B as long-context
-decode).
+"""Model pieces of the port and ``get_model``: the serving API of every
+architecture family (``transformer``: dense, MoE, hybrid RG-LRU, RWKV6 and
+VLM decoders; ``encdec``: the whisper encoder-decoder), exact and chunked
+attention, and HNTL-KV retrieval attention (the paper's Mode B as
+long-context decode).
 
 This package's port of the JAX package's ``models/__init__.py``.  ``Model``
 bundles one architecture's functions; the parameters are the module
-``Model.init`` returns (a ``transformer.Transformer``), passed where the
-reference passes its parameter tree.  Training (``loss``, item 11b), the
-encoder-decoder (``encode``, ``encdec_decode_step``) and the MoE, RG-LRU
-and RWKV6 families (item 11a) are not ported yet and are refused.
+``Model.init`` returns (a ``transformer.Transformer`` or an
+``encdec.EncDec``), passed where the reference passes its parameter tree.
+Training (``loss``) comes with ROADMAP Queue A item 11b.
 """
 from __future__ import annotations
 
@@ -17,8 +17,7 @@ import dataclasses
 import torch
 
 from ..core.index import resolve_device
-from ..core.store import _unported
-from . import transformer
+from . import encdec, transformer
 from .config import LayerSpec, ModelConfig
 
 __all__ = ["LayerSpec", "ModelConfig", "Model", "get_model"]
@@ -36,31 +35,38 @@ class Model:
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=resolve_device(device))
             gen.manual_seed(int(seed_or_generator))
+        if self.cfg.family == "encdec":
+            return encdec.init_params(gen, self.cfg)
         return transformer.init_params(gen, self.cfg)
 
     # ---- serving -------------------------------------------------------
+    def _decoder_only(self, entry: str) -> None:
+        if self.cfg.family == "encdec":
+            raise ValueError(
+                f"Model.{entry} serves decoder-only models; {self.cfg.name!r}"
+                " is an encoder-decoder (use encode / encdec_decode_step)")
+
     def prefill(self, params, tokens, **kw):
+        self._decoder_only("prefill")
         return transformer.prefill(params, self.cfg, tokens, **kw)
 
     def decode_step(self, params, token, caches, pos):
+        self._decoder_only("decode_step")
         return transformer.decode_step(params, self.cfg, token, caches, pos)
 
     def init_cache(self, batch: int, max_len: int, device=None):
+        self._decoder_only("init_cache")
         return transformer.init_cache(self.cfg, batch, max_len, device)
 
     # ---- enc-dec serving ----------------------------------------------
     def encode(self, params, frames):
-        raise _unported("Model.encode", "11a",
-                        transformer.UNPORTED["encdec"])
+        return encdec.encode(params, self.cfg, frames)
 
     def encdec_decode_step(self, params, token, self_cache, cross_cache,
                            pos):
-        raise _unported("Model.encdec_decode_step", "11a",
-                        transformer.UNPORTED["encdec"])
+        return encdec.decode_step(params, self.cfg, token, self_cache,
+                                  cross_cache, pos)
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``; a configuration that needs a part not ported
-    yet (MoE, RG-LRU, RWKV6, encoder-decoder) raises, naming item 11a."""
-    transformer.check_ported(cfg)
     return Model(cfg)

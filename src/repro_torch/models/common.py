@@ -5,13 +5,14 @@ are tensors drawn from an explicit ``torch.Generator`` (so the draws are
 not JAX's: weights are carried across with ``interop.params_from_numpy``);
 every ``apply`` is a plain function of tensors.  Norm statistics, RoPE
 phases and the unembedding run in float32, outputs return to the input's
-dtype, as in the reference.  ``cross_entropy`` comes with training and
-``sinusoidal_positions`` with the encoder-decoder (ROADMAP item 11).
+dtype, as in the reference.  ``cross_entropy`` comes with training
+(ROADMAP item 11b).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -83,9 +84,31 @@ def make_norm(kind: str):
 # Activations / softcap
 # ---------------------------------------------------------------------------
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """logistic(x) as 1 / (1 + exp(-x)), one op at a time: in bf16 each op
+    rounds to bf16, as the reference's ``jax.nn.sigmoid`` does where XLA
+    lowers it (``torch.sigmoid`` rounds once, and differs from it in ~1/3
+    of bf16 values)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * logistic(x), rounded per op as ``sigmoid``."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` op for op: its constants in x's
+    dtype, x**3 as two products, each op rounded to x's dtype (in bf16
+    ``F.gelu`` rounds once and differs from it in ~2/5 of values)."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 ACTS = {
-    "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": silu,
+    "gelu": gelu_tanh,
     "relu": F.relu,
 }
 
@@ -137,6 +160,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     if rd < hd:
         out = torch.cat([out, x[..., rd:].to(torch.float32)], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, dim: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal table [n, dim] (float32 numpy, made
+    at build time, as the reference's)."""
+    log_timescale = np.log(10000.0) / (dim // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(dim // 2))
+    t = np.arange(n)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

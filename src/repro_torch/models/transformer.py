@@ -1,8 +1,13 @@
-"""Decoder-only LM: the serving half, for attention layers.
+"""Decoder-only LM covering the dense / MoE / hybrid / SSM / VLM families:
+the serving half.
 
 This package's port of the JAX package's ``models/transformer.py``
-(``loss_fn`` comes with training, ROADMAP Queue A item 11b; the RG-LRU and
-RWKV6 mixers and the mixture of experts with item 11a).
+(``loss_fn``, and with it the sum of the MoE aux over layers, comes with
+training, ROADMAP Queue A item 11b).  A layer's token mixer is attention
+(full or windowed), the RG-LRU block (``rglru``) or RWKV6's time-mix
+(``rwkv6``); its channel mixer is a dense MLP, the mixture of experts
+(``ffn.moe_apply``, when ``n_experts``) or, in an RWKV layer, RWKV6's
+channel-mix.
 
 The model is an ``nn.Module`` (``Transformer``) whose parameters keep the
 reference's names and shapes (``wq`` is [d, Hq, hd] and applied by
@@ -15,8 +20,12 @@ reference's sharding hints (``constrain``) are no-ops on one device and
 are dropped.
 
 Caches are a list, one entry per layer in layer order:
-``{"mixer": {"k", "v"} | KVIndex, "ffn": ()}``.  Windowed layers keep
-ring caches of ``min(window, max_len)`` slots.  A decode step returns new
+``{"mixer": {"k", "v"} | KVIndex, "ffn": ()}`` for attention,
+``{"mixer": {"h", "conv"}, "ffn": ()}`` for RG-LRU and
+``{"mixer": {"s", "shift"}, "ffn": {"shift"}}`` for RWKV6 (the
+channel-mix's token shift).  Windowed layers keep ring caches of
+``min(window, max_len)`` slots; recurrent layers keep a fixed-size
+state whatever the context.  A decode step returns new
 caches and leaves its inputs as they were, as the reference's does.
 Entry points run their matrix products at full precision
 (``core.index.full_fp32_matmul``: no TF32, bf16 reduced in float32).
@@ -30,35 +39,11 @@ import torch
 from torch import nn
 
 from ..core.index import full_fp32_matmul, resolve_device
-from ..core.store import _unported
-from . import ffn
+from . import ffn, rglru, rwkv6
 from .attention import attention, decode_attention
 from .common import (apply_rope, dense_init, embed, embed_init, make_norm,
                      softcap, unembed)
 from .config import LayerSpec, ModelConfig
-
-#: The model parts not ported yet (ROADMAP Queue A item 11a).
-UNPORTED = {"rglru": "the RG-LRU mixer (models/rglru.py)",
-            "rwkv": "the RWKV6 mixer (models/rwkv6.py)",
-            "moe": "the mixture-of-experts channel mixer (models/ffn.py "
-                   "moe_init / moe_apply)",
-            "encdec": "the encoder-decoder (models/encdec.py)"}
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Refuse a configuration that needs a part not ported yet."""
-    if cfg.family == "encdec":
-        raise _unported(f"{cfg.name!r} (encdec)", "11a", UNPORTED["encdec"])
-    for spec in layer_specs(cfg):
-        if spec.kind in UNPORTED:
-            raise _unported(f"{cfg.name!r} ({spec.kind} layers)", "11a",
-                            UNPORTED[spec.kind])
-        if spec.kind != "attn":
-            raise ValueError(spec.kind)
-    if cfg.n_experts:
-        raise _unported(f"{cfg.name!r} (n_experts={cfg.n_experts})", "11a",
-                        UNPORTED["moe"])
-
 
 def layer_specs(cfg: ModelConfig) -> list:
     """Every layer's spec, in layer order (groups, then the tail)."""
@@ -123,14 +108,34 @@ def _attn_init(gen, cfg: ModelConfig, dtype):
     return p
 
 
-def _layer_init(gen, cfg: ModelConfig, dtype):
+def _mixer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype):
+    if spec.kind == "attn":
+        return _attn_init(gen, cfg, dtype)
+    if spec.kind == "rglru":
+        nb = max(1, cfg.rnn_dim // max(cfg.head_dim, 1))
+        return rglru.rg_block_init(gen, cfg.d_model, cfg.rnn_dim, nb,
+                                   cfg.conv_width, dtype)
+    if spec.kind == "rwkv":
+        return rwkv6.timemix_init(gen, cfg.d_model, cfg.rwkv_head_size,
+                                  dtype)
+    raise ValueError(spec.kind)
+
+
+def _ffn_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype):
+    if spec.kind == "rwkv":
+        return rwkv6.channelmix_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    if cfg.n_experts:
+        return ffn.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype)
+    return ffn.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype)
+
+
+def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype):
     norm_init, _ = make_norm(cfg.norm)
     dev = gen.device
     p = {"pre_norm": norm_init(cfg.d_model, dtype, dev),
-         "mixer": _attn_init(gen, cfg, dtype),
+         "mixer": _mixer_init(gen, spec, cfg, dtype),
          "mlp_pre_norm": norm_init(cfg.d_model, dtype, dev),
-         "ffn": ffn.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                             dtype)}
+         "ffn": _ffn_init(gen, spec, cfg, dtype)}
     if cfg.post_norm:
         p["post_norm"] = norm_init(cfg.d_model, dtype, dev)
         p["mlp_post_norm"] = norm_init(cfg.d_model, dtype, dev)
@@ -144,10 +149,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
     The reference draws ``lm_head`` from the embedding's key, so its
     untied models start with ``lm_head == embedding``; here ``lm_head``
     takes its own draw (ROADMAP, faults of the reference)."""
-    check_ported(cfg)
     dtype = cfg.compute_dtype
     norm_init, _ = make_norm(cfg.norm)
-    layers = [_layer_init(gen, cfg, dtype) for _ in layer_specs(cfg)]
+    layers = [_layer_init(gen, spec, cfg, dtype)
+              for spec in layer_specs(cfg)]
     tree = {"embedding": embed_init(gen, (cfg.vocab, cfg.d_model), dtype),
             "final_norm": norm_init(cfg.d_model, dtype, gen.device)}
     if not cfg.tie_embeddings:
@@ -193,21 +198,44 @@ def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, positions):
 
 def _mixer_apply(p, x, cfg, spec, positions, state):
     """Returns (y, kv_for_cache_or_None, new_state)."""
-    if state is not None and x.shape[1] == 1:           # decode step
-        from .hntl_attention import KVIndex
-        if isinstance(state, KVIndex):                  # HNTL-KV retrieval
-            y, new_state = _attn_retrieval_decode(p, x, cfg, spec,
-                                                  positions, state)
-        else:
-            y, new_state = _attn_decode(p, x, cfg, spec, positions, state)
+    if spec.kind == "attn":
+        if state is not None and x.shape[1] == 1:       # decode step
+            from .hntl_attention import KVIndex
+            if isinstance(state, KVIndex):              # HNTL-KV retrieval
+                y, new_state = _attn_retrieval_decode(p, x, cfg, spec,
+                                                      positions, state)
+            else:
+                y, new_state = _attn_decode(p, x, cfg, spec, positions,
+                                            state)
+            return y, None, new_state
+        y, kv = _attn_apply(p, x, cfg, spec, positions)
+        return y, kv, state
+    if spec.kind == "rglru":
+        y, new_state = rglru.rg_block_apply(p, x, state)
         return y, None, new_state
-    y, kv = _attn_apply(p, x, cfg, spec, positions)
-    return y, kv, state
+    if spec.kind == "rwkv":
+        y, new_state = rwkv6.timemix_apply(p, x, cfg.rwkv_head_size, state)
+        return y, None, new_state
+    raise ValueError(spec.kind)
+
+
+def _ffn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, state):
+    """Returns (y, aux, new_state)."""
+    if spec.kind == "rwkv":
+        y, new_state = rwkv6.channelmix_apply(p, x, state)
+        return y, 0.0, new_state
+    if cfg.n_experts:
+        y, aux = ffn.moe_apply(p, x, top_k=cfg.moe_top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               norm_topk=cfg.norm_topk)
+        return y, aux, state
+    return ffn.mlp_apply(p, x, cfg.mlp_kind), 0.0, state
 
 
 def _layer_apply(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
                  state=None):
-    """One (mixer + channel-mix) layer.  Returns (x, kv, new_state)."""
+    """One (mixer + channel-mix) layer.  Returns (x, kv, new_state); the
+    MoE aux is dropped here (it joins ``loss_fn`` with item 11b)."""
     _, norm = make_norm(cfg.norm)
     h = norm(p["pre_norm"], x, cfg.norm_eps)
     mixer_state = state["mixer"] if state is not None else None
@@ -217,13 +245,14 @@ def _layer_apply(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
         y = norm(p["post_norm"], y, cfg.norm_eps)
     x = x + y
     h = norm(p["mlp_pre_norm"], x, cfg.norm_eps)
-    y = ffn.mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    ffn_state = state["ffn"] if state is not None else None
+    y, _, new_ffn_state = _ffn_apply(p["ffn"], h, cfg, spec, ffn_state)
     if cfg.post_norm:
         y = norm(p["mlp_post_norm"], y, cfg.norm_eps)
     x = x + y
     new_state = None
     if state is not None:
-        new_state = {"mixer": new_mixer_state, "ffn": state["ffn"]}
+        new_state = {"mixer": new_mixer_state, "ffn": new_ffn_state}
     return x, kv, new_state
 
 
@@ -300,11 +329,23 @@ def _cache_len_for(spec: LayerSpec, max_len: int) -> int:
 
 def _layer_cache_init(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       max_len: int, dtype, device):
-    t = _cache_len_for(spec, max_len)
-    shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
-    return {"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)},
-            "ffn": ()}
+    if spec.kind == "attn":
+        t = _cache_len_for(spec, max_len)
+        shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+        return {"mixer": {"k": torch.zeros(shape, dtype=dtype,
+                                           device=device),
+                          "v": torch.zeros(shape, dtype=dtype,
+                                           device=device)},
+                "ffn": ()}
+    if spec.kind == "rglru":
+        return {"mixer": rglru.rg_state_init(batch, cfg.rnn_dim,
+                                             cfg.conv_width, dtype, device),
+                "ffn": ()}
+    if spec.kind == "rwkv":
+        st = rwkv6.rwkv_state_init(batch, cfg.d_model, cfg.rwkv_head_size,
+                                   device)
+        return {"mixer": st["tm"], "ffn": st["cm"]}
+    raise ValueError(spec.kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -396,9 +437,14 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, positions=None,
     with full_fp32_matmul():
         x = _embed_tokens(params, cfg, tokens, patch_embeds)
         for lp, spec in zip(params.layers, layer_specs(cfg)):
-            x, kv, _ = _layer_apply(lp, x, cfg, spec, positions)
             lc = _layer_cache_init(spec, cfg, b, max_len, cfg.compute_dtype,
                                    params.device)
+            if spec.kind != "attn":        # a recurrent layer: zero state
+                x, _, new_state = _layer_apply(lp, x, cfg, spec, positions,
+                                               lc)
+                caches.append(new_state)
+                continue
+            x, kv, _ = _layer_apply(lp, x, cfg, spec, positions)
             caches.append({"mixer": _write_prefill_cache(lc["mixer"], kv, s),
                            "ffn": lc["ffn"]})
             del kv

@@ -4,7 +4,17 @@ and promote-to-retrieval.
 This package's port of the JAX package's ``serve/engine.py``.  A fixed
 pool of ``n_slots`` sequences decodes in lock-step (one ``decode_step``
 per engine tick); a finished slot is refilled from the request queue by
-feeding the prompt one token at a time.  ``promote_to_retrieval`` seals a
+feeding the prompt one token at a time.  Each slot is isolated: while a
+prompt is fed into one slot, the other slots' recurrent states (RG-LRU,
+RWKV6) keep their values and their pending next tokens stay in the token
+buffer, and a slot's recurrent state goes to zero when a request enters
+it.  The reference lets the feed's token 0 advance the other slots'
+states, carries a finished request's state into the next one, and zeroes
+the whole token buffer for each fed token, so a slot filled earlier in
+the same refill decodes token 0 in place of its prompt's last token
+(ROADMAP, faults of the reference).  Attention caches need no care: the
+next real write at a position overwrites the feed's, and positions mask
+the rest.  ``promote_to_retrieval`` seals a
 linear KV cache into HNTL-KV retrieval indexes, after which a decode
 step's attention costs O(G + P*cap + C) instead of O(S): the store's seal
 applied to attention state.
@@ -103,6 +113,12 @@ class ServeEngine:
         self.rng = np.random.default_rng(seed)
         self.device = params.device
         self.caches = model.init_cache(n_slots, max_len, self.device)
+        # the layers whose state is recurrent (every leaf has the slots on
+        # its leading axis), and the slot axis to select on
+        from ..models.transformer import layer_specs
+        self._recurrent = [li for li, spec in enumerate(layer_specs(self.cfg))
+                           if spec.kind != "attn"]
+        self._slot_ids = torch.arange(n_slots, device=self.device)
         self.pos = np.zeros(n_slots, np.int64)        # next position per slot
         self.active: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
@@ -129,13 +145,44 @@ class ServeEngine:
             self.caches, torch.from_numpy(pos.copy()).to(self.device))
         return logits
 
+    def _map_recurrent(self, fn) -> None:
+        """Replace every leaf of each recurrent layer's state (mixer and
+        channel-mix) by ``fn(layer, part, name, leaf)``."""
+        caches = list(self.caches)
+        for li in self._recurrent:
+            caches[li] = {part: ({k: fn(li, part, k, v)
+                                  for k, v in st.items()} if st else st)
+                          for part, st in caches[li].items()}
+        self.caches = caches
+
+    def _slot_mask(self, slot: int, leaf: torch.Tensor) -> torch.Tensor:
+        return (self._slot_ids == slot).reshape(
+            (-1,) + (1,) * (leaf.dim() - 1))
+
+    def _reset_recurrent(self, slot: int) -> None:
+        """Slot ``slot``'s recurrent state to zero: a request starts from
+        the state ``prefill`` starts from."""
+        self._map_recurrent(lambda li, part, k, v: v.masked_fill(
+            self._slot_mask(slot, v), 0))
+
+    def _keep_others(self, slot: int, before: list) -> None:
+        """Every slot but ``slot`` takes its recurrent state from
+        ``before``, the caches the last step read."""
+        self._map_recurrent(lambda li, part, k, v: torch.where(
+            self._slot_mask(slot, v), v, before[li][part][k]))
+
     def _fill_slot(self, slot: int, req: Request):
         """Prefill one request into a slot by single-token decode feed
-        (the other slots are fed token 0 at their positions)."""
+        (the other slots are fed token 0 at their positions; their
+        recurrent states are put back after each step, and their pending
+        tokens stay in ``_token_buf``)."""
+        self._reset_recurrent(slot)
+        feed = np.zeros_like(self._token_buf)
         for tok in req.prompt[:-1]:
-            self._token_buf[:] = 0
-            self._token_buf[slot] = tok
-            self._decode(self._token_buf, np.maximum(self.pos, 0))
+            feed[slot] = tok
+            before = self.caches
+            self._decode(feed, np.maximum(self.pos, 0))
+            self._keep_others(slot, before)
             self.pos[slot] += 1
         self._token_buf[slot] = req.prompt[-1]
         self.active[slot] = req

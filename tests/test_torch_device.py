@@ -11,7 +11,9 @@
   and a store's search against its "fused_ref" plane, also after
   compaction and maintenance, and with adaptive routing (warm, cold and
   paged), and a smoke model's prefill, decode, promoted HNTL-KV decode
-  and engine on the card against the CPU and the plain scan; they skip
+  and engine on the card against the CPU and the plain scan (phi3-mini;
+  qwen3-moe's promoted decode, whisper's retrieval cross-attention and a
+  2-slot rwkv6 engine against serving each request alone); they skip
   (inside a fixture) where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -863,16 +865,16 @@ def test_sharded_mesh_on_other_devices_raises_on_card(cuda_device):
         cpu.search(q[:4], mesh=make_search_mesh(2, devices=["cuda:0"] * 2))
 
 
-def _smoke_model(device, **kw):
-    """A float32 phi3-mini smoke model on ``device`` (seed 0, drawn on
-    the CPU, then moved: ``nn.Module.to`` moves the module itself)."""
+def _smoke_model(device, arch="phi3-mini-3.8b", **kw):
+    """A float32 smoke model (phi3-mini by default) on ``device`` (seed
+    0, drawn on the CPU, then moved: ``nn.Module.to`` moves the module
+    itself)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import get_model
 
-    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
-                              dtype="float32", **kw)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
     model = get_model(cfg)
     return cfg, model, model.init(0, device="cpu").to(device)
 
@@ -946,3 +948,82 @@ def test_engine_decodes_two_requests_on_card(cuda_device):
     engine.run_to_completion()
     assert all(r.done and len(r.out) == 5 for r in reqs)
     assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
+
+
+@pytest.mark.gpu
+def test_moe_promoted_decode_equals_plain_scan_on_card(cuda_device,
+                                                       monkeypatch):
+    """qwen3-moe's smoke model: prefill, promote its attention layers to
+    HNTL-KV, one decode step launches the scan once per layer and equals
+    (``torch.equal``) the same step through the plain scan."""
+    from repro_torch.models import hntl_attention as H
+    from repro_torch.serve.engine import promote_to_retrieval
+
+    cfg, model, params = _smoke_model(cuda_device, "qwen3-moe-30b-a3b",
+                                      kv_nprobe=2, kv_pool=32)
+    s = 4 * cfg.kv_cap + 3
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(2, s)))
+    _, caches = model.prefill(params, tokens, max_len=s + 8)
+    promoted = promote_to_retrieval(model, caches, cache_len=s)
+    del caches
+    assert all(isinstance(c["mixer"], H.KVIndex) for c in promoted)
+    tok, pos = torch.tensor([5, 9]), torch.full((2,), s)
+    before = port_scan.hntl_scan_single.launches
+    got, _ = model.decode_step(params, tok, promoted, pos)
+    torch.cuda.synchronize()
+    assert port_scan.hntl_scan_single.launches == before + cfg.n_layers
+    monkeypatch.setattr(H, "ops", _PlainScan)
+    plain, _ = model.decode_step(params, tok, promoted, pos)
+    assert torch.equal(got, plain)
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+def test_whisper_retrieval_step_equals_plain_scan_on_card(cuda_device,
+                                                          monkeypatch):
+    """whisper's smoke model: encode 64 frames, seal them into per-layer
+    cross indexes (4 grains, 2 probed), one ``decode_step_retrieval``
+    launches the scan once per decoder layer and equals the same step
+    through the plain scan."""
+    from repro_torch.models import encdec
+    from repro_torch.models import hntl_attention as H
+
+    cfg, model, params = _smoke_model(cuda_device, "whisper-base",
+                                      kv_pool=16)
+    frames = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 4 * cfg.kv_cap, cfg.d_model)).astype(np.float32)).to(cuda_device)
+    mem = model.encode(params, frames)
+    idx = encdec.build_cross_index(params, cfg, mem)
+    sc = encdec.init_self_cache(cfg, 2, cuda_device)
+    tok, pos = torch.tensor([3, 7]), torch.zeros(2, dtype=torch.long)
+    before = port_scan.hntl_scan_single.launches
+    got, _ = encdec.decode_step_retrieval(params, cfg, tok, sc, idx, pos)
+    torch.cuda.synchronize()
+    assert port_scan.hntl_scan_single.launches == before + cfg.n_layers
+    monkeypatch.setattr(H, "ops", _PlainScan)
+    plain, _ = encdec.decode_step_retrieval(params, cfg, tok, sc, idx, pos)
+    assert torch.equal(got, plain)
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+def test_two_slot_rwkv_engine_equals_solo_on_card(cuda_device):
+    """Each slot isolated on the card: 3 requests through 2 slots get the
+    tokens each gets alone, from a fresh engine of the same 2 slots (the
+    same batch shape, so a row's products round the same way)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, model, params = _smoke_model(cuda_device, "rwkv6-1.6b")
+    prompts = [np.random.default_rng(20 + i).integers(0, cfg.vocab, size=6)
+               for i in range(3)]
+
+    def served(n_slots, ps):
+        engine = ServeEngine(model, params, n_slots=n_slots, max_len=32)
+        reqs = [engine.submit(p, max_new=5) for p in ps]
+        engine.run_to_completion()
+        assert all(r.done and len(r.out) == 5 for r in reqs)
+        return [r.out for r in reqs]
+
+    alone = [served(2, [p])[0] for p in prompts]
+    assert served(2, prompts) == alone

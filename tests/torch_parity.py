@@ -91,3 +91,70 @@ def assert_clear_probe_margins(gd2, margin, tol=1e-4):
     ratio = np.divide(gd2, lead, out=np.zeros_like(gd2), where=ok)
     gap = np.abs(ratio - (1.0 + margin))[ok]
     assert (gap > tol).all(), float(gap.min())
+
+
+def model_pair(arch: str, dtype: str = "float32", **kw):
+    """(JAX cfg, model, params; port cfg, model, params) of ``arch``'s
+    smoke config on the same weights (JAX's ``init``, carried across with
+    ``interop.params_from_numpy``)."""
+    from repro.configs import get_smoke_config
+    from repro.models import get_model as jax_get_model
+    from repro_torch.interop import model_config_from_dict, params_from_numpy
+    from repro_torch.models import get_model
+
+    jcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, **kw)
+    jmodel = jax_get_model(jcfg)
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    cfg = model_config_from_dict(dataclasses.asdict(jcfg))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, jmodel, jparams, cfg, get_model(cfg), params
+
+
+def bf16_model_parity(arch: str, *, b: int = 2, s0: int = 12,
+                      steps: int = 1) -> None:
+    """The port's bf16 smoke model against the JAX package's, evaluated
+    op by op (``lowering``'s ``unroll_layers``, no remat, so every bf16
+    op rounds as the program writes it; compiled, XLA keeps some
+    intermediates in float32, and its recurrentgemma then differs from
+    its own op-by-op logits by up to 0.038 + 3e-2 |x|): ``forward``
+    logits over ``s0`` tokens and ``prefill`` logits within the
+    reference's 3e-2, then ``steps`` decode steps within its 5e-2 (the
+    tolerances of ``tests/test_models.py::test_decode_matches_forward``),
+    rtol = atol."""
+    import jax.numpy as jnp
+
+    from repro.models import lowering
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as T
+
+    jcfg, jmodel, jparams, cfg, model, params = model_pair(
+        arch, "bfloat16", remat=False)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(b, s0 + steps)).astype(np.int32)
+
+    def close(got, want, tol, msg):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol, err_msg=f"{arch}: {msg}")
+
+    lowering._STACK.append(lowering.LoweringFlags(unroll_layers=True))
+    try:
+        head = torch.from_numpy(tokens[:, :s0])
+        close(T.logits_fn(params, cfg, T.forward(params, cfg, head))[:, -1],
+              JT.logits_fn(jparams, jcfg, JT.forward(
+                  jparams, jcfg, jnp.asarray(tokens[:, :s0]))[0])[:, -1],
+              3e-2, "forward")
+        logits, caches = model.prefill(params, head, max_len=s0 + steps)
+        jlogits, jcaches = jmodel.prefill(jparams, jnp.asarray(tokens[:, :s0]),
+                                          max_len=s0 + steps)
+        close(logits, jlogits, 3e-2, "prefill")
+        for t in range(s0, s0 + steps):
+            pos = np.full((b,), t, np.int32)
+            logits, caches = model.decode_step(
+                params, torch.from_numpy(tokens[:, t]), caches,
+                torch.from_numpy(pos))
+            jlogits, jcaches = jmodel.decode_step(
+                jparams, jnp.asarray(tokens[:, t]), jcaches, jnp.asarray(pos))
+            close(logits, jlogits, 5e-2, f"decode @ {t}")
+    finally:
+        lowering._STACK.pop()
