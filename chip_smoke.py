@@ -199,6 +199,28 @@ What it does, in order (any failure exits non-zero before the last line):
    ``decode_step_retrieval`` steps, 6 scans each, each ``torch.equal`` to
    its plain twin, against exact cross-attention; times, profiles, the
    kernel at the two new shapes beside its bound, peak memory;
+12d. training (``train_phase``), the families' models freed first: (a)
+   phi3-mini at full width cut to 2 layers, float32, B=2 S=256: the
+   card's ``Model.loss`` and every gradient against the same model's on
+   the CPU (loss rtol 1e-5, each leaf within 1e-4 of its own max
+   |g_cpu|); (b) a step over 4 microbatches against one over the whole
+   batch: the accumulated gradients as in (a), the loss and parameters
+   within ``tests/test_train.py``'s tolerances; (c) the tiny phi3-mini (2
+   layers, vocab 128) through ``Trainer``: 40 steps on ``MarkovLM``, the
+   loss falls by 0.5 and below ln 128; (d) ``launch.train.main`` on
+   phi3-mini cut to 2 layers at full width, bf16, B=8 S=1024, in a
+   temporary directory (its free space and the checkpoints' bytes
+   printed, removed after): stopped by SIGTERM at step 10, resumed to
+   20, every leaf (parameters and moments) against an uninterrupted
+   20-step run (rtol 1e-3, atol 1e-4), and ``--lr nan`` raising
+   ``FloatingPointError``; (e) phi3-mini-3.8b at its published width and
+   depth, bf16, B=8 S=1024, 20 steps through ``init_state`` /
+   ``make_train_step`` with finite losses: step ms, tokens/s, the
+   optimizer's share (CUDA events), peak memory, and one more step
+   profiled (busy share, top device ops); (f) qwen3-moe-30b-a3b at full
+   width cut to 2 layers (router gradients finite and nonzero, 3 steps,
+   aux > 0) and whisper-base at full width and depth (10 steps on
+   1,500-frame inputs); training reaches no CUDA kernel of the port;
 13. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -1252,7 +1274,9 @@ def profile(torch, label, fn, wall_s, top=8):
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.self_device_time_total / dev_us:6.1%} x{e.count:<4d} "
             f"{e.key[:90]}")
-    return dict(device_ms=dev_us / 1e3, busy=dev_us / wall_us)
+    return dict(device_ms=dev_us / 1e3, busy=dev_us / wall_us,
+                by_kernel={e.key: e.self_device_time_total / 1e3
+                           for e in kernels})
 
 
 def profile_phase(torch, mp, gp, kvp):
@@ -4330,8 +4354,9 @@ def decode_against_forward(torch, T, model, cfg, params, toks, dev):
     from repro_torch.core.index import full_fp32_matmul
     from repro_torch.models import ffn
 
-    tf = T.logits_fn(params, cfg, T.forward(params, cfg, toks))
-    t32 = T.logits_fn(params, cfg, T.forward(params, cfg, toks[:, :32]))
+    tf = T.logits_fn(params, cfg, T.forward(params, cfg, toks)[0])
+    t32 = T.logits_fn(params, cfg,
+                      T.forward(params, cfg, toks[:, :32])[0])
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     h = torch.randn((toks.shape[0], 64, cfg.d_model), generator=gen,
@@ -4705,9 +4730,9 @@ def family_decode_check(torch, model, cfg, params, toks, n_prefill=32):
     dev = toks.device
     log_ = RouterLog(torch) if cfg.n_experts else contextlib.nullcontext()
     with log_:
-        tf = T.logits_fn(params, cfg, T.forward(params, cfg, toks))
+        tf = T.logits_fn(params, cfg, T.forward(params, cfg, toks)[0])
         rows = float((T.logits_fn(params, cfg, T.forward(
-            params, cfg, toks[:, :n_prefill])) - tf[:, :n_prefill]).abs()
+            params, cfg, toks[:, :n_prefill])[0]) - tf[:, :n_prefill]).abs()
             .max())
         logits, caches = model.prefill(params, toks[:, :n_prefill],
                                        max_len=s)
@@ -5298,6 +5323,539 @@ def families_phase(torch, np, dev, *, long_tokens=32768, steps=8,
 
 
 # ---------------------------------------------------------------------------
+# 12d: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "phi3-mini-3.8b"
+#: (a), (b) and (d) cut phi3-mini to this many layers at full width.
+TRAIN_CUT_LAYERS = 2
+#: (a): B x S; the card's loss against the CPU's (rtol), and each
+#: gradient leaf within TRAIN_GRAD_TOL * its own max |g_cpu|.  (b) holds
+#: the accumulated gradients to the whole batch's in the same way.
+TRAIN_GRAD_SHAPE = (2, 256)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+#: (b): B x S; tests/test_train.py's tolerances for microbatch
+#: equivalence (loss rtol, parameter rtol and atol) and resume (rtol,
+#: atol).
+TRAIN_MB_SHAPE = (4, 256)
+TRAIN_MB_TOL = (2e-2, 5e-2, 4e-3)
+TRAIN_RESUME_TOL = (1e-3, 1e-4)
+#: (d) and (e): B x S, and the steps of (d)'s uninterrupted run and (e).
+TRAIN_SHAPE = (8, 1024)
+TRAIN_STEPS = 20
+#: (f): qwen3-moe at full width cut to this many layers, B x S, steps;
+#: whisper-base's B x tokens, frames and steps.
+TRAIN_MOE = dict(layers=2, b=4, s=512, steps=3)
+TRAIN_WHISPER = dict(b=4, s=128, frames=1500, steps=10)
+#: Free device bytes (e) needs: 7.6 GB of bf16 parameters, 30.6 GB of
+#: float32 moments, 15.3 GB of float32 gradients, activations and logits.
+TRAIN_FREE_BYTES = 66e9
+
+
+class TimedOptimizer:
+    """An optimizer whose ``update`` is timed with CUDA events (each
+    update ends in a synchronise: ms)."""
+
+    def __init__(self, torch, opt):
+        self.torch, self.opt, self.ms = torch, opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, *args):
+        torch = self.torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.opt.update(*args)
+        end.record()
+        torch.cuda.synchronize()
+        self.ms.append(start.elapsed_time(end))
+        return out
+
+
+def kernel_kinds(by_kernel: dict) -> dict:
+    """Device ms by kind of kernel, from its name: float32 GEMMs (FFMA,
+    off the tensor cores), other GEMMs (bf16 tensor cores), copies and
+    casts, elementwise, reductions, the rest."""
+    kinds = dict.fromkeys(("float32 GEMM", "bf16 GEMM", "copy/cast",
+                           "elementwise", "reduction", "other"), 0.0)
+    for key, ms in by_kernel.items():
+        k = key.lower()
+        if "gemm" in k or "nvjet" in k or "cutlass" in k:
+            kind = "float32 GEMM" if ("f32f32" in k or "sgemm" in k
+                                      or "ffma" in k) else "bf16 GEMM"
+        elif "copy" in k:
+            kind = "copy/cast"
+        elif "elementwise" in k:
+            kind = "elementwise"
+        elif "reduce" in k or "softmax" in k or "norm" in k:
+            kind = "reduction"
+        else:
+            kind = "other"
+        kinds[kind] += ms
+    return kinds
+
+
+def train_leaves(state):
+    """{name: tensor} of a train state: parameters and both moments."""
+    out = {f"params.{k}": v.detach()
+           for k, v in state.params.named_parameters()}
+    for part in ("m", "v"):
+        out.update({f"{part}.{k}": v
+                    for k, v in state.opt_state[part].items()})
+    return out
+
+
+class GradCapture:
+    """An optimizer that keeps a copy of the (float32, averaged)
+    gradients each ``update`` is given."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, *args):
+        self.grads = {k: v.clone() for k, v in grads.items()}
+        return self.opt.update(grads, *args)
+
+
+def card_model(torch, dev, copies=1):
+    """phi3-mini at full width cut to TRAIN_CUT_LAYERS layers, float32:
+    the model and ``copies`` identical parameter trees on ``dev`` (seed
+    0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    model = get_model(cfg)
+    return cfg, model, [model.init(0, device=dev) for _ in range(copies)]
+
+
+def worst_grad(got: dict, want: dict):
+    """(the largest max |got - want| / (TRAIN_GRAD_TOL max |want|) over
+    the leaves, its leaf).  A leaf whose ``want`` is all zero must be
+    zero; a NaN counts as infinitely far."""
+    worst, worst_name = 0.0, None
+    for k, w in want.items():
+        err = float((got[k].to(w.device) - w).abs().max())
+        limit = TRAIN_GRAD_TOL * float(w.abs().max())
+        ratio = err / limit if limit > 0 else (0.0 if err == 0 else
+                                               float("inf"))
+        if ratio != ratio:
+            ratio = float("inf")
+        if ratio > worst or worst_name is None:
+            worst, worst_name = ratio, k
+    return worst, worst_name
+
+
+def train_grad_check(torch, np, dev):
+    """(a) the loss and every gradient of phi3-mini cut to
+    TRAIN_CUT_LAYERS layers (float32) on the card against the same
+    model's on the CPU, both under ``full_fp32_matmul`` (the backward and
+    remat's recomputation too)."""
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.data.tokens import MarkovLM
+
+    b, s = TRAIN_GRAD_SHAPE
+    cfg, model, (on_card, on_cpu) = card_model(torch, dev, 2)
+    on_cpu = on_cpu.to("cpu")
+    batch = MarkovLM(vocab=cfg.vocab, seed=0).batch(0, b, s)
+    out = {}
+    for params in (on_card, on_cpu):
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        d = params.device
+        t0 = time.perf_counter()
+        with full_fp32_matmul():
+            loss, _ = model.loss(params, {k: torch.from_numpy(v).to(d)
+                                          for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, list(named.values()))
+        sync(torch, d)
+        out[d.type] = (float(loss.detach()), dict(zip(named, grads)),
+                       time.perf_counter() - t0)
+    loss_card, g_card, s_card = out[dev.type]
+    loss_cpu, g_cpu, s_cpu = out["cpu"]
+    worst, worst_name = worst_grad(g_card, g_cpu)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"train (a): {cfg.name} at {cfg.n_layers} layers, float32, B={b} "
+        f"S={s}: loss card {loss_card:.7f} cpu {loss_cpu:.7f} (rel "
+        f"{rel:.3g}, limit {TRAIN_LOSS_RTOL}); {len(g_cpu)} gradients, worst"
+        f" |card - cpu| at {worst:.3g} of its limit ({worst_name}); card "
+        f"{s_card:.2f} s, cpu {s_cpu:.2f} s")
+    check(rel <= TRAIN_LOSS_RTOL, f"train (a): loss card {loss_card} cpu "
+          f"{loss_cpu}")
+    check(worst <= 1.0, f"train (a): gradient {worst_name} at {worst:.3g} "
+          "of its limit")
+    del on_card, on_cpu, g_card, g_cpu, out
+    free_card(torch, dev)
+    return dict(loss_rel=rel, grad_worst=worst, card_s=s_card, cpu_s=s_cpu)
+
+
+def train_microbatches(torch, np, dev):
+    """(b) one step over 4 microbatches against one over the whole batch:
+    the float32 gradients the optimizer is given, leaf by leaf as in (a)
+    (a first Adam step at eps 1e-8 moves each element by about lr
+    whatever its gradient, so the parameters alone would pass a step
+    that dropped or misweighted a microbatch), then the loss and the
+    parameters within ``tests/test_train.py``'s tolerances."""
+    from repro_torch.data.tokens import MarkovLM
+    from repro_torch.optim.adamw import AdamW, constant
+    from repro_torch.train.step import TrainState, make_train_step
+
+    b, s = TRAIN_MB_SHAPE
+    cfg, model, states = card_model(torch, dev, 2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             MarkovLM(vocab=cfg.vocab, seed=2).batch(0, b, s).items()}
+    out, grads = [], []
+    for n, params in zip((1, 4), states):
+        opt = GradCapture(AdamW(lr=constant(1e-3), max_grad_norm=None))
+        state = TrainState(params.requires_grad_(True), opt.init(params), 0)
+        state, metrics = make_train_step(model, opt, microbatches=n)(state,
+                                                                     batch)
+        out.append((float(metrics["loss"]), state))
+        grads.append(opt.grads)
+    g_worst, g_name = worst_grad(grads[1], grads[0])
+    del grads
+    loss_rtol, rtol, atol = TRAIN_MB_TOL
+    rel = abs(out[0][0] - out[1][0]) / abs(out[0][0])
+    worst, excess = 0.0, -1.0
+    for (k, a), (_, c) in zip(out[0][1].params.named_parameters(),
+                              out[1][1].params.named_parameters()):
+        diff = (a.detach() - c.detach()).abs()
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float((diff - atol - rtol * c.detach().abs())
+                                   .max()))
+    log(f"train (b): microbatches=4 against 1 (B={b} S={s}, float32): "
+        f"gradients worst |4 - 1| at {g_worst:.3g} of its limit ({g_name});"
+        f" loss {out[1][0]:.6f} / {out[0][0]:.6f} (rel {rel:.3g}, limit "
+        f"{loss_rtol}); parameters max |diff| {worst:.3g} (limit {atol} + "
+        f"{rtol} |x|: {'met' if excess <= 0 else 'NOT met'})")
+    check(g_worst <= 1.0, f"train (b): the accumulated gradient {g_name} "
+          f"at {g_worst:.3g} of its limit")
+    check(rel <= loss_rtol and excess <= 0, "train (b): microbatches=4 "
+          "differs from 1 beyond tests/test_train.py's tolerances")
+    del states, out
+    free_card(torch, dev)
+    return dict(grad_worst=g_worst, loss_rel=rel, param_max_diff=worst,
+                param_excess=excess)
+
+
+def train_convergence(torch, np, dev, tmp):
+    """(c) ``tests/test_train.py::test_loss_decreases_on_markov_data`` on
+    the card: 40 steps of the tiny phi3-mini (2 layers, vocab 128)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import MarkovLM
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), n_layers=2,
+                              vocab=128)
+    data = MarkovLM(vocab=cfg.vocab, seed=0)
+    trainer = Trainer(
+        get_model(cfg), AdamW(lr=warmup_cosine(3e-3, 5, 60)),
+        lambda step: {k: torch.from_numpy(v).to(dev)
+                      for k, v in data.batch(step, 8, 32).items()},
+        TrainerConfig(total_steps=40, ckpt_every=20, log_every=20,
+                      ckpt_dir=os.path.join(tmp, "converge")), device=dev)
+    t0 = time.perf_counter()
+    trainer.run()
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in trainer.history]
+    log(f"train (c): tiny {TRAIN_ARCH} (2 layers, vocab 128), 40 steps on "
+        f"MarkovLM in {wall:.2f} s: loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        f" (needs < {losses[0] - 0.5:.4f} and < ln 128 = "
+        f"{np.log(cfg.vocab):.4f})")
+    check(losses[-1] < losses[0] - 0.5 and losses[-1] < np.log(cfg.vocab),
+          f"train (c): loss {losses[0]} -> {losses[-1]}")
+    return dict(first=losses[0], last=losses[-1], s=wall)
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def train_resume(torch, np, dev, tmp):
+    """(d) ``launch.train.main`` on phi3-mini cut to TRAIN_CUT_LAYERS
+    layers at full width (bf16): a run stopped by SIGTERM after
+    TRAIN_STEPS // 2 steps (a periodic async save at TRAIN_STEPS // 4,
+    the final save at TRAIN_STEPS // 2), resumed to TRAIN_STEPS, against
+    an uninterrupted run in a fresh directory, every leaf; then the NaN
+    guard."""
+    import signal
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    cut = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS)
+    (b, s), steps = TRAIN_SHAPE, TRAIN_STEPS
+    layers, half = TRAIN_CUT_LAYERS, steps // 2
+    orig_batch = launch_train.MarkovLM.batch
+
+    def argv(d, every, extra=()):
+        return ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
+                str(b), "--seq", str(s), "--ckpt-dir", os.path.join(tmp, d),
+                "--ckpt-every", str(every), "--device", str(dev), *extra]
+
+    def preempted(self, step, *a, **kw):        # SIGTERM during step half-1
+        if step == half - 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return orig_batch(self, step, *a, **kw)
+
+    walls = {}
+    with unittest.mock.patch.object(launch_train, "get_config",
+                                    lambda arch: cut):
+        t0 = time.perf_counter()
+        with unittest.mock.patch.object(launch_train.MarkovLM, "batch",
+                                        preempted):
+            first = launch_train.main(argv("resume", steps // 4))
+        walls["preempted"] = time.perf_counter() - t0
+        check(first.step == half, f"train (d): the SIGTERM run stopped at "
+              f"step {first.step}, not {half}")
+        saved = sorted(os.listdir(os.path.join(tmp, "resume")))
+        ckpt_bytes = dir_bytes(os.path.join(tmp, "resume", saved[-1]))
+        del first
+        free_card(torch, dev)
+        t0 = time.perf_counter()
+        resumed = launch_train.main(argv("resume", steps // 4))
+        walls["resumed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        straight = launch_train.main(argv("straight", 1000))
+        walls["straight"] = time.perf_counter() - t0
+        check(resumed.step == straight.step == steps
+              and resumed.opt_state["count"] == steps,
+              f"train (d): steps {resumed.step} / {straight.step}")
+        rtol, atol = TRAIN_RESUME_TOL
+        got, want = train_leaves(resumed), train_leaves(straight)
+        worst, excess, equal = 0.0, -1.0, 0
+        for k, w in want.items():
+            diff = (got[k].float() - w.float()).abs()
+            worst = max(worst, float(diff.max()))
+            excess = max(excess, float((diff - atol - rtol * w.float().abs())
+                                       .max()))
+            equal += int(torch.equal(got[k], w))
+        log(f"train (d): {TRAIN_ARCH} at {layers} layers, bf16, B={b} "
+            f"S={s}: SIGTERM at step {half} (saves {saved}, "
+            f"{ckpt_bytes} bytes each), resumed to {steps}, against "
+            f"{steps} straight: {equal} of {len(want)} leaves bit-equal, "
+            f"max |diff| {worst:.3g} (limit {atol} + {rtol} |x|: "
+            f"{'met' if excess <= 0 else 'NOT met'}); wall "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+        check(excess <= 0, "train (d): the resumed run differs from the "
+              "uninterrupted one beyond tests/test_train.py's tolerance")
+        n_leaves = len(want)
+        del resumed, straight, got, want
+        free_card(torch, dev)
+        try:
+            launch_train.main(argv("nan", 1000, ("--lr", "nan")))
+        except FloatingPointError as e:
+            log(f"train (d): NaN guard: FloatingPointError ({e})")
+        else:
+            raise SmokeFailure("train (d): lr = nan did not raise "
+                               "FloatingPointError")
+    free_card(torch, dev)
+    return dict(ckpt_bytes=ckpt_bytes, bit_equal=equal, leaves=n_leaves,
+                max_diff=worst, walls=walls)
+
+
+def train_full(torch, np, dev):
+    """(e) phi3-mini-3.8b at its published width and depth (bf16)
+    through ``init_state`` / ``make_train_step``: TRAIN_STEPS steps with
+    finite losses; step ms, tokens/s, the optimizer's share, peak memory,
+    then one more step profiled (busy share, top device ops)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import MarkovLM
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    (b, s), steps = TRAIN_SHAPE, TRAIN_STEPS
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"train (e): {free} of {total} device bytes free "
+        f"({torch.cuda.memory_allocated(dev)} allocated)")
+    check(free >= TRAIN_FREE_BYTES, f"train (e): {free} bytes free, "
+          f"needs {TRAIN_FREE_BYTES:.0f}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = get_model(cfg)
+    data = MarkovLM(vocab=cfg.vocab, seed=0)
+    t0 = time.perf_counter()
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i, b, s).items()}
+               for i in range(steps + 1)]
+    data_s = time.perf_counter() - t0
+    opt = TimedOptimizer(torch, AdamW(lr=warmup_cosine(3e-4, 2, steps)))
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    state = init_state(model, opt, 0, dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = make_train_step(model, opt)
+    ms, losses = [], []
+    for i in range(steps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"train (e): losses {losses}")
+    steady = sorted(ms[1:])
+    mid = steady[len(steady) // 2]
+    opt_ms = sorted(opt.ms[1:steps])[len(opt.ms[1:steps]) // 2]
+    out = dict(params=n_params, init_s=init_s, data_s=data_s,
+               first_ms=ms[0], step_ms=mid, step_ms_all=ms,
+               tokens_per_s=b * s / (mid / 1e3), losses=losses,
+               peak=torch.cuda.max_memory_allocated(dev), opt_ms=opt_ms,
+               opt_share=opt_ms / mid)
+    log(f"train (e): {cfg.name}, {cfg.n_layers} layers x {cfg.d_model}, "
+        f"{n_params} parameters, {cfg.dtype}, remat {cfg.remat_policy}, "
+        f"B={b} S={s}: init {init_s:.2f} s, data {data_s:.2f} s; step 1 "
+        f"{ms[0]:.1f} ms, then median {mid:.1f} ms (min {steady[0]:.1f}, "
+        f"max {steady[-1]:.1f}), {out['tokens_per_s']:.0f} tokens/s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; optimizer "
+        f"{opt_ms:.1f} ms a step (share {out['opt_share']:.3f}); peak "
+        f"device memory {out['peak']} bytes")
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step(box["state"], batches[steps])
+    out["profile"] = profile(torch, f"one {cfg.name} train step "
+                             f"(B={b} S={s})", one, mid / 1e3, top=12)
+    del box
+    if out["profile"]:
+        kinds = kernel_kinds(out["profile"]["by_kernel"])
+        total = sum(kinds.values())
+        log("train (e): the profiled step's device time by kind: "
+            + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
+                        for k, v in kinds.items()))
+    del state, batches
+    free_card(torch, dev)
+    return out
+
+
+def train_families(torch, np, dev):
+    """(f) qwen3-moe-30b-a3b at full width cut in depth (bf16): its router
+    gradients finite and nonzero, a few steps with finite losses and
+    aux > 0; whisper-base at full width and depth: steps on 1,500-frame
+    inputs, losses finite (sizes: TRAIN_MOE, TRAIN_WHISPER)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.data.tokens import MarkovLM
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, constant
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        value_and_grad)
+
+    out = {}
+    moe_layers, moe_b, moe_s, moe_steps = (
+        TRAIN_MOE[k] for k in ("layers", "b", "s", "steps"))
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              n_layers=moe_layers)
+    model = get_model(cfg)
+    opt = AdamW(lr=constant(1e-4))
+    state = init_state(model, opt, 0, dev)
+    data = MarkovLM(vocab=cfg.vocab, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i, moe_b, moe_s).items()}
+               for i in range(moe_steps)]
+    with full_fp32_matmul():
+        _, metrics, grads = value_and_grad(model, state.params, batches[0])
+    routers = {k: g for k, g in grads.items() if k.endswith("ffn.router")}
+    del grads
+    check(len(routers) == moe_layers and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        for g in routers.values()), "train (f): a router gradient is not "
+        "finite and nonzero")
+    step = make_train_step(model, opt)
+    rows = []
+    for i in range(moe_steps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        rows.append((float(m["loss"]), float(m["aux"]),
+                     (time.perf_counter() - t0) * 1e3))
+    check(all(np.isfinite(r[0]) and r[1] > 0 for r in rows),
+          f"train (f): qwen3-moe steps {rows}")
+    log(f"train (f): {cfg.name} at {moe_layers} layers x {cfg.d_model} "
+        f"({cfg.n_experts} experts, top {cfg.moe_top_k}), bf16, B={moe_b} "
+        f"S={moe_s}: router gradients max |g| "
+        + ", ".join(f"{float(g.abs().max()):.3g}" for g in routers.values())
+        + "; steps (loss, aux, ms) "
+        + ", ".join(f"({r[0]:.4f}, {r[1]:.4f}, {r[2]:.1f})" for r in rows))
+    out["moe"] = rows
+    del state, batches, routers, model
+    free_card(torch, dev)
+
+    cfg = get_config("whisper-base")
+    w_b, w_s, n_frames, w_steps = (
+        TRAIN_WHISPER[k] for k in ("b", "s", "frames", "steps"))
+    model = get_model(cfg)
+    state = init_state(model, opt, 0, dev)
+    step = make_train_step(model, opt)
+    data = MarkovLM(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(w_steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(i, w_b, w_s).items()}
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (w_b, n_frames, cfg.d_model)).astype(np.float32)).to(dev)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        rows.append((float(m["loss"]), (time.perf_counter() - t0) * 1e3))
+    check(all(np.isfinite(r[0]) for r in rows),
+          f"train (f): whisper steps {rows}")
+    mid = sorted(r[1] for r in rows[1:])[len(rows[1:]) // 2]
+    log(f"train (f): {cfg.name} ({cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers x {cfg.d_model}), bf16, B={w_b}, {n_frames} frames, "
+        f"{w_s} tokens: loss {rows[0][0]:.4f} -> {rows[-1][0]:.4f}, all "
+        f"finite; step median {mid:.1f} ms (first {rows[0][1]:.1f})")
+    out["whisper"] = dict(losses=[r[0] for r in rows], step_ms=mid)
+    del state, model
+    free_card(torch, dev)
+    return out
+
+
+def train_phase(torch, np, dev):
+    """Training on the card: (a) phi3-mini at full width cut in depth, in
+    float32, loss and every gradient against the CPU's; (b) 4
+    microbatches against 1; (c) the tiny model's convergence; (d)
+    ``launch.train``'s resume and NaN guard with checkpoints in a
+    temporary directory (removed after); (e) phi3-mini-3.8b at full
+    width and depth; (f) qwen3-moe (cut in depth) and whisper-base."""
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    out = dict(grad=train_grad_check(torch, np, dev),
+               microbatches=train_microbatches(torch, np, dev))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        usage = shutil.disk_usage(tmp)
+        log(f"train: checkpoints under {tmp}: {usage.free} bytes free of "
+            f"{usage.total}")
+        out["convergence"] = train_convergence(torch, np, dev, tmp)
+        out["resume"] = train_resume(torch, np, dev, tmp)
+        log(f"train: the checkpoint directory held {dir_bytes(tmp)} bytes "
+            "at the end")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["full"] = train_full(torch, np, dev)
+    out["families"] = train_families(torch, np, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"train phase: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -5409,12 +5967,15 @@ def main(argv=None) -> int:
     sp = serve_phase(torch, np, cuda, long_tokens=a.serve_tokens)
     fp = families_phase(torch, np, cuda, long_tokens=a.serve_tokens,
                         rg_tokens=a.serve_tokens)
+    trp = train_phase(torch, np, cuda)
     log(f"peak device memory above each phase's start: warm store phase "
         f"(8 warm segments and a memtable) {stp['peak'] - stp['base']} "
         f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes, "
         f"serve phase (phi3-mini, {a.serve_tokens}-token request) "
         f"{sp['peak']} bytes, families phase (qwen3-moe-30b-a3b, "
-        f"{a.serve_tokens}-token request) {fp['moe']['peak']} bytes in all")
+        f"{a.serve_tokens}-token request) {fp['moe']['peak']} bytes in all, "
+        f"train phase (phi3-mini-3.8b, B=8 S=1024) {trp['full']['peak']} "
+        "bytes in all")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     select_paths = {"search (fused plane)":

@@ -46,8 +46,8 @@ class HNTLConfig:
     bit_alloc: str = "fixed"
     int4_captured_min: float = 0.85
     int4_min_rows: int = 8
-    # Adaptive query-time routing knobs (not ported yet; kept so a config
-    # round-trips between the two packages unchanged).
+    # Adaptive query-time routing knobs (``search(adaptive=True)``,
+    # ``core.routing``).
     probe_margin: float = 1.0
     min_probes: int = 1
     hub_size: int = 4

@@ -29,6 +29,9 @@ parameter tree and serving caches across (their ``[n_groups, ...]``
 stacked leaves unstacked into the port's unrolled layers; for the
 encoder-decoder, the ``[L, ...]`` stacks of each side's layers, of its
 self and cross caches and of a cross ``KVIndex``);
+``train_state_from_numpy`` carries a JAX ``TrainState`` (parameters, AdamW
+moments, count and step) across, its moments unstacked the same way and
+keyed by the port's parameter names;
 ``config_from_dict`` and ``model_config_from_dict``
 rebuild the two configuration dataclasses from ``dataclasses.asdict`` of
 the JAX ones.
@@ -264,6 +267,24 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device=None):
            if _field(tree, k) is not None}
     return Transformer(cfg, top, [_map_tree(lt, conv)
                                   for lt in _layer_trees(tree, cfg)])
+
+
+def train_state_from_numpy(state: Any, cfg: ModelConfig, device=None):
+    """A JAX ``TrainState`` (``params``, ``opt_state`` {"m", "v",
+    "count"}, ``step``; numpy leaves) -> this package's
+    ``train.step.TrainState``: the parameters through
+    ``params_from_numpy`` with gradients on, the moments as {name:
+    tensor} under the same names, count and step as ints."""
+    from .train.step import TrainState
+
+    params = params_from_numpy(_field(state, "params"), cfg, device)
+    params.requires_grad_(True)
+    opt = _field(state, "opt_state")
+    opt_state = {k: {n: t.detach() for n, t in params_from_numpy(
+        opt[k], cfg, device).named_parameters()} for k in ("m", "v")}
+    opt_state["count"] = int(opt["count"])
+    return TrainState(params=params, opt_state=opt_state,
+                      step=int(_field(state, "step")))
 
 
 def _is_kv_index(tree) -> bool:

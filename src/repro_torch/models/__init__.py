@@ -1,5 +1,5 @@
-"""Model pieces of the port and ``get_model``: the serving API of every
-architecture family (``transformer``: dense, MoE, hybrid RG-LRU, RWKV6 and
+"""Model pieces of the port and ``get_model``: the training and serving
+API of every architecture family (``transformer``: dense, MoE, hybrid RG-LRU, RWKV6 and
 VLM decoders; ``encdec``: the whisper encoder-decoder), exact and chunked
 attention, and HNTL-KV retrieval attention (the paper's Mode B as
 long-context decode).
@@ -8,7 +8,9 @@ This package's port of the JAX package's ``models/__init__.py``.  ``Model``
 bundles one architecture's functions; the parameters are the module
 ``Model.init`` returns (a ``transformer.Transformer`` or an
 ``encdec.EncDec``), passed where the reference passes its parameter tree.
-Training (``loss``) comes with ROADMAP Queue A item 11b.
+``loss`` is the training loss (``train.step`` takes its gradients); the
+serving entry points record no autograd graph, so a model whose
+parameters require gradients (fresh from training) serves as it is.
 """
 from __future__ import annotations
 
@@ -39,6 +41,14 @@ class Model:
             return encdec.init_params(gen, self.cfg)
         return transformer.init_params(gen, self.cfg)
 
+    # ---- training ------------------------------------------------------
+    def loss(self, params, batch):
+        """(loss, {"ce", "aux"}) of ``batch`` (``tokens``, ``labels`` with
+        -100 for padding; ``frames`` for the encoder-decoder)."""
+        if self.cfg.family == "encdec":
+            return encdec.loss_fn(params, self.cfg, batch)
+        return transformer.loss_fn(params, self.cfg, batch)
+
     # ---- serving -------------------------------------------------------
     def _decoder_only(self, entry: str) -> None:
         if self.cfg.family == "encdec":
@@ -59,6 +69,7 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_len, device)
 
     # ---- enc-dec serving ----------------------------------------------
+    @torch.no_grad()
     def encode(self, params, frames):
         return encdec.encode(params, self.cfg, frames)
 

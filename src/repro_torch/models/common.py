@@ -5,8 +5,8 @@ are tensors drawn from an explicit ``torch.Generator`` (so the draws are
 not JAX's: weights are carried across with ``interop.params_from_numpy``);
 every ``apply`` is a plain function of tensors.  Norm statistics, RoPE
 phases and the unembedding run in float32, outputs return to the input's
-dtype, as in the reference.  ``cross_entropy`` comes with training
-(ROADMAP item 11b).
+dtype, as in the reference.  ``cross_entropy`` is the training loss's
+token-mean cross-entropy, in float32.
 """
 from __future__ import annotations
 
@@ -189,3 +189,16 @@ def unembed(table: torch.Tensor, x: torch.Tensor):
     """Logits = x @ table.T, accumulated in float32 (both sides cast
     first, as the reference's ``preferred_element_type``)."""
     return torch.matmul(x.to(torch.float32), table.to(torch.float32).T)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None):
+    """Token-mean CE in float32; logits [..., V], labels [...] (int)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

@@ -1,8 +1,8 @@
-"""Whisper-style encoder-decoder backbone (audio frontend is a stub): the
-serving half.
+"""Whisper-style encoder-decoder backbone (audio frontend is a stub).
 
-This package's port of the JAX package's ``models/encdec.py`` (``loss_fn``
-comes with training, ROADMAP Queue A item 11b).  The encoder takes
+This package's port of the JAX package's ``models/encdec.py``: ``loss_fn``
+(teacher-forced cross-entropy), ``encode`` / ``decode``, and the serving
+entry points.  The encoder takes
 precomputed frame embeddings [B, T, d] (the conv1/conv2 mel frontend is
 out of scope), adds sinusoidal positions and runs bidirectional
 self-attention; the decoder is a pre-LN causal transformer with
@@ -16,17 +16,22 @@ max_target_len, H, hd], cross caches ``{"k", "v"}`` [B, T, H, hd], or
 cross ``KVIndex``es for the long-memory path (``build_cross_index`` /
 ``decode_step_retrieval``: the paper's Mode B as cross-attention, on
 ``hntl_scan_single``).  A decode step returns new self caches and leaves
-its inputs as they were.
+its inputs as they were.  With ``cfg.remat`` each layer of a forward
+that records gradients is checkpointed whole (``torch.utils.checkpoint``),
+as the reference wraps its layer in ``jax.checkpoint`` whatever
+``remat_policy`` says; the serving entry points record no graph.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.index import full_fp32_matmul, resolve_device
 from .attention import attention, decode_attention
-from .common import (dense_init, embed, embed_init, layernorm,
-                     layernorm_init, sinusoidal_positions, unembed)
+from .common import (cross_entropy, dense_init, embed, embed_init,
+                     layernorm, layernorm_init, sinusoidal_positions,
+                     unembed)
 from .config import ModelConfig
 from .ffn import mlp_apply, mlp_init
 from .transformer import ParamTree
@@ -101,6 +106,30 @@ def _mha(p, xq, xkv, *, causal, q_offset=0):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
+def _layer(cfg: ModelConfig, fn, x, lp, *args):
+    """``fn(x, lp, *args)``, checkpointed when ``cfg.remat`` and autograd
+    records."""
+    if cfg.remat and torch.is_grad_enabled():
+        return ckpt.checkpoint(fn, x, lp, *args, use_reentrant=False)
+    return fn(x, lp, *args)
+
+
+def _enc_layer(x, lp, cfg):
+    h = layernorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + _mha(lp["attn"], h, h, causal=False)
+    h = layernorm(lp["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, "gelu")
+
+
+def _dec_layer(x, lp, cfg, memory, q_offset):
+    h = layernorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + _mha(lp["self_attn"], h, h, causal=True, q_offset=q_offset)
+    h = layernorm(lp["ln_x"], x, cfg.norm_eps)
+    x = x + _mha(lp["cross_attn"], h, memory, causal=False)
+    h = layernorm(lp["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, "gelu")
+
+
 def encode(params: EncDec, cfg: ModelConfig, frames):
     """frames [B, T, d] precomputed embeddings -> memory [B, T, d]."""
     frames = torch.as_tensor(frames, device=params.device)
@@ -111,10 +140,7 @@ def encode(params: EncDec, cfg: ModelConfig, frames):
     with full_fp32_matmul():
         x = frames.to(dt) + pos[None].to(dt)
         for lp in params.enc.layers:
-            h = layernorm(lp["ln1"], x, cfg.norm_eps)
-            x = x + _mha(lp["attn"], h, h, causal=False)
-            h = layernorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, "gelu")
+            x = _layer(cfg, _enc_layer, x, lp, cfg)
         return layernorm(params.enc.final_ln, x, cfg.norm_eps)
 
 
@@ -127,13 +153,7 @@ def decode(params: EncDec, cfg: ModelConfig, tokens, memory, q_offset=0):
         x = embed(dec.embedding, tokens)
         x = x + dec.pos_embedding[q_offset:q_offset + s][None]
         for lp in dec.layers:
-            h = layernorm(lp["ln1"], x, cfg.norm_eps)
-            x = x + _mha(lp["self_attn"], h, h, causal=True,
-                         q_offset=q_offset)
-            h = layernorm(lp["ln_x"], x, cfg.norm_eps)
-            x = x + _mha(lp["cross_attn"], h, memory, causal=False)
-            h = layernorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, "gelu")
+            x = _layer(cfg, _dec_layer, x, lp, cfg, memory, q_offset)
         return layernorm(dec.final_ln, x, cfg.norm_eps)
 
 
@@ -141,6 +161,17 @@ def logits_fn(params: EncDec, hidden):
     """Logits against the tied token embedding, accumulated in float32."""
     with full_fp32_matmul():
         return unembed(params.dec.embedding, hidden)
+
+
+def loss_fn(params: EncDec, cfg: ModelConfig, batch):
+    """batch: {"frames" [B, T, d], "tokens" [B, S], "labels" [B, S]
+    (-100 = pad)}.  Returns (ce, {"ce", "aux": 0.0})."""
+    memory = encode(params, cfg, batch["frames"])
+    hidden = decode(params, cfg, batch["tokens"], memory)
+    logits = logits_fn(params, hidden)
+    labels = torch.as_tensor(batch["labels"], device=params.device).long()
+    ce = cross_entropy(logits, torch.clamp(labels, min=0), labels >= 0)
+    return ce, {"ce": ce, "aux": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +185,7 @@ def _cross_kv(lp, memory):
     return k, v
 
 
+@torch.no_grad()
 def build_cross_cache(params: EncDec, cfg: ModelConfig, memory) -> list:
     """Per-layer cross-attention K/V [B, T, H, hd] from encoder memory."""
     out = []
@@ -218,6 +250,7 @@ def _step(params, cfg, token, self_cache, pos, cross_fn):
     return logits, new_cache
 
 
+@torch.no_grad()
 def decode_step(params: EncDec, cfg: ModelConfig, token, self_cache,
                 cross_cache, pos):
     """One decode token.  token [B], pos [B]; cross_cache from
@@ -234,6 +267,7 @@ def decode_step(params: EncDec, cfg: ModelConfig, token, self_cache,
     return _step(params, cfg, token, self_cache, pos, cross)
 
 
+@torch.no_grad()
 def build_cross_index(params: EncDec, cfg: ModelConfig, memory) -> list:
     """Seal the encoder memory into per-layer HNTL-KV indexes (Mode B for
     cross-attention).  memory [B, T, d]; T must divide by cfg.kv_cap."""
@@ -246,6 +280,7 @@ def build_cross_index(params: EncDec, cfg: ModelConfig, memory) -> list:
     return out
 
 
+@torch.no_grad()
 def decode_step_retrieval(params: EncDec, cfg: ModelConfig, token,
                           self_cache, cross_idx, pos):
     """``decode_step`` with HNTL-retrieval cross-attention over a sealed

@@ -119,5 +119,5 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     slot = torch.where(in_cap, flat_e * cap + rank, 0)
     yk = ye.reshape(e * cap, d)[slot].to(torch.float32) * flat_w[:, None]
     yk.masked_fill_(~in_cap[:, None], 0.0)
-    y =torch.sum(yk.reshape(t, top_k, d), dim=1)
+    y = torch.sum(yk.reshape(t, top_k, d), dim=1)
     return y.reshape(b, s, d).to(x.dtype), aux

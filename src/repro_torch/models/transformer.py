@@ -1,13 +1,13 @@
-"""Decoder-only LM covering the dense / MoE / hybrid / SSM / VLM families:
-the serving half.
+"""Decoder-only LM covering the dense / MoE / hybrid / SSM / VLM families.
 
-This package's port of the JAX package's ``models/transformer.py``
-(``loss_fn``, and with it the sum of the MoE aux over layers, comes with
-training, ROADMAP Queue A item 11b).  A layer's token mixer is attention
-(full or windowed), the RG-LRU block (``rglru``) or RWKV6's time-mix
-(``rwkv6``); its channel mixer is a dense MLP, the mixture of experts
-(``ffn.moe_apply``, when ``n_experts``) or, in an RWKV layer, RWKV6's
-channel-mix.
+This package's port of the JAX package's ``models/transformer.py``:
+``loss_fn`` (cross-entropy plus ``MOE_AUX_WEIGHT`` times the MoE
+load-balance aux, summed over layers), ``forward``, and the serving
+entry points ``prefill`` and ``decode_step``.  A layer's token mixer is
+attention (full or windowed), the RG-LRU block (``rglru``) or RWKV6's
+time-mix (``rwkv6``); its channel mixer is a dense MLP, the mixture of
+experts (``ffn.moe_apply``, when ``n_experts``) or, in an RWKV layer,
+RWKV6's channel-mix.
 
 The model is an ``nn.Module`` (``Transformer``) whose parameters keep the
 reference's names and shapes (``wq`` is [d, Hq, hd] and applied by
@@ -18,6 +18,15 @@ repeats and runs them under ``lax.scan``; here the stack is unrolled:
 ``params["groups"][f"l{i}"][g]``, and the ``tail`` layers follow.  The
 reference's sharding hints (``constrain``) are no-ops on one device and
 are dropped.
+
+With ``cfg.remat`` each pattern group of a forward that records gradients
+is checkpointed, as the reference's ``jax.checkpoint`` around its scanned
+group: ``remat_policy="full"`` keeps only the group's input and recomputes
+the rest in the backward pass; ``"dots"`` keeps the matrix products'
+outputs and recomputes the rest; ``"none"`` keeps everything.  The
+recomputation runs the same ops on the same inputs, so no number changes.
+Parameters are made without gradients (serving); ``train.step.init_state``
+turns them on, and ``prefill`` / ``decode_step`` record no graph either way.
 
 Caches are a list, one entry per layer in layer order:
 ``{"mixer": {"k", "v"} | KVIndex, "ffn": ()}`` for attention,
@@ -37,13 +46,17 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.index import full_fp32_matmul, resolve_device
 from . import ffn, rglru, rwkv6
 from .attention import attention, decode_attention
-from .common import (apply_rope, dense_init, embed, embed_init, make_norm,
-                     softcap, unembed)
+from .common import (apply_rope, cross_entropy, dense_init, embed,
+                     embed_init, make_norm, softcap, unembed)
 from .config import LayerSpec, ModelConfig
+
+MOE_AUX_WEIGHT = 0.01
+
 
 def layer_specs(cfg: ModelConfig) -> list:
     """Every layer's spec, in layer order (groups, then the tail)."""
@@ -57,8 +70,8 @@ def layer_specs(cfg: ModelConfig) -> list:
 
 class ParamTree(nn.Module):
     """A node of the parameter tree: tensors become parameters (no
-    gradient: serving), mappings child nodes.  ``node["name"]`` reads a
-    child as the reference's dict access does."""
+    gradient until training turns it on), mappings child nodes.
+    ``node["name"]`` reads a child as the reference's dict access does."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -234,8 +247,8 @@ def _ffn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, state):
 
 def _layer_apply(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
                  state=None):
-    """One (mixer + channel-mix) layer.  Returns (x, kv, new_state); the
-    MoE aux is dropped here (it joins ``loss_fn`` with item 11b)."""
+    """One (mixer + channel-mix) layer.  Returns (x, aux, kv, new_state):
+    aux is the MoE load-balance loss (0.0 without experts)."""
     _, norm = make_norm(cfg.norm)
     h = norm(p["pre_norm"], x, cfg.norm_eps)
     mixer_state = state["mixer"] if state is not None else None
@@ -246,14 +259,14 @@ def _layer_apply(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
     x = x + y
     h = norm(p["mlp_pre_norm"], x, cfg.norm_eps)
     ffn_state = state["ffn"] if state is not None else None
-    y, _, new_ffn_state = _ffn_apply(p["ffn"], h, cfg, spec, ffn_state)
+    y, aux, new_ffn_state = _ffn_apply(p["ffn"], h, cfg, spec, ffn_state)
     if cfg.post_norm:
         y = norm(p["mlp_post_norm"], y, cfg.norm_eps)
     x = x + y
     new_state = None
     if state is not None:
         new_state = {"mixer": new_mixer_state, "ffn": new_ffn_state}
-    return x, kv, new_state
+    return x, aux, kv, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -296,17 +309,65 @@ def _final_hidden(params, cfg, x):
     return norm(params["final_norm"], x, cfg.norm_eps)
 
 
+#: The ops whose outputs ``remat_policy="dots"`` keeps: the matrix
+#: products (``einsum`` and ``@`` reach these).
+_PRODUCT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    if op in _PRODUCT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, checkpointed by ``cfg.remat`` / ``cfg.remat_policy``
+    when autograd records (a forward under ``torch.no_grad`` keeps
+    nothing anyway)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "none":
+        return fn(*args)
+    if cfg.remat_policy == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _keep_products))
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (full, "
+                     "dots or none)")
+
+
+def _group_apply(layers, specs, cfg, positions, x, aux):
+    """One pattern group's layers; the aux summed on in layer order."""
+    for lp, spec in zip(layers, specs):
+        x, a, _, _ = _layer_apply(lp, x, cfg, spec, positions)
+        aux = aux + a
+    return x, aux
+
+
 def forward(params: Transformer, cfg: ModelConfig, tokens, positions=None,
             patch_embeds=None):
-    """Full-segment forward.  Returns hidden [B, S, d]."""
+    """Full-segment forward.  Returns (hidden [B, S, d], aux): the MoE
+    load-balance aux summed over layers in layer order (0.0 without
+    experts)."""
     tokens = _tokens(params, tokens)
     b, s = tokens.shape
     positions = _positions(params, cfg, positions, b, s)
+    specs, n = layer_specs(cfg), len(cfg.pattern)
+    aux = 0.0
     with full_fp32_matmul():
         x = _embed_tokens(params, cfg, tokens, patch_embeds)
-        for lp, spec in zip(params.layers, layer_specs(cfg)):
-            x, _, _ = _layer_apply(lp, x, cfg, spec, positions)
-        return _final_hidden(params, cfg, x)
+        for g in range(cfg.n_groups):
+            part = slice(g * n, (g + 1) * n)
+            x, aux = remat(cfg, _group_apply, params.layers[part],
+                           specs[part], cfg, positions, x, aux)
+        for i in range(cfg.n_groups * n, len(specs)):       # the tail
+            x, a, _, _ = _layer_apply(params.layers[i], x, cfg, specs[i],
+                                      positions)
+            aux = aux + a
+        return _final_hidden(params, cfg, x), aux
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):
@@ -314,6 +375,20 @@ def logits_fn(params, cfg: ModelConfig, hidden):
         else params["embedding"]
     with full_fp32_matmul():
         return softcap(unembed(table, hidden), cfg.final_logit_cap)
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch):
+    """batch: {"tokens" [B, S], "labels" [B, S] (-100 = pad), optional
+    "positions", "patch_embeds"}.  Returns (loss, {"ce", "aux"}): loss is
+    the masked token-mean cross-entropy, plus ``MOE_AUX_WEIGHT * aux``
+    with experts."""
+    hidden, aux = forward(params, cfg, batch["tokens"],
+                          batch.get("positions"), batch.get("patch_embeds"))
+    logits = logits_fn(params, cfg, hidden)
+    labels = _tokens(params, batch["labels"])
+    ce = cross_entropy(logits, torch.clamp(labels, min=0), labels >= 0)
+    total = ce + MOE_AUX_WEIGHT * aux if cfg.n_experts else ce
+    return total, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +494,7 @@ def _write_prefill_cache(cache, kv, seq_len: int):
     return {"k": k_cache, "v": v_cache}
 
 
+@torch.no_grad()
 def prefill(params: Transformer, cfg: ModelConfig, tokens, positions=None,
             patch_embeds=None, max_len: Optional[int] = None):
     """Forward + cache build.  Returns (last-token logits [B, V], caches).
@@ -440,11 +516,11 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, positions=None,
             lc = _layer_cache_init(spec, cfg, b, max_len, cfg.compute_dtype,
                                    params.device)
             if spec.kind != "attn":        # a recurrent layer: zero state
-                x, _, new_state = _layer_apply(lp, x, cfg, spec, positions,
-                                               lc)
+                x, _, _, new_state = _layer_apply(lp, x, cfg, spec,
+                                                  positions, lc)
                 caches.append(new_state)
                 continue
-            x, kv, _ = _layer_apply(lp, x, cfg, spec, positions)
+            x, _, kv, _ = _layer_apply(lp, x, cfg, spec, positions)
             caches.append({"mixer": _write_prefill_cache(lc["mixer"], kv, s),
                            "ffn": lc["ffn"]})
             del kv
@@ -452,6 +528,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, positions=None,
     return logits_fn(params, cfg, hidden)[:, 0, :], caches
 
 
+@torch.no_grad()
 def decode_step(params: Transformer, cfg: ModelConfig, token, caches, pos):
     """One serving step.  token [B], pos [B] (position of this token).
 
@@ -467,7 +544,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, token, caches, pos):
     with full_fp32_matmul():
         x = _embed_tokens(params, cfg, token[:, None])
         for lp, spec, lc in zip(params.layers, layer_specs(cfg), caches):
-            x, _, new_state = _layer_apply(lp, x, cfg, spec, positions, lc)
+            x, _, _, new_state = _layer_apply(lp, x, cfg, spec, positions,
+                                              lc)
             new_caches.append(new_state)
         hidden = _final_hidden(params, cfg, x)
     return logits_fn(params, cfg, hidden)[:, 0, :], new_caches

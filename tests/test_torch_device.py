@@ -1,7 +1,9 @@
 """Where the port runs, and what it imports.
 
-- No module of ``repro_torch`` (nor ``chip_smoke.py``) imports JAX or the
-  JAX package: checked on the sources' AST and in a fresh interpreter.
+- No module of ``repro_torch`` (nor ``chip_smoke.py`` or
+  ``chip_train_controls.py``) imports JAX, the JAX package or
+  ``ml_dtypes``: checked on the sources' AST and in a fresh interpreter
+  (every module under the package, training's too).
 - Entry points run on the card unless asked for the CPU: ``build``, the
   ``interop`` carriers and ``VectorStore`` with no ``device`` and no card
   raise.
@@ -13,8 +15,10 @@
   paged), and a smoke model's prefill, decode, promoted HNTL-KV decode
   and engine on the card against the CPU and the plain scan (phi3-mini;
   qwen3-moe's promoted decode, whisper's retrieval cross-attention and a
-  2-slot rwkv6 engine against serving each request alone); they skip
-  (inside a fixture) where there is no card.
+  2-slot rwkv6 engine against serving each request alone), and training
+  on the card: a float32 smoke model's loss and every gradient against
+  the CPU's, and a step over 4 microbatches against one over the whole
+  batch; they skip (inside a fixture) where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.
@@ -40,7 +44,7 @@ from repro_torch.kernels import scan_cases, select_cases
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _select_inputs(seed, device, **shape):
@@ -51,7 +55,8 @@ def _select_inputs(seed, device, **shape):
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "chip_train_controls.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -1027,3 +1032,81 @@ def test_two_slot_rwkv_engine_equals_solo_on_card(cuda_device):
 
     alone = [served(2, [p])[0] for p in prompts]
     assert served(2, prompts) == alone
+
+
+@pytest.mark.gpu
+def test_train_loss_and_grads_on_card_equal_cpu(cuda_device):
+    """phi3-mini's float32 smoke model (remat on): the card's loss to rtol
+    1e-5 and every gradient within 1e-4 * its own max |g_cpu| of the
+    CPU's."""
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.data.tokens import MarkovLM
+
+    cfg, model, params = _smoke_model(cuda_device)
+    _, _, cpu_params = _smoke_model("cpu")
+    batch = MarkovLM(vocab=cfg.vocab, seed=0).batch(0, 2, 32)
+    out = {}
+    for p in (params, cpu_params):
+        p.requires_grad_(True)
+        named = dict(p.named_parameters())
+        with full_fp32_matmul():
+            loss, _ = model.loss(p, {k: torch.from_numpy(v).to(
+                p.device) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, list(named.values()))
+        out[p.device.type] = (float(loss.detach()), dict(zip(named, grads)))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for k, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k].cpu(), g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+class _GradCapture:
+    """An optimizer that keeps a copy of the gradients ``update`` is
+    given."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, *args):
+        self.grads = {k: v.clone() for k, v in grads.items()}
+        return self.opt.update(grads, *args)
+
+
+@pytest.mark.gpu
+def test_microbatches_on_card_equal_one_batch(cuda_device):
+    """One step over 4 microbatches equals one over the whole batch on the
+    card: the averaged float32 gradients the optimizer is given within
+    1e-4 of each leaf's max |g| (a first Adam step at eps 1e-8 moves each
+    element by about lr whatever its gradient, so the parameters alone
+    would not see a dropped microbatch), the loss and the parameters
+    within ``tests/test_train.py::test_microbatch_equivalence``'s
+    tolerances."""
+    from repro_torch.data.tokens import MarkovLM
+    from repro_torch.optim.adamw import AdamW, constant
+    from repro_torch.train.step import TrainState, make_train_step
+
+    cfg, model, _ = _smoke_model(cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             MarkovLM(vocab=cfg.vocab, seed=2).batch(0, 8, 16).items()}
+    out, grads = [], []
+    for n in (1, 4):
+        opt = _GradCapture(AdamW(lr=constant(1e-3), max_grad_norm=None))
+        params = _smoke_model(cuda_device)[2].requires_grad_(True)
+        state = TrainState(params, opt.init(params), 0)
+        state, metrics = make_train_step(model, opt, microbatches=n)(state,
+                                                                     batch)
+        out.append((float(metrics["loss"]), state.params))
+        grads.append(opt.grads)
+    for k, g in grads[0].items():
+        torch.testing.assert_close(grads[1][k], g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=2e-2)
+    for (k, a), (_, b) in zip(out[0][1].named_parameters(),
+                              out[1][1].named_parameters()):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=5e-2,
+                                   atol=4e-3)

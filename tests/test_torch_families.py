@@ -80,7 +80,7 @@ def test_forward_prefill_decode_match_jax_float32(family):
     arch, jcfg, jmodel, jparams, cfg, model, params = family
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab, size=(B, S)).astype(np.int32)
-    hidden = T.forward(params, cfg, torch.from_numpy(tokens))
+    hidden, _ = T.forward(params, cfg, torch.from_numpy(tokens))
     _close(T.logits_fn(params, cfg, hidden), jax.jit(
         lambda p, t: JT.logits_fn(p, jcfg, JT.forward(p, jcfg, t)[0]))(
             jparams, jnp.asarray(tokens)), TOL, "forward")

@@ -117,7 +117,8 @@ def _jax_cache_leaves(jcaches, cfg):
 def _parity(arch, dtype, tol_prefill, tol_decode):
     jcfg, jmodel, jparams, cfg, model, params = _pair(arch, dtype)
     tokens, kw = _inputs(cfg)
-    hidden = T.forward(params, cfg, torch.from_numpy(tokens), **_port_kw(kw))
+    hidden, _ = T.forward(params, cfg, torch.from_numpy(tokens),
+                          **_port_kw(kw))
     jhidden, _ = JT.forward(jparams, jcfg, jnp.asarray(tokens), **_jax_kw(kw))
     _close(T.logits_fn(params, cfg, hidden),
            JT.logits_fn(jparams, jcfg, jhidden), tol_prefill, "forward")
@@ -169,7 +170,8 @@ def test_decode_matches_forward(arch, s, s0):
     params = model.init(0, device="cpu")
     tokens, _ = _inputs(cfg, seed=1, s=s)
     tokens = torch.from_numpy(tokens)
-    tf_logits = _np(T.logits_fn(params, cfg, T.forward(params, cfg, tokens)))
+    tf_logits = _np(T.logits_fn(params, cfg,
+                                T.forward(params, cfg, tokens)[0]))
     logits0, caches = model.prefill(params, tokens[:, :s0], max_len=s)
     np.testing.assert_allclose(_np(logits0), tf_logits[:, s0 - 1],
                                rtol=3e-2, atol=3e-2)
@@ -249,7 +251,7 @@ def test_shapes_copy_matches_jax():
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_are_refused_naming_11a(arch):
+def test_item_11a_archs_are_accepted_and_carry_jax_weights(arch):
     """Item 11a landed: the five configurations the port refused until
     then (naming the item) are accepted by ``get_config``,
     ``get_smoke_config``, ``get_model`` and ``params_from_numpy``; the
@@ -280,7 +282,7 @@ def test_unported_archs_are_refused_naming_11a(arch):
     assert bool(torch.isfinite(logits).all())
 
 
-def test_encdec_entry_points_are_refused_naming_11a():
+def test_encdec_decode_steps_equal_teacher_forced_decode():
     """Item 11a landed: ``Model.encode`` and ``encdec_decode_step`` run
     the whisper smoke model, and step by step give the teacher-forced
     ``encdec.decode``'s logits (float32, 1e-4); no source file of the

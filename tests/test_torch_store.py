@@ -568,7 +568,7 @@ def test_ttl_expiry_in_sealed_and_memtable_rows():
     (lambda st: st.search(np.zeros(D), route_mode="nope"), "route_mode"),
 ], ids=["device_budget", "budgets",
         "budgets_invalid", "adaptive", "probe_margin", "mesh", "route_mode"])
-def test_unported_arguments_are_refused(call, match):
+def test_invalid_argument_combinations_are_refused(call, match):
     st, _, _, _, _ = _port_store(tail=0)
     with pytest.raises(ValueError, match=match):
         call(st)
@@ -577,7 +577,7 @@ def test_unported_arguments_are_refused(call, match):
 @pytest.mark.parametrize("name, item", [
     ("tenant_live", 6), ("tenant_ix", 6), ("probe_margin", 5),
     ("hub_mask", 5)])
-def test_search_stacked_refuses_unported_arguments(carried, name, item):
+def test_search_stacked_tenant_and_adaptive_arguments(carried, name, item):
     """Tenancy (item 6) and adaptive routing (item 5) are ported.  The
     tenant pair is held to the JAX planner on the same stacked plane
     ("tenant_live": a random bitmap over three tenants, Mode A;

@@ -140,7 +140,7 @@ def bf16_model_parity(arch: str, *, b: int = 2, s0: int = 12,
     lowering._STACK.append(lowering.LoweringFlags(unroll_layers=True))
     try:
         head = torch.from_numpy(tokens[:, :s0])
-        close(T.logits_fn(params, cfg, T.forward(params, cfg, head))[:, -1],
+        close(T.logits_fn(params, cfg, T.forward(params, cfg, head)[0])[:, -1],
               JT.logits_fn(jparams, jcfg, JT.forward(
                   jparams, jcfg, jnp.asarray(tokens[:, :s0]))[0])[:, -1],
               3e-2, "forward")
@@ -158,3 +158,117 @@ def bf16_model_parity(arch: str, *, b: int = 2, s0: int = 12,
             close(logits, jlogits, 5e-2, f"decode @ {t}")
     finally:
         lowering._STACK.pop()
+
+
+#: The attention-only decoders, and every architecture of the repo.
+ATTENTION_ARCHS = ["phi3-mini-3.8b", "gemma2-2b", "stablelm-3b",
+                   "codeqwen1.5-7b", "qwen2-vl-2b"]
+FAMILY_ARCHS = ["recurrentgemma-9b", "rwkv6-1.6b", "qwen3-moe-30b-a3b",
+                "dbrx-132b", "whisper-base"]
+ALL_ARCHS = ATTENTION_ARCHS + FAMILY_ARCHS
+
+#: Training parity in float32: the loss's rtol, and each gradient leaf's
+#: absolute tolerance as a fraction of its own largest |value|.
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-4
+
+
+def train_batch(cfg, b: int = 2, s: int = 16, seed: int = 1,
+                frames: int = 24) -> dict:
+    """A training batch (numpy) for ``cfg``: tokens and labels with a few
+    -100 (masked) labels; for M-RoPE three distinct position streams and
+    two patch embeddings; for the encoder-decoder ``frames`` frames."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, size=(b, s)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, size=(b, s)).astype(np.int32)
+    labels[:, -3:] = -100
+    labels[0, 2] = -100
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.mrope_sections is not None:
+        base = np.arange(s, dtype=np.int32)
+        batch["positions"] = np.stack([base, base // 2, base // 3])[:, None] \
+            .repeat(b, axis=1)
+        batch["patch_embeds"] = rng.standard_normal(
+            (b, 2, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def port_named(tree, cfg) -> dict:
+    """A JAX parameter-shaped tree (parameters, gradients, moments; numpy
+    leaves) -> {port parameter name: CPU tensor}, unstacked as
+    ``interop.params_from_numpy`` unstacks parameters."""
+    from repro_torch.interop import params_from_numpy
+
+    return {k: v.detach() for k, v in params_from_numpy(
+        jax.tree.map(np.asarray, tree), cfg, "cpu").named_parameters()}
+
+
+def reference_decays(cfg, named: dict) -> set:
+    """The port's 1-d parameters that lie in the reference's stacked
+    layers ([n, d] there): the reference's AdamW decays them (it tests
+    ``ndim`` on the stack), the port's does not."""
+    if cfg.family == "encdec":
+        stacked = ("enc.layers.", "dec.layers.")
+    else:
+        stacked = tuple(f"layers.{i}." for i in range(
+            cfg.n_groups * len(cfg.pattern)))
+    return {k for k, v in named.items()
+            if v.dim() == 1 and k.startswith(stacked)}
+
+
+def assert_update_matches(port: dict, ref: dict, before: dict, cfg, *,
+                          lr: float, wd: float, rtol: float, atol: float):
+    """The port's updated parameters against the reference's, leaf by
+    leaf: within (rtol, atol), except where the reference decays a 1-d
+    parameter of its stacked layers and the port does not; there the
+    port's minus the reference's is lr * wd * (the parameter before)."""
+    decayed = reference_decays(cfg, port)
+    assert set(port) == set(ref)
+    for k in port:
+        want = ref[k].float()
+        if k in decayed:
+            want = want + lr * wd * before[k].float()
+        torch.testing.assert_close(port[k].float(), want, rtol=rtol,
+                                   atol=atol, msg=lambda m, k=k: f"{k}: {m}")
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, metrics, {name: gradient}) of the port's ``model.loss``."""
+    loss, metrics = model.loss(params, batch)
+    named = dict(params.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    metrics = {k: v.detach() if torch.is_tensor(v) else v
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, dict(zip(named, grads))
+
+
+def loss_grad_parity(arch: str) -> None:
+    """``arch``'s float32 smoke model: the port's ``Model.loss``, its ce
+    and aux and every gradient against JAX's ``value_and_grad`` of
+    ``model.loss`` on the same weights and batch (``train_batch``)."""
+    import jax.numpy as jnp
+
+    jcfg, jmodel, jparams, cfg, model, params = model_pair(arch)
+    params.requires_grad_(True)
+    batch = train_batch(cfg)
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+        jmodel.loss, has_aux=True))(jparams, jax.tree.map(jnp.asarray,
+                                                          batch))
+    loss, metrics, grads = loss_and_grads(
+        model, params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(metrics["ce"]), float(jmetrics["ce"]),
+                               rtol=LOSS_RTOL)
+    if cfg.n_experts:
+        assert float(metrics["aux"]) > 0
+        np.testing.assert_allclose(float(metrics["aux"]),
+                                   float(jmetrics["aux"]), rtol=LOSS_RTOL)
+    want = port_named(jgrads, cfg)
+    assert set(grads) == set(want)
+    for k, g in grads.items():
+        tol = GRAD_TOL * float(want[k].abs().max())
+        torch.testing.assert_close(g, want[k], rtol=0, atol=tol,
+                                   msg=lambda m, k=k: f"{arch} {k}: {m}")
