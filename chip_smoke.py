@@ -117,7 +117,9 @@ What it does, in order (any failure exits non-zero before the last line):
    adaptive routing at 0.35 against their plain planes, a profile and
    the per-shard select against its plain version and bound; 10b's
    default window again over 4 shards, and 12's cold store on 4 shards
-   (the host re-rank of every shard's pool);
+   (the host re-rank of every shard's pool); and 12e's (d): Mode A and B
+   through ``make_host_mesh(1, 4)`` on the card's slots, ``torch.equal``
+   to the ``make_search_mesh(4)`` plane;
 9c. the select past its 8,192-key per-probe list in a search
    (``long_list_phase``): a density index over the first 262,144 rows in
    16 grains (cap above 8,192), 256 queries through "cascade" at
@@ -221,6 +223,24 @@ What it does, in order (any failure exits non-zero before the last line):
    width cut to 2 layers (router gradients finite and nonzero, 3 steps,
    aux > 0) and whisper-base at full width and depth (10 steps on
    1,500-frame inputs); training reaches no CUDA kernel of the port;
+12e. training on a mesh (``mesh_phase``), every slot on the card: (a)
+   phi3-mini-3.8b at full width and depth on a 2 x 2 ``make_host_mesh``
+   under ``default_rules``, B=8 S=1024 with row 0's first sequence padded
+   from token 512: the gate in float32 (the mesh's loss and every
+   gradient against the one-slot step's on the same parameters: rtol
+   1e-5, each leaf within 1e-4 of its own max |g|; the bf16 numbers
+   logged), then 10 bf16 steps of the placed state (leaves whole, shards
+   views): step ms, tokens/s, peak memory, a profiled step; (b)
+   qwen2-vl-2b at full width and depth over 2 data slots: int8_ef's first
+   reduced gradient within half its consensus scale of the exact mean,
+   3 steps of each of ``none``, ``bf16`` and ``int8_ef`` timed with their
+   wire bytes, and the reference's 12-step trajectory bounds at smoke
+   width on 8 slots; (c) phi3-mini cut to 2 layers on a 4 x 2 mesh,
+   saved, ``shrink_mesh`` to 4 slots, ``restore(shardings=)`` and
+   ``remesh_train_state``: every leaf bit-equal, the next step finite,
+   save and restore seconds; then each ``examples/torch_*.py`` on the
+   card with its kernels' launches; ``python3 chip_train_controls.py``
+   shows (a) and (b)'s gates fail on planted faults;
 13. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -763,38 +783,54 @@ def time_events(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+#: Idle seconds before and after each profiled step of ``trace_calls``.
+#: Without it, short kernels launched right at the start of the active
+#: step were now and then missing from the trace (``chip_trace_margin.py``
+#: counts such traces with and without it).
+TRACE_MARGIN_S = 0.05
+
+
+def trace_calls(torch, fn, reps, margin_s=TRACE_MARGIN_S):
+    """The card's records (torch.profiler's key averages, CUDA only) of
+    ``reps`` calls of ``fn``.  The trace records a warm-up step of
+    ``reps`` calls first and keeps only the second step (the profiler's
+    schedule): the first records of a fresh profiler trace can be lost.
+    Each step starts and ends with ``margin_s`` seconds of idle card."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
+
+    trace = {}
+    with tprofile(activities=[ProfilerActivity.CUDA],
+                  schedule=schedule(wait=0, warmup=1, active=1),
+                  on_trace_ready=lambda p: trace.setdefault(
+                      "evs", p.key_averages())) as prof:
+        for _ in range(2):
+            time.sleep(margin_s)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(margin_s)
+            prof.step()
+    return [e for e in trace.get("evs", [])
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def device_ms(torch, fn, kernels, reps=20):
     """Device time per call of ``fn``, from torch.profiler (CUPTI) over
-    ``reps`` calls: unlike CUDA events around back-to-back calls, it leaves
-    out the host's launch time when the device work is shorter.
+    ``reps`` calls (``trace_calls``): unlike CUDA events around
+    back-to-back calls, it leaves out the host's launch time when the
+    device work is shorter.
 
     Returns (ms, parts, traces): ms is all device work of a call, whatever
     launched it; parts maps each name in ``kernels`` to the device time
     per call of the kernels whose name holds it, and "other" to the rest.
     A trace that holds fewer than ``reps`` launches of a named kernel is
     incomplete (the profiler has dropped a record now and then): it is
-    taken again, the run fails after three such traces, and ``traces``
-    says how many were taken.  Each trace records a warm-up step of
-    ``reps`` calls first and keeps only the second step (the profiler's
-    schedule): the first records of a fresh profiler trace can be
-    lost."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    from torch.profiler import schedule
-
-    attempts = 3
+    taken again, the run fails after five such traces, and ``traces``
+    says how many were taken."""
+    attempts = 5
     for attempt in range(1, attempts + 1):
-        trace = {}
-        with tprofile(activities=[ProfilerActivity.CUDA],
-                      schedule=schedule(wait=0, warmup=1, active=1),
-                      on_trace_ready=lambda p: trace.setdefault(
-                          "evs", p.key_averages())) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        evs = [e for e in trace.get("evs", [])
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        evs = trace_calls(torch, fn, reps)
         seen = {name: sum(e.count for e in evs if name in e.key)
                 for name in kernels}
         short = {k: v for k, v in seen.items() if v < reps}
@@ -4137,6 +4173,9 @@ def sharded_phase(torch, np, dev, st, *, xb, dead, tags, ts, truth):
     log(f"sharded 4 shards, \"kernel\" plane (256 queries, Mode B) == "
         f"\"ref\" plane (ids); hntl_scan_single launches "
         f"{out['kernel_launches']}")
+    out["host_mesh"] = host_mesh_search(torch, st, qt, dev)
+    out["launches"]["store search on make_host_mesh(1, 4)"] = \
+        out["host_mesh"]["launches"]
     b = STORE_CASCADE_BUDGETS
     fsel.fused_scan_select.launches = 0
     casc = {m: st.search(qt, topk=10, mode=m, mesh=mesh4, scan_impl="cascade",
@@ -4202,6 +4241,35 @@ def sharded_phase(torch, np, dev, st, *, xb, dead, tags, ts, truth):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"sharded phase: {out['seconds']:.1f} s")
     return out
+
+
+def host_mesh_search(torch, st, qt, dev):
+    """Mesh phase (d): the store searched through ``make_host_mesh(1, 4)``
+    on slots of ``dev`` (Mode A and B, the select's counter zeroed just
+    before, read just after), ``torch.equal`` in ids and dists to the
+    ``make_search_mesh(4)`` plane built anew (the plane cache cleared in
+    between)."""
+    from repro_torch.kernels import fused_select as fsel
+    from repro_torch.launch.mesh import make_host_mesh, make_search_mesh
+
+    host = make_host_mesh(1, 4, devices=[dev] * 4)
+    st._stack_cache.clear()
+    fsel.fused_scan_select.launches = 0
+    got = {m: st.search(qt, topk=10, mode=m, mesh=host) for m in "AB"}
+    sync(torch, dev)
+    launches = fsel.fused_scan_select.launches
+    st._stack_cache.clear()
+    want = {m: st.search(qt, topk=10, mode=m, mesh=make_search_mesh(
+        4, devices=[dev] * 4)) for m in "AB"}
+    for m in "AB":
+        check(torch.equal(got[m].ids, want[m].ids) and torch.equal(
+            got[m].dists, want[m].dists), f"mesh (d) {m}: make_host_mesh(1,"
+            " 4) differs from the make_search_mesh(4) plane")
+    log(f"mesh (d): {qt.shape[0]} queries, Mode A and B through "
+        f"make_host_mesh(1, 4) on {dev} slots == the make_search_mesh(4) "
+        f"plane (ids and dists torch.equal); select launches {launches}")
+    st._stack_cache.clear()
+    return dict(launches=launches)
 
 
 def sharded_exhaustive(torch, np, dev, *, segments=4, rows=4096, nq=64):
@@ -5856,6 +5924,507 @@ def train_phase(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# 12e: training on a mesh
+# ---------------------------------------------------------------------------
+
+#: (a): phi3-mini-3.8b at full width and depth on a data x model mesh of
+#: slots on the card, B x S, the steps timed, and where row 0's first
+#: sequence is padded (labels -100 from this token on): a token mean over
+#: the batch then differs from a mean of the rows' means.
+MESH_GRID = (2, 2)
+MESH_SHAPE = (8, 1024)
+MESH_STEPS = 10
+MESH_PAD_FROM = 512
+#: Free device bytes (a) needs: 7.6 GB of bf16 parameters, 30.6 GB of
+#: float32 moments, one 15.3 GB float32 gradient tree, one row's 7.6 GB
+#: of bf16 gradients in flight, activations and logits.
+MESH_FREE_BYTES = 70e9
+#: (b): qwen2-vl-2b at full width and depth over this many data slots,
+#: B x S, and the timed steps of each scheme; the 12-step trajectory at
+#: smoke width (the reference's test: 8 slots, 16 x 16 batches, lr 3e-3,
+#: int8_ef within 0.35 of exact, bf16 within 0.2, exact falling by 0.2).
+MESH_COMP_ARCH = "qwen2-vl-2b"
+MESH_COMP_SLOTS = 2
+MESH_COMP_SHAPE = (8, 512)
+MESH_COMP_STEPS = 3
+MESH_TRAJ = dict(slots=8, steps=12, b=16, s=16, int8=0.35, bf16=0.2,
+                 fall=0.2)
+#: (c): phi3-mini at full width cut to TRAIN_CUT_LAYERS layers, bf16: a
+#: (4, 2) mesh trained ``steps`` steps of B x S, saved, shrunk to ``keep``
+#: slots with the model axis kept, restored and re-meshed, one more step.
+MESH_ELASTIC = dict(grid=(4, 2), keep=4, b=8, s=256, steps=2)
+
+
+def card_mesh(dev, data, model):
+    """A (data, model) ``make_host_mesh`` whose slots all lie on ``dev``."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(data, model, devices=[dev] * (data * model))
+
+
+def mesh_batch(torch, vocab, b, s, dev, *, seed=0, step=0, pad_from=None):
+    from repro_torch.data.tokens import MarkovLM
+
+    batch = {k: torch.from_numpy(v) for k, v in
+             MarkovLM(vocab=vocab, seed=seed).batch(step, b, s).items()}
+    if pad_from is not None:
+        batch["labels"][0, pad_from:] = -100
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def mesh_grad_check(torch, np, dev, dtype="float32", gate=True):
+    """(a)'s gate: phi3-mini-3.8b at full width and depth (``dtype``) on
+    the MESH_GRID mesh of ``dev`` slots: the first step's loss and every
+    gradient from ``train.step.value_and_grad`` of the placed parameters
+    (rows of 4 sequences, row 0 padded) against its one-slot value on
+    the same parameters and batch (loss rtol TRAIN_LOSS_RTOL, each leaf
+    within TRAIN_GRAD_TOL of its own max |g|).  In bf16 the numbers are
+    logged, not gated: a bf16 gradient rounds each element to 2^-9 of
+    itself, so a row count's other rounding moves the largest elements by
+    ~4e-3 of max |g|."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype=dtype)
+    model = get_model(cfg)
+    b, s = MESH_SHAPE
+    params = model.init(0, device=dev).requires_grad_(True)
+    placed = shd.place_module(params, shd.default_rules(
+        card_mesh(dev, *MESH_GRID)))
+    batch = mesh_batch(torch, cfg.vocab, b, s, dev, pad_from=MESH_PAD_FROM)
+    walls = {}
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    with full_fp32_matmul():
+        l_mesh, _, g_mesh = value_and_grad(model, placed, batch)
+    sync(torch, dev)
+    walls["mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with full_fp32_matmul():
+        l_one, _, g_one = value_and_grad(model, params, batch)
+    sync(torch, dev)
+    walls["one"] = time.perf_counter() - t0
+    worst, worst_name = worst_grad(g_mesh, g_one)
+    l_mesh, l_one = float(l_mesh), float(l_one)
+    rel = abs(l_mesh - l_one) / abs(l_one)
+    log(f"mesh (a) gate, {dtype}: {cfg.name} {cfg.n_layers} layers x "
+        f"{cfg.d_model}, {MESH_GRID[0]} x {MESH_GRID[1]} slots on {dev}, "
+        f"B={b} S={s} (row 0 padded from token {MESH_PAD_FROM}): loss mesh "
+        f"{l_mesh:.7f} one slot {l_one:.7f} (rel {rel:.3g}, limit "
+        f"{TRAIN_LOSS_RTOL}); {len(g_one)} gradients, worst at {worst:.4g} "
+        f"of its limit ({worst_name}); mesh {walls['mesh']:.2f} s, one slot "
+        f"{walls['one']:.2f} s" + ("" if gate else " (logged, not gated)"))
+    if gate:
+        check(rel <= TRAIN_LOSS_RTOL, f"mesh (a): loss mesh {l_mesh} one "
+              f"slot {l_one}")
+        check(worst <= 1.0, f"mesh (a): gradient {worst_name} at "
+              f"{worst:.3g} of its limit")
+    del params, placed, g_mesh, g_one
+    free_card(torch, dev)
+    return dict(dtype=dtype, loss_mesh=l_mesh, loss_one=l_one, loss_rel=rel,
+                grad_worst=worst, grad_worst_leaf=worst_name, walls=walls)
+
+
+def mesh_train(torch, np, dev):
+    """(a)'s steps: phi3-mini-3.8b at full width and depth, bf16, full
+    remat, placed on the MESH_GRID mesh (parameters and moments by
+    ``infer_param_specs``: on one card the leaves whole, shards views) and
+    stepped MESH_STEPS times by ``make_train_step``: finite losses, step
+    ms, tokens/s, peak memory, one more step profiled (busy share)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        place_train_state)
+
+    cfg = get_config(TRAIN_ARCH)
+    (b, s), steps = MESH_SHAPE, MESH_STEPS
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"mesh (a): {free} of {total} device bytes free")
+    check(free >= MESH_FREE_BYTES, f"mesh (a): {free} bytes free, "
+          f"needs {MESH_FREE_BYTES:.0f}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = get_model(cfg)
+    rules = shd.default_rules(card_mesh(dev, *MESH_GRID))
+    batches = [mesh_batch(torch, cfg.vocab, b, s, dev, step=i)
+               for i in range(steps + 1)]
+    opt = TimedOptimizer(torch, AdamW(lr=warmup_cosine(3e-4, 2, steps)))
+    state = place_train_state(init_state(model, opt, 0, dev), rules)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    n_views = sum(1 for p in state.params.parameters()
+                  for c in rules.mesh.coords()
+                  if p.shard(c).untyped_storage().data_ptr()
+                  == p.pieces[0].tensor.untyped_storage().data_ptr())
+    step = make_train_step(model, opt)
+    ms, losses = [], []
+    for i in range(steps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        losses.append(float(metrics["loss"]))
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"mesh (a): losses {losses}")
+    mid = sorted(ms[1:])[len(ms[1:]) // 2]
+    opt_ms = sorted(opt.ms[1:steps])[len(opt.ms[1:steps]) // 2]
+    out = dict(params=n_params, step_ms=mid, step_ms_all=ms,
+               tokens_per_s=b * s / (mid / 1e3), losses=losses,
+               opt_ms=opt_ms, shard_views=n_views,
+               peak=torch.cuda.max_memory_allocated(dev))
+    log(f"mesh (a): {cfg.name}, {n_params} parameters, bf16, remat "
+        f"{cfg.remat_policy}, {MESH_GRID[0]} data x {MESH_GRID[1]} model "
+        f"slots on {dev} ({n_views} of "
+        f"{len(list(state.params.parameters())) * rules.mesh.size} slot "
+        f"shards views of their leaf), B={b} S={s}: step 1 {ms[0]:.1f} ms, "
+        f"then median {mid:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; loss"
+        f" {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; optimizer "
+        f"{opt_ms:.1f} ms; peak device memory {out['peak']} bytes")
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step(box["state"], batches[steps])
+    out["profile"] = profile(torch, f"one {cfg.name} train step on a "
+                             f"{MESH_GRID[0]} x {MESH_GRID[1]} mesh", one,
+                             mid / 1e3, top=6)
+    del box, state, batches
+    free_card(torch, dev)
+    return out
+
+
+class GradOnly:
+    """An optimizer that keeps the gradients it is given and updates
+    nothing (so two steps start from the same parameters)."""
+
+    def __init__(self):
+        self.grads = None
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, opt_state, params):
+        self.grads = grads
+        return params, opt_state, {}
+
+
+def compression_gate(torch, np, dev):
+    """(b)'s gate: qwen2-vl-2b at full width and depth over
+    MESH_COMP_SLOTS data slots on ``dev``: int8_ef's first reduced
+    gradient against the exact mean (scheme ``none``) from the same
+    parameters.  Each element must lie within half the consensus scale of
+    its group (the maximum over slots of max |g_slot| / 127, computed here
+    from each slot's own gradient; + 1e-3 of it for float rounding): a
+    slot quantizing with its own scale misses that."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.distributed import compression
+    from repro_torch.models import get_model
+    from repro_torch.train.step import value_and_grad
+
+    cfg = get_config(MESH_COMP_ARCH)
+    model = get_model(cfg)
+    n = MESH_COMP_SLOTS
+    b, s = MESH_COMP_SHAPE
+    params = model.init(0, device=dev).requires_grad_(True)
+    mesh = card_mesh(dev, n, 1)
+    batch = mesh_batch(torch, cfg.vocab, b, s, dev)
+    groups = compression.scale_groups(cfg, [k for k, _ in
+                                            params.named_parameters()])
+    gmax = {}
+    for i in range(n):
+        with full_fp32_matmul():
+            _, _, g = value_and_grad(model, params, {
+                k: v[i * b // n:(i + 1) * b // n] for k, v in batch.items()})
+        for key, names in groups.items():
+            m = max(float(g[k].abs().max()) for k in names)
+            gmax[key] = max(gmax.get(key, 0.0), m)
+        del g
+    got = {}
+    for scheme in ("none", "int8_ef"):
+        opt = GradOnly()
+        step, init_err = compression.make_compressed_train_step(
+            model, opt, mesh, scheme=scheme)
+        err = init_err(params)
+        step(params, {}, err, batch)
+        got[scheme] = opt.grads
+        del err, step
+    worst, worst_key = 0.0, None
+    for key, names in groups.items():
+        scale = max(np.float32(gmax[key]) / np.float32(127.0), 1e-12)
+        bound = scale * (0.5 + 1e-3)
+        e = max(float((got["int8_ef"][k] - got["none"][k]).abs().max())
+                for k in names)
+        if e / bound > worst or worst_key is None:
+            worst, worst_key = e / bound, key
+    log(f"mesh (b) gate: {cfg.name}, int8_ef's first reduced gradient "
+        f"over {n} slots (B={b} S={s}) against the exact mean: worst group "
+        f"at {worst:.4g} of half its consensus scale ({worst_key}; "
+        f"{len(groups)} groups)")
+    check(worst <= 1.0, f"mesh (b): int8_ef gradient group {worst_key} at "
+          f"{worst:.3g} of half its scale from the exact mean")
+    del params, got
+    free_card(torch, dev)
+    return dict(worst=worst, worst_group=worst_key, groups=len(groups))
+
+
+def compression_steps(torch, np, dev):
+    """(b)'s steps: qwen2-vl-2b at full width and depth, bf16, over
+    MESH_COMP_SLOTS data slots, MESH_COMP_STEPS AdamW steps of each scheme
+    from seed 0: step ms, losses (finite), peak memory and the bytes each
+    scheme puts on a wire per slot and step."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, constant
+
+    cfg = get_config(MESH_COMP_ARCH)
+    model = get_model(cfg)
+    n = MESH_COMP_SLOTS
+    b, s = MESH_COMP_SHAPE
+    mesh = card_mesh(dev, n, 1)
+    batches = [mesh_batch(torch, cfg.vocab, b, s, dev, step=i)
+               for i in range(MESH_COMP_STEPS)]
+    out = {}
+    for scheme in compression.SCHEMES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = model.init(0, device=dev).requires_grad_(True)
+        n_params = sum(p.numel() for p in params.parameters())
+        opt = AdamW(lr=constant(1e-4))
+        st = opt.init(params)
+        step, init_err = compression.make_compressed_train_step(
+            model, opt, mesh, scheme=scheme)
+        err = init_err(params)
+        ms, losses = [], []
+        for batch in batches:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            params, st, err, loss = step(params, st, err, batch)
+            losses.append(float(loss))
+            sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(losses)), f"mesh (b) {scheme}: losses "
+              f"{losses}")
+        wire = n_params * compression.WIRE_BYTES[scheme]
+        out[scheme] = dict(ms=ms, step_ms=sorted(ms[1:])[len(ms[1:]) // 2],
+                           losses=losses, wire_bytes=wire,
+                           peak=torch.cuda.max_memory_allocated(dev))
+        log(f"mesh (b) {scheme}: {cfg.name}, {n_params} parameters, {n} "
+            f"slots, B={b} S={s}: steps " + ", ".join(f"{t:.1f}" for t in ms)
+            + f" ms; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+            f"{wire} bytes on a wire per slot and step; peak device memory "
+            f"{out[scheme]['peak']} bytes")
+        if scheme == "int8_ef":
+            box = {"p": params, "st": st, "err": err}
+
+            def one():
+                box["p"], box["st"], box["err"], _ = step(
+                    box["p"], box["st"], box["err"], batches[-1])
+            out[scheme]["profile"] = profile(
+                torch, f"one int8_ef step of {cfg.name} over {n} slots", one,
+                out[scheme]["step_ms"] / 1e3, top=8)
+            del box
+        del params, st, err, step, opt
+        free_card(torch, dev)
+    return out
+
+
+def compression_trajectory(torch, np, dev):
+    """(b)'s trajectory: the reference's 12-step check on MESH_TRAJ's
+    slots of ``dev`` at smoke width (phi3-mini, 2 layers, vocab 64)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import compression
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, constant
+
+    t = MESH_TRAJ
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), n_layers=2,
+                              vocab=64)
+    model = get_model(cfg)
+    mesh = card_mesh(dev, t["slots"], 1)
+    runs = {}
+    for scheme in compression.SCHEMES:
+        opt = AdamW(lr=constant(3e-3), max_grad_norm=None)
+        params = model.init(0, device=dev).requires_grad_(True)
+        st = opt.init(params)
+        step, init_err = compression.make_compressed_train_step(
+            model, opt, mesh, scheme=scheme)
+        err = init_err(params)
+        losses = []
+        for i in range(t["steps"]):
+            batch = mesh_batch(torch, cfg.vocab, t["b"], t["s"], dev, step=i)
+            params, st, err, loss = step(params, st, err, batch)
+            losses.append(float(loss))
+        runs[scheme] = losses
+    ex = runs["none"]
+    d8 = abs(runs["int8_ef"][-1] - ex[-1])
+    d16 = abs(runs["bf16"][-1] - ex[-1])
+    log(f"mesh (b) trajectory, {t['steps']} steps on {t['slots']} slots: "
+        f"exact {ex[0]:.4f} -> {ex[-1]:.4f}, int8_ef "
+        f"{runs['int8_ef'][-1]:.4f} (|diff| {d8:.4f}, limit {t['int8']}), "
+        f"bf16 {runs['bf16'][-1]:.4f} (|diff| {d16:.4f}, limit {t['bf16']})")
+    check(ex[-1] < ex[0] - t["fall"], f"mesh (b): exact losses {ex}")
+    check(d8 < t["int8"], f"mesh (b): int8_ef ends {d8} from exact")
+    check(d16 < t["bf16"], f"mesh (b): bf16 ends {d16} from exact")
+    free_card(torch, dev)
+    return dict(losses=runs, int8_diff=d8, bf16_diff=d16)
+
+
+def mesh_elastic(torch, np, dev, tmp):
+    """(c): phi3-mini at full width cut to TRAIN_CUT_LAYERS layers, bf16,
+    on a MESH_ELASTIC["grid"] mesh of ``dev`` slots: a few steps, a
+    checkpoint in ``tmp``, ``shrink_mesh`` to ``keep`` slots,
+    ``restore(shardings=)`` onto the smaller mesh and
+    ``remesh_train_state``; every leaf bit-equal to the saved one, the next
+    step finite; save and restore seconds."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.elastic import (remesh_train_state,
+                                                 shrink_mesh)
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, constant
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        state_shardings)
+
+    e = MESH_ELASTIC
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS)
+    model = get_model(cfg)
+    opt = AdamW(lr=constant(1e-4))
+    mesh8 = card_mesh(dev, *e["grid"])
+    step = make_train_step(model, opt)
+    with shd.use_rules(shd.default_rules(mesh8)):
+        state = init_state(model, opt, 0, dev)
+        for i in range(e["steps"]):
+            state, _ = step(state, mesh_batch(torch, cfg.vocab, e["b"],
+                                              e["s"], dev, step=i))
+    check(isinstance(state.params, shd.PlacedModule), "mesh (c): the state "
+          "was not placed on the mesh")
+    mgr = ckpt.CheckpointManager(tmp, keep_n=1)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    mgr.save(state, step=e["steps"])
+    save_s = time.perf_counter() - t0
+    saved = {}
+    ckpt._map_leaves(state, lambda name, leaf, _: saved.__setitem__(
+        name, ckpt._to_host(leaf)[0]))
+    del state
+    free_card(torch, dev)
+    mesh4 = shrink_mesh(list(mesh8.flat_devices())[:e["keep"]],
+                        model_parallel=e["grid"][1])
+    rules4 = shd.default_rules(mesh4)
+    target = init_state(model, opt, 1, "meta")
+    t0 = time.perf_counter()
+    restored = mgr.restore(target, step=e["steps"],
+                           shardings=state_shardings(target, rules4))
+    restored = remesh_train_state(restored, mesh4, rules=rules4)
+    sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    got = {}
+    ckpt._map_leaves(restored, lambda name, leaf, _: got.__setitem__(
+        name, ckpt._to_host(leaf)[0]))
+    equal = sum(1 for k in saved if k in got and got[k].dtype ==
+                saved[k].dtype and np.array_equal(got[k], saved[k]))
+    check(equal == len(saved) == len(got), f"mesh (c): {equal} of "
+          f"{len(saved)} leaves bit-equal after the cross-mesh restore")
+    _, m = step(restored, mesh_batch(torch, cfg.vocab, e["b"], e["s"], dev,
+                                     step=e["steps"]))
+    loss = float(m["loss"])
+    check(np.isfinite(loss), f"mesh (c): next step's loss {loss}")
+    nbytes = dir_bytes(tmp)
+    log(f"mesh (c): {cfg.name} cut to {cfg.n_layers} layers, bf16, "
+        f"{e['grid'][0]} x {e['grid'][1]} -> {mesh4.shape['data']} x "
+        f"{mesh4.shape['model']} slots on {dev}: saved {nbytes} bytes in "
+        f"{save_s:.2f} s, restored and re-meshed in {restore_s:.2f} s; "
+        f"{equal} of {len(saved)} leaves bit-equal; next step loss "
+        f"{loss:.4f} (finite)")
+    n_leaves = len(saved)
+    del restored, saved, got
+    free_card(torch, dev)
+    return dict(save_s=save_s, restore_s=restore_s, bytes=nbytes,
+                leaves=n_leaves, bit_equal=equal, loss=loss)
+
+
+def examples_phase(torch, dev):
+    """The port's examples (``examples/torch_*.py``) on the card at their
+    own settings (train_lm cut to 20 steps on a 2 x 2 mesh), each
+    kernel's launch counters zeroed just before and read just after."""
+    import importlib.util
+
+    from repro_torch.kernels import fused_select as fsel
+    from repro_torch.kernels import hntl_scan as hs
+
+    argv = {"quickstart": [], "counterfactual_branch": [],
+            "distributed_search": [], "long_context_decode": [],
+            "serve_retrieval": [],
+            "train_lm": ["--host-mesh", "2,2", "--steps", "20"]}
+    out = {}
+    for name, args in argv.items():
+        args = ["--device", str(dev)] + args
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", os.path.join(REPO, "examples",
+                                            f"torch_{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+        try:
+            if name == "train_lm":
+                args = args + ["--ckpt-dir", tmp]
+            fsel.fused_scan_select.launches = 0
+            hs.hntl_scan_single.launches = 0
+            t0 = time.perf_counter()
+            mod.main(args)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            out[name] = dict(select=fsel.fused_scan_select.launches,
+                             single=hs.hntl_scan_single.launches, s=wall)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"example torch_{name}: {wall:.1f} s, fused_scan_select "
+            f"launches {out[name]['select']}, hntl_scan_single launches "
+            f"{out[name]['single']}")
+        free_card(torch, dev)
+    for name in ("quickstart", "counterfactual_branch", "distributed_search",
+                 "serve_retrieval"):
+        check(out[name]["select"] > 0, f"example {name}: fused_scan_select "
+              "never launched")
+    check(out["long_context_decode"]["single"] > 0, "example "
+          "long_context_decode: hntl_scan_single never launched")
+    return out
+
+
+def mesh_phase(torch, np, dev):
+    """Training on a mesh of slots on the card: (a) phi3-mini-3.8b at full
+    width and depth on a 2 x 2 mesh, the gate in float32 (and the bf16
+    gradients logged), then bf16 steps; (b) compressed data-parallel steps
+    of qwen2-vl-2b at full width over 2 slots, the int8_ef gate, the three
+    schemes timed, the 12-step trajectory at smoke width; (c) elastic
+    re-mesh and cross-mesh restore; then the port's examples.  (d), search
+    on ``make_host_mesh``, runs inside the sharded phase."""
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    out = dict(grad=mesh_grad_check(torch, np, dev),
+               grad_bf16=mesh_grad_check(torch, np, dev, "bfloat16",
+                                         gate=False),
+               train=mesh_train(torch, np, dev),
+               compression_gate=compression_gate(torch, np, dev),
+               compression=compression_steps(torch, np, dev),
+               trajectory=compression_trajectory(torch, np, dev))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        out["elastic"] = mesh_elastic(torch, np, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["examples"] = examples_phase(torch, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -5968,6 +6537,7 @@ def main(argv=None) -> int:
     fp = families_phase(torch, np, cuda, long_tokens=a.serve_tokens,
                         rg_tokens=a.serve_tokens)
     trp = train_phase(torch, np, cuda)
+    msp = mesh_phase(torch, np, cuda)
     log(f"peak device memory above each phase's start: warm store phase "
         f"(8 warm segments and a memtable) {stp['peak'] - stp['base']} "
         f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes, "
@@ -5975,7 +6545,8 @@ def main(argv=None) -> int:
         f"{sp['peak']} bytes, families phase (qwen3-moe-30b-a3b, "
         f"{a.serve_tokens}-token request) {fp['moe']['peak']} bytes in all, "
         f"train phase (phi3-mini-3.8b, B=8 S=1024) {trp['full']['peak']} "
-        "bytes in all")
+        f"bytes in all, mesh phase (phi3-mini-3.8b on {MESH_GRID[0]} x "
+        f"{MESH_GRID[1]} slots) {msp['train']['peak']} bytes in all")
     log(f"card: {smi}; total wall {time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/csrc/"
     select_paths = {"search (fused plane)":
@@ -6009,7 +6580,9 @@ def main(argv=None) -> int:
                     tp["cold_sharded"]["launches"],
                     "coalesced tenant search, 4 shards":
                     tn["sharded"]["launches"],
-                    "serve sidecar retrieval": sp["sidecar_launches"]}
+                    "serve sidecar retrieval": sp["sidecar_launches"],
+                    **{f"example torch_{k}": v["select"]
+                       for k, v in msp["examples"].items() if v["select"]}}
     single_paths = {"gather plane (kernel)": gp["launches"],
                     "HNTL-KV decode": kvp["launches"],
                     "store search, kernel plane": stp["kernel_launches"],
@@ -6022,7 +6595,9 @@ def main(argv=None) -> int:
                     "model decode, HNTL-KV (qwen3-moe, 48 layers)":
                     fp["moe"]["launches"],
                     "whisper retrieval cross-attention (6 layers)":
-                    fp["whisper"]["launches"]}
+                    fp["whisper"]["launches"],
+                    **{f"example torch_{k}": v["single"]
+                       for k, v in msp["examples"].items() if v["single"]}}
     select_entry = kernel_entry(
         "fused_scan_select", src + "fused_select.cu",
         "src/repro/kernels/fused_select.py:179", sum(select_paths.values()),

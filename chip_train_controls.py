@@ -1,5 +1,5 @@
-"""Controls for ``chip_smoke.py``'s training gates (a) and (b): each gate
-passes on the code as it is and fails on a planted fault.
+"""Controls for ``chip_smoke.py``'s training gates: each gate passes on
+the code as it is and fails on a planted fault.
 
 - (a) holds the card's float32 loss and gradients of phi3-mini (full
   width, cut in depth) to the CPU's.  Its fault runs the card's backward
@@ -7,10 +7,16 @@ passes on the code as it is and fails on a planted fault.
   backward outside ``full_fp32_matmul`` would.
 - (b) holds a step over 4 microbatches to one over the whole batch.  Its
   fault keeps only the last microbatch's gradient.
+- mesh (a) holds phi3-mini-3.8b's float32 loss and gradients on a 2 x 2
+  mesh (row 0 padded) to the one-slot step's.  Its fault averages the
+  rows' means (every row weighted alike, whatever its token count).
+- mesh (b) holds int8_ef's first reduced gradient of qwen2-vl-2b within
+  half the consensus scale of the exact mean.  Its fault quantizes each
+  slot with its own scale (no maximum over slots).
 
 Each gate logs how far it was from its limit.  The script prints one JSON
-line, ``{"controls": [...], "ok": ...}``, and exits 0 only if both gates
-pass on the sound code and both fail on their faults.  It needs a card:
+line, ``{"controls": [...], "ok": ...}``, and exits 0 only if every gate
+passes on the sound code and fails on its fault.  It needs a card:
 
     python3 chip_train_controls.py
 """
@@ -53,15 +59,39 @@ def last_microbatch_only():
     real, calls = step_mod.value_and_grad, [0]
     full = chip_smoke.TRAIN_MB_SHAPE[0]
 
-    def value_and_grad(model, params, batch):
+    def value_and_grad(model, params, batch, acc=None):
         loss, metrics, grads = real(model, params, batch)
         if batch["tokens"].shape[0] < full:
             calls[0] += 1
             scale = 4.0 if calls[0] % 4 == 0 else 0.0
             grads = {k: v * scale for k, v in grads.items()}
-        return loss, metrics, grads
+        if acc is None:
+            return loss, metrics, grads
+        for k, v in grads.items():
+            acc[k] = acc[k].add_(v) if k in acc else v
+        return loss, metrics, acc
     return unittest.mock.patch.object(step_mod, "value_and_grad",
                                       value_and_grad)
+
+
+def rows_means_averaged():
+    """The mesh step weighting every row alike: each row's token count
+    read as 1, so each row's mean counts 1 / rows."""
+    from repro_torch.train import step as step_mod
+
+    return unittest.mock.patch.object(step_mod, "_tokens",
+                                      lambda batch, rows: 1)
+
+
+def per_slot_scales():
+    """int8_ef without the consensus: each slot quantizes with its own
+    scale, and slot 0's dequantizes the sum."""
+    import torch
+    from repro_torch.distributed import compression
+
+    return unittest.mock.patch.object(
+        compression, "_slot_scales",
+        lambda local: [torch.clamp(s, min=1e-12) for s in local])
 
 
 def run(torch, dev, label, gate, fault, expect_pass):
@@ -92,12 +122,20 @@ def main() -> int:
     none = contextlib.nullcontext()
     grad = lambda: chip_smoke.train_grad_check(torch, np, dev)  # noqa: E731
     mb = lambda: chip_smoke.train_microbatches(torch, np, dev)  # noqa: E731
+    mesh = lambda: chip_smoke.mesh_grad_check(torch, np, dev)  # noqa: E731
+    comp = lambda: chip_smoke.compression_gate(torch, np, dev)  # noqa: E731
     rows = [run(torch, dev, "(a) sound", grad, none, True),
             run(torch, dev, "(a) TF32 backward", grad, tf32_backward(torch),
                 False),
             run(torch, dev, "(b) sound", mb, none, True),
             run(torch, dev, "(b) last microbatch only", mb,
-                last_microbatch_only(), False)]
+                last_microbatch_only(), False),
+            run(torch, dev, "mesh (a) sound", mesh, none, True),
+            run(torch, dev, "mesh (a) rows' means averaged", mesh,
+                rows_means_averaged(), False),
+            run(torch, dev, "mesh (b) sound", comp, none, True),
+            run(torch, dev, "mesh (b) per-slot scales", comp,
+                per_slot_scales(), False)]
     ok = all(r["ok"] for r in rows)
     print(json.dumps({"controls": rows, "ok": ok}, default=float))
     return 0 if ok else 1

@@ -25,6 +25,14 @@ parameters too), on their own device: restoring a 38 GB train state
 needs no second copy of it.  A tensor on the ``meta`` device stands for
 shape and dtype alone (as the reference's ``ShapeDtypeStruct``) and is
 replaced by a new CPU tensor.
+
+Checkpoints stay whole on disk whatever mesh wrote them: a state placed
+on a mesh (``distributed.sharding.PlacedModule`` / ``PlacedTensor``) is
+gathered leaf by leaf on save, and a placed target is written piece by
+piece.  ``restore(target, shardings=)`` is the reference's cross-mesh
+(elastic) restore: each leaf with a ``NamedSharding`` is placed on that
+sharding's mesh (a module's parameters, given {name: sharding}, become a
+``PlacedModule``), whatever mesh the checkpoint was written from.
 """
 from __future__ import annotations
 
@@ -40,34 +48,52 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.sharding import (NamedSharding, PlacedModule,
+                                    PlacedTensor, module_of_placed, place)
+
 BF16 = "bfloat16"
 
 
-def _map_leaves(tree, fn: Callable, path: str = ""):
-    """``tree`` rebuilt with every leaf replaced by ``fn(name, leaf)``;
-    names follow ``jax.tree_util.keystr`` (``.field``, ``['key']``,
-    ``[i]``), a module's parameters ``.<dotted name>``.  A module is
-    returned as it is (``fn`` may write into its parameters)."""
-    if isinstance(tree, nn.Module):
+def _map_leaves(tree, fn: Callable, path: str = "", shard=None):
+    """``tree`` rebuilt with every leaf replaced by ``fn(name, leaf,
+    sharding)``; names follow ``jax.tree_util.keystr`` (``.field``,
+    ``['key']``, ``[i]``), a module's parameters ``.<dotted name>``.
+    ``shard`` is a tree of shardings walked alongside (a module's is
+    {parameter name: sharding}), or None.  A module is returned as it is
+    (``fn`` may write into its parameters) unless it has shardings: then
+    it becomes a ``PlacedModule`` of ``fn``'s placed leaves, under the
+    rules its shardings came from."""
+    if isinstance(tree, (nn.Module, PlacedModule)):
+        out = {}
         for name, p in tree.named_parameters():
-            fn(f"{path}.{name}", p)
-        return tree
+            out[name] = fn(f"{path}.{name}", p,
+                           None if shard is None else shard[name])
+        if shard is None:
+            return tree
+        return module_of_placed(tree, out, shard)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: _map_leaves(getattr(tree, f.name), fn,
-                                f"{path}.{f.name}")
+                                f"{path}.{f.name}",
+                                None if shard is None
+                                else getattr(shard, f.name))
             for f in dataclasses.fields(tree)})
     if isinstance(tree, Mapping):
-        return {k: _map_leaves(v, fn, f"{path}[{k!r}]")
+        return {k: _map_leaves(v, fn, f"{path}[{k!r}]",
+                               None if shard is None else shard[k])
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(v, fn, f"{path}[{i}]")
+        return type(tree)(_map_leaves(v, fn, f"{path}[{i}]",
+                                      None if shard is None else shard[i])
                           for i, v in enumerate(tree))
-    return fn(path, tree)
+    return fn(path, tree, shard)
 
 
 def _to_host(leaf):
-    """(numpy copy, manifest dtype) of one leaf."""
+    """(numpy copy, manifest dtype) of one leaf (a placed leaf gathered
+    whole)."""
+    if isinstance(leaf, PlacedTensor):
+        leaf = leaf.gather("cpu")
     if torch.is_tensor(leaf):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -127,7 +153,7 @@ class CheckpointManager:
     def save(self, tree: Any, step: int, *, blocking: bool = True):
         """Snapshot to host and write; non-blocking if blocking=False."""
         host = []
-        _map_leaves(tree, lambda name, leaf: host.append(
+        _map_leaves(tree, lambda name, leaf, _: host.append(
             (name, _to_host(leaf))))
         if blocking:
             with self._lock:
@@ -158,10 +184,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target: Any, step: Optional[int] = None) -> Any:
+    def restore(self, target: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
         """Read step ``step`` (default: the latest) into the structure of
         ``target``, each leaf cast to the target leaf's dtype; tensors
-        are written in place (see the module's docstring)."""
+        are written in place (see the module's docstring).  ``shardings``:
+        an optional tree matching ``target`` (a module's entry is {name:
+        ``NamedSharding``}, ``train.step.state_shardings`` builds one for
+        a train state) whose leaves place the read leaves on another
+        mesh: the cross-mesh (elastic) restore."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -171,7 +202,7 @@ class CheckpointManager:
             manifest = json.load(f)
         by_name = {e["name"]: e for e in manifest["leaves"]}
 
-        def load(name, tgt):
+        def load(name, tgt, sharding):
             if name not in by_name:
                 raise KeyError(f"checkpoint step {step} has no leaf "
                                f"{name!r}")
@@ -180,6 +211,14 @@ class CheckpointManager:
             if tuple(t.shape) != shape:
                 raise ValueError(f"leaf {name!r}: checkpoint shape "
                                  f"{tuple(t.shape)}, target {shape}")
+            if isinstance(sharding, NamedSharding):
+                t = t.to(tgt.dtype)
+                param = isinstance(tgt, nn.Parameter) or (
+                    isinstance(tgt, PlacedTensor) and tgt.is_parameter)
+                return place(t.requires_grad_(tgt.requires_grad), sharding,
+                             param=param)
+            if isinstance(tgt, PlacedTensor):
+                return tgt.copy_(t)
             if torch.is_tensor(tgt):
                 if tgt.is_meta:
                     return t.to(tgt.dtype)
@@ -188,4 +227,4 @@ class CheckpointManager:
                 return tgt
             return type(tgt)(t.item())
 
-        return _map_leaves(target, load)
+        return _map_leaves(target, load, shard=shardings)

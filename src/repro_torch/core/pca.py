@@ -107,3 +107,19 @@ def best_captured_fraction(x: torch.Tensor, mask: torch.Tensor, k: int,
     best = torch.where(total > 1e-12,
                        top / torch.clamp(total, min=1e-12), 1.0)
     return torch.clamp(best, 0.0, 1.0)
+
+
+def project(v_centered: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """Eq. 2: z = Wᵀ v'."""
+    return v_centered @ basis
+
+
+def reconstruct(z: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """v~ = W z (Mode A online reconstruction)."""
+    return z @ basis.transpose(-1, -2)
+
+
+def residual(v_centered: torch.Tensor, z: torch.Tensor,
+             basis: torch.Tensor) -> torch.Tensor:
+    """Eq. 3: e = v' - W z."""
+    return v_centered - reconstruct(z, basis)

@@ -72,11 +72,20 @@ def quantize_coords(z: torch.Tensor, scale: torch.Tensor,
     return torch.clamp(q, -qmax, qmax).to(torch.int16)
 
 
+def dequantize_coords(zq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return zq.to(torch.float32) * scale
+
+
 def quantize_residual(r: torch.Tensor, res_scale: torch.Tensor,
                       rmax: int = UINT16_MAX) -> torch.Tensor:
     """Eq. 5 right: unsigned-16 residual energy (stored widened to int32)."""
     q = torch.round(r / res_scale)
     return torch.clamp(q, 0, rmax).to(torch.int32)
+
+
+def dequantize_residual(rq: torch.Tensor,
+                        res_scale: torch.Tensor) -> torch.Tensor:
+    return rq.to(torch.float32) * res_scale
 
 
 def saturation_fraction(z: torch.Tensor, scale: torch.Tensor,

@@ -15,8 +15,14 @@ On the CPU (smoke config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
       --smoke --device cpu --steps 20 --batch 8 --seq 64
 
-``--host-mesh`` other than ``1,1`` (a data x model mesh over local
-devices, with the model's sharding rules) is not ported yet: it raises.
+``--host-mesh d,m`` trains on a data x model mesh (``make_host_mesh``)
+under ``default_rules``, as the reference's launcher does: parameters and
+moments split by the model's sharding rules, the batch over the d data
+rows, the step equal to the one-device step (``train.step``).  With
+``--device`` every slot is that device (the counterpart of forced host
+devices: ``--device cpu --host-mesh 4,2`` runs on the CPU); without it
+the mesh takes the first d x m cards and raises when there are fewer.
+The model axis shards storage, not compute (``distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -28,9 +34,11 @@ import torch
 from ..configs import get_config, get_smoke_config
 from ..core.index import resolve_device
 from ..data.tokens import MarkovLM
+from ..distributed import sharding as shd
 from ..models import get_model
 from ..optim.adamw import AdamW, warmup_cosine
 from ..train.trainer import Trainer, TrainerConfig
+from .mesh import make_host_mesh
 
 
 def main(argv=None):
@@ -52,18 +60,17 @@ def main(argv=None):
                          "step (default: a new temporary directory)")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--host-mesh", default="1,1",
-                    help="data,model axis sizes over local devices (only "
-                         "1,1 is ported)")
+                    help="data,model axis sizes over local devices (all "
+                         "on --device when it is given)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     dm, tm = (int(x) for x in args.host_mesh.split(","))
-    if (dm, tm) != (1, 1):
-        raise ValueError(
-            f"--host-mesh {args.host_mesh}: a data x model mesh needs "
-            "make_host_mesh and the model sharding rules, which are not "
-            "ported yet (ROADMAP Queue A item 11c); use --host-mesh 1,1")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device)      # no card and no --device: raise
+    mesh = make_host_mesh(dm, tm, devices=None if args.device is None
+                          else [device] * (dm * tm))
+    rules = shd.default_rules(mesh)
+    device = mesh.flat_devices()[0]
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg)
     optimizer = AdamW(lr=warmup_cosine(args.lr, min(50, args.steps // 10 + 1),
@@ -77,9 +84,10 @@ def main(argv=None):
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir,
                          microbatches=args.microbatches)
-    trainer = Trainer(model, optimizer, data_fn, tcfg, seed=args.seed,
-                      device=device)
-    state = trainer.run()
+    with shd.use_rules(rules):
+        trainer = Trainer(model, optimizer, data_fn, tcfg, seed=args.seed,
+                          device=device)
+        state = trainer.run()
     losses = [h["loss"] for h in trainer.history]
     if losses:
         print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f} "

@@ -25,6 +25,15 @@ from .config import LayerSpec, ModelConfig
 __all__ = ["LayerSpec", "ModelConfig", "Model", "get_model"]
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: ``init`` then makes
+    meta tensors (shapes and dtypes, no bytes) through the same code."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -32,10 +41,13 @@ class Model:
     def init(self, seed_or_generator=0, device=None):
         """A new model.  An int seeds a new ``torch.Generator`` on
         ``device`` (``None``: the card); a generator draws on its own
-        device."""
+        device.  ``device="meta"`` makes the model's shapes alone (the
+        sharding rules read them at full width without allocating)."""
         gen = seed_or_generator
         if not isinstance(gen, torch.Generator):
-            gen = torch.Generator(device=resolve_device(device))
+            dev = resolve_device(device)
+            gen = _MetaGenerator() if dev.type == "meta" \
+                else torch.Generator(device=dev)
             gen.manual_seed(int(seed_or_generator))
         if self.cfg.family == "encdec":
             return encdec.init_params(gen, self.cfg)

@@ -32,7 +32,8 @@ from collections.abc import Mapping
 from typing import Callable, Optional
 
 import torch
-from torch import nn
+
+from ..distributed.sharding import leaf_pieces, zeros_like_leaf
 
 
 def _f32(x) -> torch.Tensor:
@@ -101,17 +102,22 @@ class AdamW:
     weight_decay: float = 0.1
     max_grad_norm: Optional[float] = 1.0
 
-    def init(self, params: nn.Module) -> dict:
-        """{"m", "v": {name: float32 zeros}, "count": 0}."""
-        zeros = lambda: {k: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)
+    def init(self, params) -> dict:
+        """{"m", "v": {name: float32 zeros}, "count": 0}; placed as the
+        parameters are where they lie on a mesh (``PlacedModule``)."""
+        zeros = lambda: {k: zeros_like_leaf(p, torch.float32)  # noqa: E731
                          for k, p in params.named_parameters()}
         return {"m": zeros(), "v": zeros(), "count": 0}
 
     @torch.no_grad()
-    def update(self, grads: Mapping, opt_state: dict, params: nn.Module):
+    def update(self, grads: Mapping, opt_state: dict, params):
         """One step in place: ``params`` and the moments of ``opt_state``
-        are overwritten.  Returns (params, new opt_state, metrics)."""
+        are overwritten.  Returns (params, new opt_state, metrics).
+
+        ``params`` may be a ``distributed.sharding.PlacedModule``: then
+        each piece of a leaf (the whole leaf on a device, or one block)
+        takes its slice of the gradient, moved to its device, and is
+        updated by the same elementwise ops."""
         gnorm = global_norm(grads)
         scale = None
         if self.max_grad_norm is not None:
@@ -123,18 +129,23 @@ class AdamW:
         bc2 = float(1.0 - self.b2 ** cf)
         m_all, v_all = opt_state["m"], opt_state["v"]
         for name, p in params.named_parameters():
-            g = grads[name]
-            gf = g.to(torch.float32)
-            if scale is not None:
-                gf = (gf * scale).to(g.dtype).to(torch.float32)
-            m, v = m_all[name], v_all[name]
-            m.mul_(self.b1).add_((1 - self.b1) * gf)
-            v.mul_(self.b2).add_((1 - self.b2) * gf * gf)
-            step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            del gf
             # decoupled weight decay: skip 1-d params (norms, biases)
             wd = self.weight_decay if p.dim() >= 2 else 0.0
-            pf = p.to(torch.float32)
-            p.copy_(pf - lr * (step + wd * pf))
+            for pt, mt, vt, g in leaf_pieces(p, m_all[name], v_all[name],
+                                             grad=grads[name]):
+                sc = scale if scale is None or scale.device == pt.device \
+                    else scale.to(pt.device)
+                self._update_leaf(pt, g, mt, vt, sc, lr, bc1, bc2, wd)
         new_state = {"m": m_all, "v": v_all, "count": count}
         return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+    def _update_leaf(self, p, g, m, v, scale, lr, bc1, bc2, wd):
+        gf = g.to(torch.float32)
+        if scale is not None:
+            gf = (gf * scale).to(g.dtype).to(torch.float32)
+        m.mul_(self.b1).add_((1 - self.b1) * gf)
+        v.mul_(self.b2).add_((1 - self.b2) * gf * gf)
+        step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+        del gf
+        pf = p.to(torch.float32)
+        p.copy_(pf - lr * (step + wd * pf))

@@ -12,6 +12,11 @@ control logic around ``train.step.make_train_step``.
   - NaN guard: a non-finite loss aborts with the last good checkpoint
     intact.
 
+Under ``distributed.sharding.use_rules(rules)`` whose mesh has more than
+one slot (as ``launch.train --host-mesh`` runs it), the state is placed
+on the mesh (``step.place_train_state``) before a checkpoint is restored
+into it, and every step runs on the mesh (``step.make_train_step``).
+
 Three differences from the reference: when the last periodic save
 already holds the final step, the final flush waits for it instead of
 writing the same checkpoint again; ``run`` puts back the signal handlers
@@ -30,7 +35,9 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..checkpoint.manager import CheckpointManager
-from .step import TrainState, init_state, make_train_step
+from ..distributed.sharding import active_rules
+from .step import (TrainState, init_state, make_train_step,
+                   place_train_state)
 
 
 @dataclasses.dataclass
@@ -73,6 +80,9 @@ class Trainer:
     def init_or_restore(self) -> TrainState:
         state = init_state(self.model, self.optimizer, self.seed,
                            self.device)
+        rules = active_rules()
+        if rules is not None and rules.mesh.size > 1:
+            state = place_train_state(state, rules)
         latest = self.ckpt.latest_step()
         if latest is not None:
             state = self.ckpt.restore(state, step=latest)

@@ -56,9 +56,14 @@ def _select_inputs(seed, device, **shape):
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "chip_train_controls.py")]
+           os.path.join(REPO, "chip_train_controls.py"),
+           os.path.join(REPO, "chip_mesh_cards.py"),
+           os.path.join(REPO, "chip_trace_margin.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    examples = os.path.join(REPO, "examples")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.startswith("torch_") and f.endswith(".py")]
     return sorted(out)
 
 
@@ -1074,6 +1079,50 @@ class _GradCapture:
     def update(self, grads, *args):
         self.grads = {k: v.clone() for k, v in grads.items()}
         return self.opt.update(grads, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen3-moe-30b-a3b"])
+def test_mesh_step_on_card_equals_one_slot(cuda_device, arch):
+    """A step on a 2 x 2 mesh of card slots (one row padded) equals the
+    one-slot step: the float32 gradients the optimizer is given within
+    1e-4 of each leaf's max |g|, the loss within rtol 1e-5, the
+    parameters within 1e-5 (AdamW at eps 1e-3); the placed leaves are
+    the state's own tensors."""
+    from repro_torch.data.tokens import MarkovLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamW, constant
+    from repro_torch.train.step import (TrainState, make_train_step,
+                                        place_train_state)
+
+    cfg, model, _ = _smoke_model(cuda_device, arch)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             MarkovLM(vocab=cfg.vocab, seed=2).batch(0, 8, 16).items()}
+    batch["labels"][0, 4:] = -100
+    rules = shd.default_rules(make_host_mesh(2, 2,
+                                             devices=[cuda_device] * 4))
+    out = []
+    for mesh in (False, True):
+        opt = _GradCapture(AdamW(lr=constant(1e-3), eps=1e-3))
+        params = _smoke_model(cuda_device, arch)[2].requires_grad_(True)
+        state = TrainState(params, opt.init(params), 0)
+        if mesh:
+            ptr = params.embedding.data_ptr()
+            state = place_train_state(state, rules)
+            assert state.params.leaves["embedding"].pieces[0].tensor \
+                .data_ptr() == ptr
+        state, metrics = make_train_step(model, opt)(state, batch)
+        named = {k: (v.gather(cuda_device) if mesh else v).detach()
+                 for k, v in state.params.named_parameters()}
+        out.append((float(metrics["loss"]), named, opt.grads))
+    (l1, p1, g1), (l2, p2, g2) = out
+    np.testing.assert_allclose(l2, l1, rtol=1e-5)
+    for k, g in g1.items():
+        torch.testing.assert_close(g2[k], g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+        torch.testing.assert_close(p2[k], p1[k], rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -10,8 +10,8 @@
   JAX package wrote read back;
 - SIGTERM mid-run checkpoints and stops; serving records no autograd
   graph when the parameters require gradients;
-- ``launch.train`` on the CPU, its refusal of ``--host-mesh 2,1``, and
-  its need of a card when no ``--device`` is given.
+- ``launch.train`` on the CPU, its refusal of ``--host-mesh 2,1`` on one
+  card when no ``--device`` is given, and its need of a card then.
 
 Only the checkpoint-interchange test imports JAX (``importorskip``).
 """
@@ -392,10 +392,14 @@ def test_default_ckpt_dirs_are_fresh_and_resume_nothing(tiny, tmp_path,
     assert first.all_steps() == second.all_steps() == [2]
 
 
-def test_launch_train_refuses_a_host_mesh(tmp_path):
-    with pytest.raises(ValueError, match="11c"):
+def test_launch_train_refuses_a_host_mesh(tmp_path, monkeypatch):
+    """Without --device a host mesh takes one card per slot and refuses
+    a mesh larger than the cards there are (never doubling up)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices, found 1"):
         launch_train.main(["--arch", "phi3-mini-3.8b", "--smoke",
-                           "--device", "cpu", "--host-mesh", "2,1",
+                           "--host-mesh", "2,1",
                            "--ckpt-dir", str(tmp_path)])
 
 
