@@ -166,8 +166,8 @@ What it does, in order (any failure exits non-zero before the last line):
 12b. serving a model (``serve_phase``): phi3-mini-3.8b at its published
    width and depth (32 layers, d_model 3072, 32 heads of 96, d_ff 8192,
    vocab 32064, bf16), random weights drawn on the card from a seeded
-   generator: ``repro_torch.launch.serve.main`` answers 8 requests (64
-   prompt tokens, 32 new, 4 slots, a 65,536-row memory sidecar whose
+   generator: ``repro_torch.launch.serve.main`` answers 8 requests (32
+   prompt tokens, 16 new, 4 slots, a 65,536-row memory sidecar whose
    retrieval launches ``fused_scan_select``), tokens/s and engine ticks;
    decode against forward at full width in float32 (within 1e-4; in
    bf16 measured against the reference's tolerances) and the engine
@@ -183,7 +183,7 @@ What it does, in order (any failure exits non-zero before the last line):
    published width with random weights from seed 0, phi3-mini freed
    first: qwen3-moe-30b-a3b at full depth in bf16 (61 GB; the free
    device memory is checked first) through ``launch.serve.main`` (4
-   requests of 32 + 16 tokens, 4 slots), one ``--serve-tokens`` request
+   requests of 16 + 8 tokens, 4 slots), one ``--serve-tokens`` request
    prefilled, promoted to 48 ``KVIndex`` layers and decoded 8 retrieval
    steps (each launching ``hntl_scan_single`` 48 times and
    ``torch.equal`` to its plain-scan twin), float32 decode against
@@ -216,7 +216,7 @@ What it does, in order (any failure exits non-zero before the last line):
    20, every leaf (parameters and moments) against an uninterrupted
    20-step run (rtol 1e-3, atol 1e-4), and ``--lr nan`` raising
    ``FloatingPointError``; (e) phi3-mini-3.8b at its published width and
-   depth, bf16, B=8 S=1024, 20 steps through ``init_state`` /
+   depth, bf16, B=8 S=1024, 10 steps through ``init_state`` /
    ``make_train_step`` with finite losses: step ms, tokens/s, the
    optimizer's share (CUDA events), peak memory, and one more step
    profiled (busy share, top device ops); (f) qwen3-moe-30b-a3b at full
@@ -229,7 +229,7 @@ What it does, in order (any failure exits non-zero before the last line):
    from token 512: the gate in float32 (the mesh's loss and every
    gradient against the one-slot step's on the same parameters: rtol
    1e-5, each leaf within 1e-4 of its own max |g|; the bf16 numbers
-   logged), then 10 bf16 steps of the placed state (leaves whole, shards
+   logged), then 5 bf16 steps of the placed state (leaves whole, shards
    views): step ms, tokens/s, peak memory, a profiled step; (b)
    qwen2-vl-2b at full width and depth over 2 data slots: int8_ef's first
    reduced gradient within half its consensus scale of the exact mean,
@@ -241,6 +241,20 @@ What it does, in order (any failure exits non-zero before the last line):
    save and restore seconds; then each ``examples/torch_*.py`` on the
    card with its kernels' launches; ``python3 chip_train_controls.py``
    shows (a) and (b)'s gates fail on planted faults;
+12f. the dry-run held to real steps (``dryrun_phase``; ``launch.dryrun``'s
+   ``cost_step`` traces on meta tensors, the same ``StepCounter`` counts
+   a real step): (a) in ``train_full``, phi3-mini-3.8b's B=8 S=1024
+   train step on a 1 x 1 mesh against one real step of the trained
+   state: FLOPs by dtype, aten op calls and state bytes equal (gated),
+   the predicted peak and roofline bound against the measured peak and
+   step (printed); (b) in the serve phase, one retrieval decode step of
+   the promoted 32,768-token request (``kv_index_specs``' stand-in
+   checked leaf by leaf against the real index): the counted
+   ``hntl_scan_single`` calls equal the real step's launches, one per
+   layer, at 43,011,072 bytes each (gated); (c) ``python -m
+   repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape train_4k``
+   and ``--shape long_500k``, two subprocesses started together once
+   the last timed phase is done: exit 0, records read back;
 13. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -4383,6 +4397,8 @@ def cold_sharded(torch, np, st, qt, xl, alive, label):
 # ---------------------------------------------------------------------------
 
 SERVE_ARCH = "phi3-mini-3.8b"
+#: The serve phase's launcher: requests, prompt tokens, new tokens.
+SERVE_LAUNCH = (8, 32, 16)
 #: tests/test_models.py's decode-vs-forward tolerances (bf16 smoke models)
 SERVE_TOL_PREFILL = 3e-2
 SERVE_TOL_DECODE = 5e-2
@@ -4459,9 +4475,9 @@ def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
     smoke config, for a rehearsal on the CPU), random bf16 weights drawn
     on the card from a seeded generator:
 
-    1. ``repro_torch.launch.serve.main``: 8 requests of 64 tokens, 32 new
-       tokens each, 4 slots, a ``docs``-row memory sidecar; every request
-       done with 32 tokens, rids unique and in order, the sidecar's
+    1. ``repro_torch.launch.serve.main``: ``SERVE_LAUNCH``'s 8 requests
+       of 32 tokens, 16 new tokens each, 4 slots, a ``docs``-row memory
+       sidecar; every request done with its new tokens, rids unique and in order, the sidecar's
        retrieval launched ``fused_scan_select`` (counter zeroed just
        before, read just after); tokens/s and engine ticks;
     2. decode against forward (2 x 64 tokens, prefill 32, decode 32):
@@ -4508,9 +4524,10 @@ def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
         f"{cfg.param_count()} parameters; {base} bytes held at its start")
 
     # ---- 1. the server, through its entry point ---------------------------
-    argv = ["--arch", SERVE_ARCH, "--requests", "8", "--slots", "4",
-            "--prompt-len", "64", "--max-new", "32", "--retrieval-docs",
-            str(docs), "--seed", "0"]
+    n_req, prompt_len, max_new = SERVE_LAUNCH
+    argv = ["--arch", SERVE_ARCH, "--requests", str(n_req), "--slots", "4",
+            "--prompt-len", str(prompt_len), "--max-new", str(max_new),
+            "--retrieval-docs", str(docs), "--seed", "0"]
     argv += ["--smoke"] if smoke else []
     argv += [] if on_card else ["--device", "cpu"]
     buf = io.StringIO()
@@ -4524,9 +4541,10 @@ def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
     text = buf.getvalue()
     for line in text.splitlines():
         log("  " + line)
-    check(len(reqs) == 8 and all(r.done and len(r.out) == 32 for r in reqs),
-          "serve: a request is not done with 32 tokens")
-    check([r.rid for r in reqs] == list(range(8)),
+    check(len(reqs) == n_req and all(r.done and len(r.out) == max_new
+                                     for r in reqs),
+          f"serve: a request is not done with {max_new} tokens")
+    check([r.rid for r in reqs] == list(range(n_req)),
           "serve: the rids are not unique and in order")
     if on_card:
         check(sidecar > 0, "serve: the sidecar's retrieval launched no "
@@ -4534,8 +4552,8 @@ def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
     m = re.search(r"\(([0-9.]+) tok/s, ([0-9]+) engine ticks\)", text)
     check(m is not None, "serve: no tokens/s line")
     tok_s, ticks = float(m.group(1)), int(m.group(2))
-    log(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}: 8 "
-        f"requests done, {sum(len(r.out) for r in reqs)} tokens, "
+    log(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"{n_req} requests done, {sum(len(r.out) for r in reqs)} tokens, "
         f"{tok_s} tok/s over {ticks} engine ticks (the launcher's clock "
         f"around run_to_completion); {main_s:.3f} s in all (init, memory "
         f"build); fused_scan_select launches by the sidecar {sidecar}")
@@ -4715,6 +4733,8 @@ def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
         out["peak"] = torch.cuda.max_memory_allocated(dev) - base
         log(f"serve: peak device memory above the phase's start "
             f"{out['peak']} bytes")
+        out["dryrun"] = dryrun_decode_check(torch, dev, model, params, tok,
+                                            cur, p, step_ms=mid)
     del prom, cur, params
     gc.collect()
     log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
@@ -4729,6 +4749,8 @@ def serve_phase(torch, np, dev, *, long_tokens=32768, steps=16,
 #: bytes of bf16 weights and ~10 GB for a 32,768-token prefill (3.2 GB of
 #: caches, the expert slabs and the combine's float32 gather).
 MOE_FREE_BYTES = 72e9
+#: The families phase's MoE launcher: requests, prompt tokens, new tokens.
+MOE_LAUNCH = (4, 16, 8)
 
 
 def state_bytes(tree) -> int:
@@ -4981,9 +5003,11 @@ def moe_family(torch, np, dev, *, long_tokens, steps, smoke, on_card):
             f"{arch} ({cfg.param_count()} parameters, "
             f"{cfg.active_param_count()} active)")
 
-    # ---- the launcher: 4 requests of 32 + 16 tokens on 4 slots ----------
-    argv = ["--arch", arch, "--requests", "4", "--slots", "4",
-            "--prompt-len", "32", "--max-new", "16", "--seed", "0"]
+    # ---- the launcher: MOE_LAUNCH's requests on 4 slots -----------------
+    n_req, prompt_len, max_new = MOE_LAUNCH
+    argv = ["--arch", arch, "--requests", str(n_req), "--slots", "4",
+            "--prompt-len", str(prompt_len), "--max-new", str(max_new),
+            "--seed", "0"]
     argv += ["--smoke"] if smoke else []
     argv += [] if on_card else ["--device", "cpu"]
     buf = io.StringIO()
@@ -4994,17 +5018,18 @@ def moe_family(torch, np, dev, *, long_tokens, steps, smoke, on_card):
     main_s = time.perf_counter() - t0
     for line in buf.getvalue().splitlines():
         log("  " + line)
-    check(len(reqs) == 4 and all(r.done and len(r.out) == 16 for r in reqs),
-          f"families: {arch}: a request is not done with 16 tokens")
+    check(len(reqs) == n_req and all(r.done and len(r.out) == max_new
+                                     for r in reqs),
+          f"families: {arch}: a request is not done with {max_new} tokens")
     m = re.search(r"\(([0-9.]+) tok/s, ([0-9]+) engine ticks\)",
                   buf.getvalue())
     check(m is not None, "families: no tokens/s line")
     out["tok_s"], out["ticks"] = float(m.group(1)), int(m.group(2))
     log(f"families: python -m repro_torch.launch.serve {' '.join(argv)}: "
-        f"4 requests done, {out['tok_s']} tok/s over {out['ticks']} engine "
-        f"ticks (the launcher's clock around run_to_completion, 124 "
-        f"prompt-feed steps before them); {main_s:.3f} s in all (init "
-        "included)")
+        f"{n_req} requests done, {out['tok_s']} tok/s over {out['ticks']} "
+        f"engine ticks (the launcher's clock around run_to_completion, "
+        f"{n_req * (prompt_len - 1)} prompt-feed steps before them); "
+        f"{main_s:.3f} s in all (init included)")
     del reqs
     free_card(torch, dev)
 
@@ -5409,9 +5434,10 @@ TRAIN_GRAD_TOL = 1e-4
 TRAIN_MB_SHAPE = (4, 256)
 TRAIN_MB_TOL = (2e-2, 5e-2, 4e-3)
 TRAIN_RESUME_TOL = (1e-3, 1e-4)
-#: (d) and (e): B x S, and the steps of (d)'s uninterrupted run and (e).
+#: (d) and (e): B x S, the steps of (d)'s uninterrupted run, and (e)'s.
 TRAIN_SHAPE = (8, 1024)
 TRAIN_STEPS = 20
+TRAIN_FULL_STEPS = 10
 #: (f): qwen3-moe at full width cut to this many layers, B x S, steps;
 #: whisper-base's B x tokens, frames and steps.
 TRAIN_MOE = dict(layers=2, b=4, s=512, steps=3)
@@ -5735,7 +5761,7 @@ def train_resume(torch, np, dev, tmp):
 
 def train_full(torch, np, dev):
     """(e) phi3-mini-3.8b at its published width and depth (bf16)
-    through ``init_state`` / ``make_train_step``: TRAIN_STEPS steps with
+    through ``init_state`` / ``make_train_step``: TRAIN_FULL_STEPS steps with
     finite losses; step ms, tokens/s, the optimizer's share, peak memory,
     then one more step profiled (busy share, top device ops)."""
     from repro_torch.configs import get_config
@@ -5745,7 +5771,7 @@ def train_full(torch, np, dev):
     from repro_torch.train.step import init_state, make_train_step
 
     cfg = get_config(TRAIN_ARCH)
-    (b, s), steps = TRAIN_SHAPE, TRAIN_STEPS
+    (b, s), steps = TRAIN_SHAPE, TRAIN_FULL_STEPS
     free, total = torch.cuda.mem_get_info(dev)
     log(f"train (e): {free} of {total} device bytes free "
         f"({torch.cuda.memory_allocated(dev)} allocated)")
@@ -5798,6 +5824,9 @@ def train_full(torch, np, dev):
         box["state"], _ = step(box["state"], batches[steps])
     out["profile"] = profile(torch, f"one {cfg.name} train step "
                              f"(B={b} S={s})", one, mid / 1e3, top=12)
+    out["dryrun"], box["state"] = dryrun_train_check(
+        torch, dev, model, opt, step, box["state"], batches[steps],
+        step_ms=mid, peak=out["peak"])
     del box
     if out["profile"]:
         kinds = kernel_kinds(out["profile"]["by_kernel"])
@@ -5933,7 +5962,7 @@ def train_phase(torch, np, dev):
 #: the batch then differs from a mean of the rows' means.
 MESH_GRID = (2, 2)
 MESH_SHAPE = (8, 1024)
-MESH_STEPS = 10
+MESH_STEPS = 5
 MESH_PAD_FROM = 512
 #: Free device bytes (a) needs: 7.6 GB of bf16 parameters, 30.6 GB of
 #: float32 moments, one 15.3 GB float32 gradient tree, one row's 7.6 GB
@@ -6425,6 +6454,243 @@ def mesh_phase(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# 12f: the dry-run held to real steps
+# ---------------------------------------------------------------------------
+
+#: (b): the bytes of one ``hntl_scan_single`` call at the serve phase's
+#: geometry (P=256 k=16 cap=4096 int16), each input read once and the
+#: output written once.
+DRYRUN_BYTES_PER_CALL = 43_011_072
+#: (c): the cells the dry-run's CLI costs in a subprocess, and its limit.
+DRYRUN_CLI = (("phi3-mini-3.8b", "train_4k"), ("phi3-mini-3.8b", "long_500k"))
+DRYRUN_CLI_TIMEOUT_S = 300
+
+
+def _op_diff(a, b, top=8) -> str:
+    keys = sorted(set(a) | set(b), key=lambda k: -abs(a.get(k, 0)
+                                                     - b.get(k, 0)))
+    return ", ".join(f"{k} {a.get(k, 0)} vs {b.get(k, 0)}"
+                     for k in keys[:top] if a.get(k, 0) != b.get(k, 0))
+
+
+def _one_slot_rules():
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    return shd.default_rules(make_host_mesh(1, 1, devices=["meta"]))
+
+
+def _bound_ms(rec) -> float:
+    r = rec["roofline"]
+    return max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+
+
+def dryrun_train_check(torch, dev, model, opt, step, state, batch, *,
+                       step_ms, peak):
+    """(a): the dry-run's count of a train step (``launch.dryrun``'s
+    ``cost_step`` on meta tensors, a 1 x 1 mesh, as the sweep traces a
+    cell) against
+    the same counter around one real step of ``state`` on the card.
+    Gated: FLOPs by dtype and aten op calls equal, and the state bytes
+    the dry-run places equal the live state's.  Printed: the predicted
+    peak against ``peak`` (``max_memory_allocated`` over the timed
+    steps) and the roofline bound against ``step_ms``.  Returns (the
+    numbers, the state after the real step)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.train.step import init_state
+
+    cfg = model.cfg
+    b, s = batch["tokens"].shape
+    meta_state = init_state(model, opt, 0, "meta")
+    meta_batch = {k: torch.empty_like(v, device="meta")
+                  for k, v in batch.items()}
+    t0 = time.perf_counter()
+    rec, meta = dryrun.cost_step(step, (meta_state, meta_batch), cfg,
+                                 "train", _one_slot_rules(), batch=b)
+    meta_s = time.perf_counter() - t0
+    del meta_state
+    real = dryrun.StepCounter()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    with real:
+        state, _ = step(state, batch)
+    sync(torch, dev)
+    real_s = time.perf_counter() - t0
+    live = sum(p.numel() * p.element_size() for p in state.params.parameters())
+    live += sum(t.numel() * t.element_size() for mom in ("m", "v")
+                for t in state.opt_state[mom].values())
+    placed = rec["bytes_per_device"]["params"] \
+        + rec["bytes_per_device"]["moments"]
+    flops_m, flops_r = dict(meta.flops_by_dtype), dict(real.flops_by_dtype)
+    check(flops_m == flops_r, f"dryrun (a): FLOPs by dtype {flops_m} on "
+          f"meta, {flops_r} on the card")
+    check(meta.ops == real.ops, "dryrun (a): aten op calls differ: "
+          + _op_diff(meta.ops, real.ops))
+    check(placed == live, f"dryrun (a): the dry-run places {placed} state "
+          f"bytes, the card holds {live}")
+    bound = _bound_ms(rec)
+    pred = rec["bytes_per_device"]["peak"]
+    out = dict(flops=flops_m, ops=sum(meta.ops.values()), state=live,
+               peak_pred=pred, peak=peak, bound_ms=bound, step_ms=step_ms,
+               bottleneck=rec["roofline"]["bottleneck"],
+               hbm_bytes=rec["hbm_bytes"], meta_s=meta_s, real_s=real_s,
+               step_peak_meta=meta.peak["total"],
+               step_peak_real=real.peak["total"])
+    log(f"dryrun (a): {cfg.name} train step B={b} S={s} (bf16, remat "
+        f"{cfg.remat_policy}), 1 x 1 mesh: FLOPs by dtype equal on meta and "
+        f"on the card ({', '.join(f'{k} {v}' for k, v in flops_m.items())}), "
+        f"{out['ops']} aten op calls equal op by op, state bytes {live} "
+        f"equal (gated); traced in {meta_s:.2f} s on meta, the counted real "
+        f"step {real_s * 1e3:.1f} ms; HBM bytes {rec['hbm_bytes']:.0f}; "
+        f"roofline bound {bound:.1f} ms ({out['bottleneck']}) against the "
+        f"measured step {step_ms:.1f} ms: ratio {step_ms / bound:.3f}; "
+        f"predicted peak {pred:.0f} bytes against max_memory_allocated "
+        f"{peak} bytes: ratio {peak / pred:.3f}; the step's own live peak "
+        f"{out['step_peak_meta']} bytes traced, {out['step_peak_real']} on "
+        "the card (printed, not gated)")
+    return out, state
+
+
+def dryrun_decode_check(torch, dev, model, params, tok, caches, pos, *,
+                        step_ms, want_bytes=DRYRUN_BYTES_PER_CALL):
+    """(b): the dry-run's count of a retrieval decode step (the
+    ``KVIndex`` caches its ``kv_index_specs`` makes at the promoted
+    geometry, checked leaf by leaf against ``caches``) against one real
+    step on the card.  Gated: the counted ``hntl_scan_single`` calls
+    equal the wrapper's launches in the real step, one per ``KVIndex``
+    layer, and each call counts ``want_bytes`` bytes.  Printed: FLOPs and
+    op calls against the real step's, the bound against ``step_ms``."""
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import hntl_attention as H
+
+    cfg = model.cfg
+    n_idx = sum(isinstance(c["mixer"], H.KVIndex) for c in caches)
+    metas = []
+    for c in caches:
+        idx = c["mixer"]
+        spec = H.kv_index_specs(cfg, idx.k_raw.shape[0], idx.sealed_len,
+                                idx.k_raw.dtype)
+        for f in dataclasses.fields(idx):
+            a, m = getattr(idx, f.name), getattr(spec, f.name)
+            check((a is None) == (m is None) and (a is None or (
+                a.shape == m.shape and a.dtype == m.dtype)),
+                f"dryrun (b): kv_index_specs' {f.name} is not the promoted "
+                "index's")
+        metas.append({"mixer": spec, "ffn": c["ffn"]})
+    inputs = (model.init(0, device="meta"), tok.to("meta"), metas,
+              pos.to("meta"))
+
+    def decode(p, t, c, q):
+        return model.decode_step(p, t, c, q)
+
+    t0 = time.perf_counter()
+    rec, meta = dryrun.cost_step(decode, inputs, cfg, "long_decode",
+                                 _one_slot_rules(), batch=tok.shape[0])
+    meta_s = time.perf_counter() - t0
+    real = dryrun.StepCounter()
+    before = hs.hntl_scan_single.launches
+    with real:
+        model.decode_step(params, tok, caches, pos)
+    sync(torch, dev)
+    n = hs.hntl_scan_single.launches - before
+    k = meta.kernels.get("hntl_scan_single", {"calls": 0, "bytes": 0})
+    check(k["calls"] == n == n_idx, f"dryrun (b): {k['calls']} counted "
+          f"hntl_scan_single calls, {n} launches, {n_idx} KVIndex layers")
+    per = k["bytes"] // max(k["calls"], 1)
+    check(per * k["calls"] == k["bytes"] and per == want_bytes,
+          f"dryrun (b): {k['bytes']} bytes over {k['calls']} calls, not "
+          f"{want_bytes} each")
+    bound = _bound_ms(rec)
+    flops_m, flops_r = dict(meta.flops_by_dtype), dict(real.flops_by_dtype)
+    flops_m.pop("hntl_scan_single", None)
+    out = dict(calls=k["calls"], launches=n, bytes_per_call=per,
+               flops_equal=flops_m == flops_r, ops_equal=meta.ops == real.ops,
+               bound_ms=bound, step_ms=step_ms, meta_s=meta_s,
+               bottleneck=rec["roofline"]["bottleneck"])
+    log(f"dryrun (b): {cfg.name} retrieval decode step, {n_idx} KVIndex "
+        f"layers of {caches[0]['mixer'].n_grains} grains: {k['calls']} "
+        f"counted hntl_scan_single calls = {n} launches of the real step, "
+        f"{per} bytes each (gated); matmul FLOPs equal {out['flops_equal']}"
+        f", aten op calls equal {out['ops_equal']}"
+        + ("" if out["ops_equal"] else " (" + _op_diff(meta.ops, real.ops)
+           + ")")
+        + f" (printed); traced in {meta_s:.2f} s; roofline bound "
+        f"{bound:.3f} ms ({out['bottleneck']}) against the measured step "
+        f"{step_ms:.3f} ms: ratio {step_ms / bound:.2f}")
+    return out
+
+
+def dryrun_cli():
+    """(c): ``python -m repro_torch.launch.dryrun`` on each of
+    ``DRYRUN_CLI``'s cells, each in a subprocess (this machine has no
+    JAX), all started together once nothing timed runs any more: each
+    exits 0 within ``DRYRUN_CLI_TIMEOUT_S`` and its record reads back
+    ok."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = {}
+    out = {}
+    try:
+        for arch, shape in DRYRUN_CLI:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out", tmp]
+            procs[arch, shape] = (subprocess.Popen(
+                cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), cmd, time.perf_counter())
+        for (arch, shape), (proc, cmd, t0) in procs.items():
+            _, err = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"dryrun (c): {' '.join(cmd[1:])} "
+                  f"exited {proc.returncode}: {err[-2000:]}")
+            with open(os.path.join(tmp, f"{arch}__{shape}__pod1.json")) as f:
+                rec = json.load(f)
+            check(rec["status"] == "ok", f"dryrun (c): {arch} {shape}: "
+                  f"{rec.get('error')}")
+            r = rec["roofline"]
+            out[f"{arch} {shape}"] = dict(
+                wall_s=wall, bottleneck=r["bottleneck"],
+                bound_s=max(r["compute_s"], r["memory_s"],
+                            r["collective_s"]),
+                fits=rec["fits"], kernels=rec["kernels"])
+            log(f"dryrun (c): python -m repro_torch.launch.dryrun --arch "
+                f"{arch} --shape {shape}: exit 0, collected {wall:.1f} s "
+                f"after the start "
+                f"({rec['wall_s']} s in the cell); {rec['n_chips']} "
+                f"devices, {rec['rows']} row group(s); busiest device "
+                f"{rec['busiest_device']}: FLOPs {rec['flops']:.4g}, HBM "
+                f"{rec['hbm_bytes']:.4g} B, collectives "
+                f"{rec['collective_bytes'].get('total', 0):.4g} B, peak "
+                f"{rec['bytes_per_device']['peak']:.4g} B (fits "
+                f"{rec['fits']}); bound {r['bottleneck']} (compute "
+                f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                f"collectives {r['collective_s']:.4g} s); kernels "
+                f"{rec['kernels']}")
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def dryrun_phase(trp, sp):
+    """The dry-run held to real steps: (a) in the train phase's
+    ``train_full`` and (b) in the serve phase, on the models those phases
+    built; (c) the CLI, run here, after the last timed phase.  Any
+    failure fails the run."""
+    t0 = time.perf_counter()
+    out = dict(train=trp["full"]["dryrun"], decode=sp["dryrun"],
+               cli=dryrun_cli())
+    out["cli_s"] = time.perf_counter() - t0
+    out["seconds"] = out["cli_s"] + out["train"]["meta_s"] \
+        + out["train"]["real_s"] + out["decode"]["meta_s"]
+    log(f"dryrun phase: {out['seconds']:.1f} s of the run's wall ((a) and "
+        f"(b) inside the train and serve phases, (c) {out['cli_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -6538,6 +6804,7 @@ def main(argv=None) -> int:
                         rg_tokens=a.serve_tokens)
     trp = train_phase(torch, np, cuda)
     msp = mesh_phase(torch, np, cuda)
+    drp = dryrun_phase(trp, sp)
     log(f"peak device memory above each phase's start: warm store phase "
         f"(8 warm segments and a memtable) {stp['peak'] - stp['base']} "
         f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes, "
@@ -6596,6 +6863,8 @@ def main(argv=None) -> int:
                     fp["moe"]["launches"],
                     "whisper retrieval cross-attention (6 layers)":
                     fp["whisper"]["launches"],
+                    "dry-run check (b): one phi3-mini retrieval step":
+                    drp["decode"]["launches"],
                     **{f"example torch_{k}": v["single"]
                        for k, v in msp["examples"].items() if v["single"]}}
     select_entry = kernel_entry(

@@ -598,13 +598,6 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-def _unported(name: str, item, what: str) -> ValueError:
-    """The refusal of a feature whose code is not ported yet; ``item`` is
-    its ROADMAP Queue A item (a number or a label such as "11b")."""
-    return ValueError(f"{name} needs {what}, which is not ported yet "
-                      f"(ROADMAP Queue A item {item})")
-
-
 class VectorStore:
     """Log-structured vector memory with HNTL-indexed sealed segments.
 

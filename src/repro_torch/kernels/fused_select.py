@@ -20,6 +20,10 @@ query: candidate state is [Q, width] instead of [Q, P*cap].
   slots) is built in global scratch too: the probe kernel writes each
   128-slot chunk as a sorted run and the same tree merge folds a pair's
   runs into its list.
+- Meta tensors (the dry-run, ``launch.dryrun``) pass the same checks,
+  return meta outputs of the kernels' shapes, launch nothing and report
+  one call to the active cost counter (``counting``) with its
+  ``select_cost``.  Any other device raises.
 
 The kernels equal the plain version bit for bit: the same exact integer
 sums, the same float op order without FMA contraction, and the same tie
@@ -36,7 +40,7 @@ import torch
 from ..core.scan import blocksoa_select_ref as fused_scan_select_ref
 from ..core.scan import probe_alive
 from ..core.types import BIG
-from . import _build
+from . import _build, counting
 
 #: Widest ``width`` merged in shared memory (two copies of ``width`` keys
 #: of 8 bytes, 128 KB at this limit, of the 227 KB a block may use), and
@@ -112,6 +116,33 @@ def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+def select_cost(gids, zq, rq, keep, coords, res, mask, rows, scale,
+                res_scale, sq=None, sketch=None, sketch_scale=None, *,
+                width: int, tenant_mask=None, tenant_ix=None,
+                n_active=None):
+    """(bytes, operations) of one call at the least its shapes allow,
+    with no data to read (the meta branch): the probed panels read once
+    each, min(G, Q * P) grains of them (per slot: coordinates, sketch,
+    residual and mask; 12 bytes of scales per grain), the [Q, P] probe
+    arrays and ``sq`` read once, a byte per (tenant, slot) of the probed
+    grains, and the outputs written once (dists, rows and the row lookup:
+    12 bytes per kept slot); every slot of every pair priced at
+    3 (k + s) + 7 integer operations (``chip_smoke.py``'s
+    ``select_bound``, which counts the probed grains and live slots from
+    the data instead)."""
+    q_n, p_n, k = zq.shape
+    g_n, _, cap = coords.shape
+    s = 0 if sq is None else sq.shape[2]
+    grains = min(g_n, q_n * p_n)
+    per_grain = cap * (coords.element_size() * k + s + 4 + 1) + 12
+    nbytes = grains * per_grain + sum(
+        t.numel() * t.element_size() for t in (gids, zq, rq, keep)) \
+        + (0 if sq is None else sq.numel() * 4) + q_n * width * 12
+    if tenant_mask is not None:
+        nbytes += grains * cap + q_n * 4
+    return nbytes, q_n * p_n * cap * (3 * (k + s) + 7)
+
+
 def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
             sq, sketch, sketch_scale, width, tenant_mask, tenant_ix,
             n_active):
@@ -162,6 +193,12 @@ def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
         return out_d.fill_(BIG), out_r.fill_(-1)
     if q_n * p_n >= 2 ** 31:
         raise ValueError("fused_scan_select: Q * P must be < 2^31")
+    if dev.type == "meta":
+        counting.report("fused_scan_select", *select_cost(
+            gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
+            sq, sketch, sketch_scale, width=width, tenant_mask=tenant_mask,
+            tenant_ix=tenant_ix, n_active=n_active))
+        return out_d, out_r
     lib = _lib()
     with torch.cuda.device(dev):
         order = schedule(gids, keep, g_n, n_active)
@@ -219,7 +256,7 @@ def fused_scan_select(gids, zq, rq, keep, coords, res, mask, rows, scale,
             gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
             sq, sketch, sketch_scale, width=width, tenant_mask=tenant_mask,
             tenant_ix=tenant_ix, n_active=n_active)
-    if gids.device.type != "cuda":
+    if gids.device.type not in ("cuda", "meta"):
         raise ValueError(f"fused_scan_select: no kernel for device "
                          f"{gids.device}")
     return _launch(gids, zq, rq, keep, coords, res, mask, rows, scale,

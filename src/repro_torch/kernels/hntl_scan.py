@@ -8,6 +8,11 @@ slot with the exact-int32 Eq. 6 distance and the residual epilogue, with
 - CPU tensors run the plain PyTorch versions (``kernels.ref``).
 - CUDA tensors run the hand-written kernels of ``csrc/hntl_scan.cu``
   (built at first use by ``_build``), or raise.  There is no fallback.
+- Meta tensors (the dry-run, ``launch.dryrun``) pass the CUDA branch's
+  checks, return meta outputs of the kernel's shape, launch nothing and
+  report one call to the active cost counter (``counting``) with its
+  ``scan_cost``.
+- Any other device raises.
 
 The kernels equal their plain versions bit for bit: the same integer sums
 modulo 2^32 and the same float op order without FMA contraction.
@@ -21,7 +26,7 @@ import ctypes
 import torch
 
 from ..core.types import BIG
-from . import _build
+from . import _build, counting
 from .ref import hntl_scan_ref, hntl_scan_single_ref
 
 #: Largest k the single-query kernel takes (its zq lives in shared memory).
@@ -97,9 +102,22 @@ def _run(fn, launch, zq, rq, coords, res, valid, scale, res_scale, out,
 
 
 def _device_kind(fn, t):
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{fn}: no kernel for device {t.device}")
     return t.device.type
+
+
+def scan_cost(zq, rq, coords, res, valid, scale, res_scale):
+    """(bytes, operations) of one launch of either scan: each input read
+    once and the [P, Q, cap] float32 output written once; per (query,
+    slot) k multiply-adds (2 operations each, the cross-term form) and
+    the epilogue's 6.  Q = 1 for ``hntl_scan_single`` (zq [P, k])."""
+    p, k, cap = coords.shape
+    q = zq.numel() // max(p * k, 1)
+    args = (zq, rq, coords, res, valid, scale, res_scale)
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + p * q * cap * 4
+    return nbytes, p * q * cap * (2 * k + 6)
 
 
 def hntl_scan_single(zq, rq, coords, res, valid, scale, res_scale):
@@ -109,7 +127,8 @@ def hntl_scan_single(zq, rq, coords, res, valid, scale, res_scale):
     res [P, cap] i32, valid [P, cap] bool, scale/res_scale [P] f32.
     Returns [P, cap] f32 (BIG on invalid slots).
     """
-    if _device_kind("hntl_scan_single", zq) == "cpu":
+    kind = _device_kind("hntl_scan_single", zq)
+    if kind == "cpu":
         return hntl_scan_single_ref(zq, rq, coords, res, valid, scale,
                                     res_scale)
     p = zq.shape[0]
@@ -121,6 +140,10 @@ def hntl_scan_single(zq, rq, coords, res, valid, scale, res_scale):
                          f"limit {MAX_K}")
     out = torch.empty((p, cap), dtype=torch.float32, device=zq.device)
     if out.numel() == 0:
+        return out
+    if kind == "meta":
+        counting.report("hntl_scan_single", *scan_cost(
+            zq, rq, coords, res, valid, scale, res_scale))
         return out
     _run("hntl_scan_single", "hntl_scan_single_launch", zq, rq, coords, res,
          valid, scale, res_scale, out, (p, k, cap))
@@ -135,7 +158,8 @@ def hntl_scan(zq, rq, coords, res, valid, scale, res_scale):
     res [P, cap] i32, valid [P, cap] bool, scale/res_scale [P] f32.
     Returns [P, Q, cap] f32 (BIG on invalid slots).
     """
-    if _device_kind("hntl_scan", zq) == "cpu":
+    kind = _device_kind("hntl_scan", zq)
+    if kind == "cpu":
         return hntl_scan_ref(zq, rq, coords, res, valid, scale, res_scale)
     p, q = zq.shape[0], zq.shape[1]
     _check_all("hntl_scan", zq, rq, coords, res, valid, scale, res_scale,
@@ -143,6 +167,10 @@ def hntl_scan(zq, rq, coords, res, valid, scale, res_scale):
     k, cap = zq.shape[2], coords.shape[2]
     out = torch.empty((p, q, cap), dtype=torch.float32, device=zq.device)
     if out.numel() == 0:
+        return out
+    if kind == "meta":
+        counting.report("hntl_scan", *scan_cost(
+            zq, rq, coords, res, valid, scale, res_scale))
         return out
     _run("hntl_scan", "hntl_scan_launch", zq, rq, coords, res, valid, scale,
          res_scale, out, (p, q, k, cap))

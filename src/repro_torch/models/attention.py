@@ -15,7 +15,9 @@ every row of a block masks (causal or window) adds exactly nothing to the
 reference's accumulator (its probabilities are exp(-1e30 - m) = 0, or it
 is washed out by exp(-1e30 - m) = 0 at the first visible chunk), so such
 chunks are skipped where every row sees its own key (queries inside the
-cache, no ``kv_valid_len``): the result is the reference's.
+cache, no ``kv_valid_len``): the result is the reference's.  Under
+``lowering.flags().attn_chunks`` the chunk is ``max(128, ceil(t /
+attn_chunks))``, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import softcap
+from .lowering import flags
 
 NEG_INF = -1.0e30
 
@@ -61,6 +64,8 @@ def attention(q, k, v, *, causal: bool = True, window=None, logit_cap=None,
     dev = q.device
     qf = (q.to(torch.float32) * scale).reshape(b, s, hkv, g, hd)
     q_pos = q_offset + torch.arange(s, device=dev)
+    if flags().attn_chunks:              # the dry-run's chunk count
+        kv_chunk = max(128, -(-t // flags().attn_chunks))
     kv_chunk = min(kv_chunk, t)
     n_chunks = max(1, -(-t // kv_chunk))
     t_pad = n_chunks * kv_chunk - t

@@ -191,6 +191,38 @@ def unembed(table: torch.Tensor, x: torch.Tensor):
     return torch.matmul(x.to(torch.float32), table.to(torch.float32).T)
 
 
+def scan_layers(body, init, xs):
+    """The reference's ``lax.scan`` over stacked layers, as a Python loop:
+    ``body(carry, x_i)`` for each slice i of the leading dim of ``xs`` (a
+    tensor, or a dict / list / tuple tree of tensors of one leading size).
+    Returns (carry, the ``y``s stacked the same way, or None when ``body``
+    returns None).  The reference loops this way only under
+    ``lowering.unrolled``; every loop of the port runs in Python."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [v for x in tree.values() for v in leaves(x)]
+        if isinstance(tree, (list, tuple)):
+            return [v for x in tree for v in leaves(x)]
+        return [tree]
+
+    def tree_map(fn, *trees):
+        t0 = trees[0]
+        if isinstance(t0, dict):
+            return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+        if isinstance(t0, (list, tuple)):
+            return type(t0)(tree_map(fn, *parts) for parts in zip(*trees))
+        return fn(*trees)
+
+    n = leaves(xs)[0].shape[0]
+    carry, ys = init, []
+    for i in range(n):
+        carry, y = body(carry, tree_map(lambda a: a[i], xs))
+        ys.append(y)
+    if not ys or ys[0] is None:
+        return carry, None
+    return carry, tree_map(lambda *a: torch.stack(a), *ys)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None):
     """Token-mean CE in float32; logits [..., V], labels [...] (int)."""

@@ -11,8 +11,10 @@ capacity_factor=1.25 by default.  Porting notes:
 - the router's top-k is a stable descending sort (ties to the lower
   expert index, as ``jax.lax.top_k``), never ``torch.topk``;
 - the reference's ``mode="drop"`` scatters write an out-of-range row for
-  a dropped pair; here the pairs are masked explicitly, and unfilled
-  slots keep the sentinel token row ``t`` (a zero row);
+  a dropped pair; here a dropped pair writes a spill column that is cut
+  off, and unfilled slots keep the sentinel token row ``t`` (a zero
+  row).  Every shape is fixed by the input's (counts by ``scatter_add_``,
+  no boolean mask), so the meta device traces it (``launch.dryrun``);
 - the combine gathers each token's ``top_k`` weighted expert outputs and
   sums them in expert-rank order, where the reference scatter-adds:
   ``index_add_`` on CUDA float32 uses atomics, whose order (and bits)
@@ -97,15 +99,17 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     flat_tok = torch.arange(t, device=dev).repeat_interleave(top_k)
     flat_w = top_p.reshape(-1)
     sorted_e, order = torch.sort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=e)                    # [E]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))                         # [E]
     offsets = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(t * top_k, device=dev) - offsets[sorted_e]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
 
+    # dropped pairs write the spill column ``cap``, cut off after
     in_cap = rank < cap
-    slot_e, slot_c = flat_e[in_cap], rank[in_cap]
-    disp_tok = torch.full((e, cap), t, dtype=torch.long, device=dev)
-    disp_tok[slot_e, slot_c] = flat_tok[in_cap]
+    disp_tok = torch.full((e, cap + 1), t, dtype=torch.long, device=dev)
+    disp_tok[flat_e, torch.where(in_cap, rank, cap)] = flat_tok
+    disp_tok = disp_tok[:, :cap]
 
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     xe = xpad[disp_tok]                                             # [E, C, d]

@@ -25,8 +25,8 @@ index, as ``jax.lax.top_k`` of the negated values); ``torch.linalg.eigh``
 is ascending like ``jnp.linalg.eigh`` and is flipped the same way, but its
 eigenvector signs may differ from JAX's, so two builds agree on projectors
 (basis basis^T), not on coordinates.  Float32 products run with TF32 off.
-``kv_index_specs`` (a dry-run shape helper of the JAX package) is not
-ported: it has no runtime use.
+``kv_index_specs`` makes an index of meta tensors (shapes and dtypes, no
+bytes) for the dry-run (``launch.specs``).
 """
 from __future__ import annotations
 
@@ -85,6 +85,39 @@ class KVIndex:
     @property
     def device(self) -> torch.device:
         return self.coords.device
+
+
+def kv_index_specs(cfg, batch: int, sealed_len: int,
+                   dtype=torch.bfloat16) -> KVIndex:
+    """A ``KVIndex`` of meta tensors with the shapes and dtypes that
+    ``build_kv_index`` gives a [batch, sealed_len, KV, hd] cache of
+    ``dtype`` (the dry-run's stand-in: no allocation).  bf16 centroids
+    and bases under ``cfg.kv_bf16_meta``; int8 raw tiers and float32
+    [batch, KV] scales under ``cfg.kv_sq8``."""
+    kv, hd, kt, cap = cfg.n_kv_heads, cfg.head_dim, cfg.kv_kt, cfg.kv_cap
+    g = sealed_len // cap
+    meta_dt = torch.bfloat16 if cfg.kv_bf16_meta else torch.float32
+    raw_dt = torch.int8 if cfg.kv_sq8 else dtype
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    scales = {}
+    if cfg.kv_sq8:
+        scales = {"k_scale": meta((batch, kv), torch.float32),
+                  "v_scale": meta((batch, kv), torch.float32)}
+    return KVIndex(
+        centroids=meta((batch, kv, g, hd), meta_dt),
+        basis=meta((batch, kv, g, hd, kt), meta_dt),
+        coords=meta((batch, kv, g, kt, cap), torch.int16),
+        res=meta((batch, kv, g, cap), torch.int32),
+        scale=meta((batch, kv, g), torch.float32),
+        res_scale=meta((batch, kv, g), torch.float32),
+        k_raw=meta((batch, sealed_len, kv, hd), raw_dt),
+        v_raw=meta((batch, sealed_len, kv, hd), raw_dt),
+        tail_k=meta((batch, cfg.kv_tail, kv, hd), dtype),
+        tail_v=meta((batch, cfg.kv_tail, kv, hd), dtype),
+        **scales)
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,11 @@ Time-mix recurrence per head (head size N), following arXiv:2404.05892:
 with data-dependent per-channel decay w_t = exp(-exp(w0 + lora_w(x~_t))) and
 data-dependent token-shift interpolation (ddlerp) feeding r/k/v/w/g.  The
 sequential state S is [B, H, N, N]; a segment runs the step scan, a loop
-over time, as the reference's runtime path does.  The chunked
-block-parallel form (``_wkv_chunked``) is here as a function held to the
-step scan; the reference selects it only under a lowering flag that is
-not ported.  Attention-free: HNTL-KV does not apply.
+over time, as the reference's runtime path does.  Under
+``lowering.flags().wkv_chunks`` a segment of more than one token runs
+the chunked block-parallel form (``_wkv_chunked``, min(wkv_chunks, S)
+chunks) instead, as the reference does.  Attention-free: HNTL-KV does
+not apply.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import ACTS, dense_init, sigmoid
+from .lowering import flags
 
 _LORA = 32
 _LORA_W = 64
@@ -184,8 +186,13 @@ def timemix_apply(params, x, head_size: int, state=None):
 
     s0 = state["s"] if state is not None else \
         torch.zeros((b, h, head_size, head_size), dtype=f32, device=x.device)
-    out, s_fin = _wkv_scan(r.to(f32), k.to(f32), v.to(f32), w, params["u"],
-                           s0)
+    if flags().wkv_chunks and s > 1:
+        out, s_fin = _wkv_chunked(r.to(f32), k.to(f32), v.to(f32), w,
+                                  params["u"], s0,
+                                  n_chunks=min(flags().wkv_chunks, s))
+    else:
+        out, s_fin = _wkv_scan(r.to(f32), k.to(f32), v.to(f32), w,
+                               params["u"], s0)
 
     # per-head groupnorm, then output gate
     o = out.reshape(b, s, h, head_size)

@@ -151,21 +151,28 @@ def test_models_without_device_need_a_card(monkeypatch):
     assert model.init(0, device="cpu").device == torch.device("cpu")
 
 
+class _OnOtherDevice:
+    """A stand-in argument on a device with no kernel and no plain
+    version (the meta device now takes the dry-run's branch)."""
+
+    device = torch.device("xpu")
+
+
 def test_kernel_wrapper_refuses_other_devices():
     args, _ = _select_inputs(0, "meta", q=2, p=2, g=3, k=4, cap=32)
     with pytest.raises(ValueError, match="no kernel"):
-        port_fused.fused_scan_select(*args, width=8)
+        port_fused.fused_scan_select(_OnOtherDevice(), *args[1:], width=8)
 
 
 def test_scan_wrappers_refuse_other_devices():
     a = scan_cases.panels(0, p=2, q=3, k=4, cap=32)
     args = scan_cases.args(a, lambda v: torch.from_numpy(v).to("meta"))
     with pytest.raises(ValueError, match="no kernel"):
-        port_scan.hntl_scan(*args)
+        port_scan.hntl_scan(_OnOtherDevice(), *args[1:])
     single = scan_cases.args(scan_cases.single(a),
                              lambda v: torch.from_numpy(v).to("meta"))
     with pytest.raises(ValueError, match="no kernel"):
-        port_scan.hntl_scan_single(*single)
+        port_scan.hntl_scan_single(_OnOtherDevice(), *single[1:])
 
 
 def test_build_recipe_targets_hopper():
