@@ -30,6 +30,21 @@ What it does, in order (any failure exits non-zero before the last line):
    over the JAX package's kernel sweep, int32 extremes and wraparound,
    all-invalid panels, the int8 sketch panels, caps off 128, and the
    shapes of the gather plane and of HNTL-KV decode;
+3b. the paper's Table 2 (``table2_phase``): ``aos_scan`` and
+   ``pointer_chase_scan`` (``kernels/layout_scan.py``) against their
+   plain versions (``torch.equal``) over ``scan_cases.LAYOUT_CASES`` (k
+   of 1, 8, 32 and 33, int16 and int32 coordinates, invalid slots, int32
+   wraparound, ``n_steps`` below, at and above N, negative and
+   out-of-range pointers, heads at 0 and N - 1); then, in
+   ``benchmarks/table2_scan.py``'s configuration (n=65,536, k=8, one
+   panel, seed 0), again at k=32, and at the main path's size (n=1,048,576,
+   k=32, out of L2), Block-SoA (``hntl_scan_single`` at
+   P=1), AoS (``core.scan.aos_scan``) and the chase
+   (``core.scan.pointer_chase_scan`` over a cyclic list): one call each
+   through the entry points (counters zeroed just before, read just
+   after), held to each other and to the plain versions, then timed:
+   ns/vector, the ratio to the chase, plain times and bounds; the order
+   is printed, not gated;
 4. main path: the paper's width (d=768, k=32, s=8, B=128) with G=1024
    grains over the 1M-vector ``anisotropic_manifold`` corpus: the build
    with seconds per phase, index bytes and peak device memory; then 1024
@@ -330,7 +345,7 @@ def device_phase(torch):
 
 
 #: Template arguments in the kernels' mangled names.
-_MANGLED_TYPES = {"IsE": "int16", "IaE": "int8"}
+_MANGLED_TYPES = {"IsE": "int16", "IaE": "int8", "IiE": "int32"}
 
 
 def kernel_label(line):
@@ -338,7 +353,8 @@ def kernel_label(line):
     for name in ("fused_scan_select_probe_kernel",
                  "fused_scan_select_merge_kernel",
                  "fused_scan_select_wide_merge_kernel",
-                 "hntl_scan_single_kernel", "hntl_scan_kernel"):
+                 "hntl_scan_single_kernel", "hntl_scan_kernel",
+                 "aos_scan_kernel", "pointer_chase_scan_kernel"):
         if name not in line:
             continue
         tail = line.split(name, 1)[1]
@@ -504,7 +520,8 @@ def kernel_phase(torch, dev):
 
 #: One small launch of each kernel path: the probe kernel and the shared
 #: merge (vector and scalar loads, ragged probes), the wide merge, the
-#: chunk runs with their tree merge, and both scan kernels.
+#: chunk runs with their tree merge, both scan kernels and the two Table 2
+#: layout kernels.
 RACE_CASES = {
     "probe kernel + shared merge": (64, dict(q=4, p=4, g=6, k=8, cap=256,
                                              s=4, ragged=True)),
@@ -534,6 +551,8 @@ def race_phase(torch, np, dev):
         hold(torch, fsel, args, kw, width, label)
         log(f"race case: fused_scan_select, {label} ({shape}, width "
             f"{width}) == plain")
+    from repro_torch.kernels import layout_scan as ls
+
     a = sc.panels(5, p=3, q=20, k=16, cap=200)
     conv = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
     for label, kern, plain, args in (
@@ -541,13 +560,18 @@ def race_phase(torch, np, dev):
             ("hntl_scan_single", hs.hntl_scan_single,
              ref.hntl_scan_single_ref,
              sc.args(sc.single(sc.panels(6, p=3, q=1, k=16, cap=200)),
-                     conv))):
+                     conv)),
+            ("aos_scan", ls.aos_scan, ref.aos_scan_ref,
+             sc.aos_args(sc.aos(7, p=3, cap=200, k=33), conv)),
+            ("pointer_chase_scan", ls.pointer_chase_scan,
+             ref.pointer_chase_scan_ref,
+             sc.chase_args(sc.chase(8, n=200, k=40, n_steps=300), conv))):
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"race case {label}: differs from "
               "its plain version")
         log(f"race case: {label} == plain")
-    log(f"race cases: {len(RACE_CASES) + 2} launches, all equal to their "
+    log(f"race cases: {len(RACE_CASES) + 4} launches, all equal to their "
         "plain versions")
 
 
@@ -657,6 +681,192 @@ def scan_kernel_phase(torch, np, dev):
         f"({n['single']} cases) held against hntl_scan_ref / "
         "hntl_scan_single_ref, torch.equal")
     return err
+
+
+# ---------------------------------------------------------------------------
+# 3b: the paper's Table 2 baselines (``kernels.layout_scan``)
+# ---------------------------------------------------------------------------
+
+#: (n, k) of the Table 2 runs: ``benchmarks/table2_scan.py``'s own
+#: configuration, then the main path's k, then the main path's size.  At
+#: n=65,536 every layout's data (1.6-9 MB) stays in the 50 MB L2 between
+#: calls, and Block-SoA and AoS take a few microseconds, near the launch
+#: floor; at n=1,048,576 and k=32 the int16 panel is 64 MB and the
+#: chase's int32 rows 128 MB, so each call reads from HBM.
+TABLE2_RUNS = ((65_536, 8), (65_536, 32), (1_048_576, 32))
+#: Kernels launched per Table 2 run, and their names in a trace.
+TABLE2_KERNELS = {"block_soa": "hntl_scan_single_kernel",
+                  "aos": "aos_scan_kernel",
+                  "pointer_chase": "pointer_chase_scan_kernel"}
+
+
+def aos_cost(args):
+    """Bytes (each input read once, the [P, cap] output written once) and
+    operations (k multiply-adds of 2 and the epilogue's 6 per slot, as
+    ``scan_bound`` counts) of one ``aos_scan``."""
+    p, cap, k = args[2].shape
+    nbytes = sum(t.numel() * t.element_size() for t in args) + p * cap * 4
+    return nbytes, p * cap * (2 * k + 6)
+
+
+def chase_cost(args, rows):
+    """Bytes and operations of one ``pointer_chase_scan`` that visits
+    ``rows`` (int64, in order): each distinct row's coordinates, residual
+    and next pointer read once, zq and the scalars once, the [n_steps]
+    output written once; per step as ``aos_cost``."""
+    zq, rq, coords, res, nxt, head, n_steps, scale, res_scale = args
+    k = zq.shape[0]
+    distinct = int(rows.unique().numel())
+    row_bytes = k * coords.element_size() + res.element_size() \
+        + nxt.element_size()
+    nbytes = (zq.numel() * 4 + 4 * 4 + distinct * row_bytes + n_steps * 4)
+    return nbytes, n_steps * (2 * k + 6)
+
+
+def table2_reps(n):
+    """Timed calls of each Table 2 mode (warm-up, CUDA events, the trace)
+    and of the plain versions at n vectors.  From n = 2^20 on a chase
+    call takes about half a second and its plain version's host walk
+    over a second: fewer calls time them."""
+    if n >= 1 << 20:
+        return dict(block_soa=20, aos=20, pointer_chase=2, warm=1, plain=1)
+    return dict(block_soa=20, aos=20, pointer_chase=5, warm=2, plain=3)
+
+
+def table2_phase(torch, np, dev):
+    """(a) ``aos_scan`` and ``pointer_chase_scan`` against their plain
+    versions over ``scan_cases.LAYOUT_CASES`` (``torch.equal``); (b) the
+    paper's Table 2 on the card: Block-SoA (``hntl_scan_single`` at P=1),
+    AoS and the chase over the same n vectors, each run through the entry
+    points once with the launch counters zeroed just before and read
+    just after, then timed.  The ordering is printed, not gated."""
+    from repro_torch.core import scan as core_scan
+    from repro_torch.kernels import hntl_scan as hs
+    from repro_torch.kernels import layout_scan as ls
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scan_cases as sc
+
+    t0 = time.perf_counter()
+    on = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
+    fns = {"aos": (ls.aos_scan, ref.aos_scan_ref, sc.aos_args),
+           "chase": (ls.pointer_chase_scan, ref.pointer_chase_scan_ref,
+                     sc.chase_args)}
+    err = {"aos": 0.0, "chase": 0.0}
+    n_cases = collections.Counter()
+    for label, form, a in sc.layout_cases():
+        kern, plain, to_args = fns[form]
+        args = to_args(a, on)
+        before = kern.launches
+        d = kern(*args)
+        rd = plain(*args)
+        sync(torch, dev)
+        if dev.type == "cuda":
+            check(kern.launches == before + 1, f"{form} {label}: not "
+                  "launched")
+        check(d.shape == rd.shape, f"{form} {label}: shape {d.shape} "
+              f"against {rd.shape}")
+        if d.numel():
+            err[form] = max(err[form],
+                            float((d.double() - rd.double()).abs().max()))
+        check(torch.equal(d, rd), f"{form} {label}: kernel differs from "
+              f"the plain version in {int((d != rd).sum())} entries")
+        n_cases[form] += 1
+        log(f"  kernel == plain: {kern.__name__} {label} ok")
+    log(f"kernels: aos_scan ({n_cases['aos']} cases) and pointer_chase_scan "
+        f"({n_cases['chase']} cases) held against aos_scan_ref / "
+        f"pointer_chase_scan_ref, torch.equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    out = dict(err=err, runs={}, launches=collections.Counter())
+    for n, k in TABLE2_RUNS:
+        t2 = sc.table2(n=n, k=k)
+        soa = sc.args(t2["soa"], on)
+        aos = sc.aos_args(t2["aos"], on)
+        chase = sc.chase_args(t2["chase"], on)
+        sync(torch, dev)
+        hs.hntl_scan_single.launches = 0
+        ls.aos_scan.launches = 0
+        ls.pointer_chase_scan.launches = 0
+        d_soa = hs.hntl_scan_single(*soa)
+        d_aos = core_scan.aos_scan(*aos)
+        d_chase = core_scan.pointer_chase_scan(*chase)
+        sync(torch, dev)
+        launches = {"block_soa": hs.hntl_scan_single.launches,
+                    "aos": ls.aos_scan.launches,
+                    "pointer_chase": ls.pointer_chase_scan.launches}
+        label = f"Table 2 n={n} k={k}"
+        if dev.type == "cuda":
+            check(all(v == 1 for v in launches.values()),
+                  f"{label}: launches {launches}, expected one each")
+        out["launches"].update(launches)
+        rows = ref.chase_order(chase[4], chase[5], chase[6])
+        check(torch.equal(rows.sort().values, torch.arange(n)),
+              f"{label}: the chase did not visit every row once")
+        check(d_soa.shape == d_aos.shape == (1, n) and d_chase.shape == (n,)
+              and bool(torch.isfinite(d_chase).all())
+              and bool(torch.isfinite(d_aos).all()),
+              f"{label}: outputs not finite or of the wrong shape")
+        check(torch.equal(d_aos, d_soa), f"{label}: AoS differs from "
+              "Block-SoA on the same vectors")
+        check(torch.equal(d_aos, ref.aos_scan_ref(*aos)), f"{label}: AoS "
+              "differs from its plain version")
+        check(torch.equal(d_chase, ref.pointer_chase_scan_ref(*chase)),
+              f"{label}: the chase differs from its plain version")
+        # The chase prices the same vectors, in visit order, with the
+        # products in its own order: equal to within an ulp or two.
+        near = torch.allclose(d_chase, d_aos[0, rows.to(dev)], rtol=1e-6,
+                              atol=0)
+        check(near, f"{label}: the chase's distances are not those of "
+              "the same rows under AoS")
+        if dev.type != "cuda":
+            out["runs"][(n, k)] = dict(launches=launches)
+            continue
+        reps = table2_reps(n)
+        calls = {"block_soa": (lambda: hs.hntl_scan_single(*soa),
+                               lambda: ref.hntl_scan_single_ref(*soa)),
+                 "aos": (lambda: ls.aos_scan(*aos),
+                         lambda: ref.aos_scan_ref(*aos)),
+                 "pointer_chase": (lambda: ls.pointer_chase_scan(*chase),
+                                   lambda: ref.pointer_chase_scan_ref(
+                                       *chase))}
+        costs = {"block_soa": scan_bound(soa, 1)[2:],
+                 "aos": aos_cost(aos), "pointer_chase": chase_cost(
+                     chase, rows)}
+        res = {}
+        for mode, (kern, plain) in calls.items():     # warm-up, then events
+            for _ in range(reps["warm"]):
+                kern()
+            res[mode] = dict(events_ms=time_events(torch, kern, reps[mode]))
+        # Device time per call of each kernel: one trace of all three.
+        _, parts, traces = device_ms(
+            torch, lambda: [kern() for kern, _ in calls.values()],
+            tuple(TABLE2_KERNELS.values()), reps=reps["pointer_chase"])
+        for mode, (kern, plain) in calls.items():
+            plain()
+            t = res[mode]
+            t.update(ms=parts[TABLE2_KERNELS[mode]], traces=traces,
+                     plain_ms=time_events(torch, plain, reps["plain"]))
+            t["bound_ms"], t["bound_by"] = bound_of(*costs[mode])
+            t["bytes"], t["ops"] = costs[mode]
+            t["ns_per_vector"] = t["ms"] * 1e6 / n
+        base = res["pointer_chase"]["ns_per_vector"]
+        for mode, t in res.items():
+            t["speedup_vs_pointer"] = base / t["ns_per_vector"]
+            log(f"table2 {label} {mode}: {t['ns_per_vector']:.4f} ns/vector "
+                f"({t['ms']:.4f} ms a call, CUPTI; CUDA events "
+                f"{t['events_ms']:.4f} ms), speedup over the chase "
+                f"{t['speedup_vs_pointer']:.2f}x; plain version "
+                f"{t['plain_ms']:.4f} ms; bound "
+                f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} "
+                f"bytes, {t['ops']} ops); CUPTI traces {t['traces']}")
+        res["pointer_chase"]["ns_per_step"] = base
+        order = sorted(res, key=lambda m: res[m]["ns_per_vector"])
+        log(f"table2 {label}: fastest to slowest {' < '.join(order)} "
+            "(the paper's Apple M2 order: block_soa < aos < pointer_chase; "
+            "printed, not gated)")
+        out["runs"][(n, k)] = dict(launches=launches, **res)
+    log(f"table2 phase: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1066,10 +1276,17 @@ def scan_bound(args, queries):
     nbytes = sum(t.numel() * t.element_size() for t in args) \
         + p * queries * cap * 4
     ops = p * queries * cap * (2 * k + 6)
+    return (*bound_of(nbytes, ops), nbytes, ops)
+
+
+def bound_of(nbytes, ops):
+    """(ms, "bytes" or "operations"): the larger of the time to move
+    ``nbytes`` at the card's memory rate and to do ``ops`` at its CUDA-core
+    rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / CUDA_CORE_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def time_scan(torch, label, kern, plain, args, queries, reps=20):
@@ -6704,6 +6921,33 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, at):
     return entry
 
 
+def table2_entries(t2, src):
+    """The kernel table's entries of the two Table 2 programs: the first
+    run's numbers, the later runs' under ``at_n<n>_k<k>``."""
+    entries = []
+    (n0, k0), *rest = t2["runs"]
+    for mode, name, line in (("aos", "aos_scan", 147),
+                             ("pointer_chase", "pointer_chase_scan", 163)):
+        form = "aos" if mode == "aos" else "chase"
+        first = t2["runs"][(n0, k0)][mode]
+        entry = kernel_entry(
+            name, src + "layout_scan.cu", f"src/repro/core/scan.py:{line}",
+            t2["launches"][mode],
+            {f"Table 2 n={n} k={k}": r["launches"][mode]
+             for (n, k), r in t2["runs"].items()},
+            t2["err"][form], first,
+            f"Table 2: n={n0} k={k0} " + (
+                "P=1 [1, n, k] int16" if form == "aos"
+                else f"[n, k] int32 rows, {n0} steps of a cycle"))
+        for key in ("ns_per_vector", "speedup_vs_pointer", "ns_per_step"):
+            if key in first:
+                entry[key] = first[key]
+        for n, k in rest:
+            entry[f"at_n{n}_k{k}"] = dict(t2["runs"][(n, k)][mode])
+        entries.append(entry)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -6750,6 +6994,7 @@ def main(argv=None) -> int:
         return 0
     err_cases = kernel_phase(torch, cuda)
     err_scan = scan_kernel_phase(torch, np, cuda)
+    t2 = table2_phase(torch, np, cuda)
     mp = main_path(torch, np, n=a.n, nq=a.nq, grains=a.grains, dev=cuda)
     gp = gather_plane_phase(torch, mp)
     sb = scan_batched_phase(torch, mp)
@@ -6866,7 +7111,9 @@ def main(argv=None) -> int:
                     "dry-run check (b): one phi3-mini retrieval step":
                     drp["decode"]["launches"],
                     **{f"example torch_{k}": v["single"]
-                       for k, v in msp["examples"].items() if v["single"]}}
+                       for k, v in msp["examples"].items() if v["single"]},
+                    "Table 2 Block-SoA (three runs)":
+                    t2["launches"]["block_soa"]}
     select_entry = kernel_entry(
         "fused_scan_select", src + "fused_select.cu",
         "src/repro/kernels/fused_select.py:179", sum(select_paths.values()),
@@ -6899,6 +7146,7 @@ def main(argv=None) -> int:
     single_entry["at_model_decode"] = sp["scan"]
     single_entry["at_moe_decode"] = fp["moe"]["scan"]
     single_entry["at_whisper_cross"] = fp["whisper"]["scan"]
+    layout_entries = table2_entries(t2, src)
     log(json.dumps({"kernels": [
         select_entry,
         single_entry,
@@ -6906,7 +7154,8 @@ def main(argv=None) -> int:
                      "src/repro/kernels/hntl_scan.py:80", sb["launches"],
                      {"ops.scan_batched": sb["launches"]},
                      err_scan["batched"],
-                     st["batched_coords"], batched_at)
+                     st["batched_coords"], batched_at),
+        *layout_entries,
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

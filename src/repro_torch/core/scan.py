@@ -3,6 +3,9 @@
 ``blocksoa_scan`` is the gather plane ("ref"); ``blocksoa_select_ref`` is
 the plain version of the fused scan→select kernel ("fused_ref", and what
 ``kernels.fused_select.fused_scan_select`` runs for CPU tensors).
+``aos_scan`` and ``pointer_chase_scan`` are the paper's Table 2 baselines
+(the same math over a vector-major layout and over a linked list); they
+run on ``kernels.layout_scan``'s kernels for CUDA tensors.
 
 Integer-math note: coordinates are stored int16 but quantized to an
 int32-safe range (``index.int32_safe_qmax``), so the accumulated squared
@@ -17,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels import layout_scan
 from .types import BIG
 
 
@@ -128,3 +132,42 @@ def blocksoa_select_ref(gids: torch.Tensor, zq: torch.Tensor,
         out_r = torch.cat([out_r, out_r.new_full((q_n, width - w), -1)], 1)
     out_r = torch.where(out_d < BIG / 2, out_r, -1)
     return out_d, out_r.to(torch.int32)
+
+
+def aos_scan(zq: torch.Tensor, rq: torch.Tensor, coords_aos: torch.Tensor,
+             res: torch.Tensor, valid: torch.Tensor, scale: torch.Tensor,
+             res_scale: torch.Tensor) -> torch.Tensor:
+    """Array-of-Structures layout scan (Table 2 middle row).
+
+    zq [P, k] i32, rq [P] f32, coords_aos [P, cap, k] i16/i32
+    (vector-major: the same math as ``blocksoa_scan``, with a
+    transpose-per-vector access pattern), res [P, cap] i32, valid [P, cap]
+    bool, scale/res_scale [P] f32.  Returns [P, cap] f32, BIG on invalid
+    slots.
+    """
+    return layout_scan.aos_scan(*(t.contiguous() for t in (
+        zq, rq, coords_aos, res, valid, scale, res_scale)))
+
+
+def pointer_chase_scan(zq: torch.Tensor, rq, coords_flat: torch.Tensor,
+                       res_flat: torch.Tensor, next_ptr: torch.Tensor, head,
+                       n_steps: int, scale, res_scale) -> torch.Tensor:
+    """Graph-style traversal (Table 2 bottom row): follow a linked list of
+    row indices from ``head``; every access is a data-dependent gather.
+
+    zq [k] i32, coords_flat [N, k] i16/i32, res_flat [N] i32, next_ptr [N]
+    i32; rq, scale and res_scale float32 scalars and head an int32 scalar
+    (numbers or 0-d tensors).  Returns dists [n_steps] f32 in visit order.
+    A pointer is read as a JAX gather reads it: negative counts from the
+    end, out of range is clamped to [0, N-1].
+    """
+    dev = zq.device
+
+    def scalar(v, dtype):
+        return torch.as_tensor(v, dtype=dtype, device=dev).reshape(())
+
+    return layout_scan.pointer_chase_scan(
+        zq.contiguous(), scalar(rq, torch.float32), coords_flat.contiguous(),
+        res_flat.contiguous(), next_ptr.contiguous(),
+        scalar(head, torch.int32), n_steps, scalar(scale, torch.float32),
+        scalar(res_scale, torch.float32))

@@ -41,6 +41,7 @@ from ..core.scan import blocksoa_select_ref as fused_scan_select_ref
 from ..core.scan import probe_alive
 from ..core.types import BIG
 from . import _build, counting
+from ._launch import device_kind, launch
 
 #: Widest ``width`` merged in shared memory (two copies of ``width`` keys
 #: of 8 bytes, 128 KB at this limit, of the 227 KB a block may use), and
@@ -110,10 +111,6 @@ def vector_loads(cap: int, *panels: Optional[torch.Tensor]) -> bool:
     multiple of 4 and every panel's base 16-byte aligned."""
     return cap % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0
                                 for t in panels)
-
-
-def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def select_cost(gids, zq, rq, keep, coords, res, mask, rows, scale,
@@ -207,19 +204,12 @@ def _launch(gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
         n_scratch = lib.fused_scan_select_scratch_keys(q_n, p_n, cap, width)
         scratch = (torch.empty(n_scratch, dtype=torch.int64, device=dev)
                    if n_scratch else None)
-        vec = vector_loads(cap, coords, res, mask, sketch, tenant_mask)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_scan_select_launch(
-            _ptr(gids), _ptr(zq), _ptr(rq), _ptr(keep), _ptr(coords),
-            _ptr(res), _ptr(mask), _ptr(rows), _ptr(scale), _ptr(res_scale),
-            _ptr(sq), _ptr(sketch), _ptr(sketch_scale), _ptr(tenant_mask),
-            _ptr(tenant_ix), _ptr(n_active), _ptr(order), _ptr(lists),
-            _ptr(scratch), _ptr(out_d), _ptr(out_r), q_n, p_n, k, s, g_n,
-            cap, width, int(vec), BIG, ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = lib.fused_scan_select_error_string(rc).decode()
-        raise RuntimeError(f"fused_scan_select kernel launch failed: CUDA "
-                           f"error {rc} ({msg})")
+    vec = vector_loads(cap, coords, res, mask, sketch, tenant_mask)
+    launch("fused_scan_select", lib, "fused_scan_select_launch",
+           "fused_scan_select_error_string", dev, gids, zq, rq, keep, coords,
+           res, mask, rows, scale, res_scale, sq, sketch, sketch_scale,
+           tenant_mask, tenant_ix, n_active, order, lists, scratch, out_d,
+           out_r, q_n, p_n, k, s, g_n, cap, width, int(vec), BIG)
     fused_scan_select.launches += 1
     return out_d, out_r
 
@@ -251,14 +241,11 @@ def fused_scan_select(gids, zq, rq, keep, coords, res, mask, rows, scale,
     and cap 16,384 the lists and the runs take about 0.54 GB each, and
     the scratch about 1.07 GB, per call.
     """
-    if gids.device.type == "cpu":
+    if device_kind("fused_scan_select", gids, meta=True) == "cpu":
         return fused_scan_select_ref(
             gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale,
             sq, sketch, sketch_scale, width=width, tenant_mask=tenant_mask,
             tenant_ix=tenant_ix, n_active=n_active)
-    if gids.device.type not in ("cuda", "meta"):
-        raise ValueError(f"fused_scan_select: no kernel for device "
-                         f"{gids.device}")
     return _launch(gids, zq, rq, keep, coords, res, mask, rows, scale,
                    res_scale, sq, sketch, sketch_scale, width, tenant_mask,
                    tenant_ix, n_active)

@@ -27,6 +27,7 @@ import torch
 
 from ..core.types import BIG
 from . import _build, counting
+from ._launch import device_kind, launch
 from .ref import hntl_scan_ref, hntl_scan_single_ref
 
 #: Largest k the single-query kernel takes (its zq lives in shared memory).
@@ -84,27 +85,11 @@ def _check_all(fn, zq, rq, coords, res, valid, scale, res_scale, lead):
         raise ValueError(f"{fn}: P must be < 2^31")
 
 
-def _run(fn, launch, zq, rq, coords, res, valid, scale, res_scale, out,
+def _run(fn, entry, zq, rq, coords, res, valid, scale, res_scale, out,
          dims):
-    lib = _lib()
-    dev = zq.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, launch)(
-            zq.data_ptr(), rq.data_ptr(), coords.data_ptr(),
-            _COORD_BYTES[coords.dtype], res.data_ptr(), valid.data_ptr(),
-            scale.data_ptr(), res_scale.data_ptr(), out.data_ptr(), *dims,
-            BIG, ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = lib.hntl_scan_error_string(rc).decode()
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
-
-
-def _device_kind(fn, t):
-    if t.device.type not in ("cpu", "cuda", "meta"):
-        raise ValueError(f"{fn}: no kernel for device {t.device}")
-    return t.device.type
+    launch(fn, _lib(), entry, "hntl_scan_error_string", zq.device, zq, rq,
+           coords, _COORD_BYTES[coords.dtype], res, valid, scale, res_scale,
+           out, *dims, BIG)
 
 
 def scan_cost(zq, rq, coords, res, valid, scale, res_scale):
@@ -127,7 +112,7 @@ def hntl_scan_single(zq, rq, coords, res, valid, scale, res_scale):
     res [P, cap] i32, valid [P, cap] bool, scale/res_scale [P] f32.
     Returns [P, cap] f32 (BIG on invalid slots).
     """
-    kind = _device_kind("hntl_scan_single", zq)
+    kind = device_kind("hntl_scan_single", zq, meta=True)
     if kind == "cpu":
         return hntl_scan_single_ref(zq, rq, coords, res, valid, scale,
                                     res_scale)
@@ -158,7 +143,7 @@ def hntl_scan(zq, rq, coords, res, valid, scale, res_scale):
     res [P, cap] i32, valid [P, cap] bool, scale/res_scale [P] f32.
     Returns [P, Q, cap] f32 (BIG on invalid slots).
     """
-    kind = _device_kind("hntl_scan", zq)
+    kind = device_kind("hntl_scan", zq, meta=True)
     if kind == "cpu":
         return hntl_scan_ref(zq, rq, coords, res, valid, scale, res_scale)
     p, q = zq.shape[0], zq.shape[1]

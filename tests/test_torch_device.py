@@ -39,6 +39,7 @@ from repro_torch.data import synthetic
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_select as port_fused
 from repro_torch.kernels import hntl_scan as port_scan
+from repro_torch.kernels import layout_scan
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels import scan_cases, select_cases
 
@@ -175,9 +176,21 @@ def test_scan_wrappers_refuse_other_devices():
         port_scan.hntl_scan_single(_OnOtherDevice(), *single[1:])
 
 
+def test_layout_scan_wrappers_refuse_other_devices():
+    a = scan_cases.aos(0, p=2, cap=32, k=4)
+    args = scan_cases.aos_args(a, torch.from_numpy)
+    with pytest.raises(ValueError, match="no kernel"):
+        layout_scan.aos_scan(_OnOtherDevice(), *args[1:])
+    c = scan_cases.chase(0, n=16, k=4, n_steps=8)
+    args = scan_cases.chase_args(c, torch.from_numpy)
+    with pytest.raises(ValueError, match="no kernel"):
+        layout_scan.pointer_chase_scan(_OnOtherDevice(), *args[1:])
+
+
 def test_build_recipe_targets_hopper():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert {"fused_select", "hntl_scan"} <= set(_build.source_names())
+    assert {"fused_select", "hntl_scan", "layout_scan"} <= set(
+        _build.source_names())
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
 
 
@@ -418,6 +431,68 @@ def test_scan_kernel_refuses_a_wrong_dtype(cuda_device):
     args = scan_cases.args(a, lambda v: torch.from_numpy(v).to(cuda_device))
     with pytest.raises(TypeError, match="coords"):
         port_scan.hntl_scan_single(*args)
+
+
+_LAYOUT = {"aos": (layout_scan.aos_scan, port_ref.aos_scan_ref,
+                   scan_cases.aos_args),
+           "chase": (layout_scan.pointer_chase_scan,
+                     port_ref.pointer_chase_scan_ref,
+                     scan_cases.chase_args)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(scan_cases.LAYOUT_CASES)),
+                         ids=[f"{form} {label}" for label, form, *_ in
+                              scan_cases.LAYOUT_CASES])
+def test_layout_scan_kernels_equal_plain_versions_on_card(cuda_device, case):
+    label, form, make, seed, kw = scan_cases.LAYOUT_CASES[case]
+    a = make(seed, **kw)
+    kern, plain, to_args = _LAYOUT[form]
+    args = to_args(a, lambda v: torch.from_numpy(v).to(cuda_device))
+    before = kern.launches
+    got = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want), label
+
+
+@pytest.mark.gpu
+def test_layout_scan_kernels_refuse_other_dtypes_on_card(cuda_device):
+    a = scan_cases.aos(1, p=2, cap=32, k=4)
+    a["coords_aos"] = a["coords_aos"].astype(np.int8)
+    args = scan_cases.aos_args(a, lambda v: torch.from_numpy(v).to(
+        cuda_device))
+    with pytest.raises(TypeError, match=r"coords_aos has dtype torch.int8, expected \(torch.int16, torch.int32\)"):
+        layout_scan.aos_scan(*args)
+    c = scan_cases.chase(1, n=16, k=4, n_steps=8)
+    c["coords_flat"] = c["coords_flat"].astype(np.int64)
+    args = scan_cases.chase_args(c, lambda v: torch.from_numpy(v).to(
+        cuda_device))
+    with pytest.raises(TypeError, match=r"coords_flat has dtype torch.int64, expected \(torch.int16, torch.int32\)"):
+        layout_scan.pointer_chase_scan(*args)
+
+
+@pytest.mark.gpu
+def test_core_layout_scans_launch_their_kernels_on_card(cuda_device):
+    from repro_torch.core import scan as core_scan
+
+    t2 = scan_cases.table2(n=4096, k=8)
+    on = lambda v: torch.from_numpy(v).to(cuda_device)   # noqa: E731
+    before = (layout_scan.aos_scan.launches,
+              layout_scan.pointer_chase_scan.launches)
+    aos = core_scan.aos_scan(*scan_cases.aos_args(t2["aos"], on))
+    chase = core_scan.pointer_chase_scan(*scan_cases.chase_args(
+        t2["chase"], on))
+    torch.cuda.synchronize()
+    assert (layout_scan.aos_scan.launches,
+            layout_scan.pointer_chase_scan.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    soa = port_scan.hntl_scan_single(*scan_cases.args(t2["soa"], on))
+    assert torch.equal(aos, soa)
+    want = port_ref.pointer_chase_scan_ref(*scan_cases.chase_args(
+        t2["chase"], on))
+    assert torch.equal(chase, want)
 
 
 @pytest.mark.gpu
