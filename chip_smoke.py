@@ -21,11 +21,13 @@ What it does, in order (any failure exits non-zero before the last line):
    slot enters the running top-W (width up to the kernel's limit, every
    slot live, every slot entering the pool), one hot grain probed by every
    pair, exact ties across probes, cap below width, the scalar-load path
-   (cap % 4 != 0) and killed pairs inside the grains' runs, and widths
-   above the shared-memory carry (``select_cases.WIDE_CASES``: the tree
-   merge up to P * cap, the cascade's stage-1 form), and per-probe lists
-   above it (``select_cases.LONG_LIST_CASES``: caps of 8,320 and 16,384,
-   built from each pair's chunk runs); then
+   (cap % 4 != 0) and killed pairs inside the grains' runs, lists one
+   below, at and one above the block-sort threshold
+   (``fused_select.block_sort_length()``), the wide paths
+   (``select_cases.WIDE_CASES``: the multi-way merge up to P * cap, the
+   cascade's stage-1 form) and per-probe lists longer than a block sort
+   (``select_cases.LONG_LIST_CASES``: caps of 4,097, 8,320 and 16,384,
+   built from each pair's sorted runs); then
    ``hntl_scan`` and ``hntl_scan_single`` against theirs (``torch.equal``)
    over the JAX package's kernel sweep, int32 extremes and wraparound,
    all-invalid panels, the int8 sketch panels, caps off 128, and the
@@ -350,24 +352,27 @@ _MANGLED_TYPES = {"IsE": "int16", "IaE": "int8", "IiE": "int32"}
 
 def kernel_label(line):
     """A readable name for a ptxas "Compiling entry function" line."""
-    for name in ("fused_scan_select_probe_kernel",
+    for name in ("fused_scan_select_block_probe_kernel",
+                 "fused_scan_select_probe_kernel",
+                 "fused_scan_select_multiway_merge_kernel",
+                 "fused_scan_select_corank_kernel",
                  "fused_scan_select_merge_kernel",
-                 "fused_scan_select_wide_merge_kernel",
                  "hntl_scan_single_kernel", "hntl_scan_kernel",
                  "aos_scan_kernel", "pointer_chase_scan_kernel"):
         if name not in line:
             continue
         tail = line.split(name, 1)[1]
-        if name == "fused_scan_select_wide_merge_kernel":
-            return name + (" (chunk runs)" if "ILb1E" in tail else "")
+        if name in ("fused_scan_select_multiway_merge_kernel",
+                    "fused_scan_select_corank_kernel"):
+            return name + (" (a pair's runs)" if "ILb1E" in tail else "")
         if "merge_kernel" in name:
             return name
-        if name == "fused_scan_select_probe_kernel":
-            # template flags of the kernel's <sketch, tenant, vec, runs>
+        if name.endswith("probe_kernel"):
+            # template flags of the kernel's <sketch, tenant, vec>
             flags = tail.split("ILb")[-1].split("EEEv")[0].split("ELb")
             return name + " " + ", ".join(
-                f"{k}={v}" for k, v in zip(("sketch", "tenant", "vec",
-                                            "runs"), flags))
+                f"{k}={v}" for k, v in zip(("sketch", "tenant", "vec"),
+                                           flags))
         coord = next((t for m, t in _MANGLED_TYPES.items()
                       if tail.startswith(m)), "?")
         return f"{name}<{coord}>"
@@ -408,6 +413,10 @@ KERNEL_CASES = {
                               s=8),
     "single_query": dict(q=1, p=16, g=64, k=32, cap=256, width=64, s=8),
     "k1_stage1": dict(q=32, p=8, g=64, k=1, cap=256, width=512, s=8),
+    # the cascade's stage 1 at the paper's probe shape and W=4,096: lists
+    # of L = cap = 1,664 block-sorted, merged by the multi-way merge
+    "stage1_w4096": dict(q=64, p=16, g=256, k=1, cap=1664, width=4096,
+                         s=8),
     "fully_pruned": dict(q=16, p=8, g=64, k=32, cap=256, width=64, s=8,
                          pruned=True),
     "wide_width": dict(q=8, p=16, g=64, k=32, cap=512, width=4000, s=8),
@@ -485,8 +494,26 @@ def kernel_phase(torch, dev):
         log(f"  kernel == plain: {label} (Q={c['q']} P={c['p']} "
             f"G={a['coords'].shape[0]} k={c['k']} cap={c['cap']} "
             f"s={c.get('s', 0)} width={width}) ok")
-    # above the shared-memory carry: the tree merge in global scratch
+    # lists one below, at and one above the block-sort threshold in the
+    # stage-1 form (L = cap, width = P * cap: the warp's lists or the
+    # block-sorted ones, both in the multi-way merge); WIDE_CASES holds
+    # them as the fused plane gives them (width = L)
+    # (the card's threshold; a CPU rehearsal holds the plain version to
+    # itself, so any length does there)
+    bsl = fsel.block_sort_length() if dev.type == "cuda" else 512
+    for i, L in enumerate((bsl - 1, bsl, bsl + 1)):
+        label = f"L=cap={L}, stage-1 form"
+        a = select_cases.stage1_inputs(50 + i, q=64, p=8, g=64, cap=L, s=8,
+                                       ragged=True)
+        args, kw = select_cases.split(
+            a, lambda v: torch.from_numpy(v).to(dev))
+        errs.append(hold(torch, fsel, args, kw, 8 * L, label))
+        log(f"  kernel == plain: {label} (Q=64 P=8 G=64 k=1 cap={L} s=8 "
+            f"width={8 * L}, block-sort threshold {bsl}: the "
+            f"{'block-sort' if L >= bsl else 'warp'} probe kernel) ok")
+    # the wide paths: the multi-way merge, up to P * cap
     for label, (width, make) in select_cases.WIDE_CASES.items():
+        width = select_cases.resolve_width(width, bsl)
         a = make()
         args, kw = select_cases.split(
             a, lambda v: torch.from_numpy(v).to(dev))
@@ -495,8 +522,9 @@ def kernel_phase(torch, dev):
         g_n, _, cap = a["coords"].shape
         log(f"  kernel == plain: {label} (Q={q_n} P={p_n} G={g_n} k={k} "
             f"cap={cap} s={a['sq'].shape[2] if 'sq' in a else 0} "
-            f"width={width}, the wide merge) ok")
-    # per-probe lists above it: each pair's sorted chunk runs, tree-merged
+            f"width={width}) ok")
+    # per-probe lists longer than a block sort: each pair's sorted runs,
+    # merged per pair
     for label, (width, make) in select_cases.LONG_LIST_CASES.items():
         a = make()
         args, kw = select_cases.split(
@@ -507,29 +535,37 @@ def kernel_phase(torch, dev):
         log(f"  kernel == plain: {label} (Q={q_n} P={p_n} G={g_n} k={k} "
             f"cap={cap} s={a['sq'].shape[2] if 'sq' in a else 0} "
             f"width={width}{', ragged n_active' if 'n_active' in a else ''}"
-            f", per-probe lists of {min(width, cap)} keys from chunk runs) "
-            "ok")
+            f", per-probe lists of {min(width, cap)} keys from sorted "
+            "runs) ok")
     log("kernels: fused_scan_select (held against fused_scan_select_ref, "
-        f"torch.equal on dists and rows, {len(errs)} cases, "
+        f"torch.equal on dists and rows, {len(errs)} cases, 6 of them at "
+        f"the block-sort threshold of {bsl} keys (3 in WIDE_CASES), "
         f"{len(select_cases.WIDE_CASES) + len(select_cases.LONG_LIST_CASES)}"
-        f" of them above the shared-memory carry of {fsel.SMEM_WIDTH} keys, "
-        f"{len(select_cases.LONG_LIST_CASES)} with per-probe lists above "
-        "it)")
+        f" on the wide paths, {len(select_cases.LONG_LIST_CASES)} with "
+        "per-probe lists longer than a block sort)")
     return max(errs)
 
 
 #: One small launch of each kernel path: the probe kernel and the shared
-#: merge (vector and scalar loads, ragged probes), the wide merge, the
-#: chunk runs with their tree merge, both scan kernels and the two Table 2
-#: layout kernels.
+#: merge (vector and scalar loads, ragged probes), the warp's lists in the
+#: multi-way merge, the block-sort probe kernel with the multi-way merge
+#: (vector and scalar loads), its sorted runs merged per pair, both scan
+#: kernels and the two Table 2 layout kernels.
 RACE_CASES = {
     "probe kernel + shared merge": (64, dict(q=4, p=4, g=6, k=8, cap=256,
                                              s=4, ragged=True)),
     "scalar loads + shared merge": (64, dict(q=2, p=3, g=4, k=4, cap=130,
                                              tenants=2)),
-    "wide merge": (9000, dict(q=2, p=3, g=4, k=4, cap=4000)),
-    "chunk runs + tree merges": (8400, dict(q=2, p=2, g=3, k=2, cap=8320,
-                                            s=2, ragged=True)),
+    "probe kernel + multi-way merge": (9000, dict(q=2, p=30, g=4, k=4,
+                                                  cap=400)),
+    "block-sort probe + multi-way merge": (4000, dict(q=2, p=3, g=4, k=4,
+                                                      cap=2048, s=2,
+                                                      ragged=True)),
+    "block-sort scalar loads + multi-way merge": (1500, dict(
+        q=2, p=3, g=4, k=4, cap=1499, tenants=2)),
+    "sorted runs + multi-way merges": (8400, dict(q=2, p=2, g=3, k=2,
+                                                  cap=8320, s=2,
+                                                  ragged=True)),
 }
 
 
@@ -1073,22 +1109,33 @@ def device_ms(torch, fn, kernels, reps=20):
 
 #: The kernels one ``fused_scan_select`` call launches, and what each part
 #: of its device time is called in the log ("other": the schedule's
-#: torch.where and torch.sort).  Above the shared-memory carry the merge
-#: is the wide merge's ceil(log2 P) launches (``select_kernels``).
+#: torch.where and torch.sort).  A list of ``block_sort_length()`` keys or
+#: more takes the block-sort probe kernel and the multi-way merge (its
+#: co-ranks, then its tiles; twice where a pair's list comes from sorted
+#: runs), as does any width above ``SMEM_WIDTH`` (``select_kernels``).
 SELECT_KERNELS = ("fused_scan_select_probe_kernel",
                   "fused_scan_select_merge_kernel")
-WIDE_SELECT_KERNELS = ("fused_scan_select_probe_kernel",
-                       "fused_scan_select_wide_merge_kernel")
+WIDE_SELECT_KERNELS = ("fused_scan_select_block_probe_kernel",
+                       "fused_scan_select_corank_kernel",
+                       "fused_scan_select_multiway_merge_kernel")
 SELECT_PARTS = {"fused_scan_select_probe_kernel": "probe kernel",
+                "fused_scan_select_block_probe_kernel":
+                "block-sort probe kernel",
                 "fused_scan_select_merge_kernel": "merge kernel",
-                "fused_scan_select_wide_merge_kernel": "wide merge kernels",
+                "fused_scan_select_corank_kernel": "co-rank kernels",
+                "fused_scan_select_multiway_merge_kernel":
+                "multi-way merge kernels",
                 "other": "schedule"}
 
 
-def select_kernels(width):
+def select_kernels(width, cap):
     from repro_torch.kernels import fused_select as fsel
 
-    return WIDE_SELECT_KERNELS if width > fsel.SMEM_WIDTH else SELECT_KERNELS
+    block = min(width, cap) >= fsel.block_sort_length()
+    if not block and width <= fsel.SMEM_WIDTH:
+        return SELECT_KERNELS
+    return WIDE_SELECT_KERNELS if block else (
+        SELECT_KERNELS[0], *WIDE_SELECT_KERNELS[1:])
 
 
 def time_select(torch, index, q, cfg, label, grain_mask=None,
@@ -1648,17 +1695,60 @@ def tie_aware_equal(torch, got, want, wide, label, *, pool=None):
     return int((~same).sum())
 
 
+def merge_keys(torch, args, kw, width):
+    """The keys a call's multi-way merge reads, [Q, P * L] int64: each
+    live pair's top L = min(width, cap) slots (order bits of the distance
+    << 32 | p * cap + c + 1, a dropped slot as the key of BIG), the sign
+    bit flipped so that int64 order is the keys' unsigned order."""
+    from repro_torch.core.scan import blocksoa_scan, probe_alive
+    from repro_torch.core.types import BIG
+
+    gids, zq, rq, keep, coords, res, mask, rows, scale, res_scale = args
+    gl = gids.long()
+    sk = kw.get("sketch")
+    extra = None
+    if kw.get("tenant_mask") is not None:
+        extra = kw["tenant_mask"][kw["tenant_ix"].long()[:, None], gl]
+    d = blocksoa_scan(zq, rq, coords[gl], res[gl], mask[gl], scale[gl],
+                      res_scale[gl], kw.get("sq"),
+                      None if sk is None else sk[gl],
+                      None if sk is None else kw["sketch_scale"][gl],
+                      extra_mask=extra)
+    d = torch.where(probe_alive(keep, kw.get("n_active"))[..., None], d,
+                    BIG)
+    q_n, p_n, cap = d.shape
+    u = d.view(torch.int32).long() & 0xffffffff
+    bits = torch.where(u >= 2 ** 31, u ^ 0xffffffff, u | 2 ** 31)
+    visit = torch.arange(p_n * cap, device=d.device).view(p_n, cap) + 1
+    keys = ((bits - 2 ** 31) << 32) | visit
+    L = min(width, cap)
+    if L < cap:
+        keys = torch.sort(keys, dim=-1).values[..., :L]
+    return keys.reshape(q_n, p_n * L).contiguous()
+
+
 def time_select_call(torch, fsel, args, kw, width, label,
                      what="  stage 1, "):
     """One select call captured from a search (a cascade's stage 1, a
     coalesced tenant window's batch): held to its plain version, then
-    CUPTI, CUDA events, the plain version's time and the bound."""
+    CUPTI, CUDA events, the plain version's time and the bound.  Where
+    the call takes the multi-way merge, the time of one
+    ``torch.sort(keys, dim=-1, stable=True)`` over the [Q, P * L] int64
+    keys it merges (``merge_keys``) stands beside the merge's parts."""
     err = hold(torch, fsel, args, kw, width, label)
     run = lambda: fsel.fused_scan_select(*args, width=width, **kw)  # noqa
     for _ in range(3):
         run()
     events_ms = time_events(torch, run, 10)
-    ms, parts, traces = device_ms(torch, run, select_kernels(width), reps=10)
+    kernels = select_kernels(width, args[4].shape[2])
+    ms, parts, traces = device_ms(torch, run, kernels, reps=10)
+    sort_ms = None
+    if kernels != SELECT_KERNELS:
+        keys = merge_keys(torch, args, kw, width)
+        srt = lambda: torch.sort(keys, dim=-1, stable=True)  # noqa: E731
+        srt()
+        sort_ms, _, _ = device_ms(torch, srt, (), reps=10)
+        del keys
     fsel.fused_scan_select_ref(*args, width=width, **kw)
     plain_ms = time_events(torch, lambda: fsel.fused_scan_select_ref(
         *args, width=width, **kw), 3)
@@ -1671,10 +1761,14 @@ def time_select_call(torch, fsel, args, kw, width, label,
                                     for k, v in parts.items())
         + f"; CUDA events {events_ms:.4f} ms), plain version "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({nbytes} bytes, {ops} int ops); CUPTI traces {traces}")
+        f"({nbytes} bytes, {ops} int ops); CUPTI traces {traces}"
+        + ("" if sort_ms is None else
+           f"; yardstick of the merge: torch.sort(stable) over the "
+           f"[{args[1].shape[0]}, {args[1].shape[1] * min(width, args[4].shape[2])}]"
+           f" int64 keys it merges {sort_ms:.4f} ms"))
     return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, traces=traces,
-                max_abs_err=err,
+                max_abs_err=err, torch_sort_ms=sort_ms,
                 parts={SELECT_PARTS[k]: v for k, v in parts.items()}, at=at)
 
 
@@ -4509,7 +4603,7 @@ def sharded_exhaustive(torch, np, dev, *, segments=4, rows=4096, nq=64):
     nprobe = every grain and a pool of every row: the ids at 1, 2, 4 and 8
     shards equal the fused plane's (ties counted), Mode A and B, each
     shard's "fused" ``torch.equal`` its "fused_ref" (the 1-shard pool is
-    16,384 wide: the select's tree merge)."""
+    16,384 wide: the select's multi-way merge)."""
     from repro_torch.core import HNTLConfig, VectorStore
     from repro_torch.data import synthetic
     from repro_torch.kernels import fused_select as fsel
@@ -5433,9 +5527,14 @@ def recurrent_families(torch, np, dev, *, rg_tokens, rwkv_tokens, steps,
         prompts = [rng.integers(0, cfg.vocab, size=16) for _ in range(4)]
         r["isolated"] = slot_isolation(torch, arch, ServeEngine, model,
                                        params, prompts)
-        # step time and state bytes at two context lengths
+        # step time and state bytes at two context lengths. The step is
+        # host-bound (busy share 0.07-0.2) and the host's clock drifts by
+        # tens of ms between seconds on a shared host, so the two
+        # lengths' steps are timed in turn, one of each per round, and
+        # both medians see the same host.
         tok = torch.ones(1, dtype=torch.long, device=dev)
         short_s = max(cfg.kv_cap if smoke else 256, long_s // 8)
+        steps_at = {}
         for s in (short_s, long_s):
             ids = torch.from_numpy(rng.integers(0, cfg.vocab,
                                                 size=(1, s))).to(dev)
@@ -5443,19 +5542,25 @@ def recurrent_families(torch, np, dev, *, rg_tokens, rwkv_tokens, steps,
             t0 = time.perf_counter()
             _, caches = model.prefill(params, ids, max_len=s + 64)
             sync(torch, dev)
-            prefill_s = time.perf_counter() - t0
-
-            def step():
-                model.decode_step(params, tok, caches,
-                                  torch.full((1,), s, device=dev))
-            step()
-            ms, _ = timed_steps(torch, dev, step, steps)
-            r[s] = dict(prefill_s=prefill_s, step_ms=ms,
+            r[s] = dict(prefill_s=time.perf_counter() - t0,
                         state_bytes=state_bytes(caches))
+
+            def step(caches=caches, pos=torch.full((1,), s, device=dev)):
+                model.decode_step(params, tok, caches, pos)
+            step()
+            steps_at[s] = step
+        runs = {s: [] for s in steps_at}
+        for _ in range(steps):
+            for s, step in steps_at.items():
+                runs[s] += timed_steps(torch, dev, step, 1)[1]
+        for s in steps_at:
+            ms = r[s]["step_ms"] = sorted(runs[s])[steps // 2]
             log(f"families: {arch} bf16, a {s}-token request: prefill "
-                f"{prefill_s:.3f} s ({s / prefill_s:.1f} tokens/s), decode "
-                f"step median {ms:.3f} ms of {steps}, state "
-                f"{r[s]['state_bytes']} bytes")
+                f"{r[s]['prefill_s']:.3f} s "
+                f"({s / r[s]['prefill_s']:.1f} tokens/s), decode step "
+                f"median {ms:.3f} ms of {steps} (timed in turn with the "
+                f"other length), state {r[s]['state_bytes']} bytes")
+        step = steps_at[long_s]
         short, long_ = r[short_s], r[long_s]
         check(short["state_bytes"] == long_["state_bytes"],
               f"families: {arch}: the state grew with context "
@@ -5467,7 +5572,7 @@ def recurrent_families(torch, np, dev, *, rg_tokens, rwkv_tokens, steps,
             r["profile"] = profile(
                 torch, f"one decode step ({arch}, {cfg.n_layers} layers, "
                 f"{long_s}-token context)", step, long_["step_ms"] / 1e3)
-        del model, params, caches
+        del model, params, caches, steps_at, step
         free_card(torch, dev)
     return out
 
@@ -7133,6 +7238,10 @@ def main(argv=None) -> int:
     select_entry["at_wide_lists"] = {
         k: {f: v for f, v in t.items() if f != "max_abs_err"}
         for k, t in lp["timing"].items()}
+    from repro_torch.kernels import fused_select as fsel
+    select_entry["device_kernels"] = {
+        k: v for k, v in SELECT_PARTS.items() if k != "other"}
+    select_entry["block_sort_length"] = fsel.block_sort_length()
     select_entry["max_abs_err"] = max(
         select_entry["max_abs_err"], tp["select"]["max_abs_err"],
         tn["select"]["max_abs_err"], shp["select"]["max_abs_err"],

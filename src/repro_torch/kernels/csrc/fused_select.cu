@@ -27,6 +27,9 @@
 // distance << 32 | (p * cap + c + 1).  Keys are unique within a query and
 // sort exactly as (dist, p, c); the carry's entries are all
 // big_key = bits(BIG) << 32 | 0, which sorts before every slot at BIG.
+// Within one pair the keys are made in ascending slot order, so a STABLE
+// sort of a pair's keys on their upper 32 bits alone gives the exact key
+// order (block_sort_hi below).
 //
 // What bounds it on this card: bytes.  Each probed slot costs 2k + s
 // bytes of panel plus 4 of residual and 1 of mask, against about 3(k + s)
@@ -35,80 +38,99 @@
 // touch fewer distinct grains than pairs (at the main path's shape 4,096
 // pairs visit ~944 grains), so the bytes the card must move are the
 // distinct panels; the rest can come from the 50 MB L2 if the pairs that
-// share a grain run together.
+// share a grain run together.  On the wide paths (a pair's list of L =
+// min(width, cap) >= kBlockSortL keys, or width > kSmemWidth) the outputs
+// and the pairs' sorted lists dominate: every design writes Q * width
+// outputs, and one that sorts per pair writes and reads Q * P * L keys
+// once more.
 //
-// What the design does about it: two kernels and a schedule.
+// What the design does about it: a schedule, a per-pair kernel of two
+// forms, and a merge of two forms.  The shape picks each; no switch.
 //  * Schedule (the wrapper, one stable torch.sort on the card, no host
 //    sync): the Q*P pairs ordered by grain id, killed pairs (keep == 0 or
 //    p >= n_active[q]) last.  The TPU kernel walks pairs in (q, p) order;
 //    the order of visits is a schedule, not part of what is computed.
-//  * fused_scan_select_probe_kernel: one CTA of one warp per pair, in the
-//    schedule's order (blockIdx.x -> order[blockIdx.x]), so the CTAs that
-//    read one panel run side by side and all but the first read it from
-//    L2.  A killed pair's CTA exits at once.  Each lane owns 4
-//    consecutive slots of a 128-slot chunk: one 8-byte load per
-//    coordinate row (the warp reads 256 B), 4 bytes of sketch, 16 of
-//    residual, 4 of mask; a scalar path (template kVec = false) takes caps
-//    that are not a multiple of 4 and misaligned panels.  The warp keeps
-//    the pair's own top-L, L = min(width, cap), as a sorted carry in
-//    shared memory.  Keys at or above the carry's L-th are dropped; a
-//    chunk with none left costs one warp scan.  Up to 32 survivors are
-//    compacted one per lane and sorted in registers (15 shuffle stages),
-//    more are sorted as the chunk's 128 (4 per lane), and the run is
-//    merged into the carry by merge path (a binary search per output).
-//    No block barrier anywhere: an SM holds 32 of these warps, each at
-//    its own phase, so one warp's loads overlap another's sort (a form
-//    with 256-thread CTAs sorting 1024-slot tiles block-wide took 1.7x
-//    as long on an H100, PERF.md).  The L sorted keys go to a scratch
-//    tensor [Q*P, L].
-//  * fused_scan_select_merge_kernel (width <= kSmemWidth): one CTA per
-//    query folds the sorted lists of its live probes into a carry of
-//    `width` big_keys, probe by probe in visit order, each fold one merge
-//    path of two sorted runs (lists staged in shared memory, as many
-//    probes at once as fit), then maps the first `width` keys to
-//    (dist, row).  A query's top-width holds at most min(width, cap) slots
-//    of one probe, and keys are unique, so these are the first `width` of
-//    the global sort: bit for bit the plain version.
-//  * fused_scan_select_wide_merge_kernel (width > kSmemWidth, the
-//    cascade's stage 1 at up to P * cap): the carry no longer fits shared
-//    memory, so the probes' lists are merged pairwise as a tree in global
-//    scratch, ceil(log2 P) launches.  Round r merges runs of 2^(r-1)
-//    probes two by two and cuts each output run to its first
-//    min(2^r * L, width) keys: the first `width` keys of a merge depend
-//    only on the first `width` keys of each run, so the cut loses nothing.
-//    A dead probe's list is an empty run (its CTA never wrote it), and
-//    every run is padded with big_keys past its live keys, which is what
-//    the carry's initial big_keys give.  Each CTA makes 1024 outputs of
-//    one run: two merge-path searches bound the slices of the two input
-//    runs that feed them, the slices are staged in shared memory, and
-//    each output is one binary search there.  The last round writes
-//    (dist, row) straight to the outputs.  A round reads and writes each
-//    key once: ceil(log2 P) passes over Q * P * L keys, where folding the
-//    probes one by one into a width-key carry would re-read it P times.
-//  * Chunk runs (L > kSmemWidth: a grain of more than 8,192 slots with
-//    width above it, the cascade's stage 1 at b1 = P * cap on such an
-//    index): a pair's top-L no longer fits shared memory as a carry.
-//    The probe kernel (template kRuns) then prices and sorts each
-//    128-slot chunk as before and writes it whole to global scratch as
-//    one sorted run, dropped slots as big_key, so a pair owns
-//    ceil(cap / 128) runs of 128 keys.  The same tree merge
-//    (fused_scan_select_wide_merge_kernel<kRuns = true>, one group per
-//    live pair) merges them pairwise and cuts each output run to L keys;
-//    its last round writes the pair's L keys to `lists`, the same keys
-//    the carry would hold: the live ones ascending, then big_keys.  From
-//    there the per-query merge runs unchanged.  The shape picks the path
-//    (L <= kSmemWidth keeps the carry); there is no switch.
+//    Both per-pair kernels take pairs in this order (blockIdx.x ->
+//    order[blockIdx.x]), so the CTAs that read one panel run side by side
+//    and all but the first read it from L2.  A killed pair's CTA exits.
+//  * fused_scan_select_probe_kernel (L < kBlockSortL, the main path's
+//    W=64): one CTA of one warp per pair.  Each lane owns 4 consecutive
+//    slots of a 128-slot chunk: one 8-byte load per coordinate row (the
+//    warp reads 256 B), 4 bytes of sketch, 16 of residual, 4 of mask; a
+//    scalar path (template kVec = false) takes caps that are not a
+//    multiple of 4 and misaligned panels.  The warp keeps the pair's own
+//    top-L as a sorted carry in shared memory.  Keys at or above the
+//    carry's L-th are dropped; a chunk with none left costs one warp
+//    scan.  Up to 32 survivors are compacted one per lane and sorted in
+//    registers (15 shuffle stages), more are sorted as the chunk's 128 (4
+//    per lane), and the run is merged into the carry by merge path (a
+//    binary search per output).  No block barrier anywhere: an SM holds
+//    32 of these warps, each at its own phase, so one warp's loads overlap
+//    another's sort (a form with 256-thread CTAs sorting 1024-slot tiles
+//    block-wide took 1.7x as long on an H100 at W=64, PERF.md).
+//  * fused_scan_select_block_probe_kernel (L >= kBlockSortL: the
+//    cascade's stage 1 at L = cap, and lists above 8,192 keys): at such L
+//    the carry drops nothing, and one warp merging every chunk into it
+//    was the slow part of the wide paths.  One CTA of kThreads per pair
+//    prices up to kSortKeys slots at once (the same loads and arithmetic,
+//    4 slots a thread), compacts the live keys in slot order (a block
+//    scan; dropped slots would all sort last as big_key), and sorts them
+//    block-wide in shared memory: a stable LSD radix sort on the upper 32
+//    bits, 8 bits a pass (digits counted with shared atomics, placed by
+//    warps in order with ballots), a pass skipped where every key shares
+//    its digit (block_sort_hi).  A cap of at most kSortKeys gives the
+//    pair's list
+//    at once (its first L keys go to `lists`); a larger cap gives
+//    ceil(cap / kSortKeys) sorted runs, each cut to min(kSortKeys, L) keys
+//    and padded with big_keys, in global scratch, which the multi-way
+//    merge then folds into the pair's list (kRuns).
+//  * fused_scan_select_merge_kernel (L < kBlockSortL and width <=
+//    kSmemWidth): one CTA per query folds the sorted lists of its live
+//    probes into a carry of `width` big_keys, probe by probe in visit
+//    order, each fold one merge path of two sorted runs (lists staged in
+//    shared memory, as many probes at once as fit), then maps the first
+//    `width` keys to (dist, row).  A query's top-width holds at most
+//    min(width, cap) slots of one probe, and keys are unique, so these are
+//    the first `width` of the global sort: bit for bit the plain version.
+//  * The multi-way merge (every other shape): n sorted inputs per group
+//    (a query's P lists, cut to `width`; or, kRuns, a live pair's runs,
+//    cut to L) in one pass.  Only an input's live prefix (its keys below
+//    big_key) counts; a dead probe is an empty input, and outputs past
+//    the group's live keys are big_keys, as the carry's initial big_keys
+//    give.  The first `cut` keys of a merge depend only on the first
+//    `cut` keys of each input, so the cuts lose nothing.  Outputs come in
+//    tiles of kSortKeys.
+//    - fused_scan_select_corank_kernel: one warp per tile boundary b
+//      finds how many keys of each input come before output b.  Keys are
+//      unique, so a binary search on the upper 32 bits (the distance)
+//      finds the distance D of output b, counting in each input (one
+//      lane each) the keys below a candidate; outputs of distance D
+//      follow input order (probe order, or slot order for runs), so the
+//      prefix over inputs of their counts at D settles each co-rank.
+//    - fused_scan_select_multiway_merge_kernel: one CTA of kMergeThreads
+//      per tile stages the tile's slice of every input (between two
+//      co-ranks) in shared memory, merges the sorted slices two by two in
+//      ceil(log2 n) rounds (merge_runs: merge path to each thread's first
+//      output, then a sequential merge of 8; a spare slot every 8 keys
+//      keeps the lanes' writes on distinct banks), and writes its outputs:
+//      (dist, row) of a query, or a pair's list.
+//    A pass over the Q * P * L keys: the block-sort kernel writes each
+//    pair's list (or runs) once, the merge reads it once; the co-ranks
+//    read O(P * log L) keys a boundary.  Stage 1's query merge is 1 write
+//    + 1 read of Q * P * L keys (the tree merge it replaces: ceil(log2 P)
+//    rounds of both); lists above kSortKeys add one write + read of the
+//    runs (it replaced 8 tree rounds over 128-key chunk runs).
 //
 // Limits: 1 <= width, and width <= kSmemWidth or width <= P * cap;
-// P * cap < 2^32 - 1; Q * P < 2^31 (and Q * P * ceil(cap / 128) < 2^31
-// on the chunk-run path).  Shared memory: probe kernel 2 L + 128 keys of
-// 8 bytes (129 KB at L = 8192; only the query's coordinates with chunk
-// runs); merge kernel 2 width keys plus a staging area, within
-// kSmemBudget; wide merge kernel kTile keys.  Global scratch:
-// fused_scan_select_scratch_keys() keys, allocated by the caller: the
-// wide merge's two halves and, with chunk runs, about twice
-// Q * P * round_up(cap, 128) keys (the runs and one round's output; the
-// two merges run one after the other and share it).
+// P * cap < 2^32 - 1; Q * P < 2^31.  Shared memory: the warp probe kernel
+// 2 L + 128 keys of 8 bytes (129 KB at L = 8192); the block-sort probe
+// kernel 2 min(cap, kSortKeys) keys and the radix counters; the multi-way
+// merge two padded buffers of kSortKeys keys (74 KB) and 2 ints an input;
+// the shared merge 2 width keys plus a staging area, within kSmemBudget;
+// the co-rank kernel an int per input per warp.  Global
+// scratch: fused_scan_select_scratch_keys() keys, allocated by the
+// caller: the runs (Q * P * ceil(cap / kSortKeys) * min(kSortKeys, L)
+// keys, where cap > kSortKeys) and the co-ranks of both merges.
 
 #include <cuda_runtime.h>
 
@@ -119,13 +141,31 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 256;                       // merge kernel
+constexpr int kThreads = 256;            // the block-wide kernels' CTA
+constexpr int kWarps = kThreads / 32;
 constexpr int kSlotsPerThread = 4;
 constexpr int kChunk = 32 * kSlotsPerThread;        // slots a warp prices
 constexpr int kSmemWidth = 8192;                    // widest shared carry
-constexpr int kTile = 4 * kThreads;                 // wide merge outputs/CTA
+// A pair's list of at least this many keys is built by the block-sort
+// probe kernel (and merged by the multi-way merge), a shorter one by the
+// warp's carry.  Chosen on an H100 by chip_select_threshold.py, which
+// builds this file with the threshold overridden at each end and times
+// both forms at L = 256..2048 (PERF.md).
+#ifndef FUSED_SELECT_BLOCK_SORT_L
+#define FUSED_SELECT_BLOCK_SORT_L 256
+#endif
+constexpr int kBlockSortL = FUSED_SELECT_BLOCK_SORT_L;
+constexpr int kSortKeys = 4096;          // keys a CTA sorts: a run, a tile
+constexpr int kRadix = 256;              // 8-bit digits
+constexpr int kMergePer = 8;             // outputs a thread merges a round
+constexpr int kMergeThreads = 512;       // the multi-way merge's CTA
 constexpr size_t kSmemBudget = 200 * 1024;
 constexpr u64 kEmpty = ~0ull;
+constexpr unsigned kAll = 0xffffffffu;
+
+static_assert(kThreads == kRadix, "block_sort_hi: a thread per digit");
+static_assert(kSortKeys % kSlotsPerThread == 0,
+              "a run starts on a 4-slot load");
 
 struct Params {
   const int32_t* gids;          // [Q, P]
@@ -146,10 +186,10 @@ struct Params {
   const int32_t* n_active;      // [Q] or null (= all P probes)
   const int64_t* order;         // [Q * P] pairs q * P + p, grain order
   u64* lists;                   // [Q * P, L] per-pair sorted top-L keys
-  u64* runs;                    // [Q * P, n_chunks * kChunk] chunk runs
+  u64* runs;                    // [Q * P, n_runs, run_stride] sorted runs
   float* out_d;                 // [Q, width]
   int32_t* out_r;               // [Q, width]
-  int P, k, s, G, cap, width, L, stage_probes, n_chunks;
+  int P, k, s, G, cap, width, L, stage_probes, n_runs, run_stride;
   u64 big_key;
   float big;
 };
@@ -191,16 +231,28 @@ __device__ __forceinline__ u64 merge_at(const u64* a, int la, const u64* b,
   return b[j];
 }
 
+// The number of keys of sorted a[0, n) below x.
+__device__ __forceinline__ int lower_bound(const u64* a, int n, u64 x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
 // Output i of query q from its key: (dist, row), row -1 at dist >= BIG / 2.
-__device__ __forceinline__ void emit(const Params& p, int q, int i, u64 key) {
+__device__ __forceinline__ void emit(const Params& p, int q, int64_t i,
+                                     u64 key) {
   const float d = float_of_order(static_cast<uint32_t>(key >> 32));
   int32_t row = -1;
   if (d < p.big * 0.5f) {
     const uint32_t v = static_cast<uint32_t>(key) - 1u;
     const int pi = static_cast<int>(v / static_cast<uint32_t>(p.cap));
     const int c = static_cast<int>(v % static_cast<uint32_t>(p.cap));
-    const int g = p.gids[static_cast<int64_t>(q) * p.P + pi];
-    row = p.rows[static_cast<int64_t>(g) * p.cap + c];
+    const int g = __ldg(p.gids + static_cast<int64_t>(q) * p.P + pi);
+    row = __ldg(p.rows + static_cast<int64_t>(g) * p.cap + c);
   }
   const int64_t o = static_cast<int64_t>(q) * p.width + i;
   p.out_d[o] = d;
@@ -221,7 +273,7 @@ __device__ __forceinline__ void warp_sort(u64 (&v)[kPer]) {
         const int e = lane * kPer + r;
         const bool up = (e & size) == 0;
         if (stride >= kPer) {
-          const u64 o = __shfl_xor_sync(0xffffffffu, v[r], stride / kPer);
+          const u64 o = __shfl_xor_sync(kAll, v[r], stride / kPer);
           const bool lower = (e & stride) == 0;
           const u64 lo = v[r] < o ? v[r] : o;
           const u64 hi = v[r] < o ? o : v[r];
@@ -269,19 +321,112 @@ __device__ __forceinline__ void load4(const T* row, int c0, int cap,
   }
 }
 
+// What pricing the slots of one (query, probe) pair reads besides the
+// query's coordinates.
+struct Pair {
+  const int16_t* coords;        // the grain's [k, cap] panel
+  const int8_t* sketch;         // [s, cap] or null
+  const uint8_t* tenant;        // the query's tenant row [cap] or null
+  const int32_t* res;           // [cap]
+  const uint8_t* mask;          // [cap]
+  float sc2, rs, rqv, sk2;
+  uint32_t visit0;              // p * cap + 1
+};
+
+template <bool kSketch, bool kTenant>
+__device__ __forceinline__ Pair pair_of(const Params& p, int64_t pair, int q,
+                                        int pi) {
+  Pair x;
+  const int g = p.gids[pair];
+  const float sc = p.scale[g];
+  x.sc2 = __fmul_rn(sc, sc);
+  x.rs = p.res_scale[g];
+  x.rqv = p.rq[pair];
+  x.sk2 = 0.0f;
+  if (kSketch) {
+    const float ss = p.sketch_scale[g];
+    x.sk2 = __fmul_rn(ss, ss);
+  }
+  const int64_t gc = static_cast<int64_t>(g) * p.cap;
+  x.coords = p.coords + gc * p.k;
+  x.sketch = kSketch ? p.sketch + gc * p.s : nullptr;
+  x.tenant = nullptr;
+  if (kTenant)
+    x.tenant = p.tenant_mask +
+               (static_cast<int64_t>(p.tenant_ix[q]) * p.G + g) * p.cap;
+  x.res = p.res + gc;
+  x.mask = p.mask + gc;
+  x.visit0 = static_cast<uint32_t>(pi) * p.cap + 1u;
+  return x;
+}
+
+// The keys of slots c0 .. c0 + 3 (c0 < cap) of a pair: kEmpty for a
+// dropped slot or one past cap.  zq_s / sq_s: the pair's query
+// coordinates.
+template <bool kSketch, bool kTenant, bool kVec>
+__device__ __forceinline__ void price4(const Params& p, const Pair& x,
+                                       const int* zq_s, const int* sq_s,
+                                       int c0, u64 (&v)[kSlotsPerThread]) {
+  uint32_t acc[kSlotsPerThread] = {0u, 0u, 0u, 0u};   // int32, wraps
+#pragma unroll 8
+  for (int j = 0; j < p.k; ++j) {
+    int z[kSlotsPerThread];
+    load4<kVec>(x.coords + static_cast<int64_t>(j) * p.cap, c0, p.cap, z);
+    const int zj = zq_s[j];
+#pragma unroll
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      const uint32_t df =
+          static_cast<uint32_t>(zj) - static_cast<uint32_t>(z[r]);
+      acc[r] += df * df;
+    }
+  }
+  uint32_t sacc[kSlotsPerThread] = {0u, 0u, 0u, 0u};
+  if (kSketch) {
+#pragma unroll 8
+    for (int j = 0; j < p.s; ++j) {
+      int z[kSlotsPerThread];
+      load4<kVec>(x.sketch + static_cast<int64_t>(j) * p.cap, c0, p.cap, z);
+      const int zj = sq_s[j];
+#pragma unroll
+      for (int r = 0; r < kSlotsPerThread; ++r) {
+        const uint32_t df =
+            static_cast<uint32_t>(zj) - static_cast<uint32_t>(z[r]);
+        sacc[r] += df * df;
+      }
+    }
+  }
+  int rv[kSlotsPerThread], mv[kSlotsPerThread], tv[kSlotsPerThread];
+  load4<kVec>(x.res, c0, p.cap, rv);
+  load4<kVec>(x.mask, c0, p.cap, mv);
+  if (kTenant) load4<kVec>(x.tenant, c0, p.cap, tv);
+#pragma unroll
+  for (int r = 0; r < kSlotsPerThread; ++r) {
+    float d = __fmul_rn(static_cast<float>(static_cast<int32_t>(acc[r])),
+                        x.sc2);
+    d = __fadd_rn(__fadd_rn(d, __fmul_rn(static_cast<float>(rv[r]), x.rs)),
+                  x.rqv);
+    if (kSketch)
+      d = __fadd_rn(d, __fmul_rn(static_cast<float>(
+                                     static_cast<int32_t>(sacc[r])), x.sk2));
+    bool live = c0 + r < p.cap && mv[r] != 0;
+    if (kTenant) live = live && tv[r] != 0;
+    const u64 key = (static_cast<u64>(order_bits(d)) << 32) |
+                    (x.visit0 + static_cast<uint32_t>(c0 + r));
+    v[r] = live ? key : kEmpty;
+  }
+}
+
 // 32 resident CTAs of one warp fill an SM's 64K registers at 64 each.
-// kRuns: no carry; each chunk's 128 keys go out sorted as one run.
-template <bool kSketch, bool kTenant, bool kVec, bool kRuns>
+template <bool kSketch, bool kTenant, bool kVec>
 __global__ void __launch_bounds__(32, 32)
 fused_scan_select_probe_kernel(const Params p) {
   extern __shared__ u64 smem[];
-  const int L = kRuns ? 0 : p.L;               // the carry's keys
+  const int L = p.L;                           // the carry's keys
   u64* carry = smem;                           // [L]
   u64* spare = carry + L;                      // [L]
   u64* run = spare + L;                        // [kChunk] a chunk's survivors
   int* zq_s = reinterpret_cast<int*>(run + kChunk);
   int* sq_s = zq_s + p.k;
-  constexpr unsigned kAll = 0xffffffffu;
 
   const int64_t pair = p.order[blockIdx.x];
   const int q = static_cast<int>(pair / p.P);
@@ -295,24 +440,7 @@ fused_scan_select_probe_kernel(const Params p) {
   for (int i = lane; i < L; i += 32) carry[i] = p.big_key;
   __syncwarp();
 
-  const int g = p.gids[pair];
-  const float sc = p.scale[g];
-  const float sc2 = __fmul_rn(sc, sc);
-  const float rs = p.res_scale[g];
-  const float rqv = p.rq[pair];
-  float sk2 = 0.0f;
-  if (kSketch) {
-    const float ss = p.sketch_scale[g];
-    sk2 = __fmul_rn(ss, ss);
-  }
-  const int64_t gc = static_cast<int64_t>(g) * p.cap;
-  const int16_t* cg = p.coords + gc * p.k;
-  const int8_t* skg = kSketch ? p.sketch + gc * p.s : nullptr;
-  const uint8_t* tg = nullptr;
-  if (kTenant)
-    tg = p.tenant_mask +
-         (static_cast<int64_t>(p.tenant_ix[q]) * p.G + g) * p.cap;
-  const uint32_t visit0 = static_cast<uint32_t>(pi) * p.cap + 1u;
+  const Pair pr = pair_of<kSketch, kTenant>(p, pair, q, pi);
   u64 thr = p.big_key;                         // the carry's L-th key
 
   for (int base = 0; base < p.cap; base += kChunk) {
@@ -320,70 +448,15 @@ fused_scan_select_probe_kernel(const Params p) {
     u64 v[kSlotsPerThread];
     int cnt = 0;
     if (c0 < p.cap) {
-      uint32_t acc[kSlotsPerThread] = {0u, 0u, 0u, 0u};   // int32, wraps
-#pragma unroll 8
-      for (int j = 0; j < p.k; ++j) {
-        int z[kSlotsPerThread];
-        load4<kVec>(cg + static_cast<int64_t>(j) * p.cap, c0, p.cap, z);
-        const int zj = zq_s[j];
-#pragma unroll
-        for (int r = 0; r < kSlotsPerThread; ++r) {
-          const uint32_t df =
-              static_cast<uint32_t>(zj) - static_cast<uint32_t>(z[r]);
-          acc[r] += df * df;
-        }
-      }
-      uint32_t sacc[kSlotsPerThread] = {0u, 0u, 0u, 0u};
-      if (kSketch) {
-#pragma unroll 8
-        for (int j = 0; j < p.s; ++j) {
-          int z[kSlotsPerThread];
-          load4<kVec>(skg + static_cast<int64_t>(j) * p.cap, c0, p.cap, z);
-          const int zj = sq_s[j];
-#pragma unroll
-          for (int r = 0; r < kSlotsPerThread; ++r) {
-            const uint32_t df =
-                static_cast<uint32_t>(zj) - static_cast<uint32_t>(z[r]);
-            sacc[r] += df * df;
-          }
-        }
-      }
-      int rv[kSlotsPerThread], mv[kSlotsPerThread], tv[kSlotsPerThread];
-      load4<kVec>(p.res + gc, c0, p.cap, rv);
-      load4<kVec>(p.mask + gc, c0, p.cap, mv);
-      if (kTenant) load4<kVec>(tg, c0, p.cap, tv);
+      price4<kSketch, kTenant, kVec>(p, pr, zq_s, sq_s, c0, v);
 #pragma unroll
       for (int r = 0; r < kSlotsPerThread; ++r) {
-        float d = __fmul_rn(static_cast<float>(static_cast<int32_t>(acc[r])),
-                            sc2);
-        d = __fadd_rn(__fadd_rn(d, __fmul_rn(static_cast<float>(rv[r]), rs)),
-                      rqv);
-        if (kSketch)
-          d = __fadd_rn(d, __fmul_rn(static_cast<float>(
-                                         static_cast<int32_t>(sacc[r])), sk2));
-        bool live = c0 + r < p.cap && mv[r] != 0;
-        if (kTenant) live = live && tv[r] != 0;
-        const u64 key = (static_cast<u64>(order_bits(d)) << 32) |
-                        (visit0 + static_cast<uint32_t>(c0 + r));
-        v[r] = live && key < thr ? key : kEmpty;
+        if (v[r] >= thr) v[r] = kEmpty;
         cnt += v[r] != kEmpty;
       }
     } else {
 #pragma unroll
       for (int r = 0; r < kSlotsPerThread; ++r) v[r] = kEmpty;
-    }
-    if constexpr (kRuns) {
-      // the whole chunk as one sorted run, dropped slots as big_key
-      // (thr stays big_key, so every kept key is below it)
-#pragma unroll
-      for (int r = 0; r < kSlotsPerThread; ++r)
-        if (v[r] == kEmpty) v[r] = p.big_key;
-      warp_sort(v);
-      u64* out = p.runs + pair * (static_cast<int64_t>(p.n_chunks) * kChunk) +
-                 base + lane * kSlotsPerThread;
-#pragma unroll
-      for (int r = 0; r < kSlotsPerThread; ++r) out[r] = v[r];
-      continue;
     }
     // survivors of the warp, each lane's count summed inclusively
     int incl = cnt;
@@ -426,9 +499,247 @@ fused_scan_select_probe_kernel(const Params p) {
     thr = carry[L - 1];
   }
 
-  if (kRuns) return;
   u64* out = p.lists + pair * L;
   for (int i = lane; i < L; i += 32) out[i] = carry[i];
+}
+
+// The lanes whose digit d (8 bits) equals this lane's, among the lanes
+// where `live` holds: eight ballots, one per bit.
+__device__ __forceinline__ unsigned peers_of(unsigned d, bool live) {
+  unsigned m = __ballot_sync(kAll, live);
+#pragma unroll
+  for (int bit = 0; bit < 8; ++bit) {
+    const unsigned b = __ballot_sync(kAll, (d >> bit) & 1u);
+    m &= (d >> bit) & 1u ? b : ~b;
+  }
+  return m;
+}
+
+// Sorts keys[0, n) ascending by their upper 32 bits, stably, with the
+// CTA's kThreads threads: an LSD radix sort of 4 passes of 8 bits.
+// tmp[n] is the second buffer, cnt[kWarps * kRadix] the warps' digit
+// counters and wsum[kWarps] the scan's warp totals, all shared.  Warp w
+// owns a contiguous segment of the keys: it counts their digits with
+// shared atomics, then walks the segment 32 keys at a time in order to
+// place them (a key's rank among equal digits of its 32 from eight
+// ballots), so equal digits keep their order: a pass is stable.  A pass
+// whose digit every key shares moves nothing and is skipped.  Returns the
+// buffer that holds the result (keys or tmp).  Every thread must call it.
+__device__ u64* block_sort_hi(u64* keys, u64* tmp, int n, int* cnt,
+                              int* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int seg = (n + kWarps - 1) / kWarps;
+  const int s0 = min(n, w * seg), s1 = min(n, s0 + seg);
+  int* mine = cnt + w * kRadix;
+  const unsigned below = (1u << lane) - 1u;
+  for (int shift = 32; shift < 64; shift += 8) {
+    for (int d = lane; d < kRadix; d += 32) mine[d] = 0;
+    __syncwarp();
+    for (int i = s0 + lane; i < s1; i += 32)     // count
+      atomicAdd(&mine[static_cast<unsigned>(keys[i] >> shift) & 0xffu], 1);
+    __syncthreads();
+    // offsets in (digit, warp) order: thread tid owns digit tid
+    int tot = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      const int c = cnt[v * kRadix + tid];
+      cnt[v * kRadix + tid] = tot;
+      tot += c;
+    }
+    int incl = tot;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(kAll, incl, o);
+      if (lane >= o) incl += x;
+    }
+    if (lane == 31) wsum[w] = incl;
+    if (__syncthreads_or(tot == n)) continue;    // one digit: nothing moves
+    int base = incl - tot;
+    for (int v = 0; v < w; ++v) base += wsum[v];
+    for (int v = 0; v < kWarps; ++v) cnt[v * kRadix + tid] += base;
+    __syncthreads();
+    for (int b = s0; b < s1; b += 32) {          // scatter, in order
+      const int i = b + lane;
+      const u64 key = i < s1 ? keys[i] : 0ull;
+      const unsigned d = static_cast<unsigned>(key >> shift) & 0xffu;
+      const unsigned peers = peers_of(d, i < s1);
+      const int at = mine[d] + __popc(peers & below);
+      if (i < s1) tmp[at] = key;
+      __syncwarp();
+      if (i < s1 && (peers >> lane) == 1u) mine[d] = at + 1;  // the last
+      __syncwarp();
+    }
+    __syncthreads();
+    u64* t = keys;
+    keys = tmp;
+    tmp = t;
+  }
+  return keys;
+}
+
+// Position of key i in a padded buffer of the multi-way merge: a spare
+// slot after every 8 keys, so the 32 lanes of a warp, each writing its
+// own run of kMergePer = 8 consecutive outputs, hit distinct banks.
+__device__ __forceinline__ int pad(int i) { return i + (i >> 3); }
+
+// Keys of a padded buffer of n keys.
+__host__ __device__ constexpr int padded(int n) { return n + n / 8 + 1; }
+
+// merge_split over runs buf[a0, a0 + la) and buf[b0, b0 + lb) of a padded
+// buffer.
+__device__ __forceinline__ int merge_split_padded(const u64* buf, int a0,
+                                                  int la, int b0, int lb,
+                                                  int i) {
+  int lo = max(0, i - lb), hi = min(i, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (buf[pad(a0 + mid)] <= buf[pad(b0 + i - 1 - mid)]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Merges the sorted runs [bound[i], bound[i + 1]) (i < n_runs,
+// bound[n_runs] = n) of the padded buffer keys into one sorted run, two by
+// two in ceil(log2 n_runs) rounds through the padded buffer tmp, with the
+// CTA's kMergeThreads threads.  Each thread makes kMergePer consecutive
+// outputs of a round: merge path to the first (merge_split_padded), then
+// a sequential merge.  Keys are compared whole, and equal keys are equal
+// bits.  Returns the buffer holding the result.  Every thread must call
+// it.
+__device__ u64* merge_runs(u64* keys, u64* tmp, int n, const int* bound,
+                           int n_runs) {
+  for (int span = 1; span < n_runs; span *= 2) {
+    const int n_pairs = (n_runs + 2 * span - 1) / (2 * span);
+    for (int o0 = threadIdx.x * kMergePer; o0 < n;
+         o0 += kMergeThreads * kMergePer) {
+      int j = 0, top = n_pairs - 1;          // the last pair from <= o0
+      while (j < top) {
+        const int mid = (j + top + 1) >> 1;
+        if (bound[min(2 * span * mid, n_runs)] <= o0) j = mid;
+        else top = mid - 1;
+      }
+      int a0 = bound[min(2 * span * j, n_runs)];
+      int b0 = bound[min(2 * span * j + span, n_runs)];
+      int e = bound[min(2 * span * (j + 1), n_runs)];
+      int ia = merge_split_padded(keys, a0, b0 - a0, b0, e - b0, o0 - a0);
+      int ib = o0 - a0 - ia;
+      u64 ha = a0 + ia < b0 ? keys[pad(a0 + ia)] : kEmpty;
+      u64 hb = b0 + ib < e ? keys[pad(b0 + ib)] : kEmpty;
+      const int o1 = min(o0 + kMergePer, n);
+      for (int o = o0; o < o1; ++o) {
+        while (o == e) {                     // on into the next pair
+          ++j;
+          a0 = e;
+          b0 = bound[min(2 * span * j + span, n_runs)];
+          e = bound[min(2 * span * (j + 1), n_runs)];
+          ia = ib = 0;
+          ha = a0 < b0 ? keys[pad(a0)] : kEmpty;
+          hb = b0 < e ? keys[pad(b0)] : kEmpty;
+        }
+        if (ha <= hb) {
+          tmp[pad(o)] = ha;
+          ++ia;
+          ha = a0 + ia < b0 ? keys[pad(a0 + ia)] : kEmpty;
+        } else {
+          tmp[pad(o)] = hb;
+          ++ib;
+          hb = b0 + ib < e ? keys[pad(b0 + ib)] : kEmpty;
+        }
+      }
+    }
+    __syncthreads();
+    u64* t = keys;
+    keys = tmp;
+    tmp = t;
+  }
+  return keys;
+}
+
+// Shared memory of the block-sort probe kernel: two buffers of `keys`
+// keys, then the radix counters and the warp totals, then `ints` more.
+size_t sort_smem(int keys, int ints) {
+  return 2 * static_cast<size_t>(keys) * sizeof(u64) +
+         static_cast<size_t>(kWarps * kRadix + kWarps + ints) * sizeof(int);
+}
+
+// L >= kBlockSortL: one CTA of kThreads per pair prices kSortKeys slots
+// at a time and sorts them block-wide; a cap of at most kSortKeys is the
+// pair's list, a larger one a run of it.
+template <bool kSketch, bool kTenant, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+fused_scan_select_block_probe_kernel(const Params p) {
+  extern __shared__ u64 smem[];
+  const int n_keys = min(p.cap, kSortKeys);
+  u64* keys = smem;                            // [n_keys]
+  u64* tmp = keys + n_keys;                    // [n_keys]
+  int* cnt = reinterpret_cast<int*>(tmp + n_keys);
+  int* wsum = cnt + kWarps * kRadix;
+  int* zq_s = wsum + kWarps;
+  int* sq_s = zq_s + p.k;
+
+  const int64_t pair = p.order[blockIdx.x];
+  const int q = static_cast<int>(pair / p.P);
+  const int pi = static_cast<int>(pair - static_cast<int64_t>(q) * p.P);
+  if (!pair_alive(p, q, pi)) return;           // block-uniform
+  const int tid = threadIdx.x;
+  for (int j = tid; j < p.k; j += kThreads) zq_s[j] = p.zq[pair * p.k + j];
+  if (kSketch)
+    for (int j = tid; j < p.s; j += kThreads) sq_s[j] = p.sq[pair * p.s + j];
+  __syncthreads();
+  const Pair pr = pair_of<kSketch, kTenant>(p, pair, q, pi);
+
+  const int lane = tid & 31, w = tid >> 5;
+  for (int r = 0; r < p.n_runs; ++r) {
+    const int base = r * kSortKeys;
+    const int n = min(kSortKeys, p.cap - base);
+    // the run's live keys, compacted in slot order (dropped slots all
+    // sort last as big_key, so only the live ones are sorted)
+    int live = 0;
+    for (int c0 = 0; c0 < n; c0 += kThreads * kSlotsPerThread) {
+      const int c = c0 + tid * kSlotsPerThread;
+      u64 v[kSlotsPerThread];
+      int kept = 0;
+      if (c < n) {
+        price4<kSketch, kTenant, kVec>(p, pr, zq_s, sq_s, base + c, v);
+#pragma unroll
+        for (int e = 0; e < kSlotsPerThread; ++e) {
+          if (c + e >= n || v[e] >= p.big_key) v[e] = kEmpty;
+          kept += v[e] != kEmpty;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kSlotsPerThread; ++e) v[e] = kEmpty;
+      }
+      int incl = kept;                         // block exclusive scan
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int x = __shfl_up_sync(kAll, incl, o);
+        if (lane >= o) incl += x;
+      }
+      if (lane == 31) wsum[w] = incl;
+      __syncthreads();
+      int at = live + incl - kept;
+      for (int u = 0; u < kWarps; ++u) {
+        if (u < w) at += wsum[u];
+        live += wsum[u];
+      }
+#pragma unroll
+      for (int e = 0; e < kSlotsPerThread; ++e)
+        if (v[e] != kEmpty) keys[at++] = v[e];
+      __syncthreads();                         // wsum is reused
+    }
+    const u64* sorted = block_sort_hi(keys, tmp, live, cnt, wsum);
+    if (p.n_runs == 1) {                       // the list: L <= cap = n
+      u64* out = p.lists + pair * p.L;
+      for (int i = tid; i < p.L; i += kThreads)
+        out[i] = i < live ? sorted[i] : p.big_key;
+    } else {
+      u64* out = p.runs + (pair * p.n_runs + r) * p.run_stride;
+      for (int i = tid; i < p.run_stride; i += kThreads)
+        out[i] = i < live ? sorted[i] : p.big_key;
+    }
+    __syncthreads();                           // keys are refilled
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -471,93 +782,234 @@ fused_scan_select_merge_kernel(const Params p) {
   for (int i = tid; i < W; i += kThreads) emit(p, q, i, carry[i]);
 }
 
-// One round of a tree merge of sorted runs, in groups: the wide merge
-// (kRuns false: group q, a query, whose runs are its probes' lists of L
-// keys, cut to `width`) or the chunk-run merge (kRuns true: group
-// q * P + p, a pair, whose runs are its chunks' runs of kChunk keys, cut
-// to L).  Input run r of group g, the runs [r * span, min((r + 1) * span,
-// n)) merged and cut to min(count * base, cut) keys, sits at
-// src + (g * n_in + r) * in_stride; output run j, the merge of input runs
-// 2j and 2j + 1 cut the same way, goes to dst + (g * n_out + j) *
-// out_stride, or, at the last round (dst null, one output run), to
-// out_d / out_r (the wide merge) or to the pair's `lists` row (chunk
-// runs).  At the wide merge's first round (span 1) src is `lists`, and a
-// dead probe's run is empty; a dead pair has no chunk runs and makes
-// nothing.  Block b makes outputs [t * kTile, (t + 1) * kTile) of run j
-// of group g, with b = (g * n_out + j) * n_tiles + t.
+// The sorted inputs of group g of a multi-way merge: kRuns, pair g's
+// runs, merged and cut to L (its list); else query g's probes' lists,
+// cut to width (its outputs).  Input j is base[j * stride, ...); only its
+// live prefix (keys below big_key) counts, and a dead probe's list is
+// empty.  False for a dead pair (kRuns), which has nothing to merge.
+struct Group {
+  const u64* base;
+  int64_t stride;
+  int n, cut;
+};
+
+template <bool kRuns>
+__device__ __forceinline__ bool group_of(const Params& p, int64_t g,
+                                         Group& G) {
+  if (kRuns) {
+    const int q = static_cast<int>(g / p.P);
+    if (!pair_alive(p, q, static_cast<int>(g - int64_t{q} * p.P)))
+      return false;
+    G.base = p.runs + g * p.n_runs * p.run_stride;
+    G.stride = p.run_stride;
+    G.n = p.n_runs;
+    G.cut = p.L;
+  } else {
+    G.base = p.lists + g * p.P * p.L;
+    G.stride = p.L;
+    G.n = p.P;
+    G.cut = p.width;
+  }
+  return true;
+}
+
+template <bool kRuns>
+__device__ __forceinline__ int input_len(const Params& p, const Group& G,
+                                         int64_t g, int j) {
+  if (!kRuns && !pair_alive(p, static_cast<int>(g), j)) return 0;
+  return lower_bound(G.base + j * G.stride, static_cast<int>(G.stride),
+                     p.big_key);
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kAll, x, o);
+  return x;
+}
+
+// Co-ranks of a multi-way merge: for tile boundary t of group g (output
+// b = min(t * kSortKeys, cut), t <= n_tiles), how many keys of each input
+// come before output b, to corank[(g * (n_tiles + 1) + t) * n + j].  One
+// warp per boundary (blockDim.x / 32 a block); each warp keeps its
+// inputs' live lengths and its candidates' counts in n + 32 ints of
+// dynamic shared memory.
 template <bool kRuns>
 __global__ void __launch_bounds__(kThreads)
-fused_scan_select_wide_merge_kernel(const Params p, const u64* src, u64* dst,
-                                    int span, int in_stride, int out_stride,
-                                    int n_tiles) {
-  __shared__ u64 stage[kTile];
-  __shared__ int cut[2];
-  const int n = kRuns ? p.n_chunks : p.P;      // runs of a group at span 1
-  const int64_t base = kRuns ? kChunk : p.L;   // keys of such a run
-  const int64_t W = kRuns ? p.L : p.width;     // each output cut to W
-  const int n_in = (n + span - 1) / span;
-  const int n_out = (n_in + 1) / 2;
-  const int t = static_cast<int>(blockIdx.x % n_tiles);
-  const int j = static_cast<int>(blockIdx.x / n_tiles % n_out);
-  const int64_t g = blockIdx.x / n_tiles / n_out;
-  const int q = static_cast<int>(kRuns ? g / p.P : g);
-  if (kRuns && !pair_alive(p, q, static_cast<int>(g - int64_t{q} * p.P)))
-    return;                                     // block-uniform
-  const int r0 = 2 * j * span;                  // the first run of run 2j
-  const int cnt_a = min(span, n - r0);
-  const int cnt_b = max(0, min(span, n - r0 - span));
-  const int out_len = static_cast<int>(min((cnt_a + cnt_b) * base, W));
-  const int i0 = t * kTile;
-  if (i0 >= out_len) return;                    // block-uniform
-  const int i1 = min(i0 + kTile, out_len);
-  int la = static_cast<int>(min(cnt_a * base, W));
-  int lb = static_cast<int>(min(cnt_b * base, W));
-  if (!kRuns && span == 1) {
-    if (!pair_alive(p, q, r0)) la = 0;
-    if (cnt_b == 0 || !pair_alive(p, q, r0 + 1)) lb = 0;
+fused_scan_select_corank_kernel(const Params p, int64_t n_groups,
+                                int n_tiles, int* corank) {
+  extern __shared__ int lens_all[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t item =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + w;
+  if (item >= n_groups * (n_tiles + 1)) return;        // warp-uniform
+  const int64_t g = item / (n_tiles + 1);
+  const int t = static_cast<int>(item - g * (n_tiles + 1));
+  Group G;
+  if (!group_of<kRuns>(p, g, G)) return;               // warp-uniform
+  const int n = G.n;
+  int* lens = lens_all + w * (n + 32);
+  int* sums = lens + n;                        // [32] a candidate's count
+  int* out = corank + item * n;
+  int total = 0;
+  uint32_t lo = ~0u, hi = 0u;                  // the live keys' distances
+  for (int j = lane; j < n; j += 32) {
+    const int len = input_len<kRuns>(p, G, g, j);
+    lens[j] = len;
+    total += len;
+    if (len > 0) {
+      const u64* in = G.base + j * G.stride;
+      lo = min(lo, static_cast<uint32_t>(in[0] >> 32));
+      hi = max(hi, static_cast<uint32_t>(in[len - 1] >> 32));
+    }
   }
-  const u64* a = src + (g * n_in + 2 * j) * in_stride;
-  const u64* b = a + in_stride;
-  // outputs [e0, e1) come from the runs' live keys, the rest are big_keys;
-  // they are the merge of a[cut[0], cut[1]) and b[e0 - cut[0], e1 - cut[1])
-  const int e0 = min(i0, la + lb), e1 = min(i1, la + lb);
-  if (threadIdx.x < 2)
-    cut[threadIdx.x] = merge_split(a, la, b, lb, threadIdx.x ? e1 : e0);
+  total = warp_sum(total);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(kAll, lo, o));
+    hi = max(hi, __shfl_xor_sync(kAll, hi, o));
+  }
+  const int64_t b64 = min(static_cast<int64_t>(t) * kSortKeys,
+                          static_cast<int64_t>(G.cut));
+  if (b64 == 0 || b64 >= total) {             // none or every live key
+    for (int j = lane; j < n; j += 32) out[j] = b64 == 0 ? 0 : lens[j];
+    return;
+  }
+  const int b = static_cast<int>(b64);
+  // D: the least distance with more than b keys at or below it, by a
+  // (c + 1)-ary search: c = 32 / n candidates a round where n <= 16 (lane
+  // l counts for candidate l / n in input l % n), else one (lane l for
+  // inputs l, l + 32, ...)
+  const int c = n <= 16 ? 32 / n : 1;
+  const int ci = c > 1 ? lane / n : 0;
+  while (lo < hi) {
+    const u64 span = hi - lo;
+    if (lane < c) sums[lane] = 0;
+    __syncwarp();
+    if (ci < c) {
+      const uint32_t m =
+          lo + static_cast<uint32_t>(span * (ci + 1) / (c + 1));
+      const u64 x = (static_cast<u64>(m) + 1) << 32;
+      int cnt = 0;
+      for (int j = c > 1 ? lane % n : lane; j < n; j += c > 1 ? n : 32)
+        cnt += lower_bound(G.base + j * G.stride, lens[j], x);
+      atomicAdd(sums + ci, cnt);
+    }
+    __syncwarp();
+    int first = c;                             // the first above b
+    for (int i = c - 1; i >= 0; --i)
+      if (sums[i] > b) first = i;
+    __syncwarp();                              // sums are reset
+    if (first < c)
+      hi = lo + static_cast<uint32_t>(span * (first + 1) / (c + 1));
+    if (first > 0)
+      lo += static_cast<uint32_t>(span * first / (c + 1)) + 1;
+  }
+  const u64 x0 = static_cast<u64>(lo) << 32;
+  const u64 x1 = (static_cast<u64>(lo) + 1) << 32;
+  int below_d = 0;
+  for (int j = lane; j < n; j += 32)
+    below_d += lower_bound(G.base + j * G.stride, lens[j], x0);
+  // outputs below b at distance D: the first r of them in input order
+  const int r = b - warp_sum(below_d);
+  int carry = 0;
+  for (int j0 = 0; j0 < n; j0 += 32) {         // warp-uniform
+    const int j = j0 + lane;
+    int lt = 0, at_d = 0;
+    if (j < n) {
+      const u64* in = G.base + j * G.stride;
+      lt = lower_bound(in, lens[j], x0);
+      at_d = lower_bound(in, lens[j], x1) - lt;
+    }
+    int incl = at_d;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kAll, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int before = carry + incl - at_d;
+    if (j < n) out[j] = lt + min(max(r - before, 0), at_d);
+    carry += __shfl_sync(kAll, incl, 31);
+  }
+}
+
+// Tile t of group g's multi-way merge (block g * n_tiles + t): outputs
+// [t * kSortKeys, min((t + 1) * kSortKeys, cut)).  The tile's slice of
+// each input, between its co-ranks at boundaries t and t + 1, is staged
+// in shared memory, the sorted slices are merged (merge_runs), and the
+// result written: a pair's list (kRuns) or (dist, row) of a query;
+// positions past the group's live keys are big_keys.
+template <bool kRuns>
+__global__ void __launch_bounds__(kMergeThreads)
+fused_scan_select_multiway_merge_kernel(const Params p, int n_tiles,
+                                        const int* corank) {
+  extern __shared__ u64 smem[];
+  u64* keys = smem;                            // padded, kSortKeys keys
+  u64* tmp = keys + padded(kSortKeys);         // the same
+  int* at = reinterpret_cast<int*>(tmp + padded(kSortKeys));  // [n + 1]
+  const int64_t g = blockIdx.x / n_tiles;
+  const int t = static_cast<int>(blockIdx.x - g * n_tiles);
+  Group G;
+  if (!group_of<kRuns>(p, g, G)) return;       // block-uniform
+  const int n = G.n;
+  int* from = at + n + 1;                      // [n] slice starts in inputs
+  const int* lo = corank + (g * (n_tiles + 1) + t) * n;
+  const int* hi = lo + n;
+  const int tid = threadIdx.x;
+  for (int j = tid; j < n; j += kMergeThreads) {
+    from[j] = lo[j];
+    at[j + 1] = hi[j] - lo[j];
+  }
   __syncthreads();
-  const int na = cut[1] - cut[0];
-  const int b0 = e0 - cut[0], nb = e1 - cut[1] - b0;
-  for (int x = threadIdx.x; x < na; x += kThreads) stage[x] = a[cut[0] + x];
-  for (int x = threadIdx.x; x < nb; x += kThreads) stage[na + x] = b[b0 + x];
+  if (tid == 0) {                              // prefix of slice lengths
+    at[0] = 0;
+    for (int j = 0; j < n; ++j) at[j + 1] += at[j];
+  }
   __syncthreads();
-  u64* out = dst != nullptr ? dst + (g * n_out + j) * out_stride
-             : kRuns        ? p.lists + g * p.L
-                            : nullptr;
-  for (int i = i0 + threadIdx.x; i < i1; i += kThreads) {
-    const u64 key =
-        i < e1 ? merge_at(stage, na, stage + na, nb, i - e0) : p.big_key;
-    if (out == nullptr) emit(p, q, i, key);
-    else out[i] = key;
+  const int m = at[n];
+  for (int i = tid; i < m; i += kMergeThreads) {
+    int a = 0, z = n;                          // the slice holding i
+    while (z - a > 1) {
+      const int mid = (a + z) >> 1;
+      if (at[mid] <= i) a = mid;
+      else z = mid;
+    }
+    keys[pad(i)] = G.base[a * G.stride + from[a] + (i - at[a])];
+  }
+  __syncthreads();
+  const u64* sorted = merge_runs(keys, tmp, m, at, n);
+  const int64_t i0 = static_cast<int64_t>(t) * kSortKeys;
+  const int len = static_cast<int>(
+      min(static_cast<int64_t>(kSortKeys), G.cut - i0));
+  for (int i = tid; i < len; i += kMergeThreads) {
+    const u64 key = i < m ? sorted[pad(i)] : p.big_key;
+    if (kRuns) p.lists[g * p.L + i0 + i] = key;
+    else emit(p, static_cast<int>(g), i0 + i, key);
   }
 }
 
 typedef void (*Kernel)(const Params);
 
-template <bool kSketch, bool kTenant, bool kRuns>
+template <bool kSketch, bool kTenant, bool kBlock>
 Kernel probe_kernel(bool vec) {
-  return vec ? fused_scan_select_probe_kernel<kSketch, kTenant, true, kRuns>
-             : fused_scan_select_probe_kernel<kSketch, kTenant, false, kRuns>;
+  if (kBlock)
+    return vec ? fused_scan_select_block_probe_kernel<kSketch, kTenant, true>
+               : fused_scan_select_block_probe_kernel<kSketch, kTenant,
+                                                      false>;
+  return vec ? fused_scan_select_probe_kernel<kSketch, kTenant, true>
+             : fused_scan_select_probe_kernel<kSketch, kTenant, false>;
 }
 
-template <bool kRuns>
+template <bool kBlock>
 Kernel probe_kernel(bool sketch, bool tenant, bool vec) {
   if (sketch)
-    return tenant ? probe_kernel<true, true, kRuns>(vec)
-                  : probe_kernel<true, false, kRuns>(vec);
-  return tenant ? probe_kernel<false, true, kRuns>(vec)
-                : probe_kernel<false, false, kRuns>(vec);
+    return tenant ? probe_kernel<true, true, kBlock>(vec)
+                  : probe_kernel<true, false, kBlock>(vec);
+  return tenant ? probe_kernel<false, true, kBlock>(vec)
+                : probe_kernel<false, false, kBlock>(vec);
 }
 
-cudaError_t set_smem(Kernel kern, size_t smem) {
+template <typename K>
+cudaError_t set_smem(K kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -567,100 +1019,110 @@ bool aligned16(const void* ptr) {
   return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-// The rounds of a tree merge of `groups` groups of n runs of `base` keys,
-// each output cut to `cut` keys: round r (from 0) merges runs of 2^r
-// input runs two by two into ceil(n / 2^(r+1)) runs of min(2^(r+1) base,
-// cut) keys.  All but the last write to the global scratch, even rounds
-// to its first half, odd rounds to its second; round 0 reads its input
-// from the second half when `in_keys` (the input's keys) is not 0, else
-// from elsewhere.  Returns the scratch's keys and sets `second`, the
-// second half's offset.
-int64_t tree_scratch(int64_t groups, int64_t n, int64_t base, int64_t cut,
-                     int64_t in_keys, int64_t* second) {
-  int64_t half[2] = {0, in_keys};
-  int r = 0;
-  for (int64_t span = 1; span < n; span *= 2, ++r) {
-    const int64_t n_out = (n + 2 * span - 1) / (2 * span);
-    if (n_out == 1) break;                     // the last round
-    const int64_t stride = 2 * span * base < cut ? 2 * span * base : cut;
-    const int64_t keys = groups * n_out * stride;
-    if (keys > half[r % 2]) half[r % 2] = keys;
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// Which kernels a launch takes, and its global scratch (in keys of 8
+// bytes): the runs first, then the two merges' co-ranks (ints).
+struct Plan {
+  bool block;       // L >= kBlockSortL: the block-sort probe kernel
+  bool runs;        // and cap > kSortKeys: runs, merged per pair
+  bool multiway;    // the query's multi-way merge (else the shared merge)
+  int L, n_runs, run_stride, run_tiles, tiles;
+  int64_t runs_keys, run_coranks, coranks, scratch_keys;
+};
+
+Plan plan_of(int64_t q, int64_t P, int64_t cap, int64_t width) {
+  Plan s{};
+  s.L = static_cast<int>(width < cap ? width : cap);
+  s.block = s.L >= kBlockSortL;
+  s.runs = s.block && cap > kSortKeys;
+  s.multiway = s.block || width > kSmemWidth;
+  s.n_runs = s.runs ? static_cast<int>(ceil_div(cap, kSortKeys)) : 1;
+  s.run_stride = s.L < kSortKeys ? s.L : kSortKeys;
+  s.run_tiles = static_cast<int>(ceil_div(s.L, kSortKeys));
+  s.tiles = static_cast<int>(ceil_div(width, kSortKeys));
+  if (s.runs) {
+    s.runs_keys = q * P * s.n_runs * s.run_stride;
+    s.run_coranks = q * P * (s.run_tiles + 1) * s.n_runs;
   }
-  if (second != nullptr) *second = half[0];
-  return half[0] + half[1];
+  if (s.multiway) s.coranks = q * (s.tiles + 1) * P;
+  s.scratch_keys = s.runs_keys + ceil_div(s.run_coranks, 2) +
+                   ceil_div(s.coranks, 2);
+  return s;
 }
 
-int64_t chunks_of(int64_t cap) { return (cap + kChunk - 1) / kChunk; }
-
-// The chunk-run path's tree scratch (runs in its second half).
-int64_t runs_scratch(int64_t q, int64_t P, int64_t cap, int64_t L,
-                     int64_t* second) {
-  const int64_t pairs = q * P, n = chunks_of(cap);
-  return tree_scratch(pairs, n, kChunk, L, pairs * n * kChunk, second);
-}
-
-// Launches the rounds of one tree merge (see tree_scratch) on `st`: the
-// input at src with in_stride keys per run, outputs of the last round to
-// the kernel's destination (one round for a single run: n = 1).
-cudaError_t tree_merge(const Params& p, bool runs, int64_t groups, int64_t n,
-                       int64_t base, int64_t cut, const u64* src,
-                       int in_stride, u64* scratch, int64_t second,
-                       cudaStream_t st) {
-  int r = 0;
-  for (int64_t span = 1;; span *= 2, ++r) {    // one round at least
-    const int64_t n_out = (n + 2 * span - 1) / (2 * span);
-    const int out_stride =
-        static_cast<int>(2 * span * base < cut ? 2 * span * base : cut);
-    u64* dst = n_out == 1 ? nullptr : scratch + (r % 2 ? second : 0);
-    const int n_tiles = (out_stride + kTile - 1) / kTile;
-    const unsigned blocks = static_cast<unsigned>(groups * n_out * n_tiles);
-    if (runs)
-      fused_scan_select_wide_merge_kernel<true><<<blocks, kThreads, 0, st>>>(
-          p, src, dst, static_cast<int>(span), in_stride, out_stride,
-          n_tiles);
-    else
-      fused_scan_select_wide_merge_kernel<false><<<blocks, kThreads, 0, st>>>(
-          p, src, dst, static_cast<int>(span), in_stride, out_stride,
-          n_tiles);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess || n_out == 1) return e;
-    src = dst;
-    in_stride = out_stride;
-  }
+// One multi-way merge (the co-ranks, then the tiles) of n_groups groups
+// of n inputs each, on `st`.
+cudaError_t multiway_merge(const Params& p, bool runs, int64_t n_groups,
+                           int n, int tiles, int* corank, cudaStream_t st) {
+  const int64_t items = n_groups * (tiles + 1);
+  int wpb = static_cast<int>(kSmemBudget / (sizeof(int) * (n + 32)));
+  wpb = wpb < 1 ? 1 : (wpb > kWarps ? kWarps : wpb);
+  const size_t corank_smem = sizeof(int) * (n + 32) * wpb;
+  const size_t merge_smem =
+      2 * padded(kSortKeys) * sizeof(u64) + (2 * n + 1) * sizeof(int);
+  if (corank_smem > kSmemBudget || merge_smem > kSmemBudget)
+    return cudaErrorInvalidConfiguration;
+  const int64_t corank_blocks = ceil_div(items, wpb);
+  if (corank_blocks >= (1ll << 31) || n_groups * tiles >= (1ll << 31))
+    return cudaErrorInvalidConfiguration;
+  cudaError_t e =
+      runs ? set_smem(fused_scan_select_corank_kernel<true>, corank_smem)
+           : set_smem(fused_scan_select_corank_kernel<false>, corank_smem);
+  if (e == cudaSuccess)
+    e = runs ? set_smem(fused_scan_select_multiway_merge_kernel<true>,
+                        merge_smem)
+             : set_smem(fused_scan_select_multiway_merge_kernel<false>,
+                        merge_smem);
+  if (e != cudaSuccess) return e;
+  const unsigned cb = static_cast<unsigned>(corank_blocks);
+  const unsigned mb = static_cast<unsigned>(n_groups * tiles);
+  if (runs)
+    fused_scan_select_corank_kernel<true><<<cb, 32 * wpb, corank_smem, st>>>(
+        p, n_groups, tiles, corank);
+  else
+    fused_scan_select_corank_kernel<false><<<cb, 32 * wpb, corank_smem, st>>>(
+        p, n_groups, tiles, corank);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (runs)
+    fused_scan_select_multiway_merge_kernel<true>
+        <<<mb, kMergeThreads, merge_smem, st>>>(p, tiles, corank);
+  else
+    fused_scan_select_multiway_merge_kernel<false>
+        <<<mb, kMergeThreads, merge_smem, st>>>(p, tiles, corank);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fused_scan_select_smem_width() { return kSmemWidth; }
 
-// Keys of global scratch the launch needs (0 when width <= kSmemWidth):
-// the wide merge's, or the chunk-run path's where that is larger (the two
-// run one after the other in the same scratch).
+extern "C" int fused_scan_select_block_sort_length() { return kBlockSortL; }
+
+// Keys of global scratch the launch needs (0 on the shared merge's path):
+// a pair's runs where its list is built from them, and the co-ranks of
+// the multi-way merges.
 extern "C" long long fused_scan_select_scratch_keys(int n_queries,
                                                     int n_probes, int cap,
                                                     int width) {
-  if (width <= kSmemWidth) return 0;
-  const int L = width < cap ? width : cap;
-  const int64_t wide =
-      tree_scratch(n_queries, n_probes, L, width, 0, nullptr);
-  if (L <= kSmemWidth) return wide;
-  const int64_t runs = runs_scratch(n_queries, n_probes, cap, L, nullptr);
-  return wide > runs ? wide : runs;
+  return plan_of(n_queries, n_probes, cap, width).scratch_keys;
 }
 
 extern "C" const char* fused_scan_select_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the probe kernel over `n_pairs` = Q * P CTAs (with chunk
-// runs, L > kSmemWidth: its kRuns form, then the chunk-run merge's
-// rounds), then the merge kernel over Q (width <= kSmemWidth) or the wide
-// merge's rounds, on `stream`; returns cudaGetLastError() after the
-// launches (0 on success).  Null pointers mark absent optional inputs.
-// `order` is the schedule (int64 pair indices, killed pairs anywhere),
-// `lists` scratch of Q * P * min(width, cap) keys, `scratch` that of
-// fused_scan_select_scratch_keys(); `vec` selects the vector loads
-// (cap % 4 == 0 and 16-byte aligned panels, checked here).
+// Launches the probe kernel over `n_pairs` = Q * P CTAs (the block-sort
+// form at L >= kBlockSortL, then, where the cap exceeds kSortKeys, the
+// multi-way merge of each pair's runs), then the shared merge kernel over
+// Q or the query's multi-way merge, on `stream`; returns
+// cudaGetLastError() after the launches (0 on success).  Null pointers
+// mark absent optional inputs.  `order` is the schedule (int64 pair
+// indices, killed pairs anywhere), `lists` scratch of Q * P * min(width,
+// cap) keys, `scratch` that of fused_scan_select_scratch_keys(); `vec`
+// selects the vector loads (cap % 4 == 0 and 16-byte aligned panels,
+// checked here).
 extern "C" int fused_scan_select_launch(
     const void* gids, const void* zq, const void* rq, const void* keep,
     const void* coords, const void* res, const void* mask, const void* rows,
@@ -670,15 +1132,16 @@ extern "C" int fused_scan_select_launch(
     void* lists, void* scratch, void* out_d, void* out_r, int n_queries,
     int n_probes, int k, int s, int n_grains, int cap, int width, int vec,
     float big, void* stream) {
-  const bool wide = width > kSmemWidth;
-  const bool runs = (width < cap ? width : cap) > kSmemWidth;
   if (width < 1 || n_queries < 1 || n_probes < 1 || cap < 1 ||
-      (wide && width > static_cast<int64_t>(n_probes) * cap))
+      (width > kSmemWidth && width > static_cast<int64_t>(n_probes) * cap))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec && (cap % kSlotsPerThread != 0 || !aligned16(coords) ||
               !aligned16(res) || !aligned16(mask) || !aligned16(sketch) ||
               !aligned16(tenant_mask)))
     return static_cast<int>(cudaErrorMisalignedAddress);
+  const Plan plan = plan_of(n_queries, n_probes, cap, width);
+  if (plan.scratch_keys > 0 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool has_sketch = sketch != nullptr;
   const bool has_tenant = tenant_mask != nullptr;
   Params p;
@@ -700,7 +1163,7 @@ extern "C" int fused_scan_select_launch(
   p.n_active = static_cast<const int32_t*>(n_active);
   p.order = static_cast<const int64_t*>(order);
   p.lists = static_cast<u64*>(lists);
-  p.runs = nullptr;
+  p.runs = static_cast<u64*>(scratch);         // first in the scratch
   p.out_d = static_cast<float*>(out_d);
   p.out_r = static_cast<int32_t*>(out_r);
   p.P = n_probes;
@@ -709,67 +1172,56 @@ extern "C" int fused_scan_select_launch(
   p.G = n_grains;
   p.cap = cap;
   p.width = width;
-  p.L = width < cap ? width : cap;
-  p.n_chunks = static_cast<int>(chunks_of(cap));
+  p.L = plan.L;
+  p.n_runs = plan.n_runs;
+  p.run_stride = plan.run_stride;
   p.big = big;
   uint32_t big_bits;
   memcpy(&big_bits, &big, sizeof(big_bits));
   big_bits = (big_bits & 0x80000000u) ? ~big_bits : (big_bits | 0x80000000u);
   p.big_key = static_cast<u64>(big_bits) << 32;
-  // merge kernel: carry + spare of `width` keys, then as many probes'
+  // shared merge: carry + spare of `width` keys, then as many probes'
   // lists as fit the budget (at least one)
   const size_t fixed = 2 * static_cast<size_t>(width) * sizeof(u64);
   const size_t per_list = static_cast<size_t>(p.L) * sizeof(u64);
   const int fit =
-      wide ? 1 : static_cast<int>((kSmemBudget - fixed) / per_list);
+      plan.multiway ? 1 : static_cast<int>((kSmemBudget - fixed) / per_list);
   p.stage_probes = fit < 1 ? 1 : (fit > n_probes ? n_probes : fit);
-  // the wide merge and the chunk runs: every round's grid must fit a launch
-  int64_t second = 0, runs_second = 0;
-  if (wide) {
-    if (tree_scratch(n_queries, n_probes, p.L, width, 0, &second) > 0 &&
-        scratch == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t tiles = (static_cast<int64_t>(width) + kTile - 1) / kTile;
-    if (static_cast<int64_t>(n_queries) * n_probes * tiles >= (1ll << 31))
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  if (runs) {
-    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    runs_scratch(n_queries, n_probes, cap, p.L, &runs_second);
-    p.runs = static_cast<u64*>(scratch) + runs_second;
-    if (static_cast<int64_t>(n_queries) * n_probes * p.n_chunks >=
-        (1ll << 31))
-      return static_cast<int>(cudaErrorInvalidConfiguration);
+  int* run_corank = nullptr;
+  int* corank = nullptr;
+  if (scratch != nullptr) {
+    run_corank = reinterpret_cast<int*>(p.runs + plan.runs_keys);
+    corank = run_corank + 2 * ceil_div(plan.run_coranks, 2);
   }
 
   const size_t probe_smem =
-      (2 * static_cast<size_t>(runs ? 0 : p.L) + kChunk) * sizeof(u64) +
-      static_cast<size_t>(p.k + p.s) * sizeof(int);
+      plan.block
+          ? sort_smem(cap < kSortKeys ? cap : kSortKeys, p.k + p.s)
+          : (2 * static_cast<size_t>(p.L) + kChunk) * sizeof(u64) +
+                static_cast<size_t>(p.k + p.s) * sizeof(int);
   const size_t merge_smem =
       fixed + static_cast<size_t>(p.stage_probes) * per_list;
   const Kernel probe =
-      runs ? probe_kernel<true>(has_sketch, has_tenant, vec)
-           : probe_kernel<false>(has_sketch, has_tenant, vec);
+      plan.block ? probe_kernel<true>(has_sketch, has_tenant, vec)
+                 : probe_kernel<false>(has_sketch, has_tenant, vec);
   cudaError_t e = set_smem(probe, probe_smem);
-  if (e == cudaSuccess && !wide)
+  if (e == cudaSuccess && !plan.multiway)
     e = set_smem(fused_scan_select_merge_kernel, merge_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned n_pairs = static_cast<unsigned>(n_queries) * n_probes;
-  probe<<<n_pairs, 32, probe_smem, st>>>(p);
+  probe<<<n_pairs, plan.block ? kThreads : 32, probe_smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (runs) {
-    e = tree_merge(p, true, static_cast<int64_t>(n_queries) * n_probes,
-                   p.n_chunks, kChunk, p.L, p.runs, kChunk,
-                   static_cast<u64*>(scratch), runs_second, st);
+  if (plan.runs) {
+    e = multiway_merge(p, true, static_cast<int64_t>(n_queries) * n_probes,
+                       plan.n_runs, plan.run_tiles, run_corank, st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (!wide) {
+  if (!plan.multiway) {
     fused_scan_select_merge_kernel<<<n_queries, kThreads, merge_smem, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(tree_merge(p, false, n_queries, n_probes, p.L,
-                                     width, p.lists, p.L,
-                                     static_cast<u64*>(scratch), second, st));
+  return static_cast<int>(multiway_merge(p, false, n_queries, n_probes,
+                                         plan.tiles, corank, st));
 }

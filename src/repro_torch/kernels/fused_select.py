@@ -10,16 +10,17 @@ query: candidate state is [Q, width] instead of [Q, P*cap].
 - CUDA tensors run the hand-written kernels of ``csrc/fused_select.cu``
   (built at first use by ``_build``), or raise.  There is no fallback.
   One call is a schedule (``schedule``: the (query, probe) pairs in grain
-  order, one ``torch.sort`` on the card), the per-probe kernel (each pair's
+  order, one ``torch.sort`` on the card), a per-probe kernel (each pair's
   own top-min(width, cap), in that order, so pairs that share a panel run
-  together) and the merge: up to ``SMEM_WIDTH`` one kernel per query that
-  folds the probes' lists into a top-``width`` carry in shared memory;
-  above it (the cascade's stage 1, up to P * cap) a pairwise tree merge of
-  the lists in global scratch, ceil(log2 P) launches.  A pair's list of
-  min(width, cap) keys above ``SMEM_WIDTH`` (a grain of more than 8,192
-  slots) is built in global scratch too: the probe kernel writes each
-  128-slot chunk as a sorted run and the same tree merge folds a pair's
-  runs into its list.
+  together) and a merge.  A list of min(width, cap) keys below
+  ``block_sort_length()`` is kept by one warp as a sorted carry (the main
+  path); a longer one is priced and sorted block-wide by one CTA, in
+  sorted runs of 4,096 keys where the cap exceeds that, merged per
+  pair.  Up to ``SMEM_WIDTH`` with the warp's lists one kernel per
+  query folds them into a top-``width`` carry in shared memory; every
+  other shape (the cascade's stage 1, up to P * cap) takes a one-pass
+  multi-way merge: a co-rank search per output tile, then one CTA per
+  tile merging its slices of the lists.
 - Meta tensors (the dry-run, ``launch.dryrun``) pass the same checks,
   return meta outputs of the kernels' shapes, launch nothing and report
   one call to the active cost counter (``counting``) with its
@@ -44,12 +45,10 @@ from . import _build, counting
 from ._launch import device_kind, launch
 
 #: Widest ``width`` merged in shared memory (two copies of ``width`` keys
-#: of 8 bytes, 128 KB at this limit, of the 227 KB a block may use), and
-#: the widest per-probe list min(width, cap) the probe kernel keeps there
-#: as a carry.  A wider ``width`` takes the tree merge in global scratch
-#: and must be at most P * cap; a wider list is built from the pair's
-#: sorted 128-slot chunk runs in global scratch.  So the kernels take
-#: every 1 <= width <= max(SMEM_WIDTH, P * cap).
+#: of 8 bytes, 128 KB at this limit, of the 227 KB a block may use) from
+#: the warp's lists.  A wider ``width`` takes the multi-way merge in global
+#: scratch and must be at most P * cap.  So the kernels take every
+#: 1 <= width <= max(SMEM_WIDTH, P * cap).
 SMEM_WIDTH = 8192
 
 _SOURCE = "fused_select"
@@ -68,10 +67,19 @@ def _lib() -> ctypes.CDLL:
         lib.fused_scan_select_scratch_keys.argtypes = [ctypes.c_int] * 4
         lib.fused_scan_select_scratch_keys.restype = ctypes.c_longlong
         lib.fused_scan_select_smem_width.restype = ctypes.c_int
+        lib.fused_scan_select_block_sort_length.restype = ctypes.c_int
         if lib.fused_scan_select_smem_width() != SMEM_WIDTH:
             raise RuntimeError("fused_select.cu and fused_select.py disagree "
                                "on the widest shared-memory merge")
     return lib
+
+
+def block_sort_length() -> int:
+    """The kernels' ``kBlockSortL``: a pair's list of min(width, cap) keys
+    at least this long is built by the block-sort probe kernel and merged
+    by the multi-way merge; a shorter one by the warp's carry.  Read from
+    the built library (the card's build)."""
+    return _lib().fused_scan_select_block_sort_length()
 
 
 def _check(name, t, dtype, shape, device):
@@ -234,12 +242,12 @@ def fused_scan_select(gids, zq, rq, keep, coords, res, mask, rows, scale,
     the kernels (1 <= ``width`` <= max(``SMEM_WIDTH``, P * cap)) or raise.
 
     Device memory on the card, besides the outputs: the pairs' lists,
-    Q * P * min(width, cap) keys of 8 bytes; above ``SMEM_WIDTH`` the
-    tree merge's scratch (``fused_scan_select_scratch_keys``); and where
-    min(width, cap) > ``SMEM_WIDTH`` the chunk runs and one merge round's
-    output, about 2 * Q * P * round_up(cap, 128) keys.  At Q=256, P=16
-    and cap 16,384 the lists and the runs take about 0.54 GB each, and
-    the scratch about 1.07 GB, per call.
+    Q * P * min(width, cap) keys of 8 bytes, and the multi-way merge's
+    scratch (``fused_scan_select_scratch_keys``): its co-ranks and, where
+    the cap exceeds 4,096 with a list of ``block_sort_length()`` keys or
+    more, each pair's sorted runs, Q * P * ceil(cap / 4096) * min(4096,
+    width, cap) keys.  At Q=256, P=16 and cap 22,912
+    (width >= cap) the lists take 0.75 GB and the runs 0.81 GB per call.
     """
     if device_kind("fused_scan_select", gids, meta=True) == "cpu":
         return fused_scan_select_ref(

@@ -141,13 +141,22 @@ def stage1_inputs(seed: int, *, q: int, p: int, g: int, cap: int,
     return a
 
 
-#: Inputs of the merge above the kernels' shared-memory carry (widths
-#: above 8,192, up to P * cap): name -> (width, maker).  Every slot live at
-#: width = P * cap; descending keys, where every slot enters the pool, at
-#: a width just above 8,192; equal keys across probes; ragged n_active;
-#: the cascade's stage-1 form at the paper's probe shape (P=16,
-#: cap=1664: width 26,624) and with an odd probe count.
+#: Inputs of the wide paths (the block-sort probe kernel and the multi-way
+#: merge): name -> (width, maker).  A width may be a function of the
+#: kernels' block-sort threshold (``fused_select.block_sort_length()``,
+#: read on the card; ``resolve_width``): lists one below, at and one
+#: above it, as the fused plane gives them (width = L).  Every slot live
+#: at width = P * cap; descending keys, where every slot enters the pool,
+#: at a width just above 8,192; equal keys across probes; ragged
+#: n_active; the cascade's stage-1 form at the paper's probe shape (P=16,
+#: cap=1664: width 26,624 and 4,096) and with an odd probe count.
 WIDE_CASES = {
+    "block_sort_l_minus_1": (lambda bsl: bsl - 1, lambda: random_inputs(
+        19, q=32, p=16, g=64, k=32, cap=2100, s=8, ragged=True)),
+    "block_sort_l": (lambda bsl: bsl, lambda: random_inputs(
+        20, q=32, p=16, g=64, k=32, cap=2100, s=8, ragged=True)),
+    "block_sort_l_plus_1": (lambda bsl: bsl + 1, lambda: random_inputs(
+        21, q=32, p=16, g=64, k=32, cap=2100, s=8, ragged=True)),
     "all_live_width_p_cap": (16 * 1664, lambda: random_inputs(
         11, q=32, p=16, g=64, k=32, cap=1664, s=8, keep_frac=1.0,
         mask_frac=1.0)),
@@ -159,17 +168,28 @@ WIDE_CASES = {
         12, q=64, p=16, g=64, k=32, cap=1000, s=8, ragged=True)),
     "stage1_form_p16_cap1664": (16 * 1664, lambda: stage1_inputs(
         13, q=64, p=16, g=256, cap=1664, s=8)),
+    "stage1_form_width_4096": (4096, lambda: stage1_inputs(
+        22, q=64, p=16, g=256, cap=1664, s=8)),
     "stage1_form_odd_p": (8999, lambda: stage1_inputs(
         14, q=16, p=9, g=40, cap=1000, s=8, keep_frac=0.7)),
 }
 
 
-#: Inputs whose per-probe list min(width, cap) is above the kernels'
-#: shared width of 8,192 (a grain of more than 8,192 slots), which the
-#: kernels build from each pair's sorted 128-slot chunk runs: name ->
-#: (width, maker).  Width = cap and width = P * cap at cap 8,320 (65
-#: chunks), ragged n_active and killed pairs at cap 16,384, a sketch.
+def resolve_width(width, block_sort_l: int) -> int:
+    """A case's width: ``width`` itself, or ``width(block_sort_l)``."""
+    return width(block_sort_l) if callable(width) else width
+
+
+#: Inputs whose per-probe list min(width, cap) is longer than the keys a
+#: CTA sorts at once (4,096, ``kSortKeys`` in ``csrc/fused_select.cu``),
+#: which the kernels build from each pair's sorted runs: name -> (width,
+#: maker).
+#: One run of 4,096 keys plus one key (cap 4,097, the scalar loads),
+#: width = cap and width = P * cap at cap 8,320, ragged n_active and
+#: killed pairs at cap 16,384, a sketch.
 LONG_LIST_CASES = {
+    "cap4097_one_run_plus_one_key": (4097, lambda: random_inputs(
+        19, q=8, p=4, g=8, k=8, cap=4097, s=4)),
     "cap8320_width_cap": (8320, lambda: random_inputs(
         15, q=8, p=4, g=8, k=8, cap=8320)),
     "cap8320_width_p_cap": (4 * 8320, lambda: random_inputs(

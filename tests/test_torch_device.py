@@ -232,8 +232,10 @@ def test_kernel_equals_plain_version_on_card(cuda_device, case, width):
 #: Inputs that fill the kernel's candidate buffer again and again: every
 #: slot live, and (descending) every slot entering the running top-W; at
 #: the widest shared-memory merge and, through ``select_cases.WIDE_CASES``,
-#: above it (the tree merge in global scratch: width 8,193 up to P * cap,
-#: ties across probes, ragged n_active, the cascade's stage-1 form).
+#: on the wide paths (lists one below, at and one above the block-sort
+#: threshold; the multi-way merge in global scratch: width 8,193 up to
+#: P * cap, ties across probes, ragged n_active, the cascade's stage-1
+#: form at widths 26,624 and 4,096).
 FOLD_CASES = {
     "descending_narrow": (10, lambda: select_cases.descending_inputs(
         q=64, p=32, k=8, cap=2048)),
@@ -252,7 +254,7 @@ FOLD_CASES = {
         q=8, p=8, g=5, k=8, cap=1100, s=4)),
     **{f"wide_{name}": case
        for name, case in select_cases.WIDE_CASES.items()},
-    # per-probe lists above the shared width: the chunk-run path
+    # per-probe lists longer than a block sort: each pair's sorted runs
     **{f"long_{name}": case
        for name, case in select_cases.LONG_LIST_CASES.items()},
 }
@@ -263,6 +265,7 @@ FOLD_CASES = {
 def test_kernel_equals_plain_version_when_the_buffer_keeps_filling(
         cuda_device, case):
     width, make = FOLD_CASES[case]
+    width = select_cases.resolve_width(width, port_fused.block_sort_length())
     args, a = select_cases.split(
         make(), lambda v: torch.from_numpy(v).to(cuda_device))
     for _ in range(3):        # a fault of ordering need not show every run
@@ -291,7 +294,7 @@ def test_launch_count_rises_by_one_per_call(cuda_device):
 def test_kernel_refuses_width_beyond_its_limit(cuda_device):
     """Widths 1..max(SMEM_WIDTH, P * cap): above the shared-memory merge
     only up to P * cap; a probe's list min(width, cap) above SMEM_WIDTH
-    runs (built from its chunk runs) and equals the plain version."""
+    runs (built from its sorted runs) and equals the plain version."""
     args, _ = _select_inputs(1, cuda_device, q=1, p=1, g=2, k=4, cap=32)
     for width in (0, port_fused.SMEM_WIDTH + 1):
         with pytest.raises(ValueError, match="width"):

@@ -7,6 +7,10 @@ package's own oracle ``blocksoa_select_ref``, on the same integer inputs.
 Rows must be equal; dists agree to rtol 1e-6 (XLA on the CPU may contract
 a multiply-add that the port rounds in two steps).
 """
+import bisect
+import re
+from pathlib import Path
+
 import pytest
 
 pytest.importorskip("jax")   # the JAX package is the reference
@@ -150,6 +154,17 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 _EMPTY = 2 ** 64 - 1
 _CHUNK = 128                             # slots a warp prices at a time
+_CU = (Path(port_fused.__file__).parent / "csrc" / "fused_select.cu"
+       ).read_text()
+#: The kernels' block-sort threshold and the keys a CTA sorts at once,
+#: as ``csrc/fused_select.cu`` sets them (on the card the wrapper reads
+#: the threshold from the built library: ``block_sort_length()``).
+BLOCK_SORT_L = int(re.search(r"#define FUSED_SELECT_BLOCK_SORT_L (\d+)",
+                             _CU).group(1))
+SORT_KEYS = int(re.search(r"constexpr int kSortKeys = (\d+);", _CU).group(1))
+#: Small modelled widths: a shared width, a block-sort threshold and a
+#: block sort's keys, so that small shapes take every path.
+MODELLED = dict(smem_width=64, block_sort_l=16, sort_keys=64)
 
 
 def _order_bits(d):
@@ -183,10 +198,10 @@ def _merge(a, b, n):
 
 
 def _probe_top(keys, big_key, L):
-    """The per-probe kernel on one pair: keys [cap] (EMPTY where dead) in
-    128-slot chunks; per chunk, keys at or above the carry's L-th dropped,
-    the n survivors sorted and cut to min(n, L), and merged into the
-    sorted carry of L big_keys."""
+    """The warp's probe kernel on one pair: keys [cap] (EMPTY where dead)
+    in 128-slot chunks; per chunk, keys at or above the carry's L-th
+    dropped, the n survivors sorted and cut to min(n, L), and merged into
+    the sorted carry of L big_keys."""
     carry, thr = [big_key] * L, big_key
     for base in range(0, len(keys), _CHUNK):
         run = sorted(k for k in keys[base:base + _CHUNK] if k < thr)
@@ -196,46 +211,86 @@ def _probe_top(keys, big_key, L):
     return carry
 
 
-def _tree(runs, base, cut, big_key):
-    """The tree merge in global scratch: rounds merge runs 2j and 2j + 1
-    (each a group of input runs of ``base`` keys; an empty run is a dead
-    probe's) into runs of min(count * base, cut) keys padded with
-    big_keys, one round at least, down to one run."""
-    runs = [(r, 1) for r in runs]
-    while True:
-        out = []
-        for j in range(0, len(runs), 2):
-            (a, ca), (b, cb) = runs[j], (runs[j + 1] if j + 1 < len(runs)
-                                         else ([], 0))
-            n = min((ca + cb) * base, cut)
-            m = _merge(a, b, min(len(a) + len(b), n))
-            out.append((m + [big_key] * (n - len(m)), ca + cb))
-        runs = out
-        if len(runs) == 1:
-            return runs[0][0]
+def _sort_hi(keys):
+    """The kernels' block_sort_hi: a stable sort on the upper 32 bits."""
+    return sorted(keys, key=lambda k: k >> 32)
 
 
-def _chunk_runs_top(keys, big_key, L):
-    """The chunk-run path on one pair (L > the shared width): each
-    128-slot chunk sorted whole, dropped slots (and keys at or above
-    big_key) as big_key, the tail past cap as big_key; the pair's runs
-    tree-merged with each output cut to L."""
+def _corank(inputs, b):
+    """The co-rank kernel: how many keys of each sorted input (live keys
+    only, unique) come before output b of their merge.  A (c + 1)-ary
+    search on the upper 32 bits (c = 32 // n candidates a round for n <=
+    16 inputs, else 1) finds the distance D of output b; the outputs
+    below b at D are the first of them in input order."""
+    lens = [len(x) for x in inputs]
+    if b == 0 or b >= sum(lens):
+        return [0] * len(inputs) if b == 0 else lens
+    lo = min(x[0] >> 32 for x in inputs if x)
+    hi = max(x[-1] >> 32 for x in inputs if x)
+    c = 32 // len(inputs) if len(inputs) <= 16 else 1
+    while lo < hi:
+        span = hi - lo
+        cands = [lo + span * (i + 1) // (c + 1) for i in range(c)]
+        above = [sum(bisect.bisect_left(x, (m + 1) << 32) for x in inputs) > b
+                 for m in cands]
+        first = above.index(True) if True in above else c
+        if first < c:
+            hi = cands[first]
+        if first > 0:
+            lo = cands[first - 1] + 1
+    lt = [bisect.bisect_left(x, lo << 32) for x in inputs]
+    at = [bisect.bisect_left(x, (lo + 1) << 32) - t
+          for x, t in zip(inputs, lt)]
+    r, before, out = b - sum(lt), 0, []
+    for t, e in zip(lt, at):
+        out.append(t + min(max(r - before, 0), e))
+        before += e
+    return out
+
+
+def _multiway(inputs, cut, big_key, tile):
+    """The multi-way merge of sorted inputs (each padded with big_keys;
+    [] for a dead probe), cut to ``cut`` keys: per tile of ``tile``
+    outputs, the inputs' slices between two co-ranks staged in input
+    order and sorted by ``_sort_hi``; big_keys past the live keys."""
+    live = [x[:bisect.bisect_left(x, big_key)] for x in inputs]
+    out = []
+    for t0 in range(0, cut, tile):
+        a0, a1 = _corank(live, t0), _corank(live, min(t0 + tile, cut))
+        stage = _sort_hi([k for x, i, j in zip(live, a0, a1)
+                          for k in x[i:j]])
+        out += stage + [big_key] * (min(tile, cut - t0) - len(stage))
+    return out
+
+
+def _block_top(keys, big_key, L, sort_keys):
+    """The block-sort probe kernel on one pair: dropped slots (and keys at
+    or above big_key) as big_key; a cap of at most ``sort_keys`` slots
+    sorted whole and cut to L; a larger one in runs of ``sort_keys``
+    slots, each sorted, cut to min(sort_keys, L) and padded with
+    big_keys, then merged per pair by the multi-way merge, cut to L."""
+    keys = [min(k, big_key) for k in keys]
+    if len(keys) <= sort_keys:
+        return _sort_hi(keys)[:L]
+    stride = min(sort_keys, L)
     runs = []
-    for base in range(0, len(keys), _CHUNK):
-        run = [k if k < big_key else big_key
-               for k in keys[base:base + _CHUNK]]
-        runs.append(sorted(run + [big_key] * (_CHUNK - len(run))))
-    return _tree(runs, _CHUNK, L, big_key)
+    for base in range(0, len(keys), sort_keys):
+        run = _sort_hi(keys[base:base + sort_keys])[:stride]
+        runs.append(run + [big_key] * (stride - len(run)))
+    return _multiway(runs, L, big_key, sort_keys)
 
 
-def two_stage_select(a, width, smem_width=port_fused.SMEM_WIDTH):
+def two_stage_select(a, width, smem_width=port_fused.SMEM_WIDTH,
+                     block_sort_l=BLOCK_SORT_L, sort_keys=SORT_KEYS):
     """numpy model of the CUDA kernels: per live (query, probe) pair its
     top-min(width, cap) keys (order bits of the distance << 32 | visit
-    index + 1), then per query a carry of `width` big_keys folded with
-    each live probe's list in probe order, then keys -> (dist, row).
-    ``smem_width`` is the kernels' shared width: a list above it is built
-    from the pair's chunk runs, and a width above it merges the probes'
-    lists by the tree merge."""
+    index + 1), then per query a merge of the live probes' lists, then
+    keys -> (dist, row).  A list of L = min(width, cap) keys below
+    ``block_sort_l`` is the warp's carry, and with width <=
+    ``smem_width`` the query folds the lists into a carry of ``width``
+    big_keys in probe order; a longer list is block-sorted (in runs of
+    ``sort_keys`` slots where the cap exceeds that), and every shape but
+    the first takes the multi-way merge."""
     t = {n: torch.from_numpy(np.ascontiguousarray(v)) for n, v in a.items()}
     gl = t["gids"].long()
     sk = "sketch" in t
@@ -253,24 +308,27 @@ def two_stage_select(a, width, smem_width=port_fused.SMEM_WIDTH):
     big = np.float32(BIG)
     big_key = int(_order_bits(big)[0]) << 32
     L = min(width, cap)
+    block = L >= block_sort_l
     alive = _alive(a)
     visit = np.arange(p_n * cap, dtype=np.uint64).reshape(p_n, cap) + 1
     keys = (_order_bits(d) << np.uint64(32)) | visit
     out_d = np.empty((q_n, width), np.float32)
     out_r = np.empty((q_n, width), np.int32)
-    top = _chunk_runs_top if L > smem_width else _probe_top
     for q in range(q_n):
-        carry = [big_key] * width
         lists = []
         for p in range(p_n):
-            lst = [] if not alive[q, p] else top(
-                [int(k) if ok else _EMPTY for k, ok in
-                 zip(keys[q, p], live[q, p])], big_key, L)
-            lists.append(lst)
-            if width <= smem_width and lst and lst[0] < carry[-1]:
-                carry = _merge(carry, lst, width)
-        if width > smem_width:
-            carry = _tree(lists, L, width, big_key)
+            pair = [int(k) if ok else _EMPTY for k, ok in
+                    zip(keys[q, p], live[q, p])]
+            lists.append([] if not alive[q, p] else
+                         _block_top(pair, big_key, L, sort_keys) if block
+                         else _probe_top(pair, big_key, L))
+        if block or width > smem_width:
+            carry = _multiway(lists, width, big_key, sort_keys)
+        else:
+            carry = [big_key] * width
+            for lst in lists:
+                if lst and lst[0] < carry[-1]:
+                    carry = _merge(carry, lst, width)
         for i, key in enumerate(carry):
             out_d[q, i] = _float_of_order(key >> 32)
             v = (key & 0xffffffff) - 1
@@ -356,10 +414,11 @@ def test_two_stage_select_model_equals_plain_version(case):
                           want_d.numpy().view(np.uint32))
 
 
-#: Caps above a shared width of 64, so the model takes the chunk-run path
-#: (L = min(width, cap) > 64) at small shapes: one chunk and many, widths
-#: from L up to P * cap, ragged n_active, killed pairs, ties across
-#: probes, every slot entering the pool, the cascade's stage-1 form.
+#: Caps above a block sort of 64 keys, so the model (``MODELLED``) takes
+#: the sorted-run path (L = min(width, cap) > 64) at small shapes: one run
+#: and many, widths from L up to P * cap, ragged n_active, killed pairs,
+#: ties across probes, every slot entering the pool, the cascade's
+#: stage-1 form.
 CHUNK_RUN_CASES = {
     "one_chunk_p1": (65, lambda: select_cases.random_inputs(
         31, q=3, p=1, g=3, k=4, cap=65, s=2)),
@@ -378,20 +437,105 @@ CHUNK_RUN_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CHUNK_RUN_CASES))
-def test_chunk_run_model_equals_plain_version(case):
-    """The kernels' path for a per-probe list above the shared width,
-    modelled at a shared width of 64 (the kernels' is ``SMEM_WIDTH``):
-    bit for bit the plain version."""
-    width, make = CHUNK_RUN_CASES[case]
-    a = make()
-    assert min(width, a["coords"].shape[2]) > 64
+def _assert_model_equals_plain(a, width, **modelled):
     args, kw = select_cases.split(a, torch.from_numpy)
     want_d, want_r = port_scan.blocksoa_select_ref(*args, width=width, **kw)
-    got_d, got_r = two_stage_select(a, width, smem_width=64)
+    got_d, got_r = two_stage_select(a, width, **modelled)
     assert np.array_equal(got_r, want_r.numpy())
     assert np.array_equal(got_d.view(np.uint32),
                           want_d.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_RUN_CASES))
+def test_chunk_run_model_equals_plain_version(case):
+    """The kernels' path for a per-probe list longer than a block sort
+    (each pair's sorted runs, merged per pair by the multi-way merge),
+    modelled at the small ``MODELLED`` widths (the kernels' are
+    ``SORT_KEYS`` and ``BLOCK_SORT_L``): bit for bit the plain
+    version."""
+    width, make = CHUNK_RUN_CASES[case]
+    a = make()
+    assert min(width, a["coords"].shape[2]) > MODELLED["sort_keys"]
+    _assert_model_equals_plain(a, width, **MODELLED)
+
+
+def _dead_query(a):
+    a["keep"][1] = False                 # query 1: every probe dead
+    return a
+
+
+#: The block-sort path and the multi-way merge at the small ``MODELLED``
+#: widths (threshold 16, a block sort of 64 keys, a shared width of 64):
+#: name -> (width, maker).  Lists one below, at and one above the
+#: threshold; P = 1 and an odd P; a query whose probes are all dead; ties
+#: across probes; a tenant mask; caps that are not a multiple of 4; no
+#: sketch; the warp's lists above the shared width; the stage-1 form.
+BLOCK_SORT_CASES = {
+    "l_below_threshold": (15, lambda: select_cases.random_inputs(
+        41, q=3, p=4, g=4, k=3, cap=40, s=2)),
+    "l_at_threshold": (16, lambda: select_cases.random_inputs(
+        42, q=3, p=4, g=4, k=3, cap=40, s=2)),
+    "l_above_threshold": (17, lambda: select_cases.random_inputs(
+        43, q=3, p=4, g=4, k=3, cap=40, s=2)),
+    "p1": (50, lambda: select_cases.random_inputs(
+        44, q=3, p=1, g=3, k=4, cap=60, s=2)),
+    "odd_p7_width_p_cap": (7 * 30, lambda: select_cases.random_inputs(
+        45, q=3, p=7, g=5, k=3, cap=30, s=2)),
+    "all_dead_query": (120, lambda: _dead_query(select_cases.random_inputs(
+        46, q=3, p=4, g=4, k=3, cap=50, s=2))),
+    "ties_across_probes": (150, lambda: select_cases.tie_inputs(
+        q=3, p=4, g=3, k=2, cap=50, s=2)),
+    "tenant_mask": (100, lambda: select_cases.random_inputs(
+        47, q=4, p=3, g=5, k=3, cap=48, s=2, tenants=3, ragged=True)),
+    "cap_not_multiple_of_4": (70, lambda: select_cases.random_inputs(
+        48, q=3, p=3, g=4, k=3, cap=63, s=2)),
+    "no_sketch": (60, lambda: select_cases.random_inputs(
+        49, q=3, p=4, g=4, k=4, cap=60, ragged=True, keep_frac=0.6)),
+    "warp_lists_above_shared_width": (100, lambda: select_cases.random_inputs(
+        50, q=3, p=9, g=4, k=2, cap=12)),
+    "stage1_form_width_p_cap": (5 * 40, lambda: select_cases.stage1_inputs(
+        51, q=3, p=5, g=6, cap=40, s=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_SORT_CASES))
+def test_block_sort_model_equals_plain_version(case):
+    """The block-sort probe kernel, its runs and the multi-way merge with
+    its co-rank search, modelled at the small ``MODELLED`` widths: bit for
+    bit the plain version."""
+    width, make = BLOCK_SORT_CASES[case]
+    _assert_model_equals_plain(make(), width, **MODELLED)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_corank_search_splits_the_merge_exactly(seed):
+    """Each co-rank set is what the first b outputs of the merge take from
+    each input, found from the distances (upper 32 bits) alone: inputs
+    with many equal distances across and within inputs."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 9)) if seed % 2 else int(rng.integers(17, 30))
+    inputs, visit = [], 1
+    for _ in range(n):               # input j holds visits after input j-1's
+        m = int(rng.integers(0, 40))
+        hi = rng.integers(0, 6, size=m)
+        inputs.append(sorted((int(h) << 32) | (visit + i)
+                             for i, h in enumerate(hi)))
+        visit += m
+    merged = sorted(k for x in inputs for k in x)
+    for b in range(len(merged) + 2):
+        first = set(merged[:b])
+        assert _corank(inputs, b) == [sum(k in first for k in x)
+                                      for x in inputs]
+
+
+def test_kernel_constants_stand_where_the_design_puts_them():
+    """The block-sort threshold lies in 256..2048 (a block-wide form was
+    measured slower at W=64, so the main path keeps the warp) and a block
+    sort holds a whole list of the cascade's stage 1 (cap 1,664)."""
+    assert 256 <= BLOCK_SORT_L <= 2048
+    assert 1664 <= SORT_KEYS <= 8192 and SORT_KEYS % 4 == 0
+    assert select_cases.resolve_width(lambda bsl: bsl + 1, 7) == 8
+    assert select_cases.resolve_width(9, 7) == 9
 
 
 def test_vector_loads_need_cap_multiple_of_4_and_aligned_panels():
