@@ -272,7 +272,18 @@ What it does, in order (any failure exits non-zero before the last line):
    repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape train_4k``
    and ``--shape long_500k``, two subprocesses started together once
    the last timed phase is done: exit 0, records read back;
-13. the kernel table as one JSON line, then, as the last line,
+13. the hygiene gate's runtime half (``repro_torch.analysis.sanitize``),
+   inside the phases on the stores they built: one search of each plane
+   run inside ``sync_guard()``, where the card's sync-debug mode is
+   "error" (a blocking copy, a stream sync or a read of a tensor's value
+   raises), ``torch.equal`` to the same search run unguarded: warm fused
+   Mode A and B, the cascade and the "kernel" plane (10), 4 shards (10c),
+   a coalesced tenant window under ``sanitize.install()`` (10b), adaptive
+   Mode A all-warm and paged, cold Mode B, paged Mode A and B and the
+   paged cascade (12); each plane's sanctioned reads (``sanitize.fetch``)
+   counted, one JSON line ``{"sanitize": {plane: {"fetches": n, "ok":
+   true}}}``; a guard error is not caught and fails the run;
+14. the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -322,6 +333,46 @@ def check(cond, msg):
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: One guarded search of each search plane, {plane: {"fetches": n, "ok":
+#: True}}: printed as one JSON line before the kernel table.
+SANITIZE = {}
+SANITIZE_PLANES = ("warm fused A", "warm fused B", "cascade B",
+                   "kernel plane B", "4 shards B", "tenant window",
+                   "cold B", "paged A", "paged B", "adaptive A (all-warm)",
+                   "adaptive A (paged)", "paged cascade B")
+
+
+def guarded_search(torch, label, search, want, chunks=None):
+    """``search()`` inside ``sanitize.sync_guard()``, where the card's
+    sync-debug mode is "error", held ``torch.equal`` in ids and dists to
+    ``want``, the same search run unguarded.  A guard error is not caught:
+    it fails the run.  The guard's sanctioned reads go to ``SANITIZE``.
+    ``chunks``, where given, reads the store's count of cold chunk passes:
+    the guarded search must then have staged at least one."""
+    from repro_torch.analysis import sanitize
+
+    before = chunks() if chunks else 0
+    t0 = time.perf_counter()
+    with sanitize.sync_guard() as g:
+        got = search()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got.ids, want.ids) and torch.equal(got.dists,
+                                                         want.dists),
+          f"sanitize {label}: the guarded search differs from the "
+          f"unguarded one ({int((got.ids != want.ids).sum())} ids)")
+    SANITIZE[label] = {"fetches": g.fetches, "ok": True}
+    staged = ""
+    if chunks:
+        n = chunks() - before
+        check(n > 0, f"sanitize {label}: the guarded search staged no cold "
+              "chunk, so the guard did not cover the chunk passes")
+        SANITIZE[label]["chunk_dispatches"] = n
+        staged = f", cold chunk passes {n}"
+    log(f"sanitize {label}: guarded search == unguarded (ids, dists "
+        f"torch.equal), fetches {g.fetches}{staged}, {ms:.1f} ms")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -2246,6 +2297,15 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
             f"the manifest): {timing[f'{m} sealed only'] * 1e3:.3f} ms for "
             f"{nq} queries")
 
+    # ---- the guard: warm fused Mode A and B, the cascade ------------------
+    for m in "AB":
+        guarded_search(torch, f"warm fused {m}",
+                       lambda m=m: st.search(qt, topk=10, mode=m), res[m])
+    ckw = dict(topk=10, mode="B", scan_impl="cascade",
+               budgets=STORE_CASCADE_BUDGETS)
+    guarded_search(torch, "cascade B", lambda: st.search(qt, **ckw),
+                   st.search(qt, **ckw))
+
     out = dict(launches=launches, per_search=per_search, recall=recall,
                search_s=timing, seal_s=seal_s, stack_s=stack_s[0],
                n_live=n_live, mem_rows=mem_rows, cascade=cascade)
@@ -2289,6 +2349,8 @@ def store_phase(torch, np, dev, *, n=1_004_096, segments=8, nq=1024,
     log(f"store \"kernel\" plane == \"ref\" plane (ids, {q256.shape[0]} "
         f"queries, Mode B); hntl_scan_single launches "
         f"{out['kernel_launches']}")
+    guarded_search(torch, "kernel plane B", lambda: st.search(
+        q256, topk=10, mode="B", scan_impl="kernel"), got)
     # the tenancy phase's base: the store as it stands (its 5,120-row
     # memtable), before the half-memtable rows
     out["branch"] = st.branch()
@@ -2766,6 +2828,29 @@ def same_results(torch, a, b, label):
     check(bad == 0, f"{label}: {bad} requests differ")
 
 
+def guarded_window(torch, reg, reqs, now):
+    """The window ``reqs`` again with every fused dispatch guarded
+    (``sanitize.install()``, the JAX suite's ``HNTL_SANITIZE``): the same
+    results, the dispatches' sanctioned reads counted.  A guard error is
+    not caught."""
+    from repro_torch.analysis import sanitize
+
+    sanitize.install()
+    try:
+        again = replay_window(reg, reqs, now)
+    finally:
+        stats = sanitize.install_stats()
+        sanitize.uninstall()
+    same_results(torch, reqs, again, "sanitize tenant window")
+    calls = sum(v["calls"] for v in stats.values())
+    check(calls > 0, "sanitize tenant window: no guarded dispatch ran")
+    fetches = sum(v["fetches"] for v in stats.values())
+    SANITIZE["tenant window"] = {"fetches": fetches, "dispatches": calls,
+                                 "ok": True}
+    log(f"sanitize tenant window: {calls} guarded fused dispatches, the "
+        f"results == the unguarded window (torch.equal), fetches {fetches}")
+
+
 def launches_by_group(reqs):
     """Select launches one window needs: per (mode, topk, filter) group,
     ceil(padded rows / 256)."""
@@ -2875,6 +2960,7 @@ def tenancy_phase(torch, np, dev, branch, *, xb, base_dead, corpus_q, cfg,
                excused_strict=strict,
                solo_max_diff=worst, union_grains=g_n, cap=cap,
                bitmap_bytes=tenants * g_n * cap, setup_s=setup_s)
+    guarded_window(torch, reg, reqs, now)
 
     # ---- the cascade and adaptive windows --------------------------------
     out["variants"] = {}
@@ -3668,6 +3754,9 @@ def paged_cascade(torch, st, qt, xl, alive, tg, tsv, budget, label):
                       and torch.equal(got.dists, ref.dists),
                       f"{label} paged {key}: differs from the paged "
                       f"cascade_ref ({int((got.ids != ref.ids).sum())} ids)")
+                if m == "B":
+                    guarded_search(torch, "paged cascade B",
+                                   lambda kw=kw: st.search(qt, **kw), got)
             check(not bool(torch.isin(got.ids.long(), dead).any()),
                   f"{label} paged {key}: a deleted gid was returned")
             if m == "B":
@@ -3849,6 +3938,8 @@ def adaptive_phase(torch, np, st, qt, xl, alive, budget, label):
         st._probe_traffic.clear()
         st.device_budget = None
         akw = dict(topk=10, adaptive=True, probe_margin=margin)
+        guard = margin == ADAPTIVE_MARGINS[0]
+        start = traffic_copy(st)
         res = {}
         for m in "AB":
             before = traffic_copy(st)
@@ -3896,6 +3987,12 @@ def adaptive_phase(torch, np, st, qt, xl, alive, budget, label):
             row["active " + m] = dict(
                 mean=float(na.mean()), p50=float(np.percentile(na, 50)),
                 p99=float(np.percentile(na, 99)))
+        if guard:             # Mode A again, from its traffic state
+            after = traffic_copy(st)
+            st._probe_traffic = start
+            guarded_search(torch, "adaptive A (all-warm)",
+                           lambda: st.search(qt, mode="A", **akw), res["A"])
+            st._probe_traffic = after
         # bit-identity of adaptive=False and of an infinite margin
         static = {}
         for m in "AB":
@@ -3920,6 +4017,7 @@ def adaptive_phase(torch, np, st, qt, xl, alive, budget, label):
             stats = st.probe_stats()
             st._probe_traffic = before
             st.device_budget = budget
+            again = traffic_copy(st)
             fsel.fused_scan_select.launches = 0
             got = st.search(qt, mode=m, **akw)
             sync(torch, dev)
@@ -3931,6 +4029,12 @@ def adaptive_phase(torch, np, st, qt, xl, alive, budget, label):
                   f"({int((got.ids != want.ids).sum())} ids)")
             check(st.probe_stats() == stats, f"{label} {margin} Mode {m}: "
                   f"paged probe_stats {st.probe_stats()} != all-warm {stats}")
+            if guard and m == "A":
+                after = traffic_copy(st)
+                st._probe_traffic = again
+                guarded_search(torch, "adaptive A (paged)",
+                               lambda: st.search(qt, mode="A", **akw), got)
+                st._probe_traffic = after
         row["hubs"] = st.hub_grains().tolist()
         row["probe_stats"] = st.probe_stats()
         row["recall"] = {f"{m} {k}": recall_at_k(r[m].ids, truth)
@@ -4164,6 +4268,24 @@ def _tiered_phase(torch, np, dev, cold_dir, *, n, nq, segments, grains,
             torch, np, st, qt, warm, budgets[name],
             f"tiered: paged at {name}", all_hot=name == "more than the tier")
         resident(f"+ the hot set at {name}")
+    # the guard: cold Mode B on the all-warm plane, paged Mode A and B
+    st.device_budget = None
+    guarded_search(torch, "cold B", lambda: st.search(qt, topk=10, mode="B"),
+                   warm["res"]["B"])
+    # paged at 25%: the hot set elected under that budget and then held
+    # (no election between a search and its guarded twin), so both page
+    st.device_budget = budgets["25% of the tier"]
+    interval, st.residency_interval = st.residency_interval, 1 << 30
+    st.update_residency()
+    for m in "BA":
+        st.search(qt, topk=10, mode=m)
+    for m in "AB":
+        want = st.search(qt, topk=10, mode=m)
+        guarded_search(torch, f"paged {m}", lambda m=m: st.search(
+            qt, topk=10, mode=m), want,
+            chunks=lambda: st.residency_stats()["chunk_dispatches"])
+    st.residency_interval = interval
+    st.device_budget = None
     out["memory"] = memory
     if on_card:
         log("tiered device memory held (memory_allocated above the phase's "
@@ -4435,6 +4557,9 @@ def sharded_phase(torch, np, dev, st, *, xb, dead, tags, ts, truth):
                 f"({int((got.ids != ref.ids).sum())} ids)")
             hold_store_result(torch, got, kw, f"sharded {name} {label}",
                               **hold_kw)
+        if name == "4 shards":
+            guarded_search(torch, "4 shards B", lambda: st.search(
+                qt, topk=10, mesh=mesh, mode="B"), res["B"])
         vs_single = None
         if shards == 1 and batch == 1:
             vs_single = {label: ids_agree(torch, res[label], single[label],
@@ -7256,6 +7381,9 @@ def main(argv=None) -> int:
     single_entry["at_moe_decode"] = fp["moe"]["scan"]
     single_entry["at_whisper_cross"] = fp["whisper"]["scan"]
     layout_entries = table2_entries(t2, src)
+    check(set(SANITIZE) == set(SANITIZE_PLANES), "sanitize: guarded "
+          f"planes {sorted(SANITIZE)}, expected {sorted(SANITIZE_PLANES)}")
+    log(json.dumps({"sanitize": SANITIZE}))
     log(json.dumps({"kernels": [
         select_entry,
         single_entry,

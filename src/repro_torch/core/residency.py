@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis.sanitize import place
 from . import layout
 from .types import GrainStore, HNTLIndex, RoutingPlane, StackedSegments
 
@@ -112,9 +113,11 @@ def host_tenant_mask(panels: dict, extra: Optional[np.ndarray],
                      grain_ok: Optional[np.ndarray],
                      tenant_live: Optional[np.ndarray],
                      tenant_ix: Optional[np.ndarray]):
-    """Host replica of the per-query tenant routing pushdown: [Q, G], or
-    the shared [G] one, or None.  (Tenancy itself is ROADMAP Queue A item
-    6; the store refuses it.)"""
+    """Host replica of the per-query tenant routing pushdown of the
+    coalesced serving plane (``serve.tenancy``): [Q, G] from the tenants'
+    visibility stack ``tenant_live`` [T, G, cap] and each query's
+    ``tenant_ix``, joined with the shared [G] ``grain_ok``; the shared one
+    itself without tenants, or None."""
     if tenant_live is None:
         return grain_ok
     base = extra if extra is not None else np.asarray(panels["valid"])
@@ -247,7 +250,7 @@ class TieredPlane:
         self.k = int(panels["coords"].shape[1])
         self.hot_slots = np.zeros(0, np.int64)
         self.hot_map = np.full(self.n_grains, -1, np.int32)
-        self.hot_map_dev = torch.from_numpy(self.hot_map).to(self.device)
+        self.hot_map_dev = place(self.hot_map, self.device)
         self.hot_epochs = 0
         self._hot = (None, None, None)       # (hot epoch, buffer, plane)
         self._hot_mask_key = None
@@ -284,7 +287,7 @@ class TieredPlane:
             if leaf is not None:
                 dummy = torch.full((1, *leaf.shape[1:]),
                                    _FRAME_FILL.get(name, 0), dtype=leaf.dtype)
-                frames[name] = torch.cat([leaf.cpu(), dummy]).to(device)
+                frames[name] = place(torch.cat([leaf.cpu(), dummy]), device)
         return cls(path, layout.open_panel_file(path, meta), frames,
                    stacked.index.routing.sizes.cpu().numpy(), device)
 
@@ -316,7 +319,7 @@ class TieredPlane:
             return False
         self.hot_slots = sl
         self.hot_map = self.slot_map(sl)
-        self.hot_map_dev = torch.from_numpy(self.hot_map).to(self.device)
+        self.hot_map_dev = place(self.hot_map, self.device)
         self._hot = (None, None, None)
         self.hot_epochs += 1
         return True
@@ -454,7 +457,7 @@ class TieredPlane:
         if epoch != self.hot_epochs:
             buf = np.empty(self._layout(n)[1], np.uint8)
             self._fill(self.hot_slots, mask_src, buf)
-            raw = torch.from_numpy(buf).to(self.device)
+            raw = place(buf, self.device)
             plane = self._plane_from(raw, n)
             self._hot = (self.hot_epochs, raw, plane)
             self._hot_mask_key = mask_key
@@ -462,7 +465,7 @@ class TieredPlane:
             mask = np.zeros((n, self.cap), bool)
             np.take(mask_src, self.hot_slots, axis=0, out=mask[:-1],
                     mode="clip")
-            plane.index.grains.valid.copy_(torch.from_numpy(mask))
+            plane.index.grains.valid.copy_(place(mask, self.device))
             self._hot_mask_key = mask_key
         return plane
 

@@ -65,6 +65,14 @@ Grains are self-contained, so the index maps onto immutable segments:
   placed on a ``launch.mesh.SearchMesh`` once per segment set, and each
   shard runs the whole pipeline on its slice before one merge.
 
+- **host<->device traffic**: every copy on the search path goes through
+  ``analysis.sanitize``: host arrays reach the device with ``place``
+  (pinned, non-blocking) and the few values the host must read (the
+  adaptive plan, the paged plan, a cold re-rank's candidate rows, a
+  plane's host tables when it is built) come back with ``fetch`` /
+  ``fetch_async``, so every search plane runs inside
+  ``sanitize.sync_guard()``.
+
 The JAX package's ``repro.core.store`` is the reference.
 """
 from __future__ import annotations
@@ -86,6 +94,7 @@ import torch
 
 from . import index as index_mod
 from . import maintenance, planner, residency, routing, scanplane
+from ..analysis.sanitize import fetch, fetch_async, place
 from .cascade import check_budgets
 from .types import (BIG, GrainStore, HNTLConfig, HNTLIndex, RoutingPlane,
                     SearchResult, ShardedStackedSegments, StackedSegments)
@@ -280,7 +289,7 @@ class _RawRows:
                  stats: dict):
         self.device = device
         self.offsets = np.cumsum([0] + [s.n for s in segments])
-        self.offsets_dev = torch.from_numpy(self.offsets).to(device)
+        self.offsets_dev = place(self.offsets, device)
         self.warm = [(si, s.index.raw) for si, s in enumerate(segments)
                      if s.index.raw is not None]
         self.cold = [(si, s.raw_vectors()) for si, s in enumerate(segments)
@@ -291,14 +300,19 @@ class _RawRows:
     def __call__(self, rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
         shape, dev = tuple(rows.shape), self.device
         flat, okf = rows.reshape(-1), ok.reshape(-1)
-        out = torch.zeros((flat.numel(), self.d), device=dev)
+        n = flat.numel()
+        # one spare row at the end takes the writes of the slots a warm
+        # segment does not own: fixed shapes, no read of the data's counts
+        out = torch.zeros((n + 1, self.d), device=dev)
         seg = torch.searchsorted(self.offsets_dev, flat, right=True) - 1
         for si, x in self.warm:
-            sel = torch.nonzero(torch.logical_and(seg == si, okf)).flatten()
-            out[sel] = x[flat[sel] - int(self.offsets[si])]
+            hit = torch.logical_and(seg == si, okf)
+            at = torch.clamp(flat - int(self.offsets[si]), 0, x.shape[0] - 1)
+            dst = torch.where(hit, torch.arange(n, device=dev), n)
+            out.index_copy_(0, dst, x[at])
         if self.cold:
             t0 = time.perf_counter()
-            flat_h, ok_h, seg_h = (t.cpu().numpy() for t in (flat, okf, seg))
+            flat_h, ok_h, seg_h = (t.numpy() for t in fetch(flat, okf, seg))
             cold_si = np.array([si for si, _ in self.cold])
             sel = np.flatnonzero(ok_h & np.isin(seg_h, cold_si))
             sel = sel[np.argsort(seg_h[sel], kind="stable")]
@@ -320,11 +334,11 @@ class _RawRows:
                 self.stats["h2d"].append(ev)
             else:
                 got = buf
-            out.index_copy_(0, torch.from_numpy(sel).to(dev), got)
+            out.index_copy_(0, place(sel, dev), got)
             self.stats["calls"] += 1
             self.stats["rows"] += len(sel)
             self.stats["bytes"] += buf.numel() * 4
-        return out.reshape(shape + (self.d,))
+        return out[:n].reshape(shape + (self.d,))
 
 
 def _new_rerank_stats() -> dict:
@@ -428,9 +442,24 @@ def _fuse(leaves: list, fill, gmax: int) -> torch.Tensor:
     return out
 
 
+def _move(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev`` through the sanctioned copies: ``fetch`` from a
+    card to the host, ``place`` otherwise."""
+    if dev.type == "cpu" and t.device.type != "cpu":
+        return fetch(t)
+    return place(t, dev)
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``place`` for the search's own per-call host arrays (tenant, hub,
+    plan and row-selection arrays), under one name so that a profile can
+    time these copies apart from the memtable's and the planes'."""
+    return place(a, dev)
+
+
 def _on(grains: GrainStore, dev: torch.device) -> GrainStore:
     return GrainStore(**{f.name: None if getattr(grains, f.name) is None
-                         else getattr(grains, f.name).to(dev)
+                         else _move(getattr(grains, f.name), dev)
                          for f in dataclasses.fields(GrainStore)})
 
 
@@ -498,17 +527,19 @@ def stack_segments(segments: Sequence[Segment], *, device=None,
         qmaxg=_fuse([or_full(g, "qmaxg", torch.int32, qeff_fb)
                      for g in grains], 1, gmax) if any_qmax else None)
     g_st = GrainStore(**fused)
-    sizes = _fuse([s.index.routing.sizes.to(dev) for s in segs], 0, gmax)
+    sizes = _fuse([_move(s.index.routing.sizes, dev) for s in segs], 0,
+                  gmax)
     warm = keep_raw and all(s.index.raw is not None for s in segs)
     index = HNTLIndex(
         routing=RoutingPlane(centroids=g_st.mu, sizes=sizes),
         grains=g_st,
-        raw=torch.cat([s.index.raw.to(dev) for s in segs]) if warm else None)
+        raw=torch.cat([_move(s.index.raw, dev) for s in segs]) if warm
+        else None)
     gid_of_row = np.concatenate([s.global_ids() for s in segs])
     return StackedSegments(
         index=index,
-        gid_of_row=torch.from_numpy(gid_of_row.astype(np.int32)).to(dev),
-        row_offset=torch.from_numpy(offsets.astype(np.int32)).to(dev))
+        gid_of_row=place(gid_of_row.astype(np.int32), dev),
+        row_offset=place(offsets.astype(np.int32), dev))
 
 
 def shard_segments(segments: Sequence[Segment], n_shards: int, *,
@@ -551,8 +582,8 @@ def shard_segments(segments: Sequence[Segment], n_shards: int, *,
         return torch.cat([t, t.new_full((g_pad,) + tuple(t.shape[1:]),
                                         fill)])
 
-    ids = padg(g.ids, -1).cpu().numpy()             # [Gp, cap] flat rows
-    valid = padg(g.valid, False).cpu().numpy()
+    ids, valid = (t.numpy() for t in fetch(padg(g.ids, -1),  # flat rows
+                                           padg(g.valid, False)))
     owned = [ids[s * g_local:(s + 1) * g_local][
         valid[s * g_local:(s + 1) * g_local]].astype(np.int64)
         for s in range(n_shards)]                   # rows per shard
@@ -567,15 +598,15 @@ def shard_segments(segments: Sequence[Segment], n_shards: int, *,
         ch = ids[s * g_local:(s + 1) * g_local]
         new_ids[s * g_local:(s + 1) * g_local] = np.where(
             ch >= 0, lut[np.maximum(ch, 0)], -1).astype(np.int32)
-    keep = torch.from_numpy(np.maximum(perm, 0)).to(dev)
-    is_row = torch.from_numpy(perm >= 0).to(dev)
+    keep = place(np.maximum(perm, 0), dev)
+    is_row = place(perm >= 0, dev)
     gid_perm = torch.where(is_row, stacked.gid_of_row[keep], -1).to(
         torch.int32)
     mu = padg(g.mu, 0.0)
     grains = GrainStore(
         coords=padg(g.coords, 0), res=padg(g.res, 0),
-        sketch=padg(g.sketch, 0), ids=torch.from_numpy(new_ids).to(dev),
-        valid=torch.from_numpy(valid).to(dev), basis=padg(g.basis, 0.0),
+        sketch=padg(g.sketch, 0), ids=place(new_ids, dev),
+        valid=place(valid, dev), basis=padg(g.basis, 0.0),
         mu=mu, scale=padg(g.scale, 1.0), res_scale=padg(g.res_scale, 1.0),
         sketch_basis=padg(g.sketch_basis, 0.0),
         sketch_scale=padg(g.sketch_scale, 1.0),
@@ -586,16 +617,6 @@ def shard_segments(segments: Sequence[Segment], n_shards: int, *,
                              sizes=padg(stacked.index.routing.sizes, 0)),
         grains=grains, raw=raw[keep] if raw is not None else None)
     return ShardedStackedSegments(index=index, gid_of_row=gid_perm), perm
-
-
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host array on ``dev`` without stalling the host: through pinned
-    memory and a copy queued on the current stream (PyTorch's pinned
-    allocator keeps the buffer until the copy has run)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type != "cuda":
-        return t
-    return t.pin_memory().to(dev, non_blocking=True)
 
 
 class VectorStore:
@@ -1230,10 +1251,11 @@ class VectorStore:
         if hit is not None:
             return hit
         stacked = stack_segments(segments)
+        ids_h, off_h = fetch(stacked.index.grains.ids, stacked.row_offset)
         entry = {
             "plane": stacked,
-            "ids_host": stacked.index.grains.ids.cpu().numpy(),
-            "offsets": stacked.row_offset.cpu().numpy().astype(np.int64),
+            "ids_host": ids_h.numpy(),
+            "offsets": off_h.numpy().astype(np.int64),
             "row_base": None,
             "row_gid": np.concatenate([s.global_ids() for s in segments]),
             "row_seq": np.concatenate([s.global_seqs() for s in segments]),
@@ -1279,9 +1301,8 @@ class VectorStore:
             "row_gid": gids,
             "row_seq": np.concatenate([s.global_seqs() for s in segments]),
             "row_exp": _concat_expiry(segments),
-            "gid_of_row": torch.from_numpy(gids.astype(np.int32)).to(
-                self.device),
-            "row_grain": torch.from_numpy(row_grain).to(self.device),
+            "gid_of_row": place(gids.astype(np.int32), self.device),
+            "row_grain": place(row_grain, self.device),
             "live_host": (None, None),   # (epoch key, [G, cap] bitmap|None)
             "keep": (None, None),        # (filter key, (keep, ok, ok_dev))
             "raw_rows": None,
@@ -1399,8 +1420,7 @@ class VectorStore:
         if ck != key:
             keep, ok = residency.host_keep_mask(entry["tiered"].panels,
                                                 bitmap, tag_mask, ts_range)
-            val = (keep, ok, None if ok is None
-                   else torch.from_numpy(ok).to(self.device))
+            val = (keep, ok, None if ok is None else place(ok, self.device))
             entry["keep"] = (key, val)
         return val
 
@@ -1435,8 +1455,8 @@ class VectorStore:
                 plane = plane.with_live(
                     shd.shard_plane_field(bitmap, entry["rules"], "live"))
             else:
-                plane = dataclasses.replace(plane, live=torch.from_numpy(
-                    bitmap).to(plane.index.device))
+                plane = dataclasses.replace(
+                    plane, live=place(bitmap, plane.index.device))
         entry["live"] = (key, plane)
         return plane
 
@@ -1463,7 +1483,7 @@ class VectorStore:
         rules = shd.search_plane_rules(mesh, grain_axis=grain_axis)
         n_shards = rules.n_shards
         plane, perm = shard_segments(segments, n_shards, device=self.device)
-        ids_host = plane.index.grains.ids.cpu().numpy()
+        ids_host = fetch(plane.index.grains.ids).numpy()
         reuse = self._reusable_row_leaves(segments, mesh, grain_axis, perm)
         placed = shd.shard_search_plane(plane, rules, reuse=reuse)
         del plane
@@ -1491,9 +1511,8 @@ class VectorStore:
             "raw_rows": None,          # _RawRows of a cold segment set
         }
         if not placed.warm:            # the cold re-rank's row maps
-            entry["perm_dev"] = torch.from_numpy(perm).to(self.device)
-            entry["gid_flat"] = torch.from_numpy(
-                gids.astype(np.int32)).to(self.device)
+            entry["perm_dev"] = place(perm, self.device)
+            entry["gid_flat"] = place(gids.astype(np.int32), self.device)
         return self._cache_put(key, segments, entry)
 
     def _reusable_row_leaves(self, segments: tuple, mesh, grain_axis: str,
@@ -1728,7 +1747,7 @@ class VectorStore:
         q = torch.as_tensor(q, dtype=torch.float32)
         if q.dim() == 1:
             q = q[None]
-        q = q.to(self.device)
+        q = place(q, self.device)
         with index_mod.full_fp32_matmul():
             if not fused:
                 return self._search_looped(
@@ -1929,8 +1948,8 @@ class VectorStore:
             tag_mask=tag_mask, ts_range=ts_range, tenant_live=tenant_live,
             tenant_ix=tenant_ix, grain_mask=grain_mask)
         q_n, p_n = gids_d.shape
-        flat = torch.cat([gids_d.reshape(-1), na_d, wins, touches]).cpu() \
-            .numpy()
+        flat = fetch(torch.cat([gids_d.reshape(-1), na_d, wins,
+                                touches])).numpy()
         cut = np.cumsum([q_n * p_n, q_n, wins.shape[0]])
         gids_h, na_h, wins_h, touch_h = np.split(flat, cut)
         plan_h = (gids_h.reshape(q_n, p_n), na_h, wins_h.astype(np.int64),
@@ -2040,12 +2059,7 @@ class VectorStore:
                                              grain_mask=grain_ok_dev)
             zq, rq, alive, sq = planner.project_probes(
                 stub.index, q, gids_d, self.cfg.envelope_frac, qeff)
-            gids_h = torch.empty(gids_d.shape, dtype=gids_d.dtype,
-                                 pin_memory=dev.type == "cuda")
-            gids_h.copy_(gids_d, non_blocking=True)
-            if dev.type == "cuda":
-                plan_read = torch.cuda.Event()
-                plan_read.record()
+            plan_read = fetch_async(gids_d)
 
         # 2a: the hot pass, queued before the host waits for the plan
         passes = []
@@ -2059,9 +2073,7 @@ class VectorStore:
                 width=min(target, probe * cap),
                 **tenant_slice(tiered.hot_slots, ti_d), **pkw))
         if not adaptive:
-            if plan_read is not None:
-                plan_read.synchronize()
-            gids_h = gids_h.numpy()
+            gids_h = plan_read.wait().numpy()
             na_h = np.full(q_n, probe, np.int32)
             wins_h = np.bincount(gids_h[:, 0], minlength=g_total)
             touch_h = np.bincount(gids_h.ravel(), minlength=g_total)
@@ -2269,8 +2281,8 @@ class VectorStore:
             lo, hi = (np.float32(v) for v in ts_range)
             keep &= (tsv >= lo) & (tsv < hi)
         dev = q.device
-        mem = torch.from_numpy(np.stack(man.mem[:man.mem_n])).to(dev)
-        keep_t = torch.from_numpy(keep).to(dev)
+        mem = place(np.stack(man.mem[:man.mem_n]), dev)
+        keep_t = place(keep, dev)
         kk = min(topk, man.mem_n)
         chunk = max(1, MEMTABLE_CHUNK_BYTES // (mem.numel() * 4))
         pos, dists = [], []
@@ -2281,8 +2293,7 @@ class VectorStore:
             d_s, order = torch.sort(d_all, dim=1, stable=True)
             dists.append(d_s[:, :kk])
             pos.append(order[:, :kk])
-        gids_t = torch.from_numpy(gids).to(dev)
-        return gids_t[torch.cat(pos)], torch.cat(dists)
+        return place(gids, dev)[torch.cat(pos)], torch.cat(dists)
 
     # --------------------------------------------------- per-segment loop
     def _seg_live_mask(self, man: Manifest, seg: Segment,

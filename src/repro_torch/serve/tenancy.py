@@ -39,11 +39,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..analysis.sanitize import place
 from ..core import index as index_mod
 from ..core import routing
 from ..core.cascade import check_budgets
-from ..core.store import (Manifest, VectorStore, _finalize, _live_rows,
-                          _to_device)
+from ..core.store import Manifest, VectorStore, _finalize, _live_rows
 from ..core.types import BIG, SearchResult
 
 #: Coalesced query batches are padded up to power-of-two buckets of at
@@ -363,7 +363,7 @@ def _dispatch_group(registry: TenantRegistry, union: tuple,
     qp = pad_rows(n) if union else n
     q_host = np.zeros((qp, base.cfg.d), np.float32)
     q_host[:n] = np.stack([np.asarray(r.q, np.float32) for r in reqs])
-    q = _to_device(q_host, dev)
+    q = place(q_host, dev)
 
     seg = None
     if union:
@@ -397,7 +397,7 @@ def _dispatch_group(registry: TenantRegistry, union: tuple,
     # each tenant's rows: its memtable scan, then one finalize
     for name in names:
         rows = rows_of[name]
-        sel = _to_device(np.asarray(rows, np.int64), dev)
+        sel = place(np.asarray(rows, np.int64), dev)
         parts_i, parts_d = [], []
         if seg is not None:
             parts_i.append(seg[0][sel])
