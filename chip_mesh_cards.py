@@ -7,7 +7,13 @@ split into blocks on their cards and the step gathers them:
 
 - gemma2-2b and qwen3-moe-30b-a3b (float32 smoke configs) on a 2 x 2
   ``make_host_mesh`` of cuda:0-3: one step equals the one-card step (loss
-  rtol 1e-5, parameters within 1e-5, AdamW at eps 1e-3);
+  rtol 1e-5, parameters within 1e-5, AdamW at eps 1e-3); gemma2's rows
+  run tensor-parallel over their 2 model slots, qwen3-moe's row-gather;
+- phi3-mini-3.8b at full width and depth on a 1 x 4 mesh of cuda:0-3,
+  tensor-parallel (each card a quarter of the heads, MLP and vocab): the
+  float32 loss and gradients of B x S = 8 x 1024 against one card's (loss
+  rtol 1e-5, each leaf within 1e-4 of its own max |g|), then bf16 steps
+  timed beside the one-card step, each card's busy share profiled;
 - int8_ef compression over 4 data slots, replicated on four cards
   (``compression.replicate``), equals the same on 4 slots of one card
   (3 steps: losses and parameters, max |diff| 1e-6);
@@ -57,6 +63,8 @@ def mesh_step(torch, devs, res):
     from repro_torch.train.step import (init_state, make_train_step,
                                         place_train_state)
 
+    from repro_torch.train.step import execution
+
     home = torch.device(devs[0])
     for arch in ("gemma2-2b", "qwen3-moe-30b-a3b"):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
@@ -73,13 +81,131 @@ def mesh_step(torch, devs, res):
         want = dict(one.params.named_parameters())
         diff = max(float((host(p) - host(want[k])).abs().max())
                    for k, p in mesh.params.named_parameters())
-        res[arch] = dict(loss_one=float(m1["loss"]),
+        res[arch] = dict(execution=execution(model, rules),
+                         loss_one=float(m1["loss"]),
                          loss_mesh=float(m2["loss"]), param_diff=diff,
                          block_pieces=blocks)
         print(arch, res[arch], flush=True)
         if not (abs(res[arch]["loss_mesh"] - res[arch]["loss_one"])
                 <= 1e-5 * abs(res[arch]["loss_one"]) and diff <= 1e-5):
             raise SystemExit(f"{arch}: the mesh step differs")
+
+
+#: phi3-mini on 1 x 4 cards: B x S, and the timed bf16 steps.
+TP_SHAPE = (8, 1024)
+TP_STEPS = 4
+
+
+def busy_by_card(torch, fn, wall_s, n):
+    """Each card's kernel time over ``fn`` (torch.profiler) over the
+    unprofiled wall time ``wall_s`` of the same work; None where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [0.0] * n
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and 0 <= e.device_index < n:
+            us[e.device_index] += e.self_device_time_total
+    if not any(us):
+        return None
+    return [u / (wall_s * 1e6) for u in us]
+
+
+def tensor_parallel_cards(torch, devs, res):
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.step import (execution, init_state,
+                                        make_train_step, place_train_state,
+                                        value_and_grad)
+
+    home = torch.device(devs[0])
+    b, s = TP_SHAPE
+    rules = shd.default_rules(make_host_mesh(1, 4, devices=devs))
+    out = {}
+    # the float32 gate: loss and every gradient against one card's
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), dtype="float32")
+    model = get_model(cfg)
+    out["execution"] = execution(model, rules)
+    if out["execution"] != "tensor-parallel":
+        raise SystemExit(f"phi3-mini on 1 x 4 runs {out['execution']}")
+    params = model.init(0, device=home).requires_grad_(True)
+    batch = batch_of(torch, cfg, home, b=b, s=s)
+    with full_fp32_matmul():
+        l1, _, g1 = value_and_grad(model, params, batch)
+    placed = shd.place_module(params, rules)
+    del params
+    torch.cuda.empty_cache()
+    with full_fp32_matmul():
+        l2, _, g2 = value_and_grad(model, placed, batch)
+    worst, leaf = 0.0, None
+    for k, want in g1.items():
+        got = g2[k].gather(home) if isinstance(g2[k], shd.PlacedTensor) \
+            else g2[k].to(home)
+        r = float((got - want).abs().max()) / (
+            1e-4 * float(want.abs().max()))
+        if r > worst:
+            worst, leaf = r, k
+    rel = abs(float(l2) - float(l1)) / abs(float(l1))
+    out.update(loss_one=float(l1), loss_cards=float(l2), loss_rel=rel,
+               grad_worst=worst, grad_worst_leaf=leaf)
+    del g1, g2, placed
+    torch.cuda.empty_cache()
+    print("phi3-mini 1 x 4 gate", out, flush=True)
+    if rel > 1e-5 or worst > 1.0:
+        raise SystemExit("phi3-mini on 1 x 4 cards differs from one card")
+    # bf16 steps: 1 x 4 cards against one card
+    cfg = get_config("phi3-mini-3.8b")
+    model = get_model(cfg)
+    batches = [batch_of(torch, cfg, home, i, b, s)
+               for i in range(TP_STEPS + 1)]
+    for name, place in (("one card", False), ("1 x 4 cards", True)):
+        opt = AdamW(lr=warmup_cosine(3e-4, 2, TP_STEPS))
+        state = init_state(model, opt, 0, home)
+        if place:
+            state = place_train_state(state, rules)
+            torch.cuda.empty_cache()
+        step = make_train_step(model, opt)
+        ms, losses = [], []
+        for i in range(TP_STEPS):
+            for d in devs:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))
+            for d in devs:
+                torch.cuda.synchronize(d)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        mid = sorted(ms[1:])[len(ms[1:]) // 2]
+        box = {"state": state}
+
+        def one():
+            box["state"], _ = step(box["state"], batches[TP_STEPS])
+        busy = busy_by_card(torch, one, mid / 1e3, len(devs))
+        peak = [torch.cuda.max_memory_allocated(d) for d in devs]
+        out[name] = dict(step_ms=mid, step_ms_all=ms, losses=losses,
+                         busy=busy, peak=peak)
+        print(f"phi3-mini bf16, {name}: step median {mid:.1f} ms "
+              f"(all {[round(x, 1) for x in ms]}), losses {losses}, busy "
+              f"share by card {busy}, peak bytes by card {peak}",
+              flush=True)
+        if not all(abs(x) < 1e9 for x in losses):
+            raise SystemExit(f"phi3-mini {name}: losses {losses}")
+        del box, state, step
+        torch.cuda.empty_cache()
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+    res["phi3_tensor_parallel"] = out
 
 
 def compression_cards(torch, devs, res):
@@ -186,6 +312,7 @@ def main() -> int:
                          text=True).stdout.strip())
     res = {}
     mesh_step(torch, devs, res)
+    tensor_parallel_cards(torch, devs, res)
     compression_cards(torch, devs, res)
     elastic_cards(torch, np, devs, res)
     print(json.dumps(res))

@@ -247,7 +247,9 @@ What it does, in order (any failure exits non-zero before the last line):
    gradient against the one-slot step's on the same parameters: rtol
    1e-5, each leaf within 1e-4 of its own max |g|; the bf16 numbers
    logged), then 5 bf16 steps of the placed state (leaves whole, shards
-   views): step ms, tokens/s, peak memory, a profiled step; (b)
+   views), tensor-parallel (each data row's 2 model slots split its
+   heads, MLP and vocab): step ms, tokens/s, peak memory, a profiled
+   step, and the execution; (b)
    qwen2-vl-2b at full width and depth over 2 data slots: int8_ef's first
    reduced gradient within half its consensus scale of the exact mean,
    3 steps of each of ``none``, ``bf16`` and ``int8_ef`` timed with their
@@ -271,7 +273,8 @@ What it does, in order (any failure exits non-zero before the last line):
    layer, at 43,011,072 bytes each (gated); (c) ``python -m
    repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape train_4k``
    and ``--shape long_500k``, two subprocesses started together once
-   the last timed phase is done: exit 0, records read back;
+   no step that a host clock times runs any more (before 12e (c)):
+   exit 0, records read back;
 13. the hygiene gate's runtime half (``repro_torch.analysis.sanitize``),
    inside the phases on the stores they built: one search of each plane
    run inside ``sync_guard()``, where the card's sync-debug mode is
@@ -6462,14 +6465,16 @@ def mesh_grad_check(torch, np, dev, dtype="float32", gate=True):
     from repro_torch.core.index import full_fp32_matmul
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import get_model
-    from repro_torch.train.step import value_and_grad
+    from repro_torch.train.step import execution, value_and_grad
 
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype=dtype)
     model = get_model(cfg)
     b, s = MESH_SHAPE
     params = model.init(0, device=dev).requires_grad_(True)
-    placed = shd.place_module(params, shd.default_rules(
-        card_mesh(dev, *MESH_GRID)))
+    rules = shd.default_rules(card_mesh(dev, *MESH_GRID))
+    how = execution(model, rules)
+    check(how == "tensor-parallel", f"mesh (a): {cfg.name} runs {how}")
+    placed = shd.place_module(params, rules)
     batch = mesh_batch(torch, cfg.vocab, b, s, dev, pad_from=MESH_PAD_FROM)
     walls = {}
     sync(torch, dev)
@@ -6487,7 +6492,8 @@ def mesh_grad_check(torch, np, dev, dtype="float32", gate=True):
     l_mesh, l_one = float(l_mesh), float(l_one)
     rel = abs(l_mesh - l_one) / abs(l_one)
     log(f"mesh (a) gate, {dtype}: {cfg.name} {cfg.n_layers} layers x "
-        f"{cfg.d_model}, {MESH_GRID[0]} x {MESH_GRID[1]} slots on {dev}, "
+        f"{cfg.d_model}, {how}, {MESH_GRID[0]} x {MESH_GRID[1]} slots on "
+        f"{dev}, "
         f"B={b} S={s} (row 0 padded from token {MESH_PAD_FROM}): loss mesh "
         f"{l_mesh:.7f} one slot {l_one:.7f} (rel {rel:.3g}, limit "
         f"{TRAIN_LOSS_RTOL}); {len(g_one)} gradients, worst at {worst:.4g} "
@@ -6500,22 +6506,25 @@ def mesh_grad_check(torch, np, dev, dtype="float32", gate=True):
               f"{worst:.3g} of its limit")
     del params, placed, g_mesh, g_one
     free_card(torch, dev)
-    return dict(dtype=dtype, loss_mesh=l_mesh, loss_one=l_one, loss_rel=rel,
-                grad_worst=worst, grad_worst_leaf=worst_name, walls=walls)
+    return dict(dtype=dtype, execution=how, loss_mesh=l_mesh,
+                loss_one=l_one, loss_rel=rel, grad_worst=worst,
+                grad_worst_leaf=worst_name, walls=walls)
 
 
 def mesh_train(torch, np, dev):
     """(a)'s steps: phi3-mini-3.8b at full width and depth, bf16, full
     remat, placed on the MESH_GRID mesh (parameters and moments by
     ``infer_param_specs``: on one card the leaves whole, shards views) and
-    stepped MESH_STEPS times by ``make_train_step``: finite losses, step
-    ms, tokens/s, peak memory, one more step profiled (busy share)."""
+    stepped MESH_STEPS times by ``make_train_step``, tensor-parallel (each
+    data row's 2 model slots split its heads, MLP and vocab): finite
+    losses, step ms, tokens/s, peak memory, one more step profiled (busy
+    share)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import get_model
     from repro_torch.optim.adamw import AdamW, warmup_cosine
-    from repro_torch.train.step import (init_state, make_train_step,
-                                        place_train_state)
+    from repro_torch.train.step import (execution, init_state,
+                                        make_train_step, place_train_state)
 
     cfg = get_config(TRAIN_ARCH)
     (b, s), steps = MESH_SHAPE, MESH_STEPS
@@ -6547,13 +6556,14 @@ def mesh_train(torch, np, dev):
     check(all(np.isfinite(losses)), f"mesh (a): losses {losses}")
     mid = sorted(ms[1:])[len(ms[1:]) // 2]
     opt_ms = sorted(opt.ms[1:steps])[len(opt.ms[1:steps]) // 2]
-    out = dict(params=n_params, step_ms=mid, step_ms_all=ms,
+    out = dict(params=n_params, execution=execution(model, rules),
+               step_ms=mid, step_ms_all=ms,
                tokens_per_s=b * s / (mid / 1e3), losses=losses,
                opt_ms=opt_ms, shard_views=n_views,
                peak=torch.cuda.max_memory_allocated(dev))
     log(f"mesh (a): {cfg.name}, {n_params} parameters, bf16, remat "
-        f"{cfg.remat_policy}, {MESH_GRID[0]} data x {MESH_GRID[1]} model "
-        f"slots on {dev} ({n_views} of "
+        f"{cfg.remat_policy}, {out['execution']}, {MESH_GRID[0]} data x "
+        f"{MESH_GRID[1]} model slots on {dev} ({n_views} of "
         f"{len(list(state.params.parameters())) * rules.mesh.size} slot "
         f"shards views of their leaf), B={b} S={s}: step 1 {ms[0]:.1f} ms, "
         f"then median {mid:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; loss"
@@ -6566,6 +6576,10 @@ def mesh_train(torch, np, dev):
     out["profile"] = profile(torch, f"one {cfg.name} train step on a "
                              f"{MESH_GRID[0]} x {MESH_GRID[1]} mesh", one,
                              mid / 1e3, top=6)
+    log(f"mesh (a) line: execution {out['execution']}, step median "
+        f"{mid:.1f} ms, peak {out['peak']} bytes, busy share "
+        + (f"{out['profile']['busy']:.3f}" if out["profile"]
+           else "not measured"))
     del box, state, batches
     free_card(torch, dev)
     return out
@@ -6879,7 +6893,9 @@ def mesh_phase(torch, np, dev):
     of qwen2-vl-2b at full width over 2 slots, the int8_ef gate, the three
     schemes timed, the 12-step trajectory at smoke width; (c) elastic
     re-mesh and cross-mesh restore; then the port's examples.  (d), search
-    on ``make_host_mesh``, runs inside the sharded phase."""
+    on ``make_host_mesh``, runs inside the sharded phase.  The dry-run's
+    CLI cells (12f (c)) start before (c): no step after that point is
+    timed for a gate."""
     t_phase = time.perf_counter()
     free_card(torch, dev)
     out = dict(grad=mesh_grad_check(torch, np, dev),
@@ -6889,12 +6905,16 @@ def mesh_phase(torch, np, dev):
                compression_gate=compression_gate(torch, np, dev),
                compression=compression_steps(torch, np, dev),
                trajectory=compression_trajectory(torch, np, dev))
+    out["cli_started"] = dryrun_cli_start()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         out["elastic"] = mesh_elastic(torch, np, dev, tmp)
+        out["examples"] = examples_phase(torch, dev)
+    except BaseException:
+        dryrun_cli_stop(out["cli_started"])
+        raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out["examples"] = examples_phase(torch, dev)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"mesh phase: {out['seconds']:.1f} s")
     return out
@@ -7067,25 +7087,42 @@ def dryrun_decode_check(torch, dev, model, params, tok, caches, pos, *,
     return out
 
 
-def dryrun_cli():
-    """(c): ``python -m repro_torch.launch.dryrun`` on each of
-    ``DRYRUN_CLI``'s cells, each in a subprocess (this machine has no
-    JAX), all started together once nothing timed runs any more: each
-    exits 0 within ``DRYRUN_CLI_TIMEOUT_S`` and its record reads back
-    ok."""
+def dryrun_cli_start():
+    """(c)'s subprocesses: ``python -m repro_torch.launch.dryrun`` on each
+    of ``DRYRUN_CLI``'s cells (this machine has no JAX), all started
+    together once no step that a host clock times runs any more (before
+    mesh (c) and the examples, whose walls are logged, not gated)."""
     env = dict(os.environ, PYTHONPATH=SRC)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     procs = {}
+    for arch, shape in DRYRUN_CLI:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--out", tmp]
+        procs[arch, shape] = (subprocess.Popen(
+            cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), cmd, time.perf_counter())
+    return procs, tmp
+
+
+def dryrun_cli_stop(started):
+    procs, tmp = started
+    for proc, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dryrun_cli(started):
+    """(c): each of ``dryrun_cli_start``'s cells exits 0 within
+    ``DRYRUN_CLI_TIMEOUT_S`` of its start and its record reads back
+    ok."""
+    procs, tmp = started
     out = {}
     try:
-        for arch, shape in DRYRUN_CLI:
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--out", tmp]
-            procs[arch, shape] = (subprocess.Popen(
-                cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True), cmd, time.perf_counter())
         for (arch, shape), (proc, cmd, t0) in procs.items():
-            _, err = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+            _, err = proc.communicate(timeout=max(
+                1.0, DRYRUN_CLI_TIMEOUT_S - (time.perf_counter() - t0)))
             wall = time.perf_counter() - t0
             check(proc.returncode == 0, f"dryrun (c): {' '.join(cmd[1:])} "
                   f"exited {proc.returncode}: {err[-2000:]}")
@@ -7103,7 +7140,8 @@ def dryrun_cli():
                 f"{arch} --shape {shape}: exit 0, collected {wall:.1f} s "
                 f"after the start "
                 f"({rec['wall_s']} s in the cell); {rec['n_chips']} "
-                f"devices, {rec['rows']} row group(s); busiest device "
+                f"devices, {rec['rows']} row group(s), "
+                f"{rec['execution'].split(':')[0]}; busiest device "
                 f"{rec['busiest_device']}: FLOPs {rec['flops']:.4g}, HBM "
                 f"{rec['hbm_bytes']:.4g} B, collectives "
                 f"{rec['collective_bytes'].get('total', 0):.4g} B, peak "
@@ -7113,27 +7151,24 @@ def dryrun_cli():
                 f"collectives {r['collective_s']:.4g} s); kernels "
                 f"{rec['kernels']}")
     finally:
-        for proc, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-        shutil.rmtree(tmp, ignore_errors=True)
+        dryrun_cli_stop(started)
     return out
 
 
-def dryrun_phase(trp, sp):
+def dryrun_phase(trp, sp, cli_started):
     """The dry-run held to real steps: (a) in the train phase's
     ``train_full`` and (b) in the serve phase, on the models those phases
-    built; (c) the CLI, run here, after the last timed phase.  Any
-    failure fails the run."""
+    built; (c) the CLI, started in the mesh phase after its last timed
+    step and collected here.  Any failure fails the run."""
     t0 = time.perf_counter()
     out = dict(train=trp["full"]["dryrun"], decode=sp["dryrun"],
-               cli=dryrun_cli())
+               cli=dryrun_cli(cli_started))
     out["cli_s"] = time.perf_counter() - t0
     out["seconds"] = out["cli_s"] + out["train"]["meta_s"] \
         + out["train"]["real_s"] + out["decode"]["meta_s"]
     log(f"dryrun phase: {out['seconds']:.1f} s of the run's wall ((a) and "
-        f"(b) inside the train and serve phases, (c) {out['cli_s']:.1f} s)")
+        f"(b) inside the train and serve phases, (c) {out['cli_s']:.1f} s "
+        f"after the mesh phase)")
     return out
 
 
@@ -7279,7 +7314,7 @@ def main(argv=None) -> int:
                         rg_tokens=a.serve_tokens)
     trp = train_phase(torch, np, cuda)
     msp = mesh_phase(torch, np, cuda)
-    drp = dryrun_phase(trp, sp)
+    drp = dryrun_phase(trp, sp, msp["cli_started"])
     log(f"peak device memory above each phase's start: warm store phase "
         f"(8 warm segments and a memtable) {stp['peak'] - stp['base']} "
         f"bytes, tiered phase (8 cold segments, paged) {tp['peak']} bytes, "

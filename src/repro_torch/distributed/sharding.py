@@ -22,10 +22,19 @@ slot's device.  A device that holds every block of a leaf keeps the leaf
 whole and its slots' shards are views of it, so N slots on one card
 cost one copy, not N; a device that holds some blocks keeps each of them
 once.  A gather back to a device returns the whole leaf itself where it
-lies there already.  The model axis shards storage only: a train step
-computes each data row with the whole parameters gathered on the row's
-device (``PlacedModule.module_on``), so ``constrain`` never splits an
-activation and the models call it nowhere.
+lies there already.  ``PlacedTensor.region`` is any part of a leaf on a
+device: a model slot takes its block of the dim split over "model"
+(``model_dim``) gathered over the data axis only, a view where the
+device holds the leaf whole.
+
+Two executions of a train step (``train.step.execution``): the dense
+attention-only decoders split their compute over the model axis (heads,
+MLP columns and vocab rows per model slot, the row-parallel products
+summed over the row's slots: ``models.transformer.SlotParams``); every
+other family (experts, RG-LRU, RWKV6, the encoder-decoder) computes each
+data row with the whole parameters gathered on the row's first slot
+(``PlacedModule.module_on``), so the model axis shards its storage only.
+Neither goes through ``constrain``: the models call it nowhere.
 
 The search half places the grain-sharded plane: ``search_plane_rules``
 maps the plane's logical axes ("grains", "rows",
@@ -189,8 +198,11 @@ def active_rules() -> Optional[ShardingRules]:
 def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """Annotate an activation with logical axes: ``x`` itself.  With
     active rules the axes are checked against ``x``'s rank (the spec is
-    computed); no activation is split, since a row computes with whole
-    tensors on its device (the module's docstring)."""
+    computed).  It splits nothing: where the reference's SPMD partitioner
+    splits at its ``constrain`` points, the port's tensor-parallel step
+    computes each model slot's part explicitly
+    (``models.transformer.SlotParams``), and the other families compute
+    whole tensors on a row's device (the module's docstring)."""
     rules = active_rules()
     if rules is not None:
         rules.spec_for_shape(x.shape, logical_axes)
@@ -312,6 +324,59 @@ def _n_blocks(mesh: Mesh, spec: tuple) -> int:
                      for e in spec)
 
 
+def spec_model_dim(spec: tuple) -> Optional[int]:
+    """The dim a spec splits over the "model" axis (None: replicated over
+    it).  A dim split over "model" and another axis at once raises: a
+    model slot's block is then no block of one axis."""
+    for i, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if "model" in axes:
+            if len(axes) > 1:
+                raise ValueError(f"dim {i} is split over {axes}, not over "
+                                 "\"model\" alone")
+            return i
+    return None
+
+
+def _full(shape) -> tuple:
+    return tuple(slice(0, n) for n in shape)
+
+
+def _intersect(a: tuple, b: tuple) -> Optional[tuple]:
+    """The common part of two blocks (slices per dim), or None."""
+    out = []
+    for x, y in zip(a, b):
+        lo, hi = max(x.start, y.start), min(x.stop, y.stop)
+        if lo >= hi:
+            return None
+        out.append(slice(lo, hi))
+    return tuple(out)
+
+
+def _relative(part: tuple, block: tuple) -> tuple:
+    """``part`` (inside ``block``) as slices of ``block``'s own tensor."""
+    return tuple(slice(p.start - b.start, p.stop - b.start)
+                 for p, b in zip(part, block))
+
+
+def add_region_(acc, g: torch.Tensor, slices: Optional[tuple]) -> None:
+    """Add ``g``, the gradient of part ``slices`` of a leaf (None: the
+    whole leaf), into ``acc``: a float32 tensor of the whole leaf, or a
+    ``PlacedTensor`` of float32 blocks, each block taking the part of
+    ``g`` it covers, moved to its device."""
+    if not isinstance(acc, PlacedTensor):
+        dst = acc if slices is None else acc[slices]
+        dst.add_(g.to(acc.device))
+        return
+    want = _full(acc.shape) if slices is None else tuple(slices)
+    for p in acc.pieces:
+        block = _full(acc.shape) if p.slices is None else p.slices
+        cut = _intersect(block, want)
+        if cut is not None:
+            p.tensor[_relative(cut, block)].add_(
+                g[_relative(cut, want)].to(p.device))
+
+
 @dataclasses.dataclass(frozen=True)
 class Piece:
     """One storage of a placed leaf: the whole leaf (``slices`` None) or
@@ -386,16 +451,42 @@ class PlacedTensor:
     def gather(self, device) -> torch.Tensor:
         """The whole leaf on ``device``: the piece itself where ``device``
         holds it whole, else one copy."""
+        return self.region(None, device)
+
+    @property
+    def model_dim(self) -> Optional[int]:
+        """The dim split over the "model" axis (``spec_model_dim``)."""
+        return spec_model_dim(self.spec)
+
+    def region(self, slices: Optional[tuple], device) -> torch.Tensor:
+        """Part ``slices`` of the leaf (one slice per dim; None: the whole
+        leaf) on ``device``: a view where ``device`` holds the leaf whole
+        (the piece itself for the whole leaf), the piece itself where it
+        holds exactly that block, else one copy made from a whole piece
+        or from the blocks that cover the part."""
         device = torch.device(device)
+        want = _full(self.shape) if slices is None else tuple(slices)
         whole = self.whole_on(device)
         if whole is not None:
-            return whole
+            return whole if slices is None else whole[want]
+        for p in self.pieces:
+            if p.device == device and p.slices == want:
+                return p.tensor
         for p in self.pieces:
             if p.slices is None:
-                return p.tensor.detach().to(device)
-        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+                return p.tensor.detach()[want].to(device)
+        out = torch.empty(tuple(s.stop - s.start for s in want),
+                          dtype=self.dtype, device=device)
+        filled = 0
         for p in self.pieces:
-            out[p.slices] = p.tensor.detach().to(device)
+            cut = _intersect(p.slices, want)
+            if cut is not None:
+                out[_relative(cut, want)] = \
+                    p.tensor.detach()[_relative(cut, p.slices)].to(device)
+                filled += math.prod(s.stop - s.start for s in cut)
+        if filled < out.numel():
+            raise KeyError(f"the pieces of a {self.shape} leaf do not "
+                           f"cover {want}")
         return out
 
 
@@ -448,16 +539,19 @@ def zeros_like_leaf(like, dtype: torch.dtype):
 def leaf_pieces(param, *others, grad: torch.Tensor):
     """(parameter, *others, gradient) per storage of one leaf: the
     tensors themselves, or for a ``PlacedTensor`` each piece of it and of
-    ``others`` (placed alike) with its slice of the whole ``grad`` moved
-    to the piece's device.  An update of plain tensors, piece by piece,
-    updates the placed leaf."""
+    ``others`` (placed alike) with its slice of ``grad`` (the whole
+    gradient, or a ``PlacedTensor`` of its blocks) moved to the piece's
+    device.  An update of plain tensors, piece by piece, updates the
+    placed leaf."""
     if not isinstance(param, PlacedTensor):
         yield (param, *others, grad)
         return
     for i, p in enumerate(param.pieces):
-        g = grad if p.slices is None else grad[p.slices]
-        yield (p.tensor, *(o.pieces[i].tensor for o in others),
-               g.to(p.device))
+        if isinstance(grad, PlacedTensor):
+            g = grad.region(p.slices, p.device)
+        else:
+            g = (grad if p.slices is None else grad[p.slices]).to(p.device)
+        yield (p.tensor, *(o.pieces[i].tensor for o in others), g)
 
 
 def meta_template(module: nn.Module) -> nn.Module:

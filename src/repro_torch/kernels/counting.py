@@ -28,3 +28,38 @@ def report(name: str, nbytes: int, ops: int) -> None:
     """One kernel call of ``nbytes`` bytes and ``ops`` operations."""
     if _ACTIVE:
         _ACTIVE[-1].kernel_call(name, nbytes, ops)
+
+
+# The model slot whose work the ops in flight are (the tensor-parallel
+# step's ``models.transformer.SlotParams``): a counter with
+# ``slot_move`` attributes ops to slots and counts the bytes moved
+# between them.
+_SLOTS: list = []
+
+
+def active() -> bool:
+    """Whether a counter is active (slot bookkeeping costs host time
+    otherwise spent on nothing)."""
+    return bool(_ACTIVE)
+
+
+@contextlib.contextmanager
+def slot(m):
+    """Attribute the ops inside the block to model slot ``m`` (None: to
+    no slot)."""
+    _SLOTS.append(m)
+    try:
+        yield
+    finally:
+        _SLOTS.pop()
+
+
+def current_slot() -> tuple:
+    """(whether a ``slot`` block is open, its slot)."""
+    return (True, _SLOTS[-1]) if _SLOTS else (False, None)
+
+
+def report_move(src: int, dst: int, nbytes: int) -> None:
+    """``nbytes`` moved from model slot ``src`` to slot ``dst`` of a row."""
+    if _ACTIVE and src != dst and hasattr(_ACTIVE[-1], "slot_move"):
+        _ACTIVE[-1].slot_move(src, dst, nbytes)

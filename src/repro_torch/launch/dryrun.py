@@ -12,7 +12,11 @@ bytes) and costs it against H100 peaks:
   one data row's rows, as
   ``train.step.row_groups`` splits a batch over the production mesh's
   "batch" axes (the whole batch where they do not divide it, and for a
-  config with experts).  The step is the one the port runs, attention's
+  config with experts).  A train cell whose step is tensor-parallel
+  (``train.step.execution``: the five dense attention-only decoders)
+  traces that row over the mesh's model slots, all on the meta device,
+  and the counter keeps each slot's share apart.  The step is the one
+  the port runs, attention's
   key chunk included, but for RWKV6: its time-mix is traced in the
   chunked form (``lowering.unrolled(attn_chunks=None, wkv_chunks=8)``),
   since the time loop the port runs takes ~20 minutes a cell to trace;
@@ -39,11 +43,22 @@ bytes) and costs it against H100 peaks:
   mesh (``train/step.py``, ``sharding.place`` / ``leaf_pieces`` /
   ``PlacedTensor.gather``).  On a production mesh every device is one
   slot and holds one block of each leaf (the whole leaf where its spec
-  is replicated).  Each data row computes on its first slot (flat index
-  j * model) with the whole parameters gathered there; the model axis
-  shards storage only.  Per device, with N devices, R row devices,
-  p = a leaf's bytes / its block count, W = the bytes of the leaves that
-  are split:
+  is replicated).  The record's ``execution`` says which of two the cell
+  runs.  Tensor-parallel train cells (``reckon_slots``): device (j, m)
+  computes slot m's traced share of row j, gathers its parts of the
+  leaves over the data axis only ("param_gather"), all-reduces the
+  row-parallel partial sums and the embedding with the row's other slots
+  and sends slot 0 its loss terms, the gradients moving back
+  ("model_sum", the moves the trace counted), sends its gradient
+  parts (the parameters' dtype) to slot (0, m), where block m of a leaf
+  is summed in float32 (slot (0, 0) for a leaf replicated over the
+  model axis; "grad_reduce"), and gets its pieces' float32 slices back
+  ("grad_scatter").  Every other cell (serving, and the families that
+  gather rows) is row-gather: each data row computes on its first slot
+  (flat index j * model) with the whole parameters gathered there; the
+  model axis shards storage only.  Per device, with N devices, R row
+  devices, p = a leaf's bytes / its block count, W = the bytes of the
+  leaves that are split:
 
   - state: Σ p over parameters and both float32 moments, and over the
     batch or caches (``specs.cell_in_shardings``);
@@ -111,6 +126,7 @@ import traceback
 import weakref
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -118,8 +134,8 @@ from torch.utils.flop_counter import flop_registry
 from ..configs import SHAPES, get_config, list_archs
 from ..distributed import sharding as shd
 from ..kernels import counting
-from ..models import get_model, lowering
-from ..train.step import row_groups
+from ..models import get_model, lowering, transformer
+from ..train.step import execution, row_groups
 from . import specs
 from .mesh import make_host_mesh, make_production_mesh
 
@@ -184,11 +200,39 @@ def _op_bytes(func, args, ins, outs) -> int:
     return sum(_distinct_bytes(t) for t in ins + outs)
 
 
+class _SlotTagger(TorchFunctionMode):
+    """Marks the autograd nodes each call inside a ``counting.slot``
+    block made (its outputs' nodes and, back to the nodes marked before,
+    those of the ops inside it) with that slot, so that the counter
+    attributes their backward to it."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        open_, m = counting.current_slot()
+        if open_:
+            todo = [t.grad_fn for t in tree_flatten(out)[0]
+                    if isinstance(t, torch.Tensor)]
+            while todo:
+                node = todo.pop()
+                if node is None or "slot" in node.metadata:
+                    continue
+                node.metadata["slot"] = m
+                todo.extend(n for n, _ in node.next_functions)
+        return out
+
+
 class StepCounter(TorchDispatchMode):
     """Counts what a step dispatches (see the module's docstring); also
     the cost counter of the kernel wrappers while it is entered.  An op
     whose tensors all lie on the CPU is host bookkeeping (a schedule's
-    scalars) and is not counted."""
+    scalars) and is not counted.
+
+    A tensor-parallel step's ops are also counted per model slot
+    (``slot_flops``, ``slot_bytes``, ``slot_peak``; the key None is the
+    row's home work): forward ops by the open ``counting.slot`` block,
+    backward ops by the slot the executing autograd node was marked
+    with.  ``moves`` counts the bytes the step moves between slots, by
+    (source slot, destination slot)."""
 
     def __init__(self):
         super().__init__()
@@ -198,21 +242,28 @@ class StepCounter(TorchDispatchMode):
         self.kernels: dict = {}
         self.live = collections.Counter()
         self.peak = collections.Counter()
+        self.slot_flops = collections.defaultdict(collections.Counter)
+        self.slot_bytes = collections.defaultdict(collections.Counter)
+        self.slot_live = collections.Counter()
+        self.slot_peak = collections.Counter()
+        self.moves = collections.Counter()
         self._tracked: dict = {}
         self._backward_seen = False
         self._costs: list = []
 
     def __enter__(self):
         # re-entered while it dispatches (``decompose``): one per entry
-        self._costs.append(counting.cost_counter(self))
-        self._costs[-1].__enter__()
+        self._costs.append((counting.cost_counter(self), _SlotTagger()))
+        for c in self._costs[-1]:
+            c.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
-            self._costs.pop().__exit__(*exc)
+            for c in reversed(self._costs.pop()):
+                c.__exit__(*exc)
 
     def _region(self) -> str:
         if torch._C._current_graph_task_id() != -1:
@@ -222,30 +273,48 @@ class StepCounter(TorchDispatchMode):
             return "forward"
         return "reduce" if torch.is_grad_enabled() else "update"
 
+    @staticmethod
+    def _slot():
+        """The model slot the op in flight works for (None: home)."""
+        open_, m = counting.current_slot()
+        if open_:
+            return m
+        node = torch._C._current_autograd_node()
+        return None if node is None else node.metadata.get("slot")
+
     def kernel_call(self, name: str, nbytes: int, ops: int) -> None:
         k = self.kernels.setdefault(name, {"calls": 0, "bytes": 0, "ops": 0})
         k["calls"] += 1
         k["bytes"] += nbytes
         k["ops"] += ops
-        self.bytes[self._region()] += nbytes
+        region, m = self._region(), self._slot()
+        self.bytes[region] += nbytes
         self.flops_by_dtype[name] += ops
+        self.slot_bytes[m][region] += nbytes
+        self.slot_flops[m][name] += ops
+
+    def slot_move(self, src: int, dst: int, nbytes: int) -> None:
+        self.moves[(src, dst)] += nbytes
 
     def _track(self, t: torch.Tensor, region: str) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self._tracked:
             return
-        nb = st.nbytes()
-        self._tracked[key] = (nb, region)
+        nb, m = st.nbytes(), self._slot()
+        self._tracked[key] = (nb, region, m)
         for r in (region, "total"):
             self.live[r] += nb
             self.peak[r] = max(self.peak[r], self.live[r])
+        self.slot_live[m] += nb
+        self.slot_peak[m] = max(self.slot_peak[m], self.slot_live[m])
         weakref.finalize(st, self._free, key)
 
     def _free(self, key) -> None:
-        nb, region = self._tracked.pop(key)
+        nb, region, m = self._tracked.pop(key)
         self.live[region] -= nb
         self.live["total"] -= nb
+        self.slot_live[m] -= nb
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -263,14 +332,18 @@ class StepCounter(TorchDispatchMode):
                 if isinstance(t, torch.Tensor)]
         if all(t.device.type == _HOST for t in ins + outs):
             return out              # host bookkeeping, not device work
-        region = self._region()
+        region, m = self._region(), self._slot()
         self.ops[str(func)] += 1
         if packet in flop_registry:
             n = flop_registry[packet](*args, **kwargs, out_val=out)
-            self.flops_by_dtype[str(ins[0].dtype).split(".")[-1]] += n
+            dtype = str(ins[0].dtype).split(".")[-1]
+            self.flops_by_dtype[dtype] += n
+            self.slot_flops[m][dtype] += n
         if func.is_view or func in _NO_BYTES:
             return out
-        self.bytes[region] += _op_bytes(func, args, ins, outs)
+        nbytes = _op_bytes(func, args, ins, outs)
+        self.bytes[region] += nbytes
+        self.slot_bytes[m][region] += nbytes
         if not func._schema.is_mutable:
             for t in outs:
                 if t.device.type != _HOST:
@@ -466,42 +539,165 @@ def reckon(kind: str, inputs, shardings, rules, n_rows: int, rows: slice,
                                     back=True)
 
     row_bytes = counter.bytes["forward"] + counter.bytes["backward"]
-    per_dev = []
+    flops, hbm = [], []
     for i in range(n):
         is_row = i in row_devs
-        hbm = (row_bytes if is_row else 0.0) \
+        h = (row_bytes if is_row else 0.0) \
             + counter.bytes["update"] * state_share \
             + links.sent(i) + links.received(i)
         if i == home:
-            hbm += counter.bytes["reduce"] + (n_rows - 1) * add_bytes
-        fl = dict(counter.flops_by_dtype) if is_row else {}
-        lb = {k: v[i] for k, v in links.dirs.items()}
-        per_dev.append((roofline(fl, hbm, lb), hbm, fl, lb))
+            h += counter.bytes["reduce"] + (n_rows - 1) * add_bytes
+        flops.append(dict(counter.flops_by_dtype) if is_row else {})
+        hbm.append(h)
+    on_row = [i in row_devs for i in range(n)]
+    return _device_terms(
+        n, flops, hbm, links, counter, state,
+        [gathered if r else 0.0 for r in on_row],
+        [float(counter.peak["total"]) if r else 0.0 for r in on_row],
+        [float(counter.peak["reduce"]) if i == home else 0.0
+         for i in range(n)], n_rows, rows.stop - rows.start)
+
+
+def _device_terms(n, flops, hbm, links, counter, state, gathered, peak,
+                  grads_f32, n_rows, b_row) -> dict:
+    """The record's numbers from per-device FLOPs ({dtype: n}), HBM
+    bytes, links, bytes held (state, gathered, step peak, float32
+    gradient sums): the busiest device's, the one whose largest roofline
+    term is largest."""
+    per_dev = [roofline(flops[i], hbm[i],
+                        {k: v[i] for k, v in links.dirs.items()})
+               for i in range(n)]
     score = [max(r["compute_s"], r["memory_s"], r["collective_s"])
-             for r, *_ in per_dev]
+             for r in per_dev]
     busy = max(range(n), key=lambda i: (score[i], -i))
-    roof, hbm, fl, lb = per_dev[busy]
     coll = {k: v[busy] for k, v in sorted(links.kinds.items())}
     coll["total"] = sum(coll.values())
-    b_state = sum(state.values())
-    on_row = busy in row_devs
-    bpd = {**state,
-           "gathered": gathered if on_row else 0.0,
-           "step_peak": float(counter.peak["total"]) if on_row else 0.0,
-           "grads_f32": float(counter.peak["reduce"])
-           if busy == home else 0.0}
-    bpd["peak"] = b_state + bpd["gathered"] + bpd["step_peak"]
+    bpd = {**state, "gathered": gathered[busy], "step_peak": peak[busy],
+           "grads_f32": grads_f32[busy]}
+    bpd["peak"] = sum(state.values()) + bpd["gathered"] + bpd["step_peak"]
+    fl = flops[busy]
     return {"busiest_device": busy, "flops": sum(
                 v for k, v in fl.items() if k not in counter.kernels),
-            "flops_by_dtype": fl, "hbm_bytes": hbm,
-            "collective_bytes": coll, "link_bytes": lb,
-            "bytes_per_device": bpd, "roofline": roof,
+            "flops_by_dtype": fl, "hbm_bytes": hbm[busy],
+            "collective_bytes": coll,
+            "link_bytes": {k: v[busy] for k, v in links.dirs.items()},
+            "bytes_per_device": bpd, "roofline": per_dev[busy],
             "fits": bpd["peak"] <= HBM_CAPACITY,
             "bytes_by_region": {r: counter.bytes[r] for r in _REGIONS},
-            "rows": n_rows, "row_batch": rows.stop - rows.start}
+            "rows": n_rows, "row_batch": b_row}
 
 
-def _execution(kind: str, n_rows: int, b_row: int) -> str:
+def reckon_slots(inputs, shardings, rules, n_rows: int, rows: slice,
+                 counter: StepCounter, cfg) -> dict:
+    """``reckon`` of a train cell in the tensor-parallel execution (the
+    module's docstring), from a trace of one data row over its model
+    slots: per device, its slot's traced work, its parameter parts
+    gathered over the data axis, the moves between a row's slots
+    ("model_sum"), the gradient parts sent to slot (0, m) and the
+    float32 slices sent back to every piece."""
+    mesh = rules.mesh
+    n, n_model = mesh.size, mesh.shape["model"]
+    coords = mesh.coords()
+    links = _Links(n)
+    params, p_sh = inputs[0].params, shardings[0].params
+    leaves = list(params.named_parameters())
+    plan = transformer.slot_plan(cfg, n_model, {
+        name: shd.spec_model_dim(p_sh[name].spec) for name, _ in leaves})
+    state = {"params": 0.0, "moments": 0.0, "inputs": 0.0}
+    gathered, grads_f32 = [0.0] * n, [0.0] * n
+    add_hbm = [0.0] * n
+    kinds: dict = collections.Counter()
+    for name, leaf in leaves:
+        spec = tuple(p_sh[name].spec)
+        nb = shd._n_blocks(mesh, spec)
+        state["params"] += _leaf_bytes(leaf) / nb
+        state["moments"] += 2 * leaf.numel() * 4 / nb
+        parts = tuple(transformer.slot_slices(plan, cfg, name, leaf.shape, m)
+                      for m in range(n_model))
+        kinds[(tuple(leaf.shape), leaf.element_size(), spec, parts)] += 1
+    for name, leaf in inputs[1].items():
+        state["inputs"] += _leaf_bytes(leaf) / shd._n_blocks(
+            mesh, shardings[1][name].spec)
+    for (shape, item, spec, parts), count in kinds.items():
+        holders = _holders(mesh, spec)
+        blocks = {b: shd._block_slices(mesh, spec, shape, b)
+                  for b in holders}
+        md = shd.spec_model_dim(spec)
+        numel = math.prod(shape)
+        for i in range(n):
+            j, m = divmod(i, n_model)
+            part = parts[m]
+            if part is None or j >= n_rows:
+                continue
+            got = 0.0
+            for b, devs in holders.items():
+                if i in devs:
+                    continue
+                cut = shd._intersect(blocks[b], part)
+                if cut is None:
+                    continue
+                nbytes = math.prod(x.stop - x.start for x in cut) * item
+                near = [d for d in devs if _host(d) == _host(i)]
+                links.move("param_gather", (near or devs)[0], i,
+                           count * nbytes)
+                got += nbytes
+            size = math.prod(x.stop - x.start for x in part)
+            if got:
+                gathered[i] += count * size * item
+            dst = m if md is not None else 0
+            links.move("grad_reduce", i, dst, count * size * item)
+            if i != dst:
+                add_hbm[dst] += count * size * (2 * item + 8)
+        for i, c in enumerate(coords):
+            src = dict(zip(mesh.axis_names, c))["model"] \
+                if md is not None else 0
+            links.move("grad_scatter", src, i,
+                       count * numel * 4 / shd._n_blocks(mesh, spec))
+            if i < n_model and (md is not None or i == 0):
+                grads_f32[i] += count * numel * 4 / (
+                    n_model if md is not None else 1)
+    for j in range(n_rows):
+        for (src, dst), nbytes in counter.moves.items():
+            links.move("model_sum", j * n_model + src, j * n_model + dst,
+                       nbytes)
+    state_share = (state["params"] + state["moments"]) / max(
+        1.0, sum(_leaf_bytes(p) + 8 * p.numel() for _, p in leaves))
+    flops, hbm, peak = [], [], []
+    for i in range(n):
+        j, m = divmod(i, n_model)
+        tags = (None, 0) if m == 0 else (m,)
+        on_row = j < n_rows
+        fl: dict = collections.Counter()
+        traced = 0.0
+        if on_row:
+            for t in tags:
+                fl.update(counter.slot_flops[t])
+                traced += counter.slot_bytes[t]["forward"] \
+                    + counter.slot_bytes[t]["backward"]
+        h = traced + counter.bytes["update"] * state_share \
+            + links.sent(i) + links.received(i) + add_hbm[i]
+        if i < n_model:          # row 0 sums its own gradient parts
+            h += sum(counter.slot_bytes[t]["reduce"] for t in tags)
+        flops.append(dict(fl))
+        hbm.append(h)
+        peak.append(float(sum(counter.slot_peak[t] for t in tags))
+                    if on_row else 0.0)
+    return _device_terms(n, flops, hbm, links, counter, state, gathered,
+                         peak, grads_f32, n_rows, rows.stop - rows.start)
+
+
+def _execution(kind: str, n_rows: int, b_row: int,
+               n_model: int = 1) -> str:
+    if n_model > 1:
+        return (f"tensor-parallel: each of {n_rows} data row(s) computes "
+                f"its {b_row} sequence(s) over its {n_model} model slots "
+                "(heads, MLP columns and vocab rows split where the model "
+                "axis divides them, else computed once on the row's first "
+                "slot), the row-parallel partial sums and the embedding "
+                "all-reduced over a row's slots (model_sum); each slot "
+                "gathers its parameter parts over the data axis only, and "
+                "block m of a leaf's gradient is summed on slot (0, m), "
+                "which sends each piece its float32 slice to update")
     what = (f"each of {n_rows} data row(s) computes its {b_row} "
             f"sequence(s) on its first slot with the whole parameters "
             f"gathered there")
@@ -583,14 +779,21 @@ def cost_step(step_fn, inputs, cfg, kind: str, rules, *, batch: int,
     = 8); every other op is the one the port runs either way."""
     in_sh = specs.cell_in_shardings(inputs, cfg, rules, kind, batch)
     labels = torch.empty((batch,), device="meta")
-    groups = row_groups(get_model(cfg), rules, {"labels": labels})
+    model = get_model(cfg)
+    groups = row_groups(model, rules, {"labels": labels})
     rows = groups[0][1]
     row_in = _row_inputs(inputs, kind, rows) if len(groups) > 1 else inputs
     counter = StepCounter()
     ctx = lowering.unrolled(attn_chunks=None, wkv_chunks=8) \
         if measurement else contextlib.nullcontext()
+    n_model = rules.mesh.shape["model"] if kind == "train" and execution(
+        model, rules) == "tensor-parallel" else 1
+    # the tensor-parallel step of one data row: its model slots on meta
+    row_rules = shd.use_rules(shd.default_rules(make_host_mesh(
+        1, n_model, devices=["meta"] * n_model))) if n_model > 1 \
+        else contextlib.nullcontext()
     t0 = time.time()
-    with ctx, counter:
+    with ctx, row_rules, counter:
         out = step_fn(*row_in)
     trace_s = time.time() - t0
     replaced = set()
@@ -604,14 +807,17 @@ def cost_step(step_fn, inputs, cfg, kind: str, rules, *, batch: int,
             if new is not leaf:
                 replaced.add(id(full))
     del out
-    rec = reckon(kind, inputs, in_sh, rules, len(groups), rows, replaced,
-                 counter)
+    rec = reckon_slots(inputs, in_sh, rules, len(groups), rows, counter,
+                       cfg) if n_model > 1 else \
+        reckon(kind, inputs, in_sh, rules, len(groups), rows, replaced,
+               counter)
     rec.update({
         "n_chips": rules.mesh.size,
         "kernels": counter.kernels,
         "aten_ops": sum(counter.ops.values()),
         "trace_s": round(trace_s, 2),
-        "execution": _execution(kind, len(groups), rows.stop - rows.start),
+        "execution": _execution(kind, len(groups), rows.stop - rows.start,
+                                n_model),
         "wkv_chunked": measurement and kind in ("train", "prefill")
         and any(spec.kind == "rwkv" for spec in cfg.pattern),
         "model_params": cfg.param_count(),

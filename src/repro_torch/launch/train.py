@@ -22,7 +22,11 @@ rows, the step equal to the one-device step (``train.step``).  With
 ``--device`` every slot is that device (the counterpart of forced host
 devices: ``--device cpu --host-mesh 4,2`` runs on the CPU); without it
 the mesh takes the first d x m cards and raises when there are fewer.
-The model axis shards storage, not compute (``distributed.sharding``).
+The launcher prints the step's execution (``train.step.execution``): the
+dense attention-only decoders split their heads, MLP and vocab over the
+model axis ("tensor-parallel"; ``--device cpu --host-mesh 1,4``), the
+other families compute each data row with the whole parameters
+("row-gather": the model axis shards their storage only).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from ..data.tokens import MarkovLM
 from ..distributed import sharding as shd
 from ..models import get_model
 from ..optim.adamw import AdamW, warmup_cosine
+from ..train.step import execution
 from ..train.trainer import Trainer, TrainerConfig
 from .mesh import make_host_mesh
 
@@ -76,6 +81,8 @@ def main(argv=None):
     optimizer = AdamW(lr=warmup_cosine(args.lr, min(50, args.steps // 10 + 1),
                                        args.steps))
     data = MarkovLM(vocab=cfg.vocab, seed=args.seed)
+    print(f"[train] {cfg.name} on a {dm} x {tm} mesh: "
+          f"{execution(model, rules)}")
 
     def data_fn(step):
         b = data.batch(step, args.batch, args.seq)

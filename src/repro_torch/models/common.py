@@ -185,6 +185,50 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     return out
 
 
+def embed_block(table: torch.Tensor, tokens: torch.Tensor, start: int,
+                scale_by_dim: bool = False):
+    """``embed`` of a vocab block: ``table`` holds rows [start, start +
+    len(table)) of the whole table, and a token outside them reads a zero
+    row.  The blocks' results sum to ``embed`` of the whole table
+    exactly: each token has one non-zero term."""
+    local = tokens - start
+    inside = (local >= 0) & (local < table.shape[0])
+    out = embed(table, torch.where(inside, local, 0), scale_by_dim)
+    return torch.where(inside[..., None], out, 0.0)
+
+
+class _F32Product(torch.autograd.Function):
+    """a [n, k] @ b [k, m] with a float32 result from low-precision
+    inputs (products exact, sums in float32); the backward rounds the
+    incoming gradient to the inputs' dtype, as the backward of the
+    product in that dtype receives it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cpu":
+            return a.to(torch.float32) @ b.to(torch.float32)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ b.T if ctx.needs_input_grad[0] else None,
+                a.T @ g if ctx.needs_input_grad[1] else None)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., k] @ b [k, m]`` as a float32 result: a row-parallel
+    product's partial sum, which the model slots add in float32 before
+    one rounding to the activation dtype."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    lead = a.shape[:-1]
+    out = _F32Product.apply(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(*lead, b.shape[-1])
+
+
 def unembed(table: torch.Tensor, x: torch.Tensor):
     """Logits = x @ table.T, accumulated in float32 (both sides cast
     first, as the reference's ``preferred_element_type``)."""
@@ -229,7 +273,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    return token_mean(lse - ll, mask)
+
+
+def vocab_block_terms(logits: torch.Tensor, labels: torch.Tensor,
+                      start: int):
+    """(logsumexp, target logit) of a vocab block's float32 logits
+    [..., V_block] (columns [start, start + V_block) of the whole
+    logits); the target logit is 0 where the label lies outside the
+    block.  Over the blocks, ``logsumexp`` of the first and the sum of
+    the second are the whole logits' (``cross_entropy``)."""
+    local = labels.long() - start
+    inside = (local >= 0) & (local < logits.shape[-1])
+    ll = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    return (torch.logsumexp(logits, dim=-1),
+            torch.where(inside, ll[..., 0], 0.0))
+
+
+def token_mean(nll: torch.Tensor, mask: torch.Tensor | None = None):
+    """The mean of ``nll`` over the tokens ``mask`` keeps (all: None)."""
     if mask is not None:
         m = mask.to(torch.float32)
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import ACTS, dense_init
+from .common import ACTS, dense_init, matmul_f32
 
 
 # ---------------------------------------------------------------------------
@@ -41,12 +41,18 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, kind: str, dtype):
             "w_down": dense_init(gen, (ff, d), 0, dtype)}
 
 
-def mlp_apply(params, x, kind: str):
+def mlp_apply(params, x, kind: str, partial: bool = False):
+    """The MLP of ``x``.  ``partial``: the parameters are one model
+    slot's block of the hidden columns, and the result is its float32
+    partial sum of ``w_down``'s product (``common.matmul_f32``), which
+    the slots add before one rounding."""
     if kind in ("swiglu", "geglu"):
         act = ACTS["silu"] if kind == "swiglu" else ACTS["gelu"]
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = ACTS["gelu"](x @ params["w_up"])
+    if partial:
+        return matmul_f32(h, params["w_down"])
     return h @ params["w_down"]
 
 

@@ -16,8 +16,11 @@ reference's names and shapes (``wq`` is [d, Hq, hd] and applied by
 repeats and runs them under ``lax.scan``; here the stack is unrolled:
 ``layers[g * len(pattern) + i]`` is the reference's
 ``params["groups"][f"l{i}"][g]``, and the ``tail`` layers follow.  The
-reference's sharding hints (``constrain``) are no-ops on one device and
-are dropped.
+reference's sharding hints (``constrain``) are dropped: on one device
+they are no-ops, and on a mesh the training loss of a dense
+attention-only decoder splits where they split, explicitly, over a data
+row's model slots (``SlotParams``: each slot its heads, MLP columns and
+vocab rows, the partial sums of ``wo`` and ``w_down`` added in float32).
 
 With ``cfg.remat`` each pattern group of a forward that records gradients
 is checkpointed, as the reference's ``jax.checkpoint`` around its scanned
@@ -41,6 +44,7 @@ Entry points run their matrix products at full precision
 """
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 from typing import Optional
 
@@ -49,10 +53,12 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..core.index import full_fp32_matmul, resolve_device
+from ..kernels import counting
 from . import ffn, rglru, rwkv6
 from .attention import attention, decode_attention
 from .common import (apply_rope, cross_entropy, dense_init, embed,
-                     embed_init, make_norm, softcap, unembed)
+                     embed_block, embed_init, make_norm, matmul_f32,
+                     softcap, token_mean, unembed, vocab_block_terms)
 from .config import LayerSpec, ModelConfig
 
 MOE_AUX_WEIGHT = 0.01
@@ -200,12 +206,19 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, positions):
-    """Full-segment attention (forward / prefill).  x [B, S, d]."""
+def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
+                partial: bool = False):
+    """Full-segment attention (forward / prefill).  x [B, S, d].
+    ``partial``: ``p`` holds one model slot's heads, and the output is
+    its float32 partial sum of ``wo``'s product (``SlotParams.run``)."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = attention(q, k, v, causal=True, window=spec.window,
                     logit_cap=cfg.attn_logit_cap, scale=cfg.attn_scale,
                     p_bf16=cfg.attn_p_bf16)
+    if partial:
+        wo = p["wo"]
+        return matmul_f32(out.flatten(2), wo.reshape(-1, wo.shape[-1])), \
+            (k, v)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
 
@@ -280,6 +293,10 @@ def _tokens(params: Transformer, tokens) -> torch.Tensor:
 
 def _embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
     x = embed(params["embedding"], tokens, scale_by_dim=cfg.embed_scale)
+    return _with_patches(x, patch_embeds)
+
+
+def _with_patches(x, patch_embeds):
     if patch_embeds is not None:                       # VLM stub frontend
         pe = torch.as_tensor(patch_embeds, device=x.device).to(x.dtype)
         # dynamic_update_slice at (0, 1, 0): the start clamps to fit
@@ -381,7 +398,10 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch):
     """batch: {"tokens" [B, S], "labels" [B, S] (-100 = pad), optional
     "positions", "patch_embeds"}.  Returns (loss, {"ce", "aux"}): loss is
     the masked token-mean cross-entropy, plus ``MOE_AUX_WEIGHT * aux``
-    with experts."""
+    with experts.  ``params`` may be a ``SlotParams``: one data row's
+    parameters split over its model slots."""
+    if isinstance(params, SlotParams):
+        return _slot_loss(params, cfg, batch)
     hidden, aux = forward(params, cfg, batch["tokens"],
                           batch.get("positions"), batch.get("patch_embeds"))
     logits = logits_fn(params, cfg, hidden)
@@ -389,6 +409,328 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch):
     ce = cross_entropy(logits, torch.clamp(labels, min=0), labels >= 0)
     total = ce + MOE_AUX_WEIGHT * aux if cfg.n_experts else ce
     return total, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: one data row's step over its model slots
+# ---------------------------------------------------------------------------
+
+#: The dim the model axis splits, by a leaf's last name: q heads, kv
+#: heads, MLP columns, vocab rows (``distributed.sharding._PARAM_AXES``).
+SPLIT_DIMS = {"wq": 1, "bq": 0, "wo": 0, "wk": 1, "wv": 1, "bk": 0, "bv": 0,
+              "w_gate": 1, "w_up": 1, "w_down": 0, "embedding": 0,
+              "lm_head": 0}
+_GROUP = {"wq": "heads", "bq": "heads", "wo": "heads", "wk": "kv",
+          "wv": "kv", "bk": "kv", "bv": "kv", "w_gate": "mlp", "w_up": "mlp",
+          "w_down": "mlp", "embedding": "vocab", "lm_head": "vocab"}
+
+
+def splits_over_model(cfg: ModelConfig) -> bool:
+    """Whether a train step of ``cfg`` splits its compute over the model
+    axis: the dense attention-only decoders (no experts, no recurrent
+    layer, not the encoder-decoder)."""
+    return (cfg.family != "encdec" and not cfg.n_experts
+            and all(spec.kind == "attn" for spec in layer_specs(cfg)))
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotPlan:
+    """Which products a row's ``n_slots`` model slots split: q heads
+    (with ``wo``), kv heads, MLP columns, vocab rows.  A group that is
+    not split is computed once, on slot 0.  kv heads not split under
+    split q heads: each slot takes the kv heads its q heads read."""
+
+    n_slots: int
+    heads: bool
+    kv: bool
+    mlp: bool
+    vocab: bool
+
+    def slots(self, group: str) -> range:
+        return range(self.n_slots if getattr(self, group) else 1)
+
+
+def slot_plan(cfg: ModelConfig, n_slots: int, split_dims) -> SlotPlan:
+    """The plan of ``cfg``'s step over ``n_slots`` model slots, from
+    ``split_dims``: {leaf name: the dim its spec splits over the model
+    axis, or None}.  A leaf split where the step cannot split it raises:
+    nothing is gathered whole in its place."""
+    if not splits_over_model(cfg):
+        raise ValueError(f"{cfg.name}'s step does not split over the "
+                         "model axis")
+    seen: dict = {}
+    for name, dim in split_dims.items():
+        last = name.rsplit(".", 1)[-1]
+        want = SPLIT_DIMS.get(last)
+        if dim is not None and dim != want:
+            raise ValueError(
+                f"{name} is split over the model axis on dim {dim}; the "
+                "tensor-parallel step " + (f"splits it on dim {want}"
+                                           if want is not None
+                                           else "keeps it whole"))
+        if want is not None:
+            seen.setdefault(_GROUP[last], set()).add(dim is not None)
+    for group, split in seen.items():
+        if len(split) > 1:
+            raise ValueError(f"only some {group} leaves are split over "
+                             "the model axis")
+    flags = {g: True in seen.get(g, ()) for g in ("heads", "kv", "mlp",
+                                                   "vocab")}
+    if flags["kv"] and not flags["heads"]:
+        raise ValueError("kv heads split over the model axis, q heads not")
+    if flags["heads"] and not flags["kv"]:
+        hq, g = cfg.n_heads // n_slots, cfg.n_heads // cfg.n_kv_heads
+        if hq % g and g % hq:
+            raise ValueError(
+                f"{hq} q heads per slot do not align with groups of {g} "
+                "q heads per kv head")
+    return SlotPlan(n_slots=n_slots, **flags)
+
+
+def slot_slices(plan: SlotPlan, cfg: ModelConfig, name: str, shape,
+                m: int) -> Optional[tuple]:
+    """The part of leaf ``name`` (slices per dim) model slot ``m``
+    computes with, or None where slot m does not use it: block m of a
+    split group, the kv heads slot m's q heads read, the q / k norm
+    scales on every attention slot, the other norms whole on every slot
+    (the residual stream's, which every device of a row keeps), a group
+    that is not split whole on slot 0."""
+    part = [slice(0, n) for n in shape]
+    last = name.rsplit(".", 1)[-1]
+    group = _GROUP.get(last)
+    if group is None:
+        if ".q_norm." in name or ".k_norm." in name:
+            return tuple(part) if m in plan.slots("heads") else None
+        return tuple(part)
+    dim = SPLIT_DIMS[last]
+    if getattr(plan, group):
+        k = shape[dim] // plan.n_slots
+        part[dim] = slice(m * k, (m + 1) * k)
+        return tuple(part)
+    if group == "kv" and plan.heads:
+        hq, g = cfg.n_heads // plan.n_slots, cfg.n_heads // cfg.n_kv_heads
+        part[dim] = slice(m * hq // g, ((m + 1) * hq - 1) // g + 1)
+        return tuple(part)
+    return tuple(part) if m == 0 else None
+
+
+class _SlotTree:
+    """Read access to one slot's {dotted name: tensor} as a parameter
+    tree: ``node["mixer"]["wq"]``, ``"lm_head" in node``."""
+
+    def __init__(self, flat: dict, prefix: str = ""):
+        self.flat, self.prefix = flat, prefix
+
+    def __getitem__(self, name):
+        key = self.prefix + name
+        if key in self.flat:
+            return self.flat[key]
+        return _SlotTree(self.flat, key + ".")
+
+    def __contains__(self, name) -> bool:
+        key = self.prefix + name
+        return key in self.flat or any(k.startswith(key + ".")
+                                       for k in self.flat)
+
+
+class _SlotMove(torch.autograd.Function):
+    """A tensor moved from slot ``src`` of a row to slot ``dst`` (on
+    ``device``), its gradient moved back; the bytes both ways reported to
+    the cost counter."""
+
+    @staticmethod
+    def forward(ctx, src, dst, device, x):
+        ctx.src, ctx.dst, ctx.device = src, dst, x.device
+        counting.report_move(src, dst, x.numel() * x.element_size())
+        return x.view_as(x) if x.device == device else x.to(device)
+
+    @staticmethod
+    def backward(ctx, g):
+        counting.report_move(ctx.dst, ctx.src, g.numel() * g.element_size())
+        return None, None, None, \
+            g.view_as(g) if g.device == ctx.device else g.to(ctx.device)
+
+
+class SlotParams:
+    """One data row's parameters over its ``plan.n_slots`` model slots:
+    ``flat[m]`` holds slot m's part of each leaf it uses
+    (``slot_slices``) on ``devices[m]``.  ``loss_fn`` of a
+    ``SlotParams`` is the row's loss computed as the reference's SPMD
+    step splits it:
+
+    - the residual stream, the norms and their scales whole on every
+      place of the row: each distinct device (each slot, under a cost
+      counter, as on a mesh of one device per slot) keeps the stream and
+      computes the norms once for its slots;
+    - each slot its heads (RoPE, attention and ``wo``), MLP columns and
+      vocab rows; the float32 partial sums of ``wo`` and ``w_down``
+      all-reduced over the places (each place sums its share of the
+      tokens in slot order and rounds it once to the activation dtype,
+      then every place gathers the shares), so each sum is the one a
+      single device adds;
+    - the embedding's vocab blocks all-reduced the same way (exact: one
+      non-zero term per token); the cross-entropy from each block's
+      logsumexp and target logit, combined on slot 0, the logits never
+      gathered;
+    - a group the plan does not split runs once, on slot 0, and its
+      result goes to every place."""
+
+    def __init__(self, cfg: ModelConfig, plan: SlotPlan, devices,
+                 flat: list):
+        self.cfg, self.plan, self.flat = cfg, plan, flat
+        self.devices = tuple(torch.device(d) for d in devices)
+        places: dict = {}
+        for m, d in enumerate(self.devices):
+            places.setdefault(m if counting.active() else d, []).append(m)
+        #: the first slot of each place; ``place[m]``: slot m's place
+        self.owners = [ms[0] for ms in places.values()]
+        self.place = [0] * len(self.devices)
+        for p, ms in enumerate(places.values()):
+            for m in ms:
+                self.place[m] = p
+
+    def tree(self, m: int, prefix: str = "") -> _SlotTree:
+        return _SlotTree(self.flat[m], prefix)
+
+    def move(self, x: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        return _SlotMove.apply(src, dst, self.devices[dst], x)
+
+    def each_place(self, fn, *streams) -> list:
+        """[``fn(owner slot, *the streams' tensors there)``] per place."""
+        out = []
+        for p, m in enumerate(self.owners):
+            with counting.slot(m):
+                out.append(fn(m, *(s[p] for s in streams)))
+        return out
+
+    def all_reduce(self, parts: list, slots, dtype) -> list:
+        """The sum of ``parts`` (one per slot of ``slots``, on its device)
+        on every place, added in slot order and rounded once to
+        ``dtype``: each place sums one share of the tokens (dim 1)."""
+        n = len(self.owners)
+        if n == 1:
+            with counting.slot(0):
+                total = parts[0]
+                for x in parts[1:]:
+                    total = total + x
+                return [total.to(dtype)]
+        s = parts[0].shape[1]
+        sizes = [s // n + (p < s % n) for p in range(n)]
+        shares = [torch.split(x, sizes, dim=1) for x in parts]
+        summed = []
+        for p, o in enumerate(self.owners):
+            with counting.slot(o):
+                total = None
+                for m, sh in zip(slots, shares):
+                    x = self.move(sh[p], m, o)
+                    total = x if total is None else total + x
+                summed.append(total.to(dtype))
+        return self.each_place(lambda o: torch.cat(
+            [self.move(x, q, o) for q, x in zip(self.owners, summed)],
+            dim=1))
+
+    def run(self, group: str, xs: list, fn, dtype) -> list:
+        """``fn(m, x)`` on each slot of ``group`` with its place's stream
+        ``x``, all-reduced (a group the plan splits: float32 partial
+        sums) or sent from slot 0 to every place (a group it does not)."""
+        slots, out = self.plan.slots(group), []
+        for m in slots:
+            with counting.slot(m):
+                out.append(fn(m, xs[self.place[m]]))
+        if getattr(self.plan, group):
+            return self.all_reduce(out, slots, dtype)
+        return self.each_place(lambda o: self.move(out[0], 0, o))
+
+
+def _slot_layer_apply(sp: SlotParams, i: int, xs, cfg, spec, positions):
+    """Layer ``i`` over the row's slots (``_layer_apply``'s training
+    forward); ``xs``: the residual stream on each place."""
+    _, norm = make_norm(cfg.norm)
+    pre = f"layers.{i}."
+
+    def normed(key, streams):
+        return sp.each_place(lambda o, x: norm(sp.tree(o, pre)[key], x,
+                                               cfg.norm_eps), streams)
+
+    def add(streams, ys):
+        return sp.each_place(lambda o, x, y: x + y, streams, ys)
+
+    ys = sp.run("heads", normed("pre_norm", xs), lambda m, h: _attn_apply(
+        sp.tree(m, pre + "mixer."), h, cfg, spec, positions[m],
+        partial=sp.plan.heads)[0], xs[0].dtype)
+    if cfg.post_norm:
+        ys = normed("post_norm", ys)
+    xs = add(xs, ys)
+    ys = sp.run("mlp", normed("mlp_pre_norm", xs), lambda m, h: ffn.mlp_apply(
+        sp.tree(m, pre + "ffn."), h, cfg.mlp_kind, partial=sp.plan.mlp),
+        xs[0].dtype)
+    if cfg.post_norm:
+        ys = normed("mlp_post_norm", ys)
+    return add(xs, ys)
+
+
+def _slot_group_apply(sp, layers, specs, cfg, positions, *xs):
+    xs = list(xs)
+    for i, spec in zip(layers, specs):
+        xs = _slot_layer_apply(sp, i, xs, cfg, spec, positions)
+    return tuple(xs)
+
+
+def _slot_loss(sp: SlotParams, cfg: ModelConfig, batch):
+    """``loss_fn`` of one data row over its model slots (``SlotParams``)."""
+    home = sp.devices[0]
+    tokens = torch.as_tensor(batch["tokens"], device=home).long()
+    b, s = tokens.shape
+    pos = batch.get("positions")
+    pos = _default_positions(cfg, b, s, device=home) if pos is None \
+        else torch.as_tensor(pos, device=home).long()
+    positions = [pos.to(d) for d in sp.devices]
+    specs, n = layer_specs(cfg), len(cfg.pattern)
+    labels = torch.as_tensor(batch["labels"], device=home).long()
+    target = torch.clamp(labels, min=0)
+    patches = batch.get("patch_embeds")
+
+    def embed_slot(m, _):
+        table, tok = sp.tree(m)["embedding"], tokens.to(sp.devices[m])
+        if not sp.plan.vocab:
+            return embed(table, tok, cfg.embed_scale)
+        return embed_block(table, tok, m * table.shape[0], cfg.embed_scale)
+
+    def terms(m, h):
+        p = sp.tree(m)
+        table = p["lm_head"] if "lm_head" in p else p["embedding"]
+        logits = softcap(unembed(table, h), cfg.final_logit_cap)
+        return vocab_block_terms(logits, target.to(sp.devices[m]),
+                                 m * table.shape[0])
+
+    with full_fp32_matmul():
+        xs = sp.run("vocab", [None] * len(sp.owners), embed_slot,
+                    cfg.compute_dtype)
+        xs = sp.each_place(lambda o, x: _with_patches(x, patches), xs)
+        for g in range(cfg.n_groups):
+            xs = remat(cfg, _slot_group_apply, sp,
+                       range(g * n, (g + 1) * n), specs[g * n:(g + 1) * n],
+                       cfg, positions, *xs)
+        tail = range(cfg.n_groups * n, len(specs))
+        xs = _slot_group_apply(sp, tail, [specs[i] for i in tail], cfg,
+                               positions, *xs)
+        reads = {sp.place[m] for m in sp.plan.slots("vocab")}
+        hidden = sp.each_place(lambda o, x: _final_hidden(sp.tree(o), cfg, x)
+                               if sp.place[o] in reads else None, xs)
+        lses, lls = [], []
+        for m in sp.plan.slots("vocab"):
+            with counting.slot(m):
+                lse, ll = terms(m, hidden[sp.place[m]])
+            lses.append(sp.move(lse, m, 0))
+            lls.append(sp.move(ll, m, 0))
+        with counting.slot(0):
+            lse = lses[0] if len(lses) == 1 \
+                else torch.logsumexp(torch.stack(lses), dim=0)
+            ll = lls[0]
+            for x in lls[1:]:
+                ll = ll + x         # exact: one non-zero term per token
+            ce = token_mean(lse - ll, labels >= 0)
+    return ce, {"ce": ce, "aux": 0.0}
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..distributed.sharding import leaf_pieces, zeros_like_leaf
+from ..distributed.sharding import (PlacedTensor, leaf_pieces,
+                                    zeros_like_leaf)
 
 
 def _f32(x) -> torch.Tensor:
@@ -68,11 +69,19 @@ def constant(lr: float) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+def _square_sum(x) -> torch.Tensor:
+    if isinstance(x, PlacedTensor):         # blocks on their devices
+        home = x.pieces[0].device
+        return sum(_square_sum(p.tensor).to(home) for p in x.pieces)
+    return torch.sum(torch.square(x.to(torch.float32)))
+
+
 def global_norm(grads: Mapping) -> torch.Tensor:
     """sqrt of the float32 sum of squares of every leaf, summed leaf by
-    leaf in order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in grads.values()))
+    leaf in order (a ``PlacedTensor`` gradient block by block), on the
+    first leaf's device."""
+    parts = [_square_sum(x) for x in grads.values()]
+    return torch.sqrt(sum(x.to(parts[0].device) for x in parts))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

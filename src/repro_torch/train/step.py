@@ -19,9 +19,18 @@ reference's pjit step computes its one-device function:
 
 - parameters and moments lie on the slots by ``infer_param_specs``;
 - the batch splits over the rules' "batch" axes (the data axis, or pod
-  and data), one row group per data row, each computed on its row's
-  device with the whole parameters (``PlacedModule.module_on``: the
-  placed leaves themselves where that device holds them whole);
+  and data), one row group per data row;
+- ``execution`` says how a row computes.  "tensor-parallel" (the dense
+  attention-only decoders on a model axis of more than one slot): the
+  row's model slots split its heads, MLP columns and vocab rows
+  (``models.transformer.SlotParams``), each slot computing with its
+  block of each leaf gathered over the data axis only (a view where its
+  device holds the leaf whole), the row-parallel products summed over
+  the slots in float32.  "row-gather" (experts, RG-LRU, RWKV6, the
+  encoder-decoder, or a model axis of one slot): the row computes on its
+  first slot with the whole parameters (``PlacedModule.module_on``: the
+  placed leaves themselves where that device holds them whole), so the
+  model axis places storage only;
 - the loss is a token mean over the whole batch: each row's masked mean
   is weighted by its token count over the batch's count (never a mean
   of the rows' means: with padding those differ), and so is its
@@ -29,8 +38,12 @@ reference's pjit step computes its one-device function:
 - a config with experts runs its whole batch as one row group: MoE's
   capacity takes the whole batch's token count and its aux is a mean
   over all tokens, so the data axis places its storage only;
-- the rows' float32 gradients are summed on the first row's device and
-  each piece of the state is updated in place with its slice;
+- the rows' float32 gradients are summed on the first row's slots:
+  row-gather's whole leaves on its first slot, tensor-parallel's block m
+  of a leaf on slot (0, m)'s device (one float32 tensor where those
+  slots share a device, else a ``PlacedTensor`` of the blocks), a leaf
+  replicated over the model axis taking its slots' contributions
+  summed; each piece of the state is updated in place with its slice;
 - microbatches split the global batch as on one device, and each
   microbatch splits over the rows.
 """
@@ -42,9 +55,13 @@ import torch
 from torch import nn
 
 from ..core.index import full_fp32_matmul
-from ..distributed.sharding import (PlacedModule, ShardingRules,
-                                    active_rules, infer_param_shardings,
-                                    place_module, place_tree)
+from ..distributed.sharding import (NamedSharding, Piece, PlacedModule,
+                                    PlacedTensor, ShardingRules,
+                                    active_rules, add_region_,
+                                    infer_param_shardings, place_module,
+                                    place_tree)
+from ..kernels import counting
+from ..models import transformer
 
 
 @dataclasses.dataclass
@@ -104,28 +121,50 @@ def _split_microbatches(batch, n: int) -> list:
     return out
 
 
-def row_groups(model, rules: ShardingRules, batch) -> list:
-    """[(device, rows)] of the step on ``rules.mesh``: the batch's dim 0
-    split over the "batch" axes where they divide it (else one group, as
-    the reference's fallback replicates), each group on the device of the
-    first slot of its data row.  One group for a config with experts."""
+def execution(model, rules: ShardingRules) -> str:
+    """How a train step of ``model`` computes a data row on ``rules``'
+    mesh: "tensor-parallel" (the dense attention-only decoders on a
+    model axis of more than one slot: the row's model slots split its
+    compute) or "row-gather" (the row's first slot computes with the
+    whole parameters)."""
+    if rules is not None and rules.mesh.shape.get("model", 1) > 1 \
+            and transformer.splits_over_model(model.cfg):
+        return "tensor-parallel"
+    return "row-gather"
+
+
+def row_slots(model, rules: ShardingRules, batch) -> list:
+    """[(the devices of a data row's slots, in model order, rows)] of the
+    step on ``rules.mesh``: the batch's dim 0 split over the "batch"
+    axes where they divide it (else one group on the first row, as the
+    reference's fallback replicates).  One group for a config with
+    experts."""
     mesh = rules.mesh
     b = torch.as_tensor(batch["labels"]).shape[0]
     axes = None if model.cfg.n_experts else \
         rules.spec_for_shape((b,), ("batch",))[0]
-    if axes is None:
-        return [(mesh.device_at(mesh.coords()[0]), slice(0, b))]
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    n = rules.axis_size(axes)
+    axes = () if axes is None else \
+        (axes,) if isinstance(axes, str) else tuple(axes)
+    n = rules.axis_size(axes) if axes else 1
     devs: dict = {}
     for c in mesh.coords():
         pos = dict(zip(mesh.axis_names, c))
+        if any(pos[a] for a in mesh.axis_names
+               if a not in axes and a != "model"):
+            continue
         j = 0
         for a in axes:
             j = j * mesh.shape[a] + pos[a]
-        devs.setdefault(j, mesh.device_at(c))
-    return [(devs[j], slice(j * (b // n), (j + 1) * (b // n)))
+        devs.setdefault(j, []).append(mesh.device_at(c))
+    return [(tuple(devs[j]), slice(j * (b // n), (j + 1) * (b // n)))
             for j in range(n)]
+
+
+def row_groups(model, rules: ShardingRules, batch) -> list:
+    """[(device, rows)]: ``row_slots`` with each group on the device of
+    the first slot of its data row."""
+    return [(devs[0], rows) for devs, rows in row_slots(model, rules,
+                                                         batch)]
 
 
 def _tokens(batch, rows) -> int:
@@ -141,13 +180,103 @@ def _rows_of(name: str, x, rows: slice, dev) -> torch.Tensor:
     return x[rows].to(dev)
 
 
+def _slot_params(cfg, plan, placed: PlacedModule, devs) -> tuple:
+    """(``SlotParams`` of one data row's slots ``devs``, [(leaf name,
+    slot, the tensor the slot computes with, its part of the leaf)]): each
+    slot's part a view where its device holds the leaf whole, else a
+    copy gathered from the pieces (its own leaf for the gradient)."""
+    flat, inputs = [{} for _ in devs], []
+    for name, leaf in placed.leaves.items():
+        for m, dev in enumerate(devs):
+            part = transformer.slot_slices(plan, cfg, name, leaf.shape, m)
+            if part is None:
+                continue
+            whole = leaf.whole_on(dev)
+            t = whole[part] if whole is not None else \
+                leaf.region(part, dev).detach().requires_grad_(True)
+            flat[m][name] = t
+            inputs.append((name, m, t, part))
+    return transformer.SlotParams(cfg, plan, devs, flat), inputs
+
+
+def _grad_blocks(leaf: PlacedTensor, firsts: tuple):
+    """Float32 zeros for a leaf's gradient: block m of its model dim on
+    ``firsts[m]`` (slot (0, m)'s device), as one tensor where those
+    devices are one (or the leaf is replicated over the model axis:
+    then on ``firsts[0]``)."""
+    f32, dim = torch.float32, leaf.model_dim
+    if dim is None or len(set(firsts)) == 1:
+        return torch.zeros(leaf.shape, dtype=f32, device=firsts[0])
+    k = leaf.shape[dim] // len(firsts)
+    pieces = []
+    for m, dev in enumerate(firsts):
+        sl = [slice(0, n) for n in leaf.shape]
+        sl[dim] = slice(m * k, (m + 1) * k)
+        pieces.append(Piece(dev, tuple(sl), torch.zeros(
+            tuple(s.stop - s.start for s in sl), dtype=f32, device=dev)))
+    spec = tuple("model" if i == dim else None
+                 for i in range(len(leaf.shape)))
+    return PlacedTensor(NamedSharding(leaf.sharding.mesh, spec,
+                                      leaf.sharding.rules),
+                        leaf.shape, f32, tuple(pieces))
+
+
+def _slot_value_and_grad(model, params: PlacedModule, batch, acc):
+    """``value_and_grad`` of the tensor-parallel execution: each data row
+    over its model slots (``models.transformer.SlotParams``)."""
+    cfg = model.cfg
+    rows = row_slots(model, params.rules, batch)
+    firsts = rows[0][0]
+    plan = transformer.slot_plan(cfg, len(firsts), {
+        name: leaf.model_dim for name, leaf in params.leaves.items()})
+    counts = [_tokens(batch, r) for _, r in rows] if len(rows) > 1 \
+        else [1]
+    total = max(sum(counts), 1)
+    home = firsts[0]
+    loss, ce = 0.0, 0.0
+    for (devs, r), count in zip(rows, counts):
+        w = 1.0 if len(rows) == 1 else count / total
+        part = {k: _rows_of(k, v, r, devs[0]) for k, v in batch.items()}
+        slots, inputs = _slot_params(cfg, plan, params, devs)
+        part_loss, metrics = model.loss(slots, part)
+        # one backward thread: a remat group spans the row's devices, and
+        # two devices' threads must not recompute one group at once
+        with torch.autograd.set_multithreading_enabled(False):
+            grads = list(torch.autograd.grad(
+                part_loss if w == 1.0 else part_loss * w,
+                [t for _, _, t, _ in inputs], allow_unused=True))
+        for i, (name, m, _, sl) in enumerate(inputs):
+            g = grads[i]
+            grads[i] = None        # free each gradient as it is summed
+            if g is None:          # a norm of a slot that shares its device
+                continue
+            leaf = params.leaves[name]
+            with counting.slot(0 if leaf.model_dim is None else m):
+                if name in acc:
+                    add_region_(acc[name], g, sl)
+                elif sl == tuple(slice(0, n) for n in leaf.shape) and (
+                        leaf.model_dim is None or len(set(firsts)) == 1):
+                    acc[name] = g.to(device=firsts[0], dtype=torch.float32)
+                else:
+                    acc[name] = _grad_blocks(leaf, firsts)
+                    add_region_(acc[name], g, sl)
+            del g
+        loss = loss + w * part_loss.detach().to(home)
+        ce = ce + w * metrics["ce"].detach().to(home)
+    return loss, {"ce": ce, "aux": 0.0}, acc
+
+
 def value_and_grad(model, params, batch, acc=None):
     """(loss, metrics, {name: float32 gradient}) of ``model.loss`` over
     the whole batch, the gradients summed into ``acc`` when given.  A
     module is one group on its own device; a ``PlacedModule`` computes
-    per row group of its rules' mesh, each row's masked token mean
-    weighted by its share of the batch's tokens, summed on the first
-    group's device."""
+    per row group of its rules' mesh (``execution``), each row's masked
+    token mean weighted by its share of the batch's tokens, summed on the
+    first row."""
+    if isinstance(params, PlacedModule) and \
+            execution(model, params.rules) == "tensor-parallel":
+        return _slot_value_and_grad(model, params, batch,
+                                    {} if acc is None else acc)
     if isinstance(params, PlacedModule):
         groups = row_groups(model, params.rules, batch)
         module_on = params.module_on
@@ -206,7 +335,9 @@ def make_train_step(model, optimizer, *, microbatches: int = 1):
                     lsum = lsum + loss
                 inv = 1.0 / microbatches
                 for v in grads.values():
-                    v.mul_(inv)
+                    for t in ([p.tensor for p in v.pieces]
+                              if isinstance(v, PlacedTensor) else [v]):
+                        t.mul_(inv)
                 loss = lsum * inv
                 metrics = {"ce": loss, "aux": 0.0}
         params, opt_state, opt_metrics = optimizer.update(

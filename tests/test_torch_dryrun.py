@@ -333,34 +333,56 @@ def _leaf_specs(model, rules):
 
 
 def test_collectives_of_a_train_step_on_2x2_equal_a_hand_count():
-    """2 x 2 mesh, one host: rows on slots 0 and 2 (batch 256 over 2
-    data rows); slot 0 gathers every piece of the split leaves from 1, 2
-    and 3 and sends its own to slot 2; slot 2 sends its gradients (the
-    parameters' dtype) to 0; slot 0 sends each other slot its pieces'
-    float32 gradient slices."""
+    """2 x 2 mesh, one host, the tensor-parallel step (phi3-mini's smoke
+    config splits its heads, MLP and vocab over the 2 model slots; remat
+    off, so each tensor moves once each way): data rows 0 and 1 (batch
+    256 over 2) over slots (0, 1) and (2, 3).  Slot 0 fetches from slot
+    2 the other half of its model block of each split leaf and sends its
+    own piece there; slot 2 sends slot 0 its gradient parts (the
+    parameters' dtype) of model block 0, and slots 1, 2 and 3 their
+    gradients of the norms, which every slot computes with; slot 0 sends
+    slot 2 its pieces' float32 slices and slots 1 and 3 the norms'.
+    Within a row the two slots all-reduce each float32 partial sum and
+    the embedding rows (each sends the other half, then half of the
+    rounded sum), slot 1 sends slot 0 the loss terms, and the backward
+    moves each gradient the other way (model_sum)."""
+    def tf(cfg):
+        return dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
+                                   remat=False)
+
     rec = dryrun.trace_cell("phi3-mini-3.8b", "train_4k",
-                            mesh_override=(2, 2),
-                            cfg_transform=_smoke("phi3-mini-3.8b"))
+                            mesh_override=(2, 2), cfg_transform=tf)
     mesh = make_host_mesh(2, 2, devices=["meta"] * 4)
     rules = shd.default_rules(mesh)
-    model = get_model(get_smoke_config("phi3-mini-3.8b")).init(
-        0, device="meta")
-    piece = grads = f32 = 0
+    cfg = tf(None)
+    model = get_model(cfg).init(0, device="meta")
+    piece = half = f32 = norms = norm_numel = 0
     for p, spec in _leaf_specs(model, rules):
-        nb = shd._n_blocks(mesh, spec)
         size = p.numel() * p.element_size()
-        grads += size
-        f32 += p.numel() * 4 // nb
-        if nb > 1:
-            piece += size // nb
+        if shd._n_blocks(mesh, spec) == 4:
+            piece += size // 4
+            half += size // 2
+            f32 += p.numel()
+        else:
+            norms += size
+            norm_numel += p.numel()
+    b, s, item = 128, 4096, cfg.compute_dtype.itemsize
+    act = b * s * cfg.d_model * item
+    moved = 6 * cfg.n_layers * act + 2 * act + 8 * b * s
     assert rec["rows"] == 2 and rec["row_batch"] == 128
+    assert rec["execution"].startswith("tensor-parallel")
     assert rec["busiest_device"] == 0
     assert rec["collective_bytes"] == {
-        "param_gather": 3 * piece + piece, "grad_reduce": grads,
-        "grad_scatter": 3 * f32, "total": 4 * piece + grads + 3 * f32}
-    assert rec["link_bytes"] == {"nvlink_in": 3 * piece + grads,
-                                 "nvlink_out": piece + 3 * f32,
-                                 "nic_in": 0.0, "nic_out": 0.0}
+        "grad_reduce": half + 3 * norms,
+        "grad_scatter": f32 + 12 * norm_numel,
+        "model_sum": 2 * moved, "param_gather": 2 * piece,
+        "total": 2 * piece + half + 3 * norms + f32 + 12 * norm_numel
+        + 2 * moved}
+    assert rec["link_bytes"] == {
+        "nvlink_in": piece + half + 3 * norms + moved,
+        "nvlink_out": piece + f32 + 12 * norm_numel + moved,
+        "nic_in": 0.0, "nic_out": 0.0}
+    assert rec["bytes_per_device"]["gathered"] == half
 
 
 def test_collectives_of_a_decode_step_on_2x2_equal_a_hand_count():
