@@ -8,7 +8,19 @@ split into blocks on their cards and the step gathers them:
 - gemma2-2b and qwen3-moe-30b-a3b (float32 smoke configs) on a 2 x 2
   ``make_host_mesh`` of cuda:0-3: one step equals the one-card step (loss
   rtol 1e-5, parameters within 1e-5, AdamW at eps 1e-3); gemma2's rows
-  run tensor-parallel over their 2 model slots, qwen3-moe's row-gather;
+  run tensor-parallel over their 2 model slots, qwen3-moe's
+  expert-parallel;
+- qwen3-moe-30b-a3b at full width on a 2 x 2 mesh of cuda:0-3,
+  expert-parallel (each card one slot: its heads, vocab rows and 64 of
+  the 128 experts of one capacity half; the rows' tokens and outputs
+  cross cards): the float32 loss, aux and gradients of B x S = 8 x 1024
+  at 2 layers against one card's (rtol 1e-5, each leaf within 1e-4 of
+  its own max |g|); then bf16 steps at the deepest cut that leaves 8 GB
+  free on every card (set from the peaks of two shallower cuts), the
+  median of 5 steps with each card's peak and busy share, and at 2
+  layers beside one card's step (dbrx-132b's one layer, ~50 GB of
+  training state, fits no single card: it runs in the CPU tests and the
+  dry-run only);
 - phi3-mini-3.8b at full width and depth on a 1 x 4 mesh of cuda:0-3,
   tensor-parallel (each card a quarter of the heads, MLP and vocab): the
   float32 loss and gradients of B x S = 8 x 1024 against one card's (loss
@@ -208,6 +220,162 @@ def tensor_parallel_cards(torch, devs, res):
     res["phi3_tensor_parallel"] = out
 
 
+#: qwen3-moe on 2 x 2 cards: B x S, the float32 gate's depth, the steps
+#: of each timed run (the first warms up), the free bytes each card keeps
+#: at the deepest cut, and the two depths whose peaks set that cut.
+EP_ARCH = "qwen3-moe-30b-a3b"
+EP_SHAPE = (8, 1024)
+EP_GATE_LAYERS = 2
+EP_STEPS = 6
+EP_FREE_BYTES = 8e9
+EP_PROBE_LAYERS = (2, 4)
+
+
+def _ep_steps(torch, devs, rules, n_layers, steps, profile):
+    """bf16 steps of qwen3-moe cut to ``n_layers`` layers on ``rules``'
+    mesh (None: one card): step ms (the median of all but the first),
+    losses, each card's peak allocated and reserved bytes, busy share."""
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.step import TrainState, make_train_step
+
+    home = torch.device(devs[0])
+    cards = devs if rules is not None else devs[:1]
+    b, s = EP_SHAPE
+    cfg = dataclasses.replace(get_config(EP_ARCH), n_layers=n_layers)
+    model = get_model(cfg)
+    batches = [batch_of(torch, cfg, home, i, b, s) for i in range(steps + 1)]
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    opt = AdamW(lr=warmup_cosine(3e-4, 2, steps))
+    params = model.init(0, device=home).requires_grad_(True)
+    if rules is not None:
+        params = shd.place_module(params, rules)
+        torch.cuda.empty_cache()
+    state = TrainState(params=params, opt_state=opt.init(params), step=0)
+    del params
+    step = make_train_step(model, opt)
+    ms, losses = [], []
+    for i in range(steps):
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(float(m["loss"]))
+        for d in cards:
+            torch.cuda.synchronize(d)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    mid = sorted(ms[1:])[len(ms[1:]) // 2]
+    busy = None
+    if profile:
+        box = {"state": state}
+
+        def one():
+            box["state"], _ = step(box["state"], batches[steps])
+        busy = busy_by_card(torch, one, mid / 1e3, len(cards))
+        state = box.pop("state")
+    out = dict(layers=n_layers, step_ms=mid, step_ms_all=ms, losses=losses,
+               busy=busy,
+               peak=[torch.cuda.max_memory_allocated(d) for d in cards],
+               reserved=[torch.cuda.max_memory_reserved(d) for d in cards],
+               total=[torch.cuda.mem_get_info(d)[1] for d in cards])
+    out["free"] = [t - r for t, r in zip(out["total"], out["reserved"])]
+    del state, step, batches
+    torch.cuda.empty_cache()
+    if not all(abs(x) < 1e9 for x in losses):
+        raise SystemExit(f"qwen3-moe {n_layers} layers: losses {losses}")
+    return out
+
+
+def expert_parallel_cards(torch, devs, res):
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train.step import execution, value_and_grad
+
+    home = torch.device(devs[0])
+    b, s = EP_SHAPE
+    rules = shd.default_rules(make_host_mesh(2, 2, devices=devs))
+    out = {}
+    # the float32 gate: loss, aux and every gradient against one card's
+    cfg = dataclasses.replace(get_config(EP_ARCH), dtype="float32",
+                              n_layers=EP_GATE_LAYERS)
+    model = get_model(cfg)
+    out["execution"] = execution(model, rules)
+    if out["execution"] != "expert-parallel":
+        raise SystemExit(f"qwen3-moe on 2 x 2 runs {out['execution']}")
+    params = model.init(0, device=home).requires_grad_(True)
+    batch = batch_of(torch, cfg, home, b=b, s=s)
+    with full_fp32_matmul():
+        l1, m1, g1 = value_and_grad(model, params, batch)
+    placed = shd.place_module(params, rules)
+    del params
+    torch.cuda.empty_cache()
+    with full_fp32_matmul():
+        l2, m2, g2 = value_and_grad(model, placed, batch)
+    worst, leaf = 0.0, None
+    for k, want in g1.items():
+        got = g2[k].gather(home) if isinstance(g2[k], shd.PlacedTensor) \
+            else g2[k].to(home)
+        r = float((got - want).abs().max()) / (
+            1e-4 * float(want.abs().max()))
+        if r > worst or leaf is None:
+            worst, leaf = r, k
+    rel = abs(float(l2) - float(l1)) / abs(float(l1))
+    aux_rel = abs(float(m2["aux"]) - float(m1["aux"])) / abs(float(m1["aux"]))
+    out.update(loss_one=float(l1), loss_cards=float(l2), loss_rel=rel,
+               aux_one=float(m1["aux"]), aux_cards=float(m2["aux"]),
+               aux_rel=aux_rel, grad_worst=worst, grad_worst_leaf=leaf)
+    del g1, g2, placed
+    torch.cuda.empty_cache()
+    print("qwen3-moe 2 x 2 cards gate", out, flush=True)
+    if rel > 1e-5 or aux_rel > 1e-5 or worst > 1.0:
+        raise SystemExit("qwen3-moe on 2 x 2 cards differs from one card")
+    # bf16: the peaks of two cuts set the deepest that keeps EP_FREE_BYTES
+    probes = [_ep_steps(torch, devs, rules, n, 3, False)
+              for n in EP_PROBE_LAYERS]
+    (l_a, l_b), (p_a, p_b) = EP_PROBE_LAYERS, probes
+    depth = None
+    for i in range(len(devs)):
+        per = (p_b["reserved"][i] - p_a["reserved"][i]) / (l_b - l_a)
+        room = p_a["total"][i] - EP_FREE_BYTES - p_a["reserved"][i]
+        n = l_a + int(room // max(per, 1.0))
+        depth = n if depth is None else min(depth, n)
+    depth = min(depth, get_config(EP_ARCH).n_layers)
+    out["probes"] = probes
+    for attempt in range(2):
+        deep = _ep_steps(torch, devs, rules, depth, EP_STEPS, True)
+        if min(deep["free"]) >= EP_FREE_BYTES:
+            break
+        depth -= 1
+    out["deepest"] = deep
+    print(f"qwen3-moe bf16, 2 x 2 cards, {depth} layers (deepest with "
+          f"{EP_FREE_BYTES:.0f} bytes free per card): step median "
+          f"{deep['step_ms']:.1f} ms (all "
+          f"{[round(x, 1) for x in deep['step_ms_all']]}), losses "
+          f"{deep['losses']}, busy share by card {deep['busy']}, peak "
+          f"bytes by card {deep['peak']}, free bytes by card "
+          f"{deep['free']}", flush=True)
+    if min(deep["free"]) < EP_FREE_BYTES:
+        raise SystemExit(f"qwen3-moe at {depth} layers leaves "
+                         f"{min(deep['free'])} bytes free")
+    for name, r in (("one card", None), ("2 x 2 cards", rules)):
+        out[f"{EP_GATE_LAYERS} layers, {name}"] = o = _ep_steps(
+            torch, devs, r, EP_GATE_LAYERS, EP_STEPS, True)
+        print(f"qwen3-moe bf16, {EP_GATE_LAYERS} layers, {name}: step "
+              f"median {o['step_ms']:.1f} ms (all "
+              f"{[round(x, 1) for x in o['step_ms_all']]}), busy share by "
+              f"card {o['busy']}, peak bytes by card {o['peak']}",
+              flush=True)
+    res["qwen3_moe_expert_parallel"] = out
+
+
 def compression_cards(torch, devs, res):
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import compression
@@ -313,6 +481,7 @@ def main() -> int:
     res = {}
     mesh_step(torch, devs, res)
     tensor_parallel_cards(torch, devs, res)
+    expert_parallel_cards(torch, devs, res)
     compression_cards(torch, devs, res)
     elastic_cards(torch, np, devs, res)
     print(json.dumps(res))

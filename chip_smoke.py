@@ -249,7 +249,13 @@ What it does, in order (any failure exits non-zero before the last line):
    logged), then 5 bf16 steps of the placed state (leaves whole, shards
    views), tensor-parallel (each data row's 2 model slots split its
    heads, MLP and vocab): step ms, tokens/s, peak memory, a profiled
-   step, and the execution; (b)
+   step, and the execution; (a2) qwen3-moe-30b-a3b at full width cut to
+   2 layers, float32, B=8 S=1024 on the same mesh, expert-parallel (each
+   row's slots split heads, vocab and the 128 experts; the rows route the
+   whole batch together): the count of (token, choice) pairs routed to
+   another expert than one slot's, then loss and aux (rtol 1e-5) and
+   every gradient (1e-4 of its max |g|) against the one-slot step's (the
+   bf16 numbers logged); (b)
    qwen2-vl-2b at full width and depth over 2 data slots: int8_ef's first
    reduced gradient within half its consensus scale of the exact mean,
    3 steps of each of ``none``, ``bf16`` and ``int8_ef`` timed with their
@@ -6418,6 +6424,12 @@ MESH_PAD_FROM = 512
 #: float32 moments, one 15.3 GB float32 gradient tree, one row's 7.6 GB
 #: of bf16 gradients in flight, activations and logits.
 MESH_FREE_BYTES = 70e9
+#: (a2): qwen3-moe-30b-a3b at full width (d=2048, 128 experts, top-8,
+#: vocab 151,936) cut to this many layers, on the MESH_GRID mesh of card
+#: slots, B x S, row 0 padded from MESH_PAD_FROM: the expert-parallel gate.
+MESH_EP_ARCH = "qwen3-moe-30b-a3b"
+MESH_EP_LAYERS = 2
+MESH_EP_SHAPE = (8, 1024)
 #: (b): qwen2-vl-2b at full width and depth over this many data slots,
 #: B x S, and the timed steps of each scheme; the 12-step trajectory at
 #: smoke width (the reference's test: 8 slots, 16 x 16 batches, lr 3e-3,
@@ -6509,6 +6521,105 @@ def mesh_grad_check(torch, np, dev, dtype="float32", gate=True):
     return dict(dtype=dtype, execution=how, loss_mesh=l_mesh,
                 loss_one=l_one, loss_rel=rel, grad_worst=worst,
                 grad_worst_leaf=worst_name, walls=walls)
+
+
+def routes_of(fn):
+    """(``fn()``, the experts ``models.ffn.route`` chose, [T, K] per call
+    in call order): the forward's calls first, then remat's."""
+    from repro_torch.models import ffn
+
+    seen = []
+    route = ffn.route
+
+    def spy(logits, top_k, norm_topk=True):
+        out = route(logits, top_k, norm_topk)
+        seen.append(out[2].detach())
+        return out
+
+    ffn.route = spy
+    try:
+        return fn(), seen
+    finally:
+        ffn.route = route
+
+
+def mesh_expert_check(torch, np, dev, dtype="float32", gate=True):
+    """(a2): qwen3-moe-30b-a3b at full width cut to MESH_EP_LAYERS layers
+    (``dtype``) on the MESH_GRID mesh of ``dev`` slots, expert-parallel
+    (each data row's 2 model slots split its heads, vocab and 128
+    experts; the rows route the whole batch together): the first step's
+    loss, aux and every gradient from ``train.step.value_and_grad`` of
+    the placed parameters against the one-slot step's on the same
+    parameters and batch (loss and aux rtol TRAIN_LOSS_RTOL, each leaf
+    within TRAIN_GRAD_TOL of its own max |g|).  Printed first: how many
+    (token, choice) pairs the mesh routed to another expert than one
+    slot did, and how many tokens chose another set of experts (a near
+    tie that a row's products, rounded differently at another row
+    count, flip).  In bf16 the numbers are logged, not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import full_fp32_matmul
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.train.step import execution, value_and_grad
+
+    cfg = dataclasses.replace(get_config(MESH_EP_ARCH), dtype=dtype,
+                              n_layers=MESH_EP_LAYERS)
+    model = get_model(cfg)
+    b, s = MESH_EP_SHAPE
+    params = model.init(0, device=dev).requires_grad_(True)
+    rules = shd.default_rules(card_mesh(dev, *MESH_GRID))
+    how = execution(model, rules)
+    check(how == "expert-parallel", f"mesh (a2): {cfg.name} runs {how}")
+    placed = shd.place_module(params, rules)
+    batch = mesh_batch(torch, cfg.vocab, b, s, dev, pad_from=MESH_PAD_FROM)
+    walls, got = {}, {}
+    for name, p in (("mesh", placed), ("one", params)):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with full_fp32_matmul():
+            got[name] = routes_of(lambda: value_and_grad(model, p, batch))
+        sync(torch, dev)
+        walls[name] = time.perf_counter() - t0
+    (l_mesh, m_mesh, g_mesh), r_mesh = got.pop("mesh")
+    (l_one, m_one, g_one), r_one = got.pop("one")
+    rows, n_l = MESH_GRID[0], cfg.n_layers
+    pairs = tokens = 0
+    for i in range(n_l):
+        mine = torch.cat(r_mesh[i * rows:(i + 1) * rows])
+        pairs += int((mine != r_one[i]).sum())
+        tokens += int((torch.sort(mine, 1)[0] != torch.sort(r_one[i], 1)[0])
+                      .any(1).sum())
+    n_pairs = n_l * b * s * cfg.moe_top_k
+    log(f"mesh (a2), {dtype}: {pairs} of {n_pairs} (token, choice) pairs "
+        f"routed to another expert than one slot's, {tokens} of "
+        f"{n_l * b * s} tokens to another set of experts")
+    worst, worst_name = worst_grad(g_mesh, g_one)
+    l_mesh, l_one = float(l_mesh), float(l_one)
+    a_mesh, a_one = float(m_mesh["aux"]), float(m_one["aux"])
+    rel = abs(l_mesh - l_one) / abs(l_one)
+    aux_rel = abs(a_mesh - a_one) / abs(a_one)
+    log(f"mesh (a2) gate, {dtype}: {cfg.name} {n_l} layers x "
+        f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.moe_top_k}, {how},"
+        f" {MESH_GRID[0]} x {MESH_GRID[1]} slots on {dev}, B={b} S={s} (row "
+        f"0 padded from token {MESH_PAD_FROM}): loss mesh {l_mesh:.7f} one "
+        f"slot {l_one:.7f} (rel {rel:.3g}, limit {TRAIN_LOSS_RTOL}); aux "
+        f"mesh {a_mesh:.7f} one slot {a_one:.7f} (rel {aux_rel:.3g}); "
+        f"{len(g_one)} gradients, worst at {worst:.4g} of its limit "
+        f"({worst_name}); mesh {walls['mesh']:.2f} s, one slot "
+        f"{walls['one']:.2f} s" + ("" if gate else " (logged, not gated)"))
+    if gate:
+        check(rel <= TRAIN_LOSS_RTOL, f"mesh (a2): loss mesh {l_mesh} one "
+              f"slot {l_one}")
+        check(aux_rel <= TRAIN_LOSS_RTOL, f"mesh (a2): aux mesh {a_mesh} "
+              f"one slot {a_one}")
+        check(worst <= 1.0, f"mesh (a2): gradient {worst_name} at "
+              f"{worst:.3g} of its limit")
+    del params, placed, g_mesh, g_one, r_mesh, r_one
+    free_card(torch, dev)
+    return dict(dtype=dtype, execution=how, loss_mesh=l_mesh,
+                loss_one=l_one, loss_rel=rel, aux_mesh=a_mesh, aux_one=a_one,
+                aux_rel=aux_rel, grad_worst=worst, grad_worst_leaf=worst_name,
+                pairs_rerouted=pairs, tokens_rerouted=tokens, walls=walls)
 
 
 def mesh_train(torch, np, dev):
@@ -6889,7 +7000,9 @@ def examples_phase(torch, dev):
 def mesh_phase(torch, np, dev):
     """Training on a mesh of slots on the card: (a) phi3-mini-3.8b at full
     width and depth on a 2 x 2 mesh, the gate in float32 (and the bf16
-    gradients logged), then bf16 steps; (b) compressed data-parallel steps
+    gradients logged), (a2) qwen3-moe-30b-a3b's expert-parallel gate on
+    the same mesh at full width and 2 layers (float32 gated, bf16
+    logged), then (a)'s bf16 steps; (b) compressed data-parallel steps
     of qwen2-vl-2b at full width over 2 slots, the int8_ef gate, the three
     schemes timed, the 12-step trajectory at smoke width; (c) elastic
     re-mesh and cross-mesh restore; then the port's examples.  (d), search
@@ -6901,6 +7014,9 @@ def mesh_phase(torch, np, dev):
     out = dict(grad=mesh_grad_check(torch, np, dev),
                grad_bf16=mesh_grad_check(torch, np, dev, "bfloat16",
                                          gate=False),
+               experts=mesh_expert_check(torch, np, dev),
+               experts_bf16=mesh_expert_check(torch, np, dev, "bfloat16",
+                                              gate=False),
                train=mesh_train(torch, np, dev),
                compression_gate=compression_gate(torch, np, dev),
                compression=compression_steps(torch, np, dev),

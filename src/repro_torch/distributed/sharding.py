@@ -27,14 +27,17 @@ device: a model slot takes its block of the dim split over "model"
 (``model_dim``) gathered over the data axis only, a view where the
 device holds the leaf whole.
 
-Two executions of a train step (``train.step.execution``): the dense
+Three executions of a train step (``train.step.execution``): the dense
 attention-only decoders split their compute over the model axis (heads,
 MLP columns and vocab rows per model slot, the row-parallel products
-summed over the row's slots: ``models.transformer.SlotParams``); every
-other family (experts, RG-LRU, RWKV6, the encoder-decoder) computes each
-data row with the whole parameters gathered on the row's first slot
-(``PlacedModule.module_on``), so the model axis shards its storage only.
-Neither goes through ``constrain``: the models call it nowhere.
+summed over the row's slots: ``models.transformer.SlotParams``); those
+with experts split it too, each slot its block of the experts (dim 0 of
+``e_gate`` / ``e_up`` / ``e_down``, dim 1 of the router), the rows
+stepping together (expert-parallel); every other family (RG-LRU,
+RWKV6, the encoder-decoder) computes each data row with the whole
+parameters gathered on the row's first slot (``PlacedModule.module_on``),
+so the model axis shards its storage only.  None goes through
+``constrain``: the models call it nowhere.
 
 The search half places the grain-sharded plane: ``search_plane_rules``
 maps the plane's logical axes ("grains", "rows",

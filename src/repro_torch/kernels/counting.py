@@ -59,7 +59,31 @@ def current_slot() -> tuple:
     return (True, _SLOTS[-1]) if _SLOTS else (False, None)
 
 
-def report_move(src: int, dst: int, nbytes: int) -> None:
-    """``nbytes`` moved from model slot ``src`` to slot ``dst`` of a row."""
+def report_move(src: int, dst: int, nbytes: int,
+                kind: str = "model_sum") -> None:
+    """``nbytes`` moved from slot ``src`` to slot ``dst``: "model_sum"
+    between the model slots of a data row, "all_to_all" between rows
+    (the expert-parallel step's dispatch and return, whose slots are
+    numbered j * model + m over the mesh)."""
     if _ACTIVE and src != dst and hasattr(_ACTIVE[-1], "slot_move"):
-        _ACTIVE[-1].slot_move(src, dst, nbytes)
+        _ACTIVE[-1].slot_move(src, dst, nbytes, kind)
+
+
+# The named part of the model the ops in flight compute ("experts": the
+# expert products of a MoE layer), for a counter that splits FLOPs by it.
+_PARTS: list = []
+
+
+@contextlib.contextmanager
+def part(name: str):
+    """Attribute the ops inside the block to part ``name``."""
+    _PARTS.append(name)
+    try:
+        yield
+    finally:
+        _PARTS.pop()
+
+
+def current_part():
+    """The innermost open ``part`` block's name, or None."""
+    return _PARTS[-1] if _PARTS else None

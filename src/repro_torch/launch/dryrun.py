@@ -12,10 +12,15 @@ bytes) and costs it against H100 peaks:
   one data row's rows, as
   ``train.step.row_groups`` splits a batch over the production mesh's
   "batch" axes (the whole batch where they do not divide it, and for a
-  config with experts).  A train cell whose step is tensor-parallel
-  (``train.step.execution``: the five dense attention-only decoders)
-  traces that row over the mesh's model slots, all on the meta device,
-  and the counter keeps each slot's share apart.  The step is the one
+  config with experts that gathers rows).  A train cell whose step is
+  tensor-parallel (``train.step.execution``: the five dense
+  attention-only decoders) traces that row over the mesh's model slots,
+  all on the meta device, and the counter keeps each slot's share apart.
+  An expert-parallel train cell (qwen3-moe-30b-a3b, dbrx-132b) traces
+  every row over its slots, since each MoE layer couples the rows; the
+  meta device has no routing, so the all-to-all's moves are sized by the
+  most even routing the counts allow (``models.ffn.even_counts``); the
+  slabs' shapes, and so the FLOPs, do not depend on routing.  The step is the one
   the port runs, attention's
   key chunk included, but for RWKV6: its time-mix is traced in the
   chunked form (``lowering.unrolled(attn_chunks=None, wkv_chunks=8)``),
@@ -53,7 +58,12 @@ bytes) and costs it against H100 peaks:
   parts (the parameters' dtype) to slot (0, m), where block m of a leaf
   is summed in float32 (slot (0, 0) for a leaf replicated over the
   model axis; "grad_reduce"), and gets its pieces' float32 slices back
-  ("grad_scatter").  Every other cell (serving, and the families that
+  ("grad_scatter").  Expert-parallel cells the same, each device
+  (j, m) its own traced share, plus the moves between rows: a row's
+  tokens to the owners of its pairs' cells and their outputs back, the
+  counts' scan and the aux's sums ("all_to_all"); ``expert_flops`` is
+  the forward expert products' FLOPs, the busiest device's and the
+  mesh's.  Every other cell (serving, and the families that
   gather rows) is row-gather: each data row computes on its first slot
   (flat index j * model) with the whole parameters gathered there; the
   model axis shards storage only.  Per device, with N devices, R row
@@ -227,12 +237,14 @@ class StepCounter(TorchDispatchMode):
     whose tensors all lie on the CPU is host bookkeeping (a schedule's
     scalars) and is not counted.
 
-    A tensor-parallel step's ops are also counted per model slot
+    A tensor- or expert-parallel step's ops are also counted per slot
     (``slot_flops``, ``slot_bytes``, ``slot_peak``; the key None is the
     row's home work): forward ops by the open ``counting.slot`` block,
     backward ops by the slot the executing autograd node was marked
     with.  ``moves`` counts the bytes the step moves between slots, by
-    (source slot, destination slot)."""
+    (kind, source slot, destination slot); ``part_flops`` the forward
+    FLOPs of each ``counting.part`` by slot (the expert products:
+    "experts")."""
 
     def __init__(self):
         super().__init__()
@@ -247,6 +259,7 @@ class StepCounter(TorchDispatchMode):
         self.slot_live = collections.Counter()
         self.slot_peak = collections.Counter()
         self.moves = collections.Counter()
+        self.part_flops = collections.defaultdict(collections.Counter)
         self._tracked: dict = {}
         self._backward_seen = False
         self._costs: list = []
@@ -293,8 +306,9 @@ class StepCounter(TorchDispatchMode):
         self.slot_bytes[m][region] += nbytes
         self.slot_flops[m][name] += ops
 
-    def slot_move(self, src: int, dst: int, nbytes: int) -> None:
-        self.moves[(src, dst)] += nbytes
+    def slot_move(self, src: int, dst: int, nbytes: int,
+                  kind: str = "model_sum") -> None:
+        self.moves[(kind, src, dst)] += nbytes
 
     def _track(self, t: torch.Tensor, region: str) -> None:
         st = t.untyped_storage()
@@ -339,6 +353,9 @@ class StepCounter(TorchDispatchMode):
             dtype = str(ins[0].dtype).split(".")[-1]
             self.flops_by_dtype[dtype] += n
             self.slot_flops[m][dtype] += n
+            part = counting.current_part()
+            if part is not None and region == "forward":
+                self.part_flops[m][part] += n
         if func.is_view or func in _NO_BYTES:
             return out
         nbytes = _op_bytes(func, args, ins, outs)
@@ -550,20 +567,22 @@ def reckon(kind: str, inputs, shardings, rules, n_rows: int, rows: slice,
         flops.append(dict(counter.flops_by_dtype) if is_row else {})
         hbm.append(h)
     on_row = [i in row_devs for i in range(n)]
+    experts = sum(c["experts"] for c in counter.part_flops.values())
     return _device_terms(
         n, flops, hbm, links, counter, state,
         [gathered if r else 0.0 for r in on_row],
         [float(counter.peak["total"]) if r else 0.0 for r in on_row],
         [float(counter.peak["reduce"]) if i == home else 0.0
-         for i in range(n)], n_rows, rows.stop - rows.start)
+         for i in range(n)], n_rows, rows.stop - rows.start,
+        [experts if r else 0 for r in on_row])
 
 
 def _device_terms(n, flops, hbm, links, counter, state, gathered, peak,
-                  grads_f32, n_rows, b_row) -> dict:
+                  grads_f32, n_rows, b_row, experts) -> dict:
     """The record's numbers from per-device FLOPs ({dtype: n}), HBM
     bytes, links, bytes held (state, gathered, step peak, float32
-    gradient sums): the busiest device's, the one whose largest roofline
-    term is largest."""
+    gradient sums) and forward expert FLOPs: the busiest device's, the
+    one whose largest roofline term is largest."""
     per_dev = [roofline(flops[i], hbm[i],
                         {k: v[i] for k, v in links.dirs.items()})
                for i in range(n)]
@@ -584,16 +603,20 @@ def _device_terms(n, flops, hbm, links, counter, state, gathered, peak,
             "bytes_per_device": bpd, "roofline": per_dev[busy],
             "fits": bpd["peak"] <= HBM_CAPACITY,
             "bytes_by_region": {r: counter.bytes[r] for r in _REGIONS},
+            "expert_flops": {"device": experts[busy],
+                             "mesh": sum(experts)},
             "rows": n_rows, "row_batch": b_row}
 
 
 def reckon_slots(inputs, shardings, rules, n_rows: int, rows: slice,
-                 counter: StepCounter, cfg) -> dict:
+                 counter: StepCounter, cfg, all_rows: bool = False) -> dict:
     """``reckon`` of a train cell in the tensor-parallel execution (the
     module's docstring), from a trace of one data row over its model
-    slots: per device, its slot's traced work, its parameter parts
-    gathered over the data axis, the moves between a row's slots
-    ("model_sum"), the gradient parts sent to slot (0, m) and the
+    slots, or with ``all_rows`` in the expert-parallel execution, from a
+    trace of every row (slots numbered j * model + m): per device, its
+    slot's traced work, its parameter parts gathered over the data axis,
+    the moves between a row's slots ("model_sum") and between rows
+    ("all_to_all"), the gradient parts sent to slot (0, m) and the
     float32 slices sent back to every piece."""
     mesh = rules.mesh
     n, n_model = mesh.size, mesh.shape["model"]
@@ -656,16 +679,18 @@ def reckon_slots(inputs, shardings, rules, n_rows: int, rows: slice,
             if i < n_model and (md is not None or i == 0):
                 grads_f32[i] += count * numel * 4 / (
                     n_model if md is not None else 1)
-    for j in range(n_rows):
-        for (src, dst), nbytes in counter.moves.items():
-            links.move("model_sum", j * n_model + src, j * n_model + dst,
-                       nbytes)
+    for j in range(1 if all_rows else n_rows):
+        for (kind, src, dst), nbytes in counter.moves.items():
+            links.move(kind, j * n_model + src, j * n_model + dst, nbytes)
     state_share = (state["params"] + state["moments"]) / max(
         1.0, sum(_leaf_bytes(p) + 8 * p.numel() for _, p in leaves))
-    flops, hbm, peak = [], [], []
+    flops, hbm, peak, experts = [], [], [], []
     for i in range(n):
         j, m = divmod(i, n_model)
-        tags = (None, 0) if m == 0 else (m,)
+        if all_rows:
+            tags = (None, 0) if i == 0 else (i,)
+        else:
+            tags = (None, 0) if m == 0 else (m,)
         on_row = j < n_rows
         fl: dict = collections.Counter()
         traced = 0.0
@@ -682,12 +707,26 @@ def reckon_slots(inputs, shardings, rules, n_rows: int, rows: slice,
         hbm.append(h)
         peak.append(float(sum(counter.slot_peak[t] for t in tags))
                     if on_row else 0.0)
+        experts.append(sum(counter.part_flops[t]["experts"] for t in tags)
+                       if on_row else 0)
     return _device_terms(n, flops, hbm, links, counter, state, gathered,
-                         peak, grads_f32, n_rows, rows.stop - rows.start)
+                         peak, grads_f32, n_rows, rows.stop - rows.start,
+                         experts)
 
 
 def _execution(kind: str, n_rows: int, b_row: int,
-               n_model: int = 1) -> str:
+               n_model: int = 1, how: str = "row-gather") -> str:
+    if how == "expert-parallel":
+        return (f"expert-parallel: each of {n_rows} data row(s) computes "
+                f"its {b_row} sequence(s) over its {n_model} model slots, "
+                "heads and vocab rows split as tensor-parallel's and the "
+                "rows stepped together: each MoE layer routes the whole "
+                "batch (capacity and aux the batch's), slot (j, m) "
+                "computes experts block m of capacity block j, the tokens "
+                "and outputs moved between rows (all_to_all); each slot "
+                "gathers its parameter parts over the data axis only, and "
+                "block m of a leaf's gradient is summed on slot (0, m), "
+                "which sends each piece its float32 slice to update")
     if n_model > 1:
         return (f"tensor-parallel: each of {n_rows} data row(s) computes "
                 f"its {b_row} sequence(s) over its {n_model} model slots "
@@ -786,12 +825,17 @@ def cost_step(step_fn, inputs, cfg, kind: str, rules, *, batch: int,
     counter = StepCounter()
     ctx = lowering.unrolled(attn_chunks=None, wkv_chunks=8) \
         if measurement else contextlib.nullcontext()
-    n_model = rules.mesh.shape["model"] if kind == "train" and execution(
-        model, rules) == "tensor-parallel" else 1
-    # the tensor-parallel step of one data row: its model slots on meta
+    how = execution(model, rules) if kind == "train" else "row-gather"
+    n_model = rules.mesh.shape["model"] if how != "row-gather" else 1
+    # the tensor-parallel step of one data row, or the expert-parallel
+    # step of every row, its model slots on meta
+    all_rows = how == "expert-parallel"
+    n_traced = len(groups) if all_rows else 1
+    if all_rows:
+        row_in = inputs
     row_rules = shd.use_rules(shd.default_rules(make_host_mesh(
-        1, n_model, devices=["meta"] * n_model))) if n_model > 1 \
-        else contextlib.nullcontext()
+        n_traced, n_model, devices=["meta"] * (n_traced * n_model)))) \
+        if n_model > 1 else contextlib.nullcontext()
     t0 = time.time()
     with ctx, row_rules, counter:
         out = step_fn(*row_in)
@@ -808,7 +852,7 @@ def cost_step(step_fn, inputs, cfg, kind: str, rules, *, batch: int,
                 replaced.add(id(full))
     del out
     rec = reckon_slots(inputs, in_sh, rules, len(groups), rows, counter,
-                       cfg) if n_model > 1 else \
+                       cfg, all_rows) if n_model > 1 else \
         reckon(kind, inputs, in_sh, rules, len(groups), rows, replaced,
                counter)
     rec.update({
@@ -817,7 +861,7 @@ def cost_step(step_fn, inputs, cfg, kind: str, rules, *, batch: int,
         "aten_ops": sum(counter.ops.values()),
         "trace_s": round(trace_s, 2),
         "execution": _execution(kind, len(groups), rows.stop - rows.start,
-                                n_model),
+                                n_model, how),
         "wkv_chunked": measurement and kind in ("train", "prefill")
         and any(spec.kind == "rwkv" for spec in cfg.pattern),
         "model_params": cfg.param_count(),
@@ -922,7 +966,7 @@ def _lin(v1, v2, l1, l2, l_real):
 
 _LINEAR = ("flops", "flops_by_dtype", "hbm_bytes", "collective_bytes",
            "link_bytes", "bytes_per_device", "bytes_by_region", "kernels",
-           "aten_ops")
+           "aten_ops", "expert_flops")
 
 
 def run_cell_extrapolated(arch: str, shape: str, *, out_dir: str,

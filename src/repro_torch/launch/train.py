@@ -24,9 +24,12 @@ devices: ``--device cpu --host-mesh 4,2`` runs on the CPU); without it
 the mesh takes the first d x m cards and raises when there are fewer.
 The launcher prints the step's execution (``train.step.execution``): the
 dense attention-only decoders split their heads, MLP and vocab over the
-model axis ("tensor-parallel"; ``--device cpu --host-mesh 1,4``), the
-other families compute each data row with the whole parameters
-("row-gather": the model axis shards their storage only).
+model axis ("tensor-parallel"; ``--device cpu --host-mesh 1,4``), those
+with experts their heads, vocab and experts ("expert-parallel": the
+rows route the whole batch together; ``--arch qwen3-moe-30b-a3b --smoke
+--device cpu --host-mesh 2,2``), the other families compute each data
+row with the whole parameters ("row-gather": the model axis shards their
+storage only).
 """
 from __future__ import annotations
 

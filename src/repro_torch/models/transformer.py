@@ -17,10 +17,12 @@ repeats and runs them under ``lax.scan``; here the stack is unrolled:
 ``layers[g * len(pattern) + i]`` is the reference's
 ``params["groups"][f"l{i}"][g]``, and the ``tail`` layers follow.  The
 reference's sharding hints (``constrain``) are dropped: on one device
-they are no-ops, and on a mesh the training loss of a dense
-attention-only decoder splits where they split, explicitly, over a data
-row's model slots (``SlotParams``: each slot its heads, MLP columns and
-vocab rows, the partial sums of ``wo`` and ``w_down`` added in float32).
+they are no-ops, and on a mesh the training loss of an attention-only
+decoder splits where they split, explicitly, over a data row's model
+slots (``SlotParams``: each slot its heads, MLP columns and vocab rows,
+the partial sums of ``wo`` and ``w_down`` added in float32); with
+experts every row steps at once (``mesh_loss``), each slot computing a
+block of the experts over a block of the whole batch's capacity.
 
 With ``cfg.remat`` each pattern group of a forward that records gradients
 is checkpointed, as the reference's ``jax.checkpoint`` around its scanned
@@ -48,6 +50,7 @@ import dataclasses
 from collections.abc import Mapping
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
@@ -416,35 +419,48 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch):
 # ---------------------------------------------------------------------------
 
 #: The dim the model axis splits, by a leaf's last name: q heads, kv
-#: heads, MLP columns, vocab rows (``distributed.sharding._PARAM_AXES``).
+#: heads, MLP columns, vocab rows, experts (the router's expert columns)
+#: (``distributed.sharding._PARAM_AXES``).
 SPLIT_DIMS = {"wq": 1, "bq": 0, "wo": 0, "wk": 1, "wv": 1, "bk": 0, "bv": 0,
               "w_gate": 1, "w_up": 1, "w_down": 0, "embedding": 0,
-              "lm_head": 0}
+              "lm_head": 0, "e_gate": 0, "e_up": 0, "e_down": 0,
+              "router": 1}
 _GROUP = {"wq": "heads", "bq": "heads", "wo": "heads", "wk": "kv",
           "wv": "kv", "bk": "kv", "bv": "kv", "w_gate": "mlp", "w_up": "mlp",
-          "w_down": "mlp", "embedding": "vocab", "lm_head": "vocab"}
+          "w_down": "mlp", "embedding": "vocab", "lm_head": "vocab",
+          "e_gate": "experts", "e_up": "experts", "e_down": "experts",
+          "router": "experts"}
 
 
 def splits_over_model(cfg: ModelConfig) -> bool:
     """Whether a train step of ``cfg`` splits its compute over the model
-    axis: the dense attention-only decoders (no experts, no recurrent
-    layer, not the encoder-decoder)."""
-    return (cfg.family != "encdec" and not cfg.n_experts
+    axis: the attention-only decoders (no recurrent layer, not the
+    encoder-decoder), dense or with experts (``splits_experts``)."""
+    return (cfg.family != "encdec"
             and all(spec.kind == "attn" for spec in layer_specs(cfg)))
+
+
+def splits_experts(cfg: ModelConfig) -> bool:
+    """Whether that split is expert-parallel: a decoder of
+    ``splits_over_model`` with experts, whose rows step in lock step
+    (``mesh_loss``: routing and capacity are the whole batch's)."""
+    return bool(cfg.n_experts) and splits_over_model(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
 class SlotPlan:
     """Which products a row's ``n_slots`` model slots split: q heads
-    (with ``wo``), kv heads, MLP columns, vocab rows.  A group that is
-    not split is computed once, on slot 0.  kv heads not split under
-    split q heads: each slot takes the kv heads its q heads read."""
+    (with ``wo``), kv heads, MLP columns, vocab rows, experts (with the
+    router's columns).  A group that is not split is computed once, on
+    slot 0.  kv heads not split under split q heads: each slot takes the
+    kv heads its q heads read."""
 
     n_slots: int
     heads: bool
     kv: bool
     mlp: bool
     vocab: bool
+    experts: bool = False
 
     def slots(self, group: str) -> range:
         return range(self.n_slots if getattr(self, group) else 1)
@@ -458,6 +474,9 @@ def slot_plan(cfg: ModelConfig, n_slots: int, split_dims) -> SlotPlan:
     if not splits_over_model(cfg):
         raise ValueError(f"{cfg.name}'s step does not split over the "
                          "model axis")
+    if cfg.n_experts and cfg.n_experts % n_slots:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{n_slots} model slots")
     seen: dict = {}
     for name, dim in split_dims.items():
         last = name.rsplit(".", 1)[-1]
@@ -465,7 +484,7 @@ def slot_plan(cfg: ModelConfig, n_slots: int, split_dims) -> SlotPlan:
         if dim is not None and dim != want:
             raise ValueError(
                 f"{name} is split over the model axis on dim {dim}; the "
-                "tensor-parallel step " + (f"splits it on dim {want}"
+                "step " + (f"splits it on dim {want}"
                                            if want is not None
                                            else "keeps it whole"))
         if want is not None:
@@ -475,7 +494,7 @@ def slot_plan(cfg: ModelConfig, n_slots: int, split_dims) -> SlotPlan:
             raise ValueError(f"only some {group} leaves are split over "
                              "the model axis")
     flags = {g: True in seen.get(g, ()) for g in ("heads", "kv", "mlp",
-                                                   "vocab")}
+                                                   "vocab", "experts")}
     if flags["kv"] and not flags["heads"]:
         raise ValueError("kv heads split over the model axis, q heads not")
     if flags["heads"] and not flags["kv"]:
@@ -533,30 +552,45 @@ class _SlotTree:
                                        for k in self.flat)
 
 
+def _shares(n: int, parts: int) -> list:
+    """``n`` split into ``parts`` contiguous shares, the first ``n %
+    parts`` one longer (``SlotParams.all_reduce``'s split)."""
+    return [n // parts + (p < n % parts) for p in range(parts)]
+
+
 class _SlotMove(torch.autograd.Function):
-    """A tensor moved from slot ``src`` of a row to slot ``dst`` (on
-    ``device``), its gradient moved back; the bytes both ways reported to
-    the cost counter."""
+    """A tensor moved from slot ``src`` to slot ``dst`` (on ``device``),
+    its gradient moved back; the bytes both ways reported to the cost
+    counter as ``kind`` (``counting.report_move``)."""
 
     @staticmethod
-    def forward(ctx, src, dst, device, x):
-        ctx.src, ctx.dst, ctx.device = src, dst, x.device
-        counting.report_move(src, dst, x.numel() * x.element_size())
+    def forward(ctx, src, dst, device, kind, x):
+        ctx.src, ctx.dst, ctx.device, ctx.kind = src, dst, x.device, kind
+        counting.report_move(src, dst, x.numel() * x.element_size(), kind)
         return x.view_as(x) if x.device == device else x.to(device)
 
     @staticmethod
     def backward(ctx, g):
-        counting.report_move(ctx.dst, ctx.src, g.numel() * g.element_size())
-        return None, None, None, \
+        counting.report_move(ctx.dst, ctx.src, g.numel() * g.element_size(),
+                             ctx.kind)
+        return None, None, None, None, \
             g.view_as(g) if g.device == ctx.device else g.to(ctx.device)
+
+
+def _move_between(x, src: "SlotParams", m: int, dst: "SlotParams", n: int):
+    """``x`` from slot m of one data row to slot n of another: an
+    "all_to_all" move between the rows' slots (mesh numbering)."""
+    return _SlotMove.apply(src.base + m, dst.base + n, dst.devices[n],
+                           "all_to_all", x)
 
 
 class SlotParams:
     """One data row's parameters over its ``plan.n_slots`` model slots:
     ``flat[m]`` holds slot m's part of each leaf it uses
-    (``slot_slices``) on ``devices[m]``.  ``loss_fn`` of a
-    ``SlotParams`` is the row's loss computed as the reference's SPMD
-    step splits it:
+    (``slot_slices``) on ``devices[m]``; ``base`` is the mesh number of
+    its slot 0 (row j's is j * model), under which the cost counter sees
+    its slots.  ``loss_fn`` of a ``SlotParams`` is the row's loss
+    computed as the reference's SPMD step splits it:
 
     - the residual stream, the norms and their scales whole on every
       place of the row: each distinct device (each slot, under a cost
@@ -573,11 +607,13 @@ class SlotParams:
       logsumexp and target logit, combined on slot 0, the logits never
       gathered;
     - a group the plan does not split runs once, on slot 0, and its
-      result goes to every place."""
+      result goes to every place.
+
+    A config with experts steps every row at once (``mesh_loss``)."""
 
     def __init__(self, cfg: ModelConfig, plan: SlotPlan, devices,
-                 flat: list):
-        self.cfg, self.plan, self.flat = cfg, plan, flat
+                 flat: list, base: int = 0):
+        self.cfg, self.plan, self.flat, self.base = cfg, plan, flat, base
         self.devices = tuple(torch.device(d) for d in devices)
         places: dict = {}
         for m, d in enumerate(self.devices):
@@ -592,14 +628,19 @@ class SlotParams:
     def tree(self, m: int, prefix: str = "") -> _SlotTree:
         return _SlotTree(self.flat[m], prefix)
 
+    def slot(self, m: int):
+        """The cost counter's block for slot m's work."""
+        return counting.slot(self.base + m)
+
     def move(self, x: torch.Tensor, src: int, dst: int) -> torch.Tensor:
-        return _SlotMove.apply(src, dst, self.devices[dst], x)
+        return _SlotMove.apply(self.base + src, self.base + dst,
+                               self.devices[dst], "model_sum", x)
 
     def each_place(self, fn, *streams) -> list:
         """[``fn(owner slot, *the streams' tensors there)``] per place."""
         out = []
         for p, m in enumerate(self.owners):
-            with counting.slot(m):
+            with self.slot(m):
                 out.append(fn(m, *(s[p] for s in streams)))
         return out
 
@@ -609,17 +650,16 @@ class SlotParams:
         ``dtype``: each place sums one share of the tokens (dim 1)."""
         n = len(self.owners)
         if n == 1:
-            with counting.slot(0):
+            with self.slot(0):
                 total = parts[0]
                 for x in parts[1:]:
                     total = total + x
                 return [total.to(dtype)]
-        s = parts[0].shape[1]
-        sizes = [s // n + (p < s % n) for p in range(n)]
-        shares = [torch.split(x, sizes, dim=1) for x in parts]
+        shares = [torch.split(x, _shares(parts[0].shape[1], n), dim=1)
+                  for x in parts]
         summed = []
         for p, o in enumerate(self.owners):
-            with counting.slot(o):
+            with self.slot(o):
                 total = None
                 for m, sh in zip(slots, shares):
                     x = self.move(sh[p], m, o)
@@ -629,44 +669,58 @@ class SlotParams:
             [self.move(x, q, o) for q, x in zip(self.owners, summed)],
             dim=1))
 
+    def broadcast(self, x: torch.Tensor) -> list:
+        """``x``, on slot 0, on every place."""
+        return self.each_place(lambda o: self.move(x, 0, o))
+
     def run(self, group: str, xs: list, fn, dtype) -> list:
         """``fn(m, x)`` on each slot of ``group`` with its place's stream
         ``x``, all-reduced (a group the plan splits: float32 partial
         sums) or sent from slot 0 to every place (a group it does not)."""
         slots, out = self.plan.slots(group), []
         for m in slots:
-            with counting.slot(m):
+            with self.slot(m):
                 out.append(fn(m, xs[self.place[m]]))
         if getattr(self.plan, group):
             return self.all_reduce(out, slots, dtype)
-        return self.each_place(lambda o: self.move(out[0], 0, o))
+        return self.broadcast(out[0])
+
+    def normed(self, prefix: str, key: str, streams: list) -> list:
+        """Norm ``prefix + key`` of the stream on each place."""
+        _, norm = make_norm(self.cfg.norm)
+        return self.each_place(lambda o, x: norm(
+            self.tree(o, prefix)[key], x, self.cfg.norm_eps), streams)
+
+    def add(self, streams: list, ys: list) -> list:
+        return self.each_place(lambda o, x, y: x + y, streams, ys)
+
+
+def _slot_mixer_half(sp: SlotParams, i: int, xs, cfg, spec, positions):
+    """Layer ``i``'s attention over the row's slots, added to the
+    residual stream ``xs`` (one per place)."""
+    pre = f"layers.{i}."
+    ys = sp.run("heads", sp.normed(pre, "pre_norm", xs),
+                lambda m, h: _attn_apply(
+                    sp.tree(m, pre + "mixer."), h, cfg, spec, positions[m],
+                    partial=sp.plan.heads)[0], xs[0].dtype)
+    if cfg.post_norm:
+        ys = sp.normed(pre, "post_norm", ys)
+    return sp.add(xs, ys)
 
 
 def _slot_layer_apply(sp: SlotParams, i: int, xs, cfg, spec, positions):
     """Layer ``i`` over the row's slots (``_layer_apply``'s training
     forward); ``xs``: the residual stream on each place."""
-    _, norm = make_norm(cfg.norm)
     pre = f"layers.{i}."
-
-    def normed(key, streams):
-        return sp.each_place(lambda o, x: norm(sp.tree(o, pre)[key], x,
-                                               cfg.norm_eps), streams)
-
-    def add(streams, ys):
-        return sp.each_place(lambda o, x, y: x + y, streams, ys)
-
-    ys = sp.run("heads", normed("pre_norm", xs), lambda m, h: _attn_apply(
-        sp.tree(m, pre + "mixer."), h, cfg, spec, positions[m],
-        partial=sp.plan.heads)[0], xs[0].dtype)
+    xs = _slot_mixer_half(sp, i, xs, cfg, spec, positions)
+    ys = sp.run("mlp", sp.normed(pre, "mlp_pre_norm", xs),
+                lambda m, h: ffn.mlp_apply(sp.tree(m, pre + "ffn."), h,
+                                           cfg.mlp_kind,
+                                           partial=sp.plan.mlp),
+                xs[0].dtype)
     if cfg.post_norm:
-        ys = normed("post_norm", ys)
-    xs = add(xs, ys)
-    ys = sp.run("mlp", normed("mlp_pre_norm", xs), lambda m, h: ffn.mlp_apply(
-        sp.tree(m, pre + "ffn."), h, cfg.mlp_kind, partial=sp.plan.mlp),
-        xs[0].dtype)
-    if cfg.post_norm:
-        ys = normed("mlp_post_norm", ys)
-    return add(xs, ys)
+        ys = sp.normed(pre, "mlp_post_norm", ys)
+    return sp.add(xs, ys)
 
 
 def _slot_group_apply(sp, layers, specs, cfg, positions, *xs):
@@ -676,25 +730,39 @@ def _slot_group_apply(sp, layers, specs, cfg, positions, *xs):
     return tuple(xs)
 
 
-def _slot_loss(sp: SlotParams, cfg: ModelConfig, batch):
-    """``loss_fn`` of one data row over its model slots (``SlotParams``)."""
+def _slot_inputs(sp: SlotParams, cfg: ModelConfig, batch) -> dict:
+    """One row's batch on its slot 0: tokens, labels, positions on every
+    slot's device, the patch embeddings."""
     home = sp.devices[0]
     tokens = torch.as_tensor(batch["tokens"], device=home).long()
     b, s = tokens.shape
     pos = batch.get("positions")
     pos = _default_positions(cfg, b, s, device=home) if pos is None \
         else torch.as_tensor(pos, device=home).long()
-    positions = [pos.to(d) for d in sp.devices]
-    specs, n = layer_specs(cfg), len(cfg.pattern)
-    labels = torch.as_tensor(batch["labels"], device=home).long()
-    target = torch.clamp(labels, min=0)
-    patches = batch.get("patch_embeds")
+    return {"tokens": tokens, "positions": [pos.to(d) for d in sp.devices],
+            "labels": torch.as_tensor(batch["labels"], device=home).long(),
+            "patches": batch.get("patch_embeds")}
+
+
+def _slot_embed(sp: SlotParams, cfg: ModelConfig, inp: dict) -> list:
+    """The embedded tokens (patches written in) on each place."""
+    tokens = inp["tokens"]
 
     def embed_slot(m, _):
         table, tok = sp.tree(m)["embedding"], tokens.to(sp.devices[m])
         if not sp.plan.vocab:
             return embed(table, tok, cfg.embed_scale)
         return embed_block(table, tok, m * table.shape[0], cfg.embed_scale)
+
+    xs = sp.run("vocab", [None] * len(sp.owners), embed_slot,
+                cfg.compute_dtype)
+    return sp.each_place(lambda o, x: _with_patches(x, inp["patches"]), xs)
+
+
+def _slot_ce(sp: SlotParams, cfg: ModelConfig, xs: list, labels):
+    """The row's masked token-mean cross-entropy, on slot 0, from each
+    vocab block's logsumexp and target logit."""
+    target = torch.clamp(labels, min=0)
 
     def terms(m, h):
         p = sp.tree(m)
@@ -703,10 +771,31 @@ def _slot_loss(sp: SlotParams, cfg: ModelConfig, batch):
         return vocab_block_terms(logits, target.to(sp.devices[m]),
                                  m * table.shape[0])
 
+    reads = {sp.place[m] for m in sp.plan.slots("vocab")}
+    hidden = sp.each_place(lambda o, x: _final_hidden(sp.tree(o), cfg, x)
+                           if sp.place[o] in reads else None, xs)
+    lses, lls = [], []
+    for m in sp.plan.slots("vocab"):
+        with sp.slot(m):
+            lse, ll = terms(m, hidden[sp.place[m]])
+        lses.append(sp.move(lse, m, 0))
+        lls.append(sp.move(ll, m, 0))
+    with sp.slot(0):
+        lse = lses[0] if len(lses) == 1 \
+            else torch.logsumexp(torch.stack(lses), dim=0)
+        ll = lls[0]
+        for x in lls[1:]:
+            ll = ll + x             # exact: one non-zero term per token
+        return token_mean(lse - ll, labels >= 0)
+
+
+def _slot_loss(sp: SlotParams, cfg: ModelConfig, batch):
+    """``loss_fn`` of one data row over its model slots (``SlotParams``)."""
+    inp = _slot_inputs(sp, cfg, batch)
+    positions = inp["positions"]
+    specs, n = layer_specs(cfg), len(cfg.pattern)
     with full_fp32_matmul():
-        xs = sp.run("vocab", [None] * len(sp.owners), embed_slot,
-                    cfg.compute_dtype)
-        xs = sp.each_place(lambda o, x: _with_patches(x, patches), xs)
+        xs = _slot_embed(sp, cfg, inp)
         for g in range(cfg.n_groups):
             xs = remat(cfg, _slot_group_apply, sp,
                        range(g * n, (g + 1) * n), specs[g * n:(g + 1) * n],
@@ -714,23 +803,239 @@ def _slot_loss(sp: SlotParams, cfg: ModelConfig, batch):
         tail = range(cfg.n_groups * n, len(specs))
         xs = _slot_group_apply(sp, tail, [specs[i] for i in tail], cfg,
                                positions, *xs)
-        reads = {sp.place[m] for m in sp.plan.slots("vocab")}
-        hidden = sp.each_place(lambda o, x: _final_hidden(sp.tree(o), cfg, x)
-                               if sp.place[o] in reads else None, xs)
-        lses, lls = [], []
-        for m in sp.plan.slots("vocab"):
-            with counting.slot(m):
-                lse, ll = terms(m, hidden[sp.place[m]])
-            lses.append(sp.move(lse, m, 0))
-            lls.append(sp.move(ll, m, 0))
-        with counting.slot(0):
-            lse = lses[0] if len(lses) == 1 \
-                else torch.logsumexp(torch.stack(lses), dim=0)
-            ll = lls[0]
-            for x in lls[1:]:
-                ll = ll + x         # exact: one non-zero term per token
-            ce = token_mean(lse - ll, labels >= 0)
+        ce = _slot_ce(sp, cfg, xs, inp["labels"])
     return ce, {"ce": ce, "aux": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: every data row's step at once
+# ---------------------------------------------------------------------------
+
+
+def _host_counts(counts: list, unit_tokens: list, top_k: int,
+                 n_experts: int):
+    """The units' [E] pairs per expert as host integers [units, E]; on
+    the meta device (a trace, no values) the even split
+    (``ffn.even_counts``)."""
+    if counts[0].is_meta:
+        return ffn.even_counts(unit_tokens, top_k, n_experts)
+    return np.stack([c.cpu().numpy() for c in counts])
+
+
+def _mesh_moe(sps: list, i: int, hs: list, cfg: ModelConfig):
+    """The MoE of layer ``i`` over every data row (``hs[j]``: row j's
+    normed stream on each of its places), as ``ffn.moe_apply`` computes
+    it on the whole batch.  Returns (each row's output on each of its
+    places, the layer's aux on row 0's slot 0).
+
+    - A unit is one place of a row with a contiguous share of the row's
+      tokens; the units, row by row, hold the batch's tokens in order.
+      Each row's experts slots compute their block of the router's
+      logits and send each unit its share's rows; the unit routes its
+      tokens (softmax, stable top-k) and ranks its pairs within their
+      experts.
+    - The units' [E] counts cross rows (host integers: they size the
+      moves); an exclusive scan gives each unit its ``prior``, so its
+      pairs' global ranks are the one-device ranks, and the capacity is
+      the whole batch's.
+    - Owner (j, m) (row j's slot m) computes experts block m of capacity
+      block j (``ffn.cell_owners``): each unit sends each owner its
+      pairs' token vectors and cells, the owner fills its [E / M, C_j,
+      d] slab, runs ``ffn.expert_ffn`` once and sends each unit its
+      pairs' outputs (the all-to-all); every cell of the one-device slab
+      is computed once on the mesh.
+    - Each unit combines its tokens' K outputs (``ffn.combine``) and
+      every place of the row gathers the shares; the aux is the Switch
+      loss of the whole batch, from the units' sums of the router's
+      probabilities and top-1 counts, on row 0's slot 0."""
+    pre = f"layers.{i}.ffn."
+    plan = sps[0].plan
+    n_exp, top_k = cfg.n_experts, cfg.moe_top_k
+    experts = list(plan.slots("experts"))
+    n_rows, n_blocks = len(sps), len(experts)
+    units = []
+    for j, (sp, h) in enumerate(zip(sps, hs)):
+        d = h[0].shape[-1]
+        sizes = _shares(h[0].shape[0] * h[0].shape[1], len(sp.owners))
+        logits = []
+        for m in experts:
+            with sp.slot(m):
+                x = h[sp.place[m]]
+                logits.append(torch.split(
+                    x.reshape(-1, d).to(torch.float32)
+                    @ sp.tree(m, pre)["router"], sizes))
+        for p, o in enumerate(sp.owners):
+            parts = [sp.move(lg[p], m, o) for m, lg in zip(experts, logits)]
+            with sp.slot(o):
+                lg = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+                probs, top_p, top_e = ffn.route(lg, top_k, cfg.norm_topk)
+                flat_e, rank, counts = ffn.expert_ranks(top_e, n_exp)
+                psum = torch.sum(probs, dim=0)
+                top1 = torch.sum(torch.nn.functional.one_hot(
+                    top_e[:, 0], n_exp).to(torch.float32), dim=0)
+                x = torch.split(h[p].reshape(-1, d), sizes)[p]
+            units.append(dict(row=j, slot=o, x=x, top_p=top_p,
+                              flat_e=flat_e, rank=rank, counts=counts,
+                              psum=psum, top1=top1))
+    unit_tokens = [u["x"].shape[0] for u in units]
+    n_tok = sum(unit_tokens)
+    cap = ffn._capacity(n_tok, n_exp, top_k, cfg.capacity_factor)
+    counts = _host_counts([u["counts"] for u in units], unit_tokens, top_k,
+                          n_exp)
+    prior = np.cumsum(counts, 0) - counts
+    # [units, capacity blocks, experts blocks]
+    sizes = ffn.owner_sizes(counts, cap, n_rows, n_blocks)
+    blocks = ffn.capacity_blocks(cap, n_rows)
+    home, psum, top1 = sps[0], None, None
+    for u in units:
+        sp = sps[u["row"]]
+        if u is not units[0]:
+            # the scan: the unit's counts to row 0, its prior back
+            counting.report_move(sp.base + u["slot"], home.base,
+                                 n_exp * 8, "all_to_all")
+            counting.report_move(home.base, sp.base + u["slot"],
+                                 n_exp * 8, "all_to_all")
+        ps = _move_between(u["psum"], sp, u["slot"], home, 0)
+        t1 = _move_between(u["top1"], sp, u["slot"], home, 0)
+        with home.slot(0):
+            psum = ps if psum is None else psum + ps
+            top1 = t1 if top1 is None else top1 + t1
+    with home.slot(0):
+        aux = torch.sum((psum / n_tok) * (top1 / n_tok)) * n_exp
+
+    # dispatch: each unit's pairs to their owners
+    inbox: dict = {}            # owner -> [(unit, token vectors, cells)]
+    for k, u in enumerate(units):
+        sp, o = sps[u["row"]], u["slot"]
+        with sp.slot(o):
+            pri = torch.as_tensor(prior[k], device=sp.devices[o])
+            grank, in_cap = ffn.global_ranks(u["rank"], u["flat_e"], pri,
+                                             cap)
+            owner, e_loc, c_loc = ffn.cell_owners(
+                u["flat_e"], grank, in_cap, cap, n_rows, n_exp, n_blocks)
+            want = sizes[k].reshape(-1).tolist()
+            pairs = ffn.owner_pairs(owner, want)
+        u.update(in_cap=in_cap, pairs=pairs, want=want)
+        for w, ix in enumerate(pairs):
+            if not want[w]:
+                continue
+            jj, m = divmod(w, n_blocks)
+            with sp.slot(o):
+                rows_x = u["x"][torch.div(ix, top_k, rounding_mode="floor")]
+                cells = torch.stack([e_loc[ix], c_loc[ix]])
+            inbox.setdefault(w, []).append((
+                k, _move_between(rows_x, sp, o, sps[jj], experts[m]),
+                _move_between(cells, sp, o, sps[jj], experts[m])))
+
+    # each owner's block of the slab, computed once; the outputs sent back
+    outbox: dict = {}           # (unit, owner) -> outputs of its pairs
+    for w in range(n_rows * n_blocks):
+        jj, m = divmod(w, n_blocks)
+        sp, slot = sps[jj], experts[m]
+        got = inbox.get(w, [])
+        p = sp.tree(slot, pre)
+        with sp.slot(slot):
+            x = hs[jj][0]
+            slab = torch.zeros((n_exp // n_blocks, blocks[jj][1],
+                                x.shape[-1]), dtype=x.dtype,
+                               device=sp.devices[slot])
+            if got:
+                cells = torch.cat([c for _, _, c in got], dim=1)
+                slab = slab.index_put((cells[0], cells[1]),
+                                      torch.cat([v for _, v, _ in got]))
+            ye = ffn.expert_ffn(p["e_gate"], p["e_up"], p["e_down"], slab)
+            outs = torch.split(ye[cells[0], cells[1]],
+                               [v.shape[0] for _, v, _ in got]) \
+                if got else ()
+        for (k, _, _), y in zip(got, outs):
+            u = units[k]
+            outbox[(k, w)] = _move_between(y, sp, slot, sps[u["row"]],
+                                           u["slot"])
+
+    # combine on each unit, then every place of the row gathers the shares
+    shares = [[] for _ in sps]
+    for k, u in enumerate(units):
+        sp, x = sps[u["row"]], u["x"]
+        with sp.slot(u["slot"]):
+            sent = [w for w, n in enumerate(u["want"]) if n]
+            yk = torch.zeros((u["flat_e"].shape[0], x.shape[-1]),
+                             dtype=x.dtype, device=x.device)
+            if sent:
+                yk = yk.index_put(
+                    (torch.cat([u["pairs"][w] for w in sent]),),
+                    torch.cat([outbox[(k, w)] for w in sent]))
+            y = ffn.combine(yk, u["top_p"].reshape(-1), u["in_cap"], top_k)
+            shares[u["row"]].append((u["slot"], y.to(x.dtype)))
+    ys = []
+    for sp, h, parts in zip(sps, hs, shares):
+        ys.append(sp.each_place(lambda o: torch.cat(
+            [sp.move(y, q, o) for q, y in parts]).reshape(h[0].shape)))
+    return ys, aux
+
+
+def _mesh_layer_apply(sps, i, xss, cfg, spec, positions):
+    """Layer ``i`` of a config with experts over every data row: each
+    row's attention over its slots, then the MoE of the whole batch."""
+    pre = f"layers.{i}."
+    xss = [_slot_mixer_half(sp, i, xs, cfg, spec, pos)
+           for sp, xs, pos in zip(sps, xss, positions)]
+    hs = [sp.normed(pre, "mlp_pre_norm", xs) for sp, xs in zip(sps, xss)]
+    ys, aux = _mesh_moe(sps, i, hs, cfg)
+    if cfg.post_norm:
+        ys = [sp.normed(pre, "mlp_post_norm", y) for sp, y in zip(sps, ys)]
+    return [sp.add(xs, y) for sp, xs, y in zip(sps, xss, ys)], aux
+
+
+def _mesh_group_apply(sps, layers, specs, cfg, positions, aux, *flat):
+    """Layers ``layers`` of every row (``flat``: the rows' streams, row
+    after row); the aux summed on in layer order."""
+    xss, k = [], 0
+    for sp in sps:
+        xss.append(list(flat[k:k + len(sp.owners)]))
+        k += len(sp.owners)
+    for i, spec in zip(layers, specs):
+        xss, a = _mesh_layer_apply(sps, i, xss, cfg, spec, positions)
+        with sps[0].slot(0):
+            aux = aux + a
+    return (aux,) + tuple(x for xs in xss for x in xs)
+
+
+def mesh_loss(sps: list, cfg: ModelConfig, batches: list, weights: list):
+    """``loss_fn`` of the whole batch of a config with experts over every
+    data row's model slots (``sps[j]``: row j's ``SlotParams``,
+    ``batches[j]`` its rows), the rows layer by layer together: each
+    MoE layer's routing and capacity are the whole batch's
+    (``_mesh_moe``).  The loss, on row 0's slot 0: the rows'
+    cross-entropies weighted by ``weights`` (their shares of the batch's
+    tokens) plus ``MOE_AUX_WEIGHT`` times the aux, the Switch loss of the
+    whole batch summed over layers, added once."""
+    inps = [_slot_inputs(sp, cfg, b) for sp, b in zip(sps, batches)]
+    positions = [inp["positions"] for inp in inps]
+    specs, n = layer_specs(cfg), len(cfg.pattern)
+    home = sps[0]
+    with full_fp32_matmul():
+        flat = tuple(x for sp, inp in zip(sps, inps)
+                     for x in _slot_embed(sp, cfg, inp))
+        aux = 0.0
+        for g in range(cfg.n_groups):
+            aux, *flat = remat(cfg, _mesh_group_apply, sps,
+                               range(g * n, (g + 1) * n),
+                               specs[g * n:(g + 1) * n], cfg, positions,
+                               aux, *flat)
+        tail = range(cfg.n_groups * n, len(specs))
+        aux, *flat = _mesh_group_apply(sps, tail, [specs[i] for i in tail],
+                                       cfg, positions, aux, *flat)
+        ce, k = 0.0, 0
+        for sp, inp, w in zip(sps, inps, weights):
+            part = _slot_ce(sp, cfg, list(flat[k:k + len(sp.owners)]),
+                            inp["labels"])
+            k += len(sp.owners)
+            part = _move_between(part, sp, 0, home, 0)
+            with home.slot(0):
+                ce = ce + (part if w == 1.0 else part * w)
+        with home.slot(0):
+            total = ce + MOE_AUX_WEIGHT * aux
+    return total, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

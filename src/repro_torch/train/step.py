@@ -26,18 +26,24 @@ reference's pjit step computes its one-device function:
   (``models.transformer.SlotParams``), each slot computing with its
   block of each leaf gathered over the data axis only (a view where its
   device holds the leaf whole), the row-parallel products summed over
-  the slots in float32.  "row-gather" (experts, RG-LRU, RWKV6, the
-  encoder-decoder, or a model axis of one slot): the row computes on its
-  first slot with the whole parameters (``PlacedModule.module_on``: the
-  placed leaves themselves where that device holds them whole), so the
-  model axis places storage only;
+  the slots in float32.  "expert-parallel" (the same decoders with
+  experts): the slots split heads and vocab as above and the experts by
+  blocks, and the rows step together, one forward and one backward
+  through the whole mesh (``models.transformer.mesh_loss``): routing,
+  capacity and the aux are the whole batch's, as on one device, and
+  slot (j, m) computes experts block m of capacity block j.
+  "row-gather" (RG-LRU, RWKV6, the encoder-decoder, or a model axis of
+  one slot): the row computes on its first slot with the whole
+  parameters (``PlacedModule.module_on``: the placed leaves themselves
+  where that device holds them whole), so the model axis places storage
+  only;
 - the loss is a token mean over the whole batch: each row's masked mean
   is weighted by its token count over the batch's count (never a mean
   of the rows' means: with padding those differ), and so is its
   gradient;
-- a config with experts runs its whole batch as one row group: MoE's
-  capacity takes the whole batch's token count and its aux is a mean
-  over all tokens, so the data axis places its storage only;
+- a config with experts that gathers rows (a model axis of one slot)
+  runs its whole batch as one row group: its rows could not share the
+  batch's capacity and aux, so the data axis places its storage only;
 - the rows' float32 gradients are summed on the first row's slots:
   row-gather's whole leaves on its first slot, tensor-parallel's block m
   of a leaf on slot (0, m)'s device (one float32 tensor where those
@@ -125,11 +131,14 @@ def execution(model, rules: ShardingRules) -> str:
     """How a train step of ``model`` computes a data row on ``rules``'
     mesh: "tensor-parallel" (the dense attention-only decoders on a
     model axis of more than one slot: the row's model slots split its
-    compute) or "row-gather" (the row's first slot computes with the
-    whole parameters)."""
+    compute), "expert-parallel" (the same decoders with experts: the
+    row's slots split heads, vocab and experts, and the rows step
+    together, the capacity and aux the whole batch's) or "row-gather"
+    (the row's first slot computes with the whole parameters)."""
     if rules is not None and rules.mesh.shape.get("model", 1) > 1 \
             and transformer.splits_over_model(model.cfg):
-        return "tensor-parallel"
+        return "expert-parallel" if transformer.splits_experts(model.cfg) \
+            else "tensor-parallel"
     return "row-gather"
 
 
@@ -138,10 +147,12 @@ def row_slots(model, rules: ShardingRules, batch) -> list:
     step on ``rules.mesh``: the batch's dim 0 split over the "batch"
     axes where they divide it (else one group on the first row, as the
     reference's fallback replicates).  One group for a config with
-    experts."""
+    experts that gathers rows: its rows could not share the batch's
+    capacity and aux."""
     mesh = rules.mesh
     b = torch.as_tensor(batch["labels"]).shape[0]
-    axes = None if model.cfg.n_experts else \
+    axes = None if model.cfg.n_experts and \
+        execution(model, rules) != "expert-parallel" else \
         rules.spec_for_shape((b,), ("batch",))[0]
     axes = () if axes is None else \
         (axes,) if isinstance(axes, str) else tuple(axes)
@@ -180,11 +191,13 @@ def _rows_of(name: str, x, rows: slice, dev) -> torch.Tensor:
     return x[rows].to(dev)
 
 
-def _slot_params(cfg, plan, placed: PlacedModule, devs) -> tuple:
-    """(``SlotParams`` of one data row's slots ``devs``, [(leaf name,
-    slot, the tensor the slot computes with, its part of the leaf)]): each
-    slot's part a view where its device holds the leaf whole, else a
-    copy gathered from the pieces (its own leaf for the gradient)."""
+def _slot_params(cfg, plan, placed: PlacedModule, devs,
+                 base: int = 0) -> tuple:
+    """(``SlotParams`` of one data row's slots ``devs``, its slot 0
+    numbered ``base`` over the mesh, [(leaf name, slot, the tensor the
+    slot computes with, its part of the leaf)]): each slot's part a view
+    where its device holds the leaf whole, else a copy gathered from the
+    pieces (its own leaf for the gradient)."""
     flat, inputs = [{} for _ in devs], []
     for name, leaf in placed.leaves.items():
         for m, dev in enumerate(devs):
@@ -196,29 +209,86 @@ def _slot_params(cfg, plan, placed: PlacedModule, devs) -> tuple:
                 leaf.region(part, dev).detach().requires_grad_(True)
             flat[m][name] = t
             inputs.append((name, m, t, part))
-    return transformer.SlotParams(cfg, plan, devs, flat), inputs
+    return transformer.SlotParams(cfg, plan, devs, flat, base), inputs
+
+
+def _one_place(firsts: tuple) -> bool:
+    """Whether row 0's slots share one device.  Under a cost counter
+    each slot is a place of its own, as on a mesh of one device per slot
+    (``models.transformer.SlotParams``)."""
+    return len(set(firsts)) == 1 and not counting.active()
 
 
 def _grad_blocks(leaf: PlacedTensor, firsts: tuple):
     """Float32 zeros for a leaf's gradient: block m of its model dim on
     ``firsts[m]`` (slot (0, m)'s device), as one tensor where those
-    devices are one (or the leaf is replicated over the model axis:
-    then on ``firsts[0]``)."""
+    devices are one place (or the leaf is replicated over the model
+    axis: then on ``firsts[0]``)."""
     f32, dim = torch.float32, leaf.model_dim
-    if dim is None or len(set(firsts)) == 1:
+    if dim is None or _one_place(firsts):
         return torch.zeros(leaf.shape, dtype=f32, device=firsts[0])
     k = leaf.shape[dim] // len(firsts)
     pieces = []
     for m, dev in enumerate(firsts):
         sl = [slice(0, n) for n in leaf.shape]
         sl[dim] = slice(m * k, (m + 1) * k)
-        pieces.append(Piece(dev, tuple(sl), torch.zeros(
-            tuple(s.stop - s.start for s in sl), dtype=f32, device=dev)))
+        with counting.slot(m):
+            pieces.append(Piece(dev, tuple(sl), torch.zeros(
+                tuple(s.stop - s.start for s in sl), dtype=f32,
+                device=dev)))
     spec = tuple("model" if i == dim else None
                  for i in range(len(leaf.shape)))
     return PlacedTensor(NamedSharding(leaf.sharding.mesh, spec,
                                       leaf.sharding.rules),
                         leaf.shape, f32, tuple(pieces))
+
+
+def _row_weights(batch, rows) -> list:
+    """Each row's share of the batch's tokens (1.0 for one row; on the
+    meta device, a trace with no labels to count, its share of the
+    sequences)."""
+    if len(rows) == 1:
+        return [1.0]
+    if torch.as_tensor(batch["labels"]).is_meta:
+        counts = [r.stop - r.start for _, r in rows]
+    else:
+        counts = [_tokens(batch, r) for _, r in rows]
+    total = max(sum(counts), 1)
+    return [c / total for c in counts]
+
+
+def _sum_grads(params: PlacedModule, firsts: tuple, inputs: list, loss,
+               acc: dict) -> None:
+    """The gradients of ``loss`` with respect to the slots' parts
+    (``inputs`` of ``_slot_params``), summed into ``acc``: block m of a
+    leaf split over the model axis on slot (0, m)'s device, a leaf
+    replicated over it on slot (0, 0)'s."""
+    # one backward thread: a remat group spans the row's devices, and
+    # two devices' threads must not recompute one group at once
+    with torch.autograd.set_multithreading_enabled(False):
+        grads = list(torch.autograd.grad(
+            loss, [t for _, _, t, _ in inputs], allow_unused=True))
+    for i, (name, m, _, sl) in enumerate(inputs):
+        g = grads[i]
+        grads[i] = None            # free each gradient as it is summed
+        if g is None:              # a norm of a slot that shares its device
+            continue
+        leaf = params.leaves[name]
+        with counting.slot(0 if leaf.model_dim is None else m):
+            if name in acc:
+                add_region_(acc[name], g, sl)
+            elif sl == tuple(slice(0, n) for n in leaf.shape) and (
+                    leaf.model_dim is None or _one_place(firsts)):
+                acc[name] = g.to(device=firsts[0], dtype=torch.float32)
+            else:
+                acc[name] = _grad_blocks(leaf, firsts)
+                add_region_(acc[name], g, sl)
+        del g
+
+
+def _slot_plan(cfg, params: PlacedModule, n_slots: int):
+    return transformer.slot_plan(cfg, n_slots, {
+        name: leaf.model_dim for name, leaf in params.leaves.items()})
 
 
 def _slot_value_and_grad(model, params: PlacedModule, batch, acc):
@@ -227,43 +297,39 @@ def _slot_value_and_grad(model, params: PlacedModule, batch, acc):
     cfg = model.cfg
     rows = row_slots(model, params.rules, batch)
     firsts = rows[0][0]
-    plan = transformer.slot_plan(cfg, len(firsts), {
-        name: leaf.model_dim for name, leaf in params.leaves.items()})
-    counts = [_tokens(batch, r) for _, r in rows] if len(rows) > 1 \
-        else [1]
-    total = max(sum(counts), 1)
+    plan = _slot_plan(cfg, params, len(firsts))
     home = firsts[0]
     loss, ce = 0.0, 0.0
-    for (devs, r), count in zip(rows, counts):
-        w = 1.0 if len(rows) == 1 else count / total
+    for (devs, r), w in zip(rows, _row_weights(batch, rows)):
         part = {k: _rows_of(k, v, r, devs[0]) for k, v in batch.items()}
         slots, inputs = _slot_params(cfg, plan, params, devs)
         part_loss, metrics = model.loss(slots, part)
-        # one backward thread: a remat group spans the row's devices, and
-        # two devices' threads must not recompute one group at once
-        with torch.autograd.set_multithreading_enabled(False):
-            grads = list(torch.autograd.grad(
-                part_loss if w == 1.0 else part_loss * w,
-                [t for _, _, t, _ in inputs], allow_unused=True))
-        for i, (name, m, _, sl) in enumerate(inputs):
-            g = grads[i]
-            grads[i] = None        # free each gradient as it is summed
-            if g is None:          # a norm of a slot that shares its device
-                continue
-            leaf = params.leaves[name]
-            with counting.slot(0 if leaf.model_dim is None else m):
-                if name in acc:
-                    add_region_(acc[name], g, sl)
-                elif sl == tuple(slice(0, n) for n in leaf.shape) and (
-                        leaf.model_dim is None or len(set(firsts)) == 1):
-                    acc[name] = g.to(device=firsts[0], dtype=torch.float32)
-                else:
-                    acc[name] = _grad_blocks(leaf, firsts)
-                    add_region_(acc[name], g, sl)
-            del g
+        _sum_grads(params, firsts, inputs,
+                   part_loss if w == 1.0 else part_loss * w, acc)
         loss = loss + w * part_loss.detach().to(home)
         ce = ce + w * metrics["ce"].detach().to(home)
     return loss, {"ce": ce, "aux": 0.0}, acc
+
+
+def _expert_value_and_grad(model, params: PlacedModule, batch, acc):
+    """``value_and_grad`` of the expert-parallel execution: every data
+    row over its model slots at once (``models.transformer.mesh_loss``),
+    one backward pass through the whole mesh."""
+    cfg = model.cfg
+    rows = row_slots(model, params.rules, batch)
+    firsts = rows[0][0]
+    plan = _slot_plan(cfg, params, len(firsts))
+    sps, inputs, parts = [], [], []
+    for j, (devs, r) in enumerate(rows):
+        parts.append({k: _rows_of(k, v, r, devs[0])
+                      for k, v in batch.items()})
+        sp, ins = _slot_params(cfg, plan, params, devs, j * len(devs))
+        sps.append(sp)
+        inputs.extend(ins)
+    loss, metrics = transformer.mesh_loss(sps, cfg, parts,
+                                          _row_weights(batch, rows))
+    _sum_grads(params, firsts, inputs, loss, acc)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, acc
 
 
 def value_and_grad(model, params, batch, acc=None):
@@ -273,10 +339,14 @@ def value_and_grad(model, params, batch, acc=None):
     per row group of its rules' mesh (``execution``), each row's masked
     token mean weighted by its share of the batch's tokens, summed on the
     first row."""
-    if isinstance(params, PlacedModule) and \
-            execution(model, params.rules) == "tensor-parallel":
+    how = execution(model, params.rules) \
+        if isinstance(params, PlacedModule) else "row-gather"
+    if how == "tensor-parallel":
         return _slot_value_and_grad(model, params, batch,
                                     {} if acc is None else acc)
+    if how == "expert-parallel":
+        return _expert_value_and_grad(model, params, batch,
+                                      {} if acc is None else acc)
     if isinstance(params, PlacedModule):
         groups = row_groups(model, params.rules, batch)
         module_on = params.module_on

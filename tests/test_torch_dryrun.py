@@ -428,3 +428,32 @@ def test_main_writes_records_and_reuses_them(tmp_path, monkeypatch,
         assert rec["execution"].startswith("row-gather")
     assert dryrun.main(argv) == 0
     assert "cached ok" in capsys.readouterr().out
+
+
+def test_a_moe_train_cell_is_expert_parallel_with_its_experts_split():
+    """qwen3-moe's train cell on a 2 x 2 mesh (one smoke layer): the
+    record says "expert-parallel"; the busiest device's forward expert
+    FLOPs are 1/(D * M) of the whole batch's one-device slab and the
+    mesh's sum is that slab (no cell twice); the tokens and outputs
+    moved between rows are counted as "all_to_all" collective bytes."""
+    arch = "qwen3-moe-30b-a3b"
+    rec = dryrun.trace_cell(arch, "train_4k", mesh_override=(2, 2),
+                            cfg_transform=_smoke(arch, 1))
+    cfg = get_smoke_config(arch)
+    t = 256 * 4096
+    cap = -(-int(t * cfg.moe_top_k / cfg.n_experts * cfg.capacity_factor)
+            // 8) * 8
+    whole = 3 * 2 * cfg.n_experts * cap * cfg.d_model * cfg.d_ff
+    assert rec["execution"].startswith("expert-parallel")
+    assert rec["rows"] == 2 and rec["row_batch"] == 128
+    assert rec["expert_flops"]["mesh"] == whole
+    assert rec["expert_flops"]["device"] * 4 == whole
+    assert rec["collective_bytes"]["all_to_all"] > 0
+    assert rec["collective_bytes"]["total"] >= \
+        rec["collective_bytes"]["all_to_all"] \
+        + rec["collective_bytes"]["model_sum"]
+    one = dryrun.trace_cell(arch, "train_4k", mesh_override=(1, 1),
+                            cfg_transform=_smoke(arch, 1))
+    assert one["execution"].startswith("row-gather")
+    assert one["expert_flops"]["device"] == whole
+    assert "all_to_all" not in one["collective_bytes"]

@@ -15,7 +15,9 @@ rwkv6-1.6b (the archs of the reference's
 - padded labels in one row only: equal to one device, and a mean of the
   rows' means would not be;
 - microbatches split the global batch as on one device;
-- a config with experts runs as one row group (its aux equal too).
+- a config with experts splits its batch over the data rows too, its
+  rows stepping together expert-parallel (its aux equal too;
+  ``test_torch_expert_parallel.py``).
 """
 import dataclasses
 
@@ -98,7 +100,7 @@ def test_mesh_loss_and_gradients_equal_one_device(arch):
     cfg, model, batch, (_, l1, m1, g1), (placed, l2, m2, g2) = \
         _mesh_and_one(arch)
     groups = row_groups(model, placed.params.rules, batch)
-    assert len(groups) == (1 if cfg.n_experts else 4)
+    assert len(groups) == 4
     np.testing.assert_allclose(float(l2), float(l1), rtol=LOSS_RTOL)
     np.testing.assert_allclose(float(m2["aux"]), float(m1["aux"]),
                                rtol=LOSS_RTOL)
@@ -121,11 +123,13 @@ def test_mesh_step_parameters_equal_one_device(arch):
         np.testing.assert_allclose(p.gather("cpu").detach().numpy(),
                                    want[k].detach().numpy(), rtol=0,
                                    atol=PARAM_ATOL, err_msg=k)
-    # the tensor-parallel step splits float32 sums over the model slots:
-    # its moments hold the gradient gate (m = 0.1 g within GRAD_TOL of
-    # its leaf's max, v = 0.05 g^2 within twice that), where row-gather,
-    # which splits the batch only, holds each element to rtol 1e-4
-    split = execution(model, _rules()) == "tensor-parallel"
+    # the tensor- and expert-parallel steps split float32 sums over the
+    # model slots: their moments hold the gradient gate (m = 0.1 g within
+    # GRAD_TOL of its leaf's max, v = 0.05 g^2 within twice that), where
+    # row-gather, which splits the batch only, holds each element to
+    # rtol 1e-4
+    split = execution(model, _rules()) in ("tensor-parallel",
+                                           "expert-parallel")
     for part in ("m", "v"):
         for k, v in mesh.opt_state[part].items():
             want = one.opt_state[part][k].numpy()

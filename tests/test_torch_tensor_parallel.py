@@ -36,6 +36,7 @@ from repro_torch.train.step import (execution, init_state, make_train_step,
 
 DENSE = ["gemma2-2b", "phi3-mini-3.8b", "stablelm-3b", "codeqwen1.5-7b",
          "qwen2-vl-2b"]
+MOE = ["qwen3-moe-30b-a3b", "dbrx-132b"]
 MESHES = [(1, 4), (2, 2), (4, 2), (1, 8)]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4           # of each leaf's own max |g|
@@ -213,21 +214,24 @@ def test_each_slot_computes_its_share_and_no_product_twice(n_slots):
 
 def test_execution_follows_the_family_and_the_model_axis():
     """The five dense attention-only decoders split over a model axis of
-    more than one slot; experts, RG-LRU, RWKV6 and whisper gather rows,
-    and so does everything on a data-only mesh."""
+    more than one slot, the two with experts split expert-parallel;
+    RG-LRU, RWKV6 and whisper gather rows, and so does everything on a
+    data-only mesh."""
     for arch in list_archs():
         model = get_model(get_smoke_config(arch))
-        want = "tensor-parallel" if arch in DENSE else "row-gather"
+        want = "tensor-parallel" if arch in DENSE else \
+            "expert-parallel" if arch in MOE else "row-gather"
         assert execution(model, _rules(2, 2)) == want, arch
         assert execution(model, _rules(4, 1)) == "row-gather", arch
         assert execution(model, None) == "row-gather", arch
-    assert set(DENSE) < set(list_archs())
+    assert set(DENSE) | set(MOE) < set(list_archs())
 
 
 def test_a_leaf_the_step_cannot_split_raises():
     """No fallback gathers a leaf whole in silence: a head_dim split over
-    the model axis, heads split where their wo is not, and q heads per
-    slot that do not align with the kv groups all raise."""
+    the model axis, heads split where their wo is not, q heads per slot
+    that do not align with the kv groups, and experts that the model
+    slots do not divide all raise."""
     cfg, model, batch = _setup("phi3-mini-3.8b")
     rules = _rules(1, 4)
     bad = shd.ShardingRules(rules.mesh, {**rules.rules, "heads": None,
@@ -244,8 +248,9 @@ def test_a_leaf_the_step_cannot_split_raises():
         transformer.slot_plan(gqa, 6, {"layers.0.mixer.wq": 1,
                                        "layers.0.mixer.wk": None})
     moe = get_smoke_config("qwen3-moe-30b-a3b")
-    with pytest.raises(ValueError, match="does not split"):
-        transformer.slot_plan(moe, 2, {})
+    with pytest.raises(ValueError, match="8 experts do not split over 3"):
+        transformer.slot_plan(moe, 3, {})
+    assert transformer.slot_plan(moe, 2, {}).n_slots == 2
 
 
 def test_region_gathers_and_gradient_blocks_add_by_part():
